@@ -11,6 +11,9 @@ kernel on a ported path is a hand-written CUDA kernel under ``csrc/``, built
 with ``nvcc`` at first use (``ops/build.py``); on CPU tensors the wrappers
 take the kernel's plain PyTorch version.
 
-Ported so far: the flagship learned codec's serving path — s2d fast-path
-encode to binary codes and decode from those codes (``serve.CodecServer``).
+Ported so far: the flagship learned codec's serving path — encode to
+binary codes and decode from those codes (``serve.CodecServer``) — through
+the s2d fast path or the standard modules, in the default configuration
+and in the JAX package's kernel configuration, with all four TPU kernels
+(K1-K4) in CUDA.
 """

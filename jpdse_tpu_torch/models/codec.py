@@ -35,7 +35,10 @@ def prepare_inputs(cfg: Config, label, instance, image) -> Dict[str, Optional[to
 class SemanticCodec(nn.Module):
     """netG + netE4label + netE with random weights from ``seed`` (or zeros
     with ``seed=None``, for loading a state dict). Parameters are fp32;
-    activations run in ``dtype`` (default: the config's compute dtype)."""
+    activations run in ``dtype`` (default: the config's compute dtype).
+    ``model.fused_instance_norm`` runs every norm site through kernel K3,
+    forward only: call it under ``torch.no_grad()`` or
+    ``torch.inference_mode()``."""
 
     def __init__(self, cfg: Config, device="cuda", seed: Optional[int] = 0, dtype=None):
         super().__init__()
@@ -47,14 +50,16 @@ class SemanticCodec(nn.Module):
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
         self.netG = build(lambda: GlobalGenerator(
             cfg.netG_input_nc, cfg.data.num_out_channels, m.ngf,
-            m.n_downsample_global, m.n_blocks_global), dev, gen)
+            m.n_downsample_global, m.n_blocks_global, m.fused_instance_norm), dev, gen)
         self.netE = build(lambda: Encoder(
             cfg.netE_input_nc, m.feat_num, m.nef, m.n_downsample_E, binarize=True,
-            binarizer_out_channels=m.encoder_binarizer_out_channels), dev, gen)
+            binarizer_out_channels=m.encoder_binarizer_out_channels,
+            fused=m.fused_instance_norm), dev, gen)
         self.netE4label = build(lambda: Encoder(
             cfg.netE4label_input_nc, m.label_encoder_out_channels, m.ne4lf,
             m.n_downsample_E4label, binarize=True,
-            binarizer_out_channels=m.label_encoder_binarizer_out_channels), dev, gen)
+            binarizer_out_channels=m.label_encoder_binarizer_out_channels,
+            fused=m.fused_instance_norm), dev, gen)
 
     def prepare(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return prepare_inputs(self.cfg, batch["label"], batch["instance"], batch["image"].to(self.dtype))

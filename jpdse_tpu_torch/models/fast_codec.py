@@ -1,7 +1,9 @@
 """Space-to-depth inference path, the port of
 ``jpdse_tpu/models/fast_codec.py::FastCodec`` for the learned-code flagship:
 ``decode``, ``get_codes_shaped`` and ``decode_from_codes`` over the weights
-of a ``SemanticCodec``, with each trunk as an s2d ``_FastTrunk``."""
+of a ``SemanticCodec``, with each trunk as an s2d ``_FastTrunk``. The kernel
+switches (``cfg.model.fast``, env overrides applied) are resolved once, at
+construction, and passed to every trunk."""
 
 from __future__ import annotations
 
@@ -30,12 +32,14 @@ class FastCodec:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype or compute_dtype(cfg)
+        self.fp = fp = m.fast.resolved()
+        fp.validate()
         self.netG = _FastTrunk(_sub(state, "netG"), m.n_downsample_global, m.n_blocks_global,
-                               "none", self.dtype, self.device)
+                               "none", self.dtype, self.device, fp)
         self.netE = _FastTrunk(_sub(state, "netE"), m.n_downsample_E, 0, "mid",
-                               self.dtype, self.device)
+                               self.dtype, self.device, fp)
         self.netE4label = _FastTrunk(_sub(state, "netE4label"), m.n_downsample_E4label, 0,
-                                     "mid", self.dtype, self.device)
+                                     "mid", self.dtype, self.device, fp)
 
     def _inputs(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         # the one-hot and edge values are exact in bf16, so build them there

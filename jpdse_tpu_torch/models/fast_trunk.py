@@ -7,6 +7,12 @@ once at construction (ops/s2d.py); the mid trunk runs unchanged. The tail is
 the direct s2d conv (the JAX package's ``fast.tail_split=False`` form: its
 tap split exists to fill the TPU's 128 output lanes). The back stage
 re-aligns the s2d grid with kernel K1 (ops/realign.py).
+
+The kernel switches of ``config.FastPathConfig`` pick the front:
+``head_pallas`` runs a wide head (s2d input of >= 64 channels, or every
+head with 'force') as kernel K4 (ops/head_conv.py) fed by K1 with extra
+rows; ``front_realign`` enters the s2d domain of the other heads through
+kernel K2 (ops/realign.py ``s2d_pad3``).
 """
 
 from __future__ import annotations
@@ -17,8 +23,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from jpdse_tpu_torch.config import FastPathConfig
 from jpdse_tpu_torch.models.layers import conv_transpose_nhwc, instance_norm, reflect_pad
-from jpdse_tpu_torch.ops.realign import s2d_realign_pad3
+from jpdse_tpu_torch.ops.head_conv import head_conv_extra_rows, head_conv_s2d
+from jpdse_tpu_torch.ops.realign import s2d_pad3, s2d_realign_pad3
 from jpdse_tpu_torch.ops.s2d import (
     conv_s1_weights_to_s2d,
     conv_s2_weights_from_s2d_nopad,
@@ -29,6 +37,7 @@ from jpdse_tpu_torch.ops.s2d import (
     instance_norm_s2d,
     oihw_to_hwio,
     space_to_depth,
+    weights_fold_w,
 )
 
 
@@ -41,12 +50,13 @@ class _FastTrunk:
     """Transformed weights + staged forward for one GlobalGenerator or
     Encoder trunk. ``state``: the trunk's state dict (keys as in
     ``models/generator.py``). ``binarize``: 'none' or 'mid' (an encoder's
-    binarizer between its downs and ups)."""
+    binarizer between its downs and ups). ``fp``: the resolved kernel
+    switches."""
 
     def __init__(self, state: Dict[str, torch.Tensor], n_down: int, n_blocks: int,
-                 binarize: str, dtype: torch.dtype, device):
+                 binarize: str, dtype: torch.dtype, device, fp: FastPathConfig):
         self.n_down, self.n_res, self.binarize = n_down, n_blocks, binarize
-        self.dtype = dtype
+        self.dtype, self.fp = dtype, fp
 
         def cl(t):  # a weight in the compute dtype, channels-last like the activations
             return t.detach().to(device=device, dtype=dtype).contiguous(
@@ -59,7 +69,16 @@ class _FastTrunk:
             return hwio_to_oihw(w, device, dtype)
 
         w: Dict[str, torch.Tensor] = {}
-        w["head_w"] = s2d_w(conv_s1_weights_to_s2d(oihw_to_hwio(state["head.conv.conv.weight"])))
+        wp_head = conv_s1_weights_to_s2d(oihw_to_hwio(state["head.conv.conv.weight"]))
+        self.head_kp, _, c4, _ = wp_head.shape
+        head = self.fp.head_pallas
+        # K4 for heads whose s2d input is wide (JAX: fast_trunk.py:114-129)
+        self.head_fold = "pallas" if head == "force" or (head == "1" and c4 >= 64) else "none"
+        if self.head_fold == "pallas":
+            w["head_w"] = torch.from_numpy(np.ascontiguousarray(weights_fold_w(wp_head).reshape(
+                self.head_kp, self.head_kp * c4, -1))).to(device=device, dtype=dtype)
+        else:
+            w["head_w"] = s2d_w(wp_head)
         w["head_b"] = vec(state["head.conv.conv.bias"].repeat(4))
         w["down0_w"] = s2d_w(conv_s2_weights_from_s2d_nopad(
             oihw_to_hwio(state["down.0.conv.conv.weight"])))
@@ -90,11 +109,27 @@ class _FastTrunk:
     def front(self, x: torch.Tensor) -> torch.Tensor:
         """Fine input -> normal-domain tensor after down0 (H/2, W/2, C1)."""
         w = self.weights
-        xp = space_to_depth(reflect_pad(x.to(self.dtype), 3))
-        h = conv_valid(xp, w["head_w"], w["head_b"])
+        x = x.to(self.dtype)
+        if self.head_fold == "pallas":
+            h = self._front_head_pallas(x)
+        else:
+            if self.fp.front_realign in ("auto", "pallas"):
+                xp = s2d_pad3(x.contiguous())
+            else:
+                xp = space_to_depth(reflect_pad(x, 3))
+            h = conv_valid(xp, w["head_w"], w["head_b"])
         h = torch.relu(instance_norm_s2d(h))
         h = conv_valid(_pad_hw(h, 1, 0, 1, 0), w["down0_w"], w["down0_b"])
         return torch.relu(instance_norm(h))
+
+    def _front_head_pallas(self, x: torch.Tensor) -> torch.Tensor:
+        """The head conv as K4, with the JAX package's producer: plain
+        space_to_depth, then K1 re-aligning it with the extra rows K4's
+        TPU form needed (fast_trunk.py:272-305), then the bias."""
+        kp = self.head_kp
+        ho = x.shape[1] // 2
+        xp = s2d_realign_pad3(space_to_depth(x), extra_rows=head_conv_extra_rows(ho, kp))
+        return head_conv_s2d(xp, self.weights["head_w"], kp, ho=ho) + self.weights["head_b"]
 
     def mid_down(self, h: torch.Tensor) -> torch.Tensor:
         w = self.weights

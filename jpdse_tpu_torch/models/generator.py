@@ -1,6 +1,7 @@
 """Generator and encoder (NHWC), the port of ``jpdse_tpu/models/generator.py``
 (``GlobalGenerator`` :35-160 without its bottleneck binarizer, ``Encoder``
-:311-393 at groups=1). Submodule names are the Flax ones."""
+:311-393 at groups=1). Submodule names are the Flax ones. ``fused`` runs
+every norm site through kernel K3 (``models/layers.py::_fused_norm``)."""
 
 from __future__ import annotations
 
@@ -17,16 +18,18 @@ from jpdse_tpu_torch.models.layers import (
 from jpdse_tpu_torch.ops.quantizers import Binarizer
 
 
-def _down(ngf: int, n: int) -> nn.ModuleList:
+def _down(ngf: int, n: int, fused: bool) -> nn.ModuleList:
     return nn.ModuleList(
-        ConvNormAct(ngf * 2**i, ngf * 2 ** (i + 1), 3, stride=2, padding=1) for i in range(n)
+        ConvNormAct(ngf * 2**i, ngf * 2 ** (i + 1), 3, stride=2, padding=1, fused=fused)
+        for i in range(n)
     )
 
 
-def _up(ngf: int, n: int, in_ch: int) -> nn.ModuleList:
+def _up(ngf: int, n: int, in_ch: int, fused: bool) -> nn.ModuleList:
     """Mirrored upsamples; ``in_ch`` is the first one's input width."""
     out = [int(ngf * 2 ** (n - i) / 2) for i in range(n)]
-    return nn.ModuleList(ConvTransposeNormAct(i, o) for i, o in zip([in_ch] + out[:-1], out))
+    return nn.ModuleList(
+        ConvTransposeNormAct(i, o, fused) for i, o in zip([in_ch] + out[:-1], out))
 
 
 class GlobalGenerator(nn.Module):
@@ -34,12 +37,13 @@ class GlobalGenerator(nn.Module):
     transposed convs, c7s1-out + tanh."""
 
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 64,
-                 n_downsampling: int = 4, n_blocks: int = 9):
+                 n_downsampling: int = 4, n_blocks: int = 9, fused: bool = False):
         super().__init__()
-        self.head = ConvNormAct(input_nc, ngf, 7, reflect=3)
-        self.down = _down(ngf, n_downsampling)
-        self.res = nn.ModuleList(ResnetBlock(ngf * 2**n_downsampling) for _ in range(n_blocks))
-        self.up = _up(ngf, n_downsampling, ngf * 2**n_downsampling)
+        self.head = ConvNormAct(input_nc, ngf, 7, reflect=3, fused=fused)
+        self.down = _down(ngf, n_downsampling, fused)
+        self.res = nn.ModuleList(
+            ResnetBlock(ngf * 2**n_downsampling, fused) for _ in range(n_blocks))
+        self.up = _up(ngf, n_downsampling, ngf * 2**n_downsampling, fused)
         self.tail = Conv(ngf, output_nc, 7)
 
     def forward(self, x):
@@ -60,13 +64,13 @@ class Encoder(nn.Module):
 
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 32,
                  n_downsampling: int = 4, binarize: bool = False,
-                 binarizer_out_channels: int = 128):
+                 binarizer_out_channels: int = 128, fused: bool = False):
         super().__init__()
-        self.head = ConvNormAct(input_nc, ngf, 7, reflect=3)
-        self.down = _down(ngf, n_downsampling)
+        self.head = ConvNormAct(input_nc, ngf, 7, reflect=3, fused=fused)
+        self.down = _down(ngf, n_downsampling, fused)
         mid = ngf * 2**n_downsampling
         self.binarizer = Binarizer(mid, binarizer_out_channels) if binarize else None
-        self.up = _up(ngf, n_downsampling, binarizer_out_channels if binarize else mid)
+        self.up = _up(ngf, n_downsampling, binarizer_out_channels if binarize else mid, fused)
         self.tail = Conv(ngf, output_nc, 7)
 
     def features(self, x):

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jpdse_tpu_torch.ops.instance_norm import fused_instance_norm
+
 
 def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0):
     """F.conv2d on an NHWC tensor with an OIHW weight; returns NHWC."""
@@ -61,6 +63,13 @@ def instance_norm(x, eps: float = 1e-5):
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def _fused_norm(x, relu: bool = False, residual=None):
+    """InstanceNorm [+ReLU] [+residual] as one call to kernel K3
+    (ops/instance_norm.py)."""
+    return fused_instance_norm(
+        x.contiguous(), None if residual is None else residual.contiguous(), relu=relu)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """weights_init of the reference: conv kernels normal(0, 0.02), biases 0."""
     with torch.no_grad():
@@ -86,42 +95,55 @@ class Conv(nn.Module):
 
 
 class ConvNormAct(nn.Module):
-    """[reflect pad] -> conv -> InstanceNorm -> ReLU."""
+    """[reflect pad] -> conv -> InstanceNorm -> ReLU; with ``fused`` the
+    norm and ReLU are one call to kernel K3."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, reflect: int = 0):
+                 padding: int = 0, reflect: int = 0, fused: bool = False):
         super().__init__()
-        self.reflect = reflect
+        self.reflect, self.fused = reflect, fused
         self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding)
 
     def forward(self, x):
         if self.reflect:
             x = reflect_pad(x, self.reflect)
+        if self.fused:
+            return _fused_norm(self.conv(x), relu=True)
         return torch.relu(instance_norm(self.conv(x)))
 
 
 class ConvTransposeNormAct(nn.Module):
-    """ConvTranspose2d(k3, s2, p1, op1) -> InstanceNorm -> ReLU. Also serves
-    as the Encoder's ``GroupedConvTransposeNormAct`` at groups=1, the only
-    grouping ported."""
+    """ConvTranspose2d(k3, s2, p1, op1) -> InstanceNorm -> ReLU (one K3 call
+    with ``fused``). Also serves as the Encoder's
+    ``GroupedConvTransposeNormAct`` at groups=1, the only grouping ported."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.deconv = nn.ConvTranspose2d(in_ch, out_ch, 3, 2, 1, output_padding=1)
 
     def forward(self, x):
-        return torch.relu(instance_norm(conv_transpose_nhwc(x, self.deconv.weight, self.deconv.bias)))
+        h = conv_transpose_nhwc(x, self.deconv.weight, self.deconv.bias)
+        if self.fused:
+            return _fused_norm(h, relu=True)
+        return torch.relu(instance_norm(h))
 
 
 class ResnetBlock(nn.Module):
-    """pix2pixHD residual block: [pad1 conv3 norm relu pad1 conv3 norm] + x."""
+    """pix2pixHD residual block: [pad1 conv3 norm relu pad1 conv3 norm] + x.
+    With ``fused`` each norm is one K3 call, the second taking the skip as
+    its residual."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.conv1 = Conv(dim, dim, 3)
         self.conv2 = Conv(dim, dim, 3)
 
     def forward(self, x):
+        if self.fused:
+            h = _fused_norm(self.conv1(reflect_pad(x, 1)), relu=True)
+            return _fused_norm(self.conv2(reflect_pad(h, 1)), residual=x)
         h = torch.relu(instance_norm(self.conv1(reflect_pad(x, 1))))
         return x + instance_norm(self.conv2(reflect_pad(h, 1)))
 

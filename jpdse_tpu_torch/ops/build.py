@@ -1,10 +1,15 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA kernels with ``nvcc``, load them with ctypes, and
+launch them from their wrappers.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), named by
 the hash of its source and flags under ``jpdse_tpu_torch/build/``. A file
 lock guards the build directory; a library is built at its first use, or
 ahead of time for all sources in parallel by :func:`build_all`.
+
+Every wrapper follows one rule: a CPU tensor takes the kernel's plain
+version, a CUDA tensor launches the kernel (:func:`check_operand`, then
+:func:`launch`) or raises, and any other device raises.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -86,3 +93,40 @@ def load_library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all([name])
     return ctypes.CDLL(str(path))
+
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_operand(name: str, t: torch.Tensor, dtypes: Sequence[torch.dtype] = KERNEL_DTYPES):
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+
+
+_CTYPES = {"p": ctypes.c_void_p, "l": ctypes.c_longlong, "i": ctypes.c_int,
+           "f": ctypes.c_float}
+
+
+def c_function(library: str, symbol: str, signature: str):
+    """``symbol`` of ``csrc/<library>.cu``, a launcher taking the arguments
+    that ``signature`` spells (p: pointer, l: long long, i: int, f: float),
+    then the stream, and returning a cudaError_t. Pointers and the stream
+    go as ``c_void_p``, or ctypes would cut them to 32 bits."""
+    fn = getattr(load_library(library), symbol)
+    fn.argtypes = [_CTYPES[k] for k in signature] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, fn, t: torch.Tensor, *args) -> None:
+    """``fn(*args, stream)`` on ``t``'s device and current stream; raises
+    unless the launcher returns cudaSuccess (0)."""
+    with torch.cuda.device(t.device):
+        rc = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")

@@ -1,25 +1,40 @@
 """Grid re-alignment of an s2d tensor (kernel K1), the port of
-``jpdse_tpu/ops/pallas/realign.py::s2d_realign_pad3_pallas``.
+``jpdse_tpu/ops/pallas/realign.py::s2d_realign_pad3_pallas``, and its
+front-side sibling (kernel K2), the port of ``s2d_pad3_pallas``.
 
 Every fast trunk's back stage re-aligns the s2d grid before its 7x7 tail:
-``space_to_depth(reflect_pad(depth_to_space(y), 3))``. The CUDA kernel
-(``csrc/realign.cu``) does it in one pass; :func:`s2d_realign_pad3_plain`
-is its plain PyTorch version, which the wrapper takes for CPU tensors.
+``space_to_depth(reflect_pad(depth_to_space(y), 3))``. A front enters the
+s2d domain through ``space_to_depth(reflect_pad(x, 3))`` of its fine input.
+The CUDA kernels (``csrc/realign.cu``) do each in one pass;
+:func:`s2d_realign_pad3_plain` and :func:`s2d_pad3_plain` are their plain
+PyTorch versions, which the wrappers take for CPU tensors.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from jpdse_tpu_torch.models.layers import reflect_pad_hw
+from jpdse_tpu_torch.ops import build
 from jpdse_tpu_torch.ops.s2d import depth_to_space, space_to_depth
 
-_DTYPES = (torch.float32, torch.bfloat16)
 
+def _reflect(m, n):
+    """Reflect once into [0, n), as the kernels' ``reflect`` does."""
+    m = np.abs(m)
+    return np.where(m > n - 1, 2 * (n - 1) - m, m)
+
+
+def _taps(hp: int, wp: int, c: int):
+    """Broadcastable (j, k, tap, c) index grids of an (hp, wp, 4c) output."""
+    return (np.arange(hp)[:, None, None, None], np.arange(wp)[None, :, None, None],
+            np.arange(4)[None, None, :, None], np.arange(c)[None, None, None, :])
+
+
+# -- K1: s2d -> padded s2d ---------------------------------------------------
 
 def _check(y: torch.Tensor, extra_rows: int) -> int:
     """Validate the input; return the output's row count."""
@@ -43,33 +58,19 @@ def s2d_realign_pad3_plain(y: torch.Tensor, extra_rows: int = 0) -> torch.Tensor
 
 
 def _source_index(hs: int, ws: int, c: int, extra_rows: int = 0) -> np.ndarray:
-    """The kernel's index map in numpy: flat offset into one batch element
-    of y for each output element, shape (hs+3+extra_rows, ws+3, 4c)."""
+    """K1's index map in numpy: flat offset into one batch element of y for
+    each output element, shape (hs+3+extra_rows, ws+3, 4c)."""
     hp = hs + 3 + extra_rows
-
-    def reflect(m, n):
-        m = np.abs(m)
-        return np.where(m > n - 1, 2 * (n - 1) - m, m)
-
-    j = np.arange(hp)[:, None, None, None]
-    k = np.arange(ws + 3)[None, :, None, None]
-    tap = np.arange(4)[None, None, :, None]
-    cc = np.arange(c)[None, None, None, :]
-    fm = reflect(2 * j + tap // 2 - 3, 2 * hs)
-    fn = reflect(2 * k + tap % 2 - 3, 2 * ws)
+    j, k, tap, cc = _taps(hp, ws + 3, c)
+    fm = _reflect(2 * j + tap // 2 - 3, 2 * hs)
+    fn = _reflect(2 * k + tap % 2 - 3, 2 * ws)
     src = (((fm // 2) * ws + fn // 2) * 4 + (fm % 2) * 2 + fn % 2) * c + cc
     return src.reshape(hp, ws + 3, 4 * c)
 
 
 @functools.cache
 def _launcher():
-    from jpdse_tpu_torch.ops.build import load_library
-
-    fn = load_library("realign").s2d_realign_pad3_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return build.c_function("realign", "s2d_realign_pad3_launch", "ppliiiii")
 
 
 def s2d_realign_pad3(y: torch.Tensor, extra_rows: int = 0) -> torch.Tensor:
@@ -79,24 +80,71 @@ def s2d_realign_pad3(y: torch.Tensor, extra_rows: int = 0) -> torch.Tensor:
     version. ``s2d_realign_pad3.launches`` counts kernel launches."""
     if y.device.type == "cpu":
         return s2d_realign_pad3_plain(y, extra_rows)
-    if y.device.type != "cuda":
-        raise ValueError(f"s2d_realign_pad3: unsupported device {y.device}")
     hp = _check(y, extra_rows)
-    if y.dtype not in _DTYPES:
-        raise TypeError(f"s2d_realign_pad3: unsupported dtype {y.dtype}")
-    if not y.is_contiguous():
-        raise ValueError("s2d_realign_pad3: input must be contiguous")
+    build.check_operand("s2d_realign_pad3", y)
     b, hs, ws, c4 = y.shape
-    out = torch.empty((b, hp, ws + 3, c4), dtype=y.dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        rc = _launcher()(
-            y.data_ptr(), out.data_ptr(), b, hs, ws, c4 // 4, y.element_size(), hp,
-            torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"s2d_realign_pad3: kernel launch failed with CUDA error {rc}")
+    out = y.new_empty((b, hp, ws + 3, c4))
+    build.launch("s2d_realign_pad3", _launcher(), y, y.data_ptr(), out.data_ptr(), b, hs, ws,
+                 c4 // 4, y.element_size(), hp)
     s2d_realign_pad3.launches += 1
     return out
 
 
 s2d_realign_pad3.launches = 0
+
+
+# -- K2: fine -> padded s2d --------------------------------------------------
+
+def _check_front(x: torch.Tensor, extra_rows: int) -> int:
+    """Validate K2's input; return the output's row count."""
+    if x.ndim != 4:
+        raise ValueError(f"expected (B, H, W, C), got shape {tuple(x.shape)}")
+    _, h, w, c = x.shape
+    if h < 4 or w < 4 or h % 2 or w % 2 or c == 0:
+        raise ValueError(f"need even H, W >= 4 and C >= 1, got shape {tuple(x.shape)}")
+    hp = h // 2 + 3 + extra_rows
+    if extra_rows < 0 or 2 * hp - 3 > 2 * (h - 1) + 1:
+        raise ValueError(f"extra_rows={extra_rows} exceeds the reflect range of H={h}")
+    return hp
+
+
+def s2d_pad3_plain(x: torch.Tensor, extra_rows: int = 0) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2+3+extra_rows, W/2+3, 4C): reflect pad 3 (plus
+    2*extra_rows more rows at the bottom), then s2d."""
+    _check_front(x, extra_rows)
+    return space_to_depth(reflect_pad_hw(x, 3, 3 + 2 * extra_rows, 3, 3))
+
+
+def _front_source_index(h: int, w: int, c: int, extra_rows: int = 0) -> np.ndarray:
+    """K2's index map in numpy: flat offset into one batch element of x for
+    each output element, shape (H/2+3+extra_rows, W/2+3, 4c)."""
+    hp, wp = h // 2 + 3 + extra_rows, w // 2 + 3
+    j, k, tap, cc = _taps(hp, wp, c)
+    fm = _reflect(2 * j + tap // 2 - 3, h)
+    fn = _reflect(2 * k + tap % 2 - 3, w)
+    return ((fm * w + fn) * c + cc).reshape(hp, wp, 4 * c)
+
+
+@functools.cache
+def _front_launcher():
+    return build.c_function("realign", "s2d_pad3_launch", "ppliiiii")
+
+
+def s2d_pad3(x: torch.Tensor, extra_rows: int = 0) -> torch.Tensor:
+    """(B, H, W, C) fine tensor -> (B, H/2+3+extra_rows, W/2+3, 4C); rows
+    [0, H/2+3) equal ``space_to_depth(reflect_pad(x, 3))`` bit for bit.
+    A CUDA tensor runs the kernel (or raises); a CPU tensor takes the plain
+    version. ``s2d_pad3.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return s2d_pad3_plain(x, extra_rows)
+    hp = _check_front(x, extra_rows)
+    build.check_operand("s2d_pad3", x)
+    b, h, w, c = x.shape
+    out = x.new_empty((b, hp, w // 2 + 3, 4 * c))
+    build.launch("s2d_pad3", _front_launcher(), x, x.data_ptr(), out.data_ptr(), b, h, w, c,
+                 x.element_size(), hp)
+    s2d_pad3.launches += 1
+    return out
+
+
+s2d_pad3.launches = 0

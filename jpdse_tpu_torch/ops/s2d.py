@@ -107,6 +107,14 @@ def convT_s2_weights_to_s2d(w: np.ndarray) -> np.ndarray:
     return wp
 
 
+def weights_fold_w(wp: np.ndarray) -> np.ndarray:
+    """(kh, kw, Cin, Cout) -> (kh, 1, kw*Cin, Cout): each kernel row's width
+    taps folded into one contraction (folded channel = v*Cin + c), the
+    layout kernel K4 (ops/head_conv.py) reads as (kh, kw*Cin, Cout)."""
+    kh, kw, cin, cout = wp.shape
+    return wp.reshape(kh, 1, kw * cin, cout)
+
+
 def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm over the fine (H, W) extent of an s2d tensor: the
     statistics of each fine channel pool its 4 sub-position groups. One-pass

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU: the CUDA kernels
-against their plain versions on the card, and the s2d serving path on the
-card against the same path on the CPU. They skip without a card.
+(K1-K4) against their plain versions on the card, and the serving paths on
+the card (default and kernel configuration) against the same paths on the
+CPU. They skip without a card.
 
 The GPU machine has no JAX, and tests/conftest.py imports it, so run them
 there without the conftest:
@@ -15,7 +16,7 @@ import torch
 from jpdse_tpu_torch.config import flagship_config
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
-from jpdse_tpu_torch.ops import realign
+from jpdse_tpu_torch.ops import head_conv, instance_norm, realign
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,42 @@ def test_realign_kernel_matches_plain(cuda, shape, extra_rows, dtype):
     assert torch.equal(got, realign.s2d_realign_pad3_plain(y, extra_rows))
 
 
+def test_kernel_config_on_card_matches_cpu(cuda):
+    """The tiny flagship's kernel configuration in fp32 (TF32 off): the fast
+    path with head_pallas='force' (K4 on every head) and the standard path
+    with K3, on the card against the same paths on the CPU."""
+    cfg = flagship_config(tiny=True, kernels=True)
+    cfg.model.compute_dtype = "float32"
+    cfg.model.fast.head_pallas = "force"
+    codec = SemanticCodec(cfg, device="cpu", seed=3)
+    state = codec.state_dict()
+    rng = np.random.default_rng(4)
+    batch = {
+        "label": torch.from_numpy(rng.integers(0, 35, (2, 64, 128)).astype(np.float32)),
+        "instance": torch.from_numpy(rng.integers(0, 1000, (2, 64, 128)).astype(np.int32)),
+        "image": _input((2, 64, 128, 3), seed=5),
+    }
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    card_codec = SemanticCodec(cfg, device=cuda, seed=None)
+    card_codec.load_state_dict(state)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = codec.decode(codec.prepare(batch))
+            k3 = instance_norm.fused_instance_norm.launches
+            got = card_codec.decode(card_codec.prepare(on_card))
+            assert instance_norm.fused_instance_norm.launches == k3 + 9 + 2 * 5
+        k4 = head_conv.head_conv_s2d.launches
+        fast = FastCodec(cfg, state, device=cuda).decode(on_card)
+        torch.cuda.synchronize()
+        assert head_conv.head_conv_s2d.launches == k4 + 3
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-4)
+    np.testing.assert_allclose(fast.cpu().numpy(), want.numpy(), atol=2e-4)
+
+
 def test_realign_kernel_rejects_what_it_cannot_take(cuda):
     y = _input((1, 8, 8, 16)).to(cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -53,6 +90,66 @@ def test_realign_kernel_rejects_what_it_cannot_take(cuda):
         realign.s2d_realign_pad3(y.to(torch.int32))
     with pytest.raises(ValueError, match="extra_rows"):
         realign.s2d_realign_pad3(y, extra_rows=20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,extra_rows", [((2, 8, 6, 3), 0), ((1, 12, 10, 39), 1),
+                                              ((1, 16, 20, 36), 2), ((2, 64, 128, 3), 1)])
+def test_s2d_pad3_kernel_matches_plain(cuda, shape, extra_rows, dtype):
+    x = _input(shape).to(cuda, dtype)
+    before = realign.s2d_pad3.launches
+    got = realign.s2d_pad3(x, extra_rows)
+    torch.cuda.synchronize()
+    assert realign.s2d_pad3.launches == before + 1
+    assert torch.equal(got, realign.s2d_pad3_plain(x, extra_rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu,has_res", [(True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("shape", [(2, 8, 12, 6), (1, 64, 128, 64), (2, 16, 8, 1024)])
+def test_instance_norm_kernel_matches_plain(cuda, shape, relu, has_res, dtype):
+    """fp32 within 1e-5 (statistics summed in another order); bf16 within
+    one ulp of the larger output beyond that 1e-5 (where x - mean or norm +
+    residual cancels, the fp32 statistics' last digits are many of the tiny
+    output's ulps); two runs give equal bits."""
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    res = _input(shape, seed=1).to(cuda, dtype) if has_res else None
+    before = instance_norm.fused_instance_norm.launches
+    got = instance_norm.fused_instance_norm(x, res, relu=relu)
+    again = instance_norm.fused_instance_norm(x, res, relu=relu)
+    want = instance_norm.fused_instance_norm_plain(x, res, relu=relu)
+    torch.cuda.synchronize()
+    assert instance_norm.fused_instance_norm.launches == before + 2
+    assert torch.equal(got, again)
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        assert (g - w).abs().max().item() <= 1e-5
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(1e-30))) - 7)
+        assert ((g - w).abs() <= ulp + 1e-5).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,ho,wp,c,n", [(2, 8, 13, 12, 8), (1, 12, 12, 44, 32),
+                                         (1, 32, 67, 156, 256), (1, 16, 20, 144, 100)])
+def test_head_conv_kernel_matches_plain(cuda, b, ho, wp, c, n, dtype, tol):
+    """Relative to the largest output, the plain conv with TF32 off."""
+    kp = 4
+    extra = head_conv.head_conv_extra_rows(ho, kp)
+    xp = _input((b, ho + kp - 1 + extra, wp, c)).to(cuda, dtype)
+    xp[:, ho + kp - 1:] = float("nan")  # rows past ho + kp - 1 are never read
+    w = (_input((kp, kp * c, n), seed=1) * 0.02).to(cuda, dtype)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = head_conv.head_conv_s2d(xp, w, kp, ho=ho)
+        want = head_conv.head_conv_s2d_plain(xp, w, kp, ho=ho)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.shape == (b, ho, wp - kp + 1, n)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
 
 
 def test_fast_codec_on_card_matches_cpu(cuda):

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's serving time goes on one NVIDIA GPU.
 
-    python3 tools/torch_port_stages.py [--seed N] [--iters N]
+    python3 tools/torch_port_stages.py [--seed N] [--iters N] [--path P]
 
 Drives the flagship codec (Cityscapes 1024x512, batch 1, bf16, random
-weights from --seed) through jpdse_tpu_torch's s2d fast path and prints:
-  * per-stage device time of compress and decompress (CUDA events around
-    each _FastTrunk stage, median over --iters runs after a warm-up);
+weights from --seed) through one of jpdse_tpu_torch's serving paths
+(--path: 'fast', the default s2d fast path; 'kernel-fast', the fast path in
+the kernel configuration, K1, K2 and K4; 'kernel-standard', the standard
+path with K3; 'standard', the standard path without it) and prints:
+  * for the fast paths, per-stage device time of compress and decompress
+    (CUDA events around each _FastTrunk stage, median over --iters runs
+    after a warm-up);
   * the top kernels by device time and the device's busy share over one
     compress + decompress, from torch.profiler.
 Every line carries the card's name and power limit. Imports no JAX.
@@ -71,6 +75,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--path", default="fast",
+                    choices=("fast", "kernel-fast", "kernel-standard", "standard"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_port_stages: needs an NVIDIA GPU", file=sys.stderr)
@@ -82,17 +88,19 @@ def main() -> int:
     from jpdse_tpu_torch.models.codec import SemanticCodec
     from jpdse_tpu_torch.serve import CodecServer
 
-    cfg = flagship_config()
+    cfg = flagship_config(kernels=args.path.startswith("kernel"))
+    cfg.model.fast_inference = not args.path.endswith("standard")
     server = CodecServer(cfg, SemanticCodec(cfg, device="cuda", seed=args.seed).state_dict(),
                          device="cuda")
+    card = f"{args.path} path; {card}"
     rng = np.random.default_rng(args.seed + 1)
     batch = {
         "label": torch.from_numpy(rng.integers(0, 35, (1, H, W)).astype(np.float32)).cuda(),
         "instance": torch.from_numpy(rng.integers(0, 1000, (1, H, W)).astype(np.int32)).cuda(),
         "image": torch.from_numpy(rng.normal(size=(1, H, W, 3)).astype(np.float32)).cuda(),
     }
-    times = stage_times(server.fast, batch, args.iters)
-    for part in ("compress", "decompress"):
+    times = stage_times(server.fast, batch, args.iters) if server.fast is not None else {}
+    for part in ("compress", "decompress") if times else ():
         total = sum(v for k, v in times.items() if k.startswith(part))
         print(f"[stages] {part}: {total:.3f} ms in stages ({card})")
         for k, v in sorted(((k, v) for k, v in times.items() if k.startswith(part)),
