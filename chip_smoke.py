@@ -10,7 +10,9 @@ Phases, each printing a line as it ends:
      fused InstanceNorm, K4 s2d head conv) against its plain PyTorch version
      on the card at the serving paths' shapes, in fp32 and bf16 (bit-exact
      for data movement), and timed beside its bound and, where one PyTorch
-     call computes the same function, that call;
+     call computes the same function, that call; K3 shown to be one launch
+     per call (profiler) and tried under CUDA-graph capture; K4's
+     dense-A mode against torch.matmul;
   4. the flagship codec at full width (Cityscapes 1024x512, random weights
      from --seed), fp32 with TF32 off: the default s2d fast path, the fast
      path in the kernel configuration (K1, K2, K4) and the standard path
@@ -100,6 +102,35 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time of the kernels fn() launches, in ms per call, from
+    the profiler: what the card spends, without the host's launch time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host time per call of fn() when the card keeps up: the wrapper's
+    Python, its allocations and the launch itself, in ms."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
 def bytes_ms(*tensors) -> float:
     """Least time to read or write each tensor once at the memory rate."""
     return sum(t.numel() * t.element_size() for t in tensors) / MEM_BYTES_PER_S * 1e3
@@ -137,26 +168,29 @@ def phase_k1(card: str, gen) -> dict:
     dev = "cuda"
     max_err = 0.0
     cases = [
-        ((2, 256, 512, 256), torch.float32, 0),
-        ((2, 256, 512, 256), torch.bfloat16, 0),
-        ((1, 5, 7, 20), torch.float32, 0),  # odd ws, C=5: the element-wise path
-        ((1, 5, 7, 20), torch.bfloat16, 0),
-        ((1, 8, 7, 20), torch.float32, 4),
-        ((2, 16, 20, 256), torch.bfloat16, 4),
-        # K4's producer: s2d of the netG / netE4label fine inputs, 1 extra row
-        ((1, 256, 512, 156), torch.bfloat16, 1),
-        ((1, 256, 512, 144), torch.float32, 1),
+        ((2, 256, 512, 256), torch.float32, 0, None),
+        ((2, 256, 512, 256), torch.bfloat16, 0, None),
+        ((1, 5, 7, 20), torch.float32, 0, None),  # odd ws, C=5: the element-wise path
+        ((1, 5, 7, 20), torch.bfloat16, 0, None),
+        ((1, 8, 7, 20), torch.float32, 4, 24),
+        ((2, 16, 20, 256), torch.bfloat16, 4, None),
+        # K4's producer: s2d of the netG / netE4label fine inputs, 1 extra
+        # row, channels padded to a multiple of 8
+        ((1, 256, 512, 156), torch.bfloat16, 1, 160),
+        ((1, 256, 512, 156), torch.float32, 1, 160),
+        ((1, 256, 512, 144), torch.bfloat16, 1, 144),
     ]
-    for shape, dtype, extra in cases:
+    for shape, dtype, extra, channels in cases:
         y = torch.randn(shape, device=dev, generator=gen).to(dtype)
-        got = realign.s2d_realign_pad3(y, extra)
-        want = realign.s2d_realign_pad3_plain(y, extra)
+        got = realign.s2d_realign_pad3(y, extra, channels)
+        want = realign.s2d_realign_pad3_plain(y, extra, channels)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"K1 differs from its plain version at {shape} {dtype} extra_rows={extra}")
+            raise AssertionError(f"K1 differs from its plain version at {shape} {dtype} "
+                                 f"extra_rows={extra} channels={channels}")
         max_err = max(max_err, (got.float() - want.float()).abs().max().item())
         log(f"[kernels] K1 s2d_realign_pad3 {tuple(shape)} {dt(dtype)} "
-            f"extra_rows={extra}: bit-exact (torch.equal)")
+            f"extra_rows={extra} channels={channels}: bit-exact (torch.equal)")
 
     def timed(shape, dtype):
         y = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -266,22 +300,68 @@ def phase_k3(card: str, gen) -> dict:
         k_relu = cuda_ms(lambda: k3.fused_instance_norm(x, relu=True))
         k_res = cuda_ms(lambda: k3.fused_instance_norm(x, res))
         p_relu = cuda_ms(lambda: k3.fused_instance_norm_plain(x, relu=True))
+        k_dev = device_ms(lambda: k3.fused_instance_norm(x))
+        k_host = host_ms(lambda: k3.fused_instance_norm(x))
         bound = bytes_ms(x, x)
         log(f"[kernels] K3 {shape} bf16: kernel {k:.4f} ms (relu {k_relu:.4f}, residual "
-            f"{k_res:.4f}), plain {p:.4f} ms (relu {p_relu:.4f}), F.instance_norm "
+            f"{k_res:.4f}; on the device {k_dev:.4f} ms by the profiler; host {k_host:.4f} ms "
+            f"a call), plain {p:.4f} ms (relu {p_relu:.4f}), F.instance_norm "
             f"{lib:.4f} ms, bound {bound * 1e3:.1f} us (bytes; residual form "
             f"{bytes_ms(x, x, x) * 1e3:.1f} us) ({card})")
         if entry is None:  # the largest slab: the heads' and last ups' sites
             entry = (k, p, bound, lib)
+            k3_launch_facts(k3, x, res)
     k, p, bound, lib = entry
     return kernel_entry("fused_instance_norm", max_err, k, p, bound, "bytes", lib)
 
 
+def k3_launch_facts(k3, x, res) -> None:
+    """One call of K3 is one kernel launch on the device (profiler); and
+    whether its cooperative launch can be captured in a CUDA graph (the
+    answer is logged either way); once captured, the replay must give the
+    eager call's bits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k3.fused_instance_norm(x, res, relu=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k3.fused_instance_norm(x, res, relu=True)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    log(f"[kernels] K3 {tuple(x.shape)} one call under the profiler: device kernels {kernels}")
+    if sum(kernels.values()) != 1:
+        raise AssertionError(f"K3 ran {sum(kernels.values())} device kernels in one call, want 1")
+    want = k3.fused_instance_norm(x, res, relu=True)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k3.fused_instance_norm(x, res, relu=True)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            got = k3.fused_instance_norm(x, res, relu=True)
+    except Exception as e:  # recorded, not a failure: no serving path captures graphs yet
+        log(f"[kernels] K3 under CUDA-graph capture: not capturable: {type(e).__name__}: {e}")
+        return
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K3's CUDA-graph replay differs from the eager call")
+    log("[kernels] K3 under CUDA-graph capture: captured; replay bit-equal to the eager call")
+
+
 def phase_k4(card: str, gen) -> dict:
-    """K4 at both heads (netG C=156, netE4label C=144 at the s2d input):
-    fp32 within 1e-4 relative of the plain version with TF32 off, bf16
-    within 1e-2 relative; timed in bf16 beside F.conv2d on the unfolded
-    weights."""
+    """K4 at both heads as the kernel configuration hands them over (netG:
+    156 s2d channels, padded by the producer to 160 with zeros and zero
+    weight rows; netE4label: 144): fp32 within 1e-4 relative of the plain
+    version with TF32 off, bf16 within 1e-2 relative; timed in bf16 beside
+    F.conv2d on the same operands and on the unpadded ones. The bound counts
+    the head's own channels, so the padding is part of the kernel's gap to
+    it. Then the dense-A leg: K4's main loop on a materialised (M, K) =
+    (131072, 16 * 156) matrix against torch.matmul."""
     from jpdse_tpu_torch.ops import head_conv as k4
 
     kp, ho, n = 4, H // 2, 256
@@ -291,10 +371,14 @@ def phase_k4(card: str, gen) -> dict:
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for trunk, c in (("netG", 156), ("netE4label", 144)):
+        for trunk, c_head in (("netG", 156), ("netE4label", 144)):
+            c = k4.padded_channels(c_head)
             xp32 = torch.randn((1, ho + kp - 1 + extra, W // 2 + 3, c), device="cuda",
                                generator=gen)
-            w32 = torch.randn((kp, kp * c, n), device="cuda", generator=gen) * 0.02
+            w32 = torch.randn((kp, kp, c, n), device="cuda", generator=gen) * 0.02
+            xp32[..., c_head:] = 0
+            w32[:, :, c_head:] = 0
+            w32 = w32.reshape(kp, kp * c, n)
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
                 xp, w = xp32.to(dtype), w32.to(dtype)
                 got = k4.head_conv_s2d(xp, w, kp, ho=ho)
@@ -307,28 +391,71 @@ def phase_k4(card: str, gen) -> dict:
                 if tuple(got.shape) != (1, ho, W // 2, n) or not rel <= tol:
                     raise AssertionError(f"K4 {trunk} {dtype}: shape {tuple(got.shape)}, "
                                          f"relative diff {rel} > {tol}")
-                log(f"[kernels] K4 head_conv_s2d {trunk} xp {tuple(xp.shape)} {dt(dtype)}: max "
-                    f"abs diff {err:.3e}, relative {rel:.2e} (tolerance {tol}; plain with "
+                log(f"[kernels] K4 head_conv_s2d {trunk} xp {tuple(xp.shape)} {dt(dtype)}: "
+                    f"max abs diff {err:.3e}, relative {rel:.2e} (tolerance {tol}; plain with "
                     "TF32 off)")
             xp, w = xp32.to(torch.bfloat16), w32.to(torch.bfloat16)
             w_oihw = k4._unfold(w, kp, c).contiguous(memory_format=torch.channels_last)
             xin = xp[:, : ho + kp - 1].permute(0, 3, 1, 2)
             k = cuda_ms(lambda: k4.head_conv_s2d(xp, w, kp, ho=ho))
+            k_dev = device_ms(lambda: k4.head_conv_s2d(xp, w, kp, ho=ho))
             p = cuda_ms(lambda: k4.head_conv_s2d_plain(xp, w, kp, ho=ho))
             lib = cuda_ms(lambda: F.conv2d(xin, w_oihw))
-            flops = 2.0 * ho * (W // 2) * n * kp * kp * c
+            lib_head = lib
+            if c_head != c:  # cuDNN on the head's own channels, as the default path runs it
+                xin_h = xin[:, :c_head].contiguous(memory_format=torch.channels_last)
+                w_h = w_oihw[:, :c_head].contiguous(memory_format=torch.channels_last)
+                lib_head = cuda_ms(lambda: F.conv2d(xin_h, w_h))
+            flops = 2.0 * ho * (W // 2) * n * kp * kp * c_head
             bound = flops / BF16_FLOPS * 1e3
-            moved = bytes_ms(xp[:, : ho + kp - 1], w, got.to(torch.bfloat16))
-            log(f"[kernels] K4 {trunk} bf16: kernel {k:.4f} ms ({flops / k / 1e9:.1f} TFLOP/s), "
-                f"plain {p:.4f} ms, F.conv2d {lib:.4f} ms, bound {bound:.4f} ms "
-                f"({flops / 1e12:.3f} TFLOP at the {BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16 "
-                f"peak; its bytes alone {moved:.4f} ms) ({card})")
+            moved = bytes_ms(xp[:, : ho + kp - 1, ..., :c_head], w[:, : kp * c_head], got)
+            log(f"[kernels] K4 {trunk} bf16: kernel {k:.4f} ms ({flops / k / 1e9:.1f} TFLOP/s of "
+                f"the head's {c_head} channels, {k / bound:.2f}x its bound; on the device "
+                f"{k_dev:.4f} ms by the profiler), plain {p:.4f} ms, F.conv2d on the same "
+                f"{c} channels {lib:.4f} ms, on the head's {c_head} {lib_head:.4f} ms, bound "
+                f"{bound:.4f} ms ({flops / 1e12:.3f} TFLOP at the {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+                f"dense bf16 peak; {c / c_head - 1:.1%} more work in the kernel's padded "
+                f"operands; its bytes alone {moved:.4f} ms) ({card})")
             if entry is None:
                 entry = (k, p, bound, lib)
+        dense = phase_k4_dense(card, gen, ho * (W // 2), kp * kp * 156, n)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     k, p, bound, lib = entry
-    return kernel_entry("head_conv_s2d", max_err, k, p, bound, "operations", lib)
+    e = kernel_entry("head_conv_s2d", max_err, k, p, bound, "operations", lib)
+    e["dense_a_leg"] = dense
+    return e
+
+
+def phase_k4_dense(card: str, gen, m: int, kd: int, n: int) -> dict:
+    """K4's dense-A mode (the port of the TPU probes' plain GEMM at the
+    netG head's im2col shape, its 156 channels unpadded): bf16 (m, kd) @ (kd, n) within 1e-2 relative of
+    torch.matmul, timed beside it."""
+    from jpdse_tpu_torch.ops import head_conv as k4
+
+    a = torch.randn((m, kd), device="cuda", generator=gen).to(torch.bfloat16)
+    b = (torch.randn((kd, n), device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    got = k4.head_conv_gemm(a, b)
+    want = torch.matmul(a, b)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    if not rel <= 1e-2:
+        raise AssertionError(f"K4 dense-A ({m}, {kd}) x ({kd}, {n}): relative diff {rel} > 1e-2")
+    k = cuda_ms(lambda: k4.head_conv_gemm(a, b))
+    mm = cuda_ms(lambda: torch.matmul(a, b))
+    p = cuda_ms(lambda: k4.head_conv_gemm_plain(a, b))
+    flops = 2.0 * m * n * kd
+    bound = flops / BF16_FLOPS * 1e3
+    log(f"[kernels] K4 dense-A leg ({m}, {kd}) x ({kd}, {n}) bf16: max abs diff {err:.3e}, "
+        f"relative {rel:.2e} to torch.matmul (tolerance 1e-2); kernel {k:.4f} ms "
+        f"({flops / k / 1e9:.1f} TFLOP/s), torch.matmul {mm:.4f} ms ({flops / mm / 1e9:.1f} "
+        f"TFLOP/s), plain {p:.4f} ms, bound {bound:.4f} ms ({card})")
+    return {"name": "head_conv_gemm", "route": "cuda",
+            "source": "jpdse_tpu_torch/csrc/head_conv.cu",
+            "replaces": "tools/bench_pallas_matmul.py:48, tools/bench_head_kernel_probe.py:72",
+            "max_abs_err": err, "ms": k, "plain_ms": p, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": mm}
 
 
 def check_codes(what: str, got, want, presign) -> None:

@@ -11,7 +11,8 @@ re-aligns the s2d grid with kernel K1 (ops/realign.py).
 The kernel switches of ``config.FastPathConfig`` pick the front:
 ``head_pallas`` runs a wide head (s2d input of >= 64 channels, or every
 head with 'force') as kernel K4 (ops/head_conv.py) fed by K1 with extra
-rows; ``front_realign`` enters the s2d domain of the other heads through
+rows and its channels padded to a multiple of 8 (zero weights for the
+padding); ``front_realign`` enters the s2d domain of the other heads through
 kernel K2 (ops/realign.py ``s2d_pad3``).
 """
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 from jpdse_tpu_torch.config import FastPathConfig
 from jpdse_tpu_torch.models.layers import conv_transpose_nhwc, instance_norm, reflect_pad
-from jpdse_tpu_torch.ops.head_conv import head_conv_extra_rows, head_conv_s2d
+from jpdse_tpu_torch.ops.head_conv import head_conv_extra_rows, head_conv_s2d, padded_channels
 from jpdse_tpu_torch.ops.realign import s2d_pad3, s2d_realign_pad3
 from jpdse_tpu_torch.ops.s2d import (
     conv_s1_weights_to_s2d,
@@ -75,8 +76,11 @@ class _FastTrunk:
         # K4 for heads whose s2d input is wide (JAX: fast_trunk.py:114-129)
         self.head_fold = "pallas" if head == "force" or (head == "1" and c4 >= 64) else "none"
         if self.head_fold == "pallas":
-            w["head_w"] = torch.from_numpy(np.ascontiguousarray(weights_fold_w(wp_head).reshape(
-                self.head_kp, self.head_kp * c4, -1))).to(device=device, dtype=dtype)
+            # K4 reads padded_channels(c4) input channels; the padding's weights are 0
+            self.head_c = padded_channels(c4)
+            wp_pad = np.pad(wp_head, ((0, 0), (0, 0), (0, self.head_c - c4), (0, 0)))
+            w["head_w"] = torch.from_numpy(np.ascontiguousarray(weights_fold_w(wp_pad).reshape(
+                self.head_kp, self.head_kp * self.head_c, -1))).to(device=device, dtype=dtype)
         else:
             w["head_w"] = s2d_w(wp_head)
         w["head_b"] = vec(state["head.conv.conv.bias"].repeat(4))
@@ -125,10 +129,12 @@ class _FastTrunk:
     def _front_head_pallas(self, x: torch.Tensor) -> torch.Tensor:
         """The head conv as K4, with the JAX package's producer: plain
         space_to_depth, then K1 re-aligning it with the extra rows K4's
-        TPU form needed (fast_trunk.py:272-305), then the bias."""
+        TPU form needed (fast_trunk.py:272-305) and zero channels up to
+        the multiple of 8 that K4's TMA needs, then the bias."""
         kp = self.head_kp
         ho = x.shape[1] // 2
-        xp = s2d_realign_pad3(space_to_depth(x), extra_rows=head_conv_extra_rows(ho, kp))
+        xp = s2d_realign_pad3(space_to_depth(x), extra_rows=head_conv_extra_rows(ho, kp),
+                              channels=self.head_c)
         return head_conv_s2d(xp, self.weights["head_w"], kp, ho=ho) + self.weights["head_b"]
 
     def mid_down(self, h: torch.Tensor) -> torch.Tensor:

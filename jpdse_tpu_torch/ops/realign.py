@@ -16,6 +16,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from jpdse_tpu_torch.models.layers import reflect_pad_hw
 from jpdse_tpu_torch.ops import build
@@ -36,7 +37,7 @@ def _taps(hp: int, wp: int, c: int):
 
 # -- K1: s2d -> padded s2d ---------------------------------------------------
 
-def _check(y: torch.Tensor, extra_rows: int) -> int:
+def _check(y: torch.Tensor, extra_rows: int, channels=None) -> int:
     """Validate the input; return the output's row count."""
     if y.ndim != 4:
         raise ValueError(f"expected (B, hs, ws, 4C), got shape {tuple(y.shape)}")
@@ -46,46 +47,58 @@ def _check(y: torch.Tensor, extra_rows: int) -> int:
     hp = hs + 3 + extra_rows
     if extra_rows < 0 or 2 * hp - 3 > 2 * (2 * hs - 1) + 1:
         raise ValueError(f"extra_rows={extra_rows} exceeds the reflect range of hs={hs}")
+    if channels is not None and channels < c4:
+        raise ValueError(f"channels={channels} is fewer than the input's {c4}")
     return hp
 
 
-def s2d_realign_pad3_plain(y: torch.Tensor, extra_rows: int = 0) -> torch.Tensor:
-    """(B, hs, ws, 4C) -> (B, hs+3+extra_rows, ws+3, 4C): the composition
-    d2s -> reflect pad 3 (plus 2*extra_rows more fine rows at the bottom)
-    -> s2d."""
-    _check(y, extra_rows)
-    return space_to_depth(reflect_pad_hw(depth_to_space(y), 3, 3 + 2 * extra_rows, 3, 3))
+def s2d_realign_pad3_plain(y: torch.Tensor, extra_rows: int = 0,
+                           channels: int | None = None) -> torch.Tensor:
+    """(B, hs, ws, 4C) -> (B, hs+3+extra_rows, ws+3, channels or 4C): the
+    composition d2s -> reflect pad 3 (plus 2*extra_rows more fine rows at
+    the bottom) -> s2d, then zero channels up to ``channels``."""
+    _check(y, extra_rows, channels)
+    out = space_to_depth(reflect_pad_hw(depth_to_space(y), 3, 3 + 2 * extra_rows, 3, 3))
+    return out if channels is None else F.pad(out, (0, channels - out.shape[-1]))
 
 
-def _source_index(hs: int, ws: int, c: int, extra_rows: int = 0) -> np.ndarray:
+def _source_index(hs: int, ws: int, c: int, extra_rows: int = 0,
+                  channels: int | None = None) -> np.ndarray:
     """K1's index map in numpy: flat offset into one batch element of y for
-    each output element, shape (hs+3+extra_rows, ws+3, 4c)."""
+    each output element, shape (hs+3+extra_rows, ws+3, channels or 4c);
+    -1 marks a zero padding channel."""
     hp = hs + 3 + extra_rows
     j, k, tap, cc = _taps(hp, ws + 3, c)
     fm = _reflect(2 * j + tap // 2 - 3, 2 * hs)
     fn = _reflect(2 * k + tap % 2 - 3, 2 * ws)
     src = (((fm // 2) * ws + fn // 2) * 4 + (fm % 2) * 2 + fn % 2) * c + cc
-    return src.reshape(hp, ws + 3, 4 * c)
+    src = src.reshape(hp, ws + 3, 4 * c)
+    pad = (channels or 4 * c) - 4 * c
+    return np.concatenate([src, np.full((hp, ws + 3, pad), -1, src.dtype)], axis=-1)
 
 
 @functools.cache
 def _launcher():
-    return build.c_function("realign", "s2d_realign_pad3_launch", "ppliiiii")
+    return build.c_function("realign", "s2d_realign_pad3_launch", "ppliiiiii")
 
 
-def s2d_realign_pad3(y: torch.Tensor, extra_rows: int = 0) -> torch.Tensor:
-    """(B, hs, ws, 4C) s2d tensor -> (B, hs+3+extra_rows, ws+3, 4C); rows
-    [0, hs+3) equal ``space_to_depth(reflect_pad(depth_to_space(y), 3))``.
-    A CUDA tensor runs the kernel (or raises); a CPU tensor takes the plain
-    version. ``s2d_realign_pad3.launches`` counts kernel launches."""
+def s2d_realign_pad3(y: torch.Tensor, extra_rows: int = 0,
+                     channels: int | None = None) -> torch.Tensor:
+    """(B, hs, ws, 4C) s2d tensor -> (B, hs+3+extra_rows, ws+3, channels or
+    4C); rows [0, hs+3) and channels [0, 4C) equal
+    ``space_to_depth(reflect_pad(depth_to_space(y), 3))``, channels past 4C
+    are zero. A CUDA tensor runs the kernel (or raises); a CPU tensor takes
+    the plain version. ``s2d_realign_pad3.launches`` counts kernel
+    launches."""
     if y.device.type == "cpu":
-        return s2d_realign_pad3_plain(y, extra_rows)
-    hp = _check(y, extra_rows)
+        return s2d_realign_pad3_plain(y, extra_rows, channels)
+    hp = _check(y, extra_rows, channels)
     build.check_operand("s2d_realign_pad3", y)
     b, hs, ws, c4 = y.shape
-    out = y.new_empty((b, hp, ws + 3, c4))
+    c_out = c4 if channels is None else channels
+    out = y.new_empty((b, hp, ws + 3, c_out))
     build.launch("s2d_realign_pad3", _launcher(), y, y.data_ptr(), out.data_ptr(), b, hs, ws,
-                 c4 // 4, y.element_size(), hp)
+                 c4 // 4, y.element_size(), hp, c_out)
     s2d_realign_pad3.launches += 1
     return out
 

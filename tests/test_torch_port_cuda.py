@@ -131,9 +131,14 @@ def test_instance_norm_kernel_matches_plain(cuda, shape, relu, has_res, dtype):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("b,ho,wp,c,n", [(2, 8, 13, 12, 8), (1, 12, 12, 44, 32),
-                                         (1, 32, 67, 156, 256), (1, 16, 20, 144, 100)])
+                                         # bf16: zero-padded by the wrapper to C, N
+                                         # multiples of 8
+                                         (1, 32, 67, 156, 256), (1, 16, 20, 144, 100),
+                                         (1, 32, 67, 160, 256), (2, 8, 140, 16, 32),
+                                         (1, 16, 20, 144, 256), (1, 5, 9, 8, 8)])
 def test_head_conv_kernel_matches_plain(cuda, b, ho, wp, c, n, dtype, tol):
-    """Relative to the largest output, the plain conv with TF32 off."""
+    """Relative to the largest output, the plain conv with TF32 off: fp32
+    on CUDA cores, bf16 on wgmma."""
     kp = 4
     extra = head_conv.head_conv_extra_rows(ho, kp)
     xp = _input((b, ho + kp - 1 + extra, wp, c)).to(cuda, dtype)
@@ -150,6 +155,48 @@ def test_head_conv_kernel_matches_plain(cuda, b, ho, wp, c, n, dtype, tol):
     assert got.shape == (b, ho, wp - kp + 1, n)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 72, 40), (1024, 2560, 256), (131, 40, 256)])
+def test_head_conv_gemm_matches_matmul(cuda, m, k, n):
+    """K4's dense-A mode against torch.matmul, relative to the largest
+    output: both accumulate in fp32 and round once."""
+    a = _input((m, k)).to(cuda, torch.bfloat16)
+    b = (_input((k, n), seed=1) * 0.02).to(cuda, torch.bfloat16)
+    before = head_conv.head_conv_gemm.launches
+    got = head_conv.head_conv_gemm(a, b)
+    want = torch.matmul(a, b)
+    torch.cuda.synchronize()
+    assert head_conv.head_conv_gemm.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64, 128, 64), (2, 16, 8, 1024), (2, 8, 12, 6)])
+def test_instance_norm_is_one_launch(cuda, shape, dtype):
+    """One call of K3 runs one device kernel, and two runs give equal bits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    first = instance_norm.fused_instance_norm(x, relu=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = instance_norm.fused_instance_norm(x, relu=True)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 1, [(e.key, e.count) for e in kernels]
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_realign_kernel_pads_channels(cuda, dtype):
+    """K1 as K4's producer: the netG head's 156 s2d channels padded to 160."""
+    y = _input((1, 32, 64, 156)).to(cuda, dtype)
+    got = realign.s2d_realign_pad3(y, 1, 160)
+    torch.cuda.synchronize()
+    assert torch.equal(got, realign.s2d_realign_pad3_plain(y, 1, 160))
 
 
 def test_fast_codec_on_card_matches_cpu(cuda):

@@ -10,6 +10,13 @@ Tolerances: K2 moves elements only, so it is bit-exact. K3, fp32: atol
 (a last-bit rounding of the normalized value). K4, fp32: atol 1e-5 at the
 model's weight scale (normal(0, 0.02), as the reference initialises
 convolutions): float reassociation of the 16-tap sum.
+
+The mirrors of what the Hopper designs add are checked here too: K1's
+zero-padded channels (bit-exact), K4's wgmma tile addressing (the TMA
+boxes it loads and the epilogue's pixel map) emulated in numpy against the
+plain conv, K4 on the padded operands against the Pallas kernel on the
+unpadded ones, and K3's partition of each slab across the resident blocks
+of one cooperative launch.
 """
 
 import contextlib
@@ -24,8 +31,8 @@ from jpdse_tpu.ops import s2d as js2d
 from jpdse_tpu.ops.pallas import instance_norm as pin
 from jpdse_tpu.ops.pallas.head_conv import head_conv_extra_rows as jax_extra_rows
 from jpdse_tpu.ops.pallas.head_conv import head_conv_s2d_pallas
-from jpdse_tpu.ops.pallas.realign import s2d_pad3_pallas
-from jpdse_tpu_torch.ops import head_conv, instance_norm, realign
+from jpdse_tpu.ops.pallas.realign import s2d_pad3_pallas, s2d_realign_pad3_pallas
+from jpdse_tpu_torch.ops import build, head_conv, instance_norm, realign
 from jpdse_tpu_torch.ops import s2d as ts2d
 
 
@@ -201,6 +208,8 @@ CASES = {
         _cuda_looking(_x((1, 4, 4, 8))), relu=True)),
     "head_conv_s2d": (head_conv, "_launcher", lambda: head_conv.head_conv_s2d(
         _cuda_looking(_x((1, 8, 8, 12))), _cuda_looking(_x((4, 48, 8))))),
+    "head_conv_gemm": (head_conv, "_gemm_launcher", lambda: head_conv.head_conv_gemm(
+        _cuda_looking(_x((64, 32))).bfloat16(), _cuda_looking(_x((32, 16))).bfloat16())),
 }
 
 
@@ -236,3 +245,202 @@ def test_other_devices_raise():
                  lambda: head_conv.head_conv_s2d(meta, torch.empty((4, 48, 8), device="meta"))):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+# -- K1's zero-padded channels (K4's producer) -----------------------------------
+
+@pytest.mark.parametrize("hs,ws,c,extra_rows,channels", [
+    (6, 6, 5, 0, 24), (8, 5, 3, 2, 16), (16, 20, 39, 1, 160), (7, 9, 36, 1, 144)])
+def test_realign_padded_channels_mirror_equals_plain(hs, ws, c, extra_rows, channels):
+    """K1 with ``channels`` > 4C: the numpy mirror (-1 marks a zero channel)
+    gathers the plain version's output bit for bit, and the first 4C
+    channels are the unpadded form."""
+    y = torch.from_numpy(_x((2, hs, ws, 4 * c), seed=2))
+    idx = torch.from_numpy(realign._source_index(hs, ws, c, extra_rows, channels))
+    flat = torch.cat([y.reshape(2, -1), torch.zeros((2, 1))], dim=1)
+    got = flat[:, torch.where(idx < 0, flat.shape[1] - 1, idx)]
+    want = realign.s2d_realign_pad3_plain(y, extra_rows, channels)
+    assert want.shape == (2, hs + 3 + extra_rows, ws + 3, channels)
+    assert torch.equal(got, want)
+    assert torch.equal(want[..., : 4 * c], realign.s2d_realign_pad3_plain(y, extra_rows))
+    assert not want[..., 4 * c:].any()
+    with pytest.raises(ValueError, match="channels"):
+        realign.s2d_realign_pad3(y, extra_rows, 4 * c - 1)
+
+
+@pytest.mark.parametrize("c,want", [(156, 160), (144, 144), (12, 16), (8, 8)])
+def test_head_conv_padded_channels_and_routes(c, want):
+    """bf16 operands off the wgmma route's grid (C or N not a multiple of
+    8) are zero-padded to it: the padded operands compute the same conv in
+    the first N outputs and zeros past them; N > 256 is refused."""
+    assert head_conv.padded_channels(c) == want
+    n = 100
+    xp = torch.from_numpy(_x((1, 7, 9, c)))
+    w = torch.from_numpy(_x((4, 4 * c, n), seed=1))
+    xq, wq = head_conv._pad_operands(xp, w, 4, want, head_conv.padded_channels(n))
+    assert xq.shape == (1, 7, 9, want) and wq.shape == (4, 4 * want, 104)
+    got = head_conv.head_conv_s2d_plain(xq, wq)
+    ref = head_conv.head_conv_s2d_plain(xp, w)
+    torch.testing.assert_close(got[..., :n], ref, rtol=1e-5, atol=1e-4)
+    assert not got[..., n:].any()
+    with pytest.raises(ValueError, match="N <= 256"):
+        head_conv.head_conv_s2d(_cuda_looking(_x((1, 8, 8, c))).bfloat16(),
+                                _cuda_looking(_x((4, 4 * c, 264))).bfloat16())
+
+
+# -- K4's wgmma route: tile addressing mirrored in numpy ---------------------------
+
+def _emulate_wgmma(xp: np.ndarray, wf: np.ndarray, kp: int, ho: int) -> np.ndarray:
+    """K4's wgmma route in numpy: per output tile, the producer's TMA boxes
+    (zeros outside the tensors) multiplied and summed in fp32, then the
+    epilogue's scatter to output pixels."""
+    b, hp, wp, c = xp.shape
+    n = wf.shape[-1]
+    wo = wp - kp + 1
+    a2 = xp.reshape(-1, c)
+    b2 = wf.reshape(-1, n)
+    bm, bk = head_conv._WGMMA_BM, head_conv._WGMMA_BK
+
+    def box(mat, r0, c0, rows, cols):
+        out = np.zeros((rows, cols), np.float32)
+        part = mat[r0: r0 + rows, c0: c0 + cols]
+        out[: part.shape[0], : part.shape[1]] = part
+        return out
+
+    out = np.full((b * ho * wo, n), np.nan, np.float32)
+    for t in range(head_conv._wgmma_tiles(b, ho, wo)):
+        acc = np.zeros((bm, n), np.float32)
+        for a_row, a_col, b_row in head_conv._wgmma_boxes(hp, wp, c, kp, ho, wo, t):
+            acc += box(a2, a_row, a_col, bm, bk) @ box(b2, b_row, 0, bk, n)
+        pix = head_conv._wgmma_tile_pixels(ho, wo, t)
+        out[pix[pix >= 0]] = acc[pix >= 0]
+    return out.reshape(b, ho, wo, n)
+
+
+@pytest.mark.parametrize("b,ho,wp,c,n", [
+    (2, 5, 9, 16, 8),      # one tile per output row, C < 32: one partial step per tap
+    (1, 2, 133, 40, 16),   # wo = 130: two tiles per row, the second mostly past the row
+    (1, 3, 12, 160, 24),   # the netG head's padded C: five steps per tap
+    (1, 3, 12, 144, 8),    # netE4label's C: the fifth step half past C
+])
+def test_head_conv_wgmma_addressing_mirror_matches_plain(b, ho, wp, c, n):
+    kp = 4
+    extra = head_conv.head_conv_extra_rows(ho, kp)
+    xp = _x((b, ho + kp - 1 + extra, wp, c), seed=3)
+    xp[:, ho + kp - 1:] = np.nan  # never read into an output
+    wf = _x((kp, kp * c, n), seed=4) * 0.02
+    got = _emulate_wgmma(np.nan_to_num(xp, nan=0.0), wf, kp, ho)
+    want = head_conv.head_conv_s2d_plain(torch.from_numpy(xp), torch.from_numpy(wf), kp, ho=ho)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-5)
+
+
+def test_head_conv_padded_fold_matches_pallas_on_unpadded():
+    """K4 at the kernel configuration's tiny netG head (C = 156 s2d
+    channels, N = 4 * ngf = 32) as the port feeds it, xp from K1 padded to
+    160 channels and the folded weights with 4 zero input channels per tap,
+    against the Pallas kernel on the unpadded operands (interpret mode)."""
+    kp, c, n, ho, ws = 4, 156, 32, 8, 16
+    extra = head_conv.head_conv_extra_rows(ho, kp)
+    y = torch.from_numpy(_x((1, ho, ws, c), seed=5))
+    xp = realign.s2d_realign_pad3(y, extra)
+    xp_pad = realign.s2d_realign_pad3(y, extra, head_conv.padded_channels(c))
+    w = _x((kp, kp, c, n), seed=6) * 0.02
+    w_pad = np.pad(w, ((0, 0), (0, 0), (0, head_conv.padded_channels(c) - c), (0, 0)))
+    wf = ts2d.weights_fold_w(w).reshape(kp, kp * c, n)
+    wf_pad = ts2d.weights_fold_w(w_pad).reshape(kp, -1, n)
+    want = head_conv_s2d_pallas(jnp.asarray(xp.numpy()), jnp.asarray(wf), kp=kp, ho=ho,
+                                interpret=True)
+    got = head_conv.head_conv_s2d(xp_pad, torch.from_numpy(wf_pad), kp, ho=ho)
+    assert got.shape == want.shape == (1, ho, ws, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    # and K1's padded form is the Pallas re-alignment with zero channels
+    jx = np.asarray(s2d_realign_pad3_pallas(jnp.asarray(y.numpy()), interpret=True,
+                                            extra_rows=extra))
+    np.testing.assert_array_equal(xp_pad.numpy()[..., :c], jx)
+
+
+def test_head_conv_gemm_takes_plain_on_cpu_and_checks_shapes():
+    a = torch.from_numpy(_x((40, 24))).bfloat16()
+    b = torch.from_numpy(_x((24, 16), seed=1)).bfloat16()
+    before = head_conv.head_conv_gemm.launches
+    got = head_conv.head_conv_gemm(a, b)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, head_conv.head_conv_gemm_plain(a, b))
+    assert head_conv.head_conv_gemm.launches == before
+    np.testing.assert_allclose(got.float().numpy(), a.float().numpy() @ b.float().numpy(),
+                               rtol=1e-2, atol=1e-2)
+    with pytest.raises(ValueError, match=r"\(M, K\)"):
+        head_conv.head_conv_gemm(a, b[:20])
+
+
+# -- K3's partition across the resident blocks ----------------------------------
+
+@pytest.mark.parametrize("sm_count", [114, 132])
+@pytest.mark.parametrize("b,hw,c,vec", [
+    (1, 512 * 1024, 64, 8), (1, 256 * 512, 128, 8), (1, 128 * 256, 256, 8),
+    (1, 64 * 128, 512, 8), (1, 32 * 64, 1024, 8),  # the flagship's norm slabs, bf16
+    (1, 512 * 1024, 64, 4),  # the same slab in fp32
+    (2, 96, 6, 1),           # a tiny slab with channels that fill no word
+    (300, 64, 16, 8),        # more slabs than blocks: whole slabs in turn
+    (2, 40, 8192, 8),        # channel groups past one block: two channel tiles
+])
+def test_instance_norm_plan_covers_every_row_once(sm_count, b, hw, c, vec):
+    """For an H100 PCIe (114 SMs) and SXM (132), one block per SM: every row
+    of every (batch element, channel) is in exactly one block item, each
+    block's items come in a fixed increasing order, and the grid and the
+    chunk count stay within what the card and the workspace hold."""
+    grid, chunks, rows = instance_norm.plan(b, hw, c, vec, sm_count)
+    assert 1 <= grid <= sm_count
+    assert 1 <= chunks <= instance_norm.max_chunks(hw, c, vec)
+    assert chunks * rows >= hw > (chunks - 1) * rows
+    items = instance_norm.block_items(b, hw, c, vec, grid, chunks, rows)
+    assert len(items) == grid and all(items)
+    assert items == instance_norm.block_items(b, hw, c, vec, grid, chunks, rows)
+    cover = np.zeros((b, hw, c // vec), np.int32)
+    for block in items:
+        assert block == sorted(block)
+        for bi, c0, c1, r0, r1 in block:
+            assert r0 < r1 and c0 < c1
+            cover[bi, r0:r1, c0 // vec: c1 // vec] += 1
+    assert (cover == 1).all()
+
+
+def test_instance_norm_plan_fills_the_card():
+    """A single large slab is cut into one chunk per resident block."""
+    for sms in (114, 132):
+        assert instance_norm.plan(1, 512 * 1024, 64, 8, sms)[:2] == (sms, sms)
+    assert instance_norm.vector_width(64, 2) == 8 and instance_norm.vector_width(64, 4) == 4
+    assert instance_norm.vector_width(6, 2) == 1 and instance_norm.vector_width(64, 2, False) == 1
+
+
+# -- every launcher's ctypes signature against its C prototype ------------------
+
+_C_TYPES = {"const void*": "p", "void*": "p", "long long": "l", "int": "i", "float": "f"}
+
+
+def _c_prototype(library: str, symbol: str) -> str:
+    """The argument kinds of ``extern "C" int symbol(...)`` in
+    csrc/<library>.cu, in c_function's letters, the stream left off."""
+    import re
+
+    src = (build.CSRC_DIR / f"{library}.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+    assert m, symbol
+    params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+    assert params[-1] == "void*", params  # the stream
+    return "".join(_C_TYPES[p] for p in params[:-1])
+
+
+@pytest.mark.parametrize("module,attr", [
+    (realign, "_launcher"), (realign, "_front_launcher"), (instance_norm, "_launcher"),
+    (head_conv, "_launcher"), (head_conv, "_gemm_launcher")])
+def test_launcher_signatures_match_the_c_prototypes(monkeypatch, module, attr):
+    """ctypes passes what the wrapper declares: a letter short or wrong
+    would shift or cut every argument after it on the card."""
+    seen = {}
+
+    def fake_c_function(library, symbol, signature):
+        seen.update(library=library, symbol=symbol, signature=signature)
+
+    monkeypatch.setattr(build, "c_function", fake_c_function)
+    getattr(module, attr).__wrapped__()
+    assert seen["signature"] == _c_prototype(seen["library"], seen["symbol"]), seen

@@ -11,7 +11,8 @@ path with K3; 'standard', the standard path without it) and prints:
   * for the fast paths, per-stage device time of compress and decompress
     (CUDA events around each _FastTrunk stage, median over --iters runs
     after a warm-up);
-  * the top kernels by device time and the device's busy share over one
+  * the top kernels by device time (with their launch counts), the
+    device's busy share and the number of kernel launches over one
     compress + decompress, from torch.profiler.
 Every line carries the card's name and power limit. Imports no JAX.
 """
@@ -127,8 +128,9 @@ def main() -> int:
         for e in sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:15]:
             print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:100]}")
         return 0
+    launches = sum(e.count for e in events)
     print(f"[profile] compress + decompress: wall {wall_ms:.3f} ms, kernels {kernel_ms:.3f} ms, "
-          f"device busy {100 * kernel_ms / wall_ms:.1f}% ({card})")
+          f"device busy {100 * kernel_ms / wall_ms:.1f}%, {launches} kernel launches ({card})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:100]}")
     return 0
