@@ -5,24 +5,30 @@
 
 Phases, each printing a line as it ends:
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: every kernel under jpdse_tpu_torch/csrc/ with nvcc, in parallel;
+  2. build: every kernel under jpdse_tpu_torch/csrc/ with nvcc and the
+     host range coder with g++, in parallel; the coder's pack and unpack
+     of a flagship-sized code timed on the host;
   3. kernels: each kernel (K1 grid re-alignment, K2 front pad + s2d, K3
      fused InstanceNorm, K4 s2d head conv) against its plain PyTorch version
      on the card at the serving paths' shapes, in fp32 and bf16 (bit-exact
      for data movement), and timed beside its bound and, where one PyTorch
-     call computes the same function, that call; K3 shown to be one launch
-     per call (profiler) and tried under CUDA-graph capture; K4's
+     call computes the same function, that call (K2 and K3 also by the
+     profiler's device time and the host's time a call); K3 shown to be one
+     launch per call (profiler) and tried under CUDA-graph capture; K4's
      dense-A mode against torch.matmul;
   4. the flagship codec at full width (Cityscapes 1024x512, random weights
      from --seed), fp32 with TF32 off: the default s2d fast path, the fast
      path in the kernel configuration (K1, K2, K4) and the standard path
      with K3, each against the port's default standard path;
-  5. serving: a CodecServer answers --requests bf16 requests (compress to
-     binary codes, decompress from the codes alone) on each of four paths,
-     the default fast path, the kernel configuration's fast path and its
-     standard path, and the default standard path, with every kernel's
-     launch count set to 0 just before a path and read just after, and
-     asserted per request;
+  5. serving: a CodecServer answers --requests bf16 requests on each of
+     four paths, the default fast path, the kernel configuration's fast
+     path and its standard path, and the default standard path: compress
+     to one .jpds stream, decompress the image from the stream alone, and
+     the same through the tensor API (compress_codes, decompress_codes),
+     whose codes must equal the stream's; with every kernel's launch count
+     set to 0 just before a path and read just after, and asserted per
+     call; stream bytes, bpp, the device part and the host coder's pack
+     and unpack times are printed beside the totals;
   6. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
@@ -212,30 +218,69 @@ def phase_k1(card: str, gen) -> dict:
 def phase_k2(card: str, gen) -> dict:
     """K2 bit-exact against its plain version at the fronts' channel counts
     (netE C=3; netE4label C=36 and netG C=39 when K4 is off), both dtypes,
-    with and without extra rows; timed at the netE front's shape."""
+    with and without extra rows, and at the edge shapes of its tiling (W 4
+    and 6, C 1 and 5, B=2, the largest extra_rows, an input that starts
+    off a 16-byte boundary; the output's tiles start off one anyway);
+    timed at (1, 512, 1024, C) for C=3, 36, 39 in bf16 and C=3 in fp32 by
+    CUDA events, by the profiler's device time and by the host's time a
+    call."""
     from jpdse_tpu_torch.ops import realign
 
-    times = {}
+    def check(x, extra, what):
+        got = realign.s2d_pad3(x, extra)
+        want = realign.s2d_pad3_plain(x, extra)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 differs from its plain version at {what}")
+
     for c in (3, 36, 39):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((1, H, W, c), device="cuda", generator=gen).to(dtype)
             for extra in (0, 1):
-                got = realign.s2d_pad3(x, extra)
-                want = realign.s2d_pad3_plain(x, extra)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(f"K2 differs from its plain version at C={c} "
-                                         f"{dtype} extra_rows={extra}")
+                check(x, extra, f"C={c} {dtype} extra_rows={extra}")
             log(f"[kernels] K2 s2d_pad3 (1, {H}, {W}, {c}) {dt(dtype)} extra_rows=0,1: "
                 "bit-exact (torch.equal)")
-            if dtype == torch.bfloat16:
-                k = cuda_ms(lambda: realign.s2d_pad3(x))
-                p = cuda_ms(lambda: realign.s2d_pad3_plain(x))
-                bound = bytes_ms(x, realign.s2d_pad3(x))  # extra_rows=0, as timed
-                times[c] = (k, p, bound)
-                log(f"[kernels] K2 (1, {H}, {W}, {c}) bf16: kernel {k:.4f} ms, plain {p:.4f} ms, "
-                    f"bound {bound * 1e3:.2f} us (bytes) ({card})")
-    return kernel_entry("s2d_pad3", 0.0, *times[3], "bytes", None)
+    for shape in ((2, 8, 4, 1), (2, 8, 6, 5), (2, 6, 4, 39), (2, 8, 1024, 3), (2, 10, 6, 36)):
+        h = shape[1]
+        extra = h // 2 - 2  # the largest the reflection allows
+        for dtype in (torch.float32, torch.bfloat16):
+            n = int(np.prod(shape))
+            flat = torch.randn((n + 1,), device="cuda", generator=gen).to(dtype)
+            for x, where in ((flat[:n].view(shape), "aligned"),
+                             (flat[1:].view(shape), "input 1 element off 16 bytes")):
+                check(x, extra, f"{shape} {dtype} extra_rows={extra}, {where}")
+        log(f"[kernels] K2 s2d_pad3 {shape} fp32, bf16 extra_rows={extra}, aligned and "
+            "unaligned input: bit-exact (torch.equal)")
+
+    times = {}
+    for c, dtype in ((3, torch.bfloat16), (36, torch.bfloat16), (39, torch.bfloat16),
+                     (3, torch.float32)):
+        x = torch.randn((1, H, W, c), device="cuda", generator=gen).to(dtype)
+        k = cuda_ms(lambda: realign.s2d_pad3(x))
+        k_dev = device_ms(lambda: realign.s2d_pad3(x))
+        k_host = host_ms(lambda: realign.s2d_pad3(x))
+        p = cuda_ms(lambda: realign.s2d_pad3_plain(x))
+        out = realign.s2d_pad3(x)  # extra_rows=0, as timed
+        bound = bytes_ms(x, out)
+        # a contiguous copy of as many bytes: what any kernel that moves them
+        # takes on this card, launch included
+        half = (x.numel() + out.numel()) // 2
+        src, dst = torch.empty(half, dtype=dtype, device="cuda"), torch.empty(half, dtype=dtype,
+                                                                            device="cuda")
+        copy_dev = device_ms(lambda: dst.copy_(src))
+        times[c, dtype] = (k, p, bound, k_dev, k_host, copy_dev)
+        log(f"[kernels] K2 (1, {H}, {W}, {c}) {dt(dtype)}: on the device {k_dev * 1e3:.2f} us by "
+            f"the profiler ({bound / k_dev:.0%} of its bound), events {k * 1e3:.2f} us a call, "
+            f"host {k_host * 1e3:.2f} us a call; plain {p:.4f} ms; bound {bound * 1e3:.2f} us "
+            f"(bytes); a copy_ of as many bytes {copy_dev * 1e3:.2f} us on the device ({card})")
+    k, p, bound, k_dev, k_host, copy_dev = times[3, torch.bfloat16]
+    entry = kernel_entry("s2d_pad3", 0.0, k, p, bound, "bytes", None)
+    entry["device_ms"] = k_dev
+    entry["host_ms"] = k_host
+    entry["copy_device_ms"] = copy_dev
+    entry["device_ms_by_shape"] = {f"(1, {H}, {W}, {c}) {dt(d)}": v[3]
+                                   for (c, d), v in times.items()}
+    return entry
 
 
 def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -458,6 +503,33 @@ def phase_k4_dense(card: str, gen, m: int, kd: int, n: int) -> dict:
             "bound_by": "operations", "library_ms": mm}
 
 
+def phase_coder(card: str, seed: int) -> None:
+    """The host range coder (built with g++ in the build phase): pack and
+    unpack of one flagship request's codes (2 x (32, 64, 128) bits) on the
+    host, random bits and all-zero bits, each pack coding both ways as
+    codec_io.pack does; the round trip must give the codes back."""
+    from jpdse_tpu_torch import codec_io
+
+    rng = np.random.default_rng(seed)
+    shapes = [(H // 16, W // 16, 128)] * 2
+    for what, codes in (("random bits", [rng.integers(0, 2, s).astype(np.uint8) for s in shapes]),
+                        ("all-zero bits", [np.zeros(s, np.uint8) for s in shapes])):
+        pack_ms, unpack_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            stream = codec_io.pack(codes, (H, W))
+            t1 = time.perf_counter()
+            got, hw = codec_io.unpack(stream)
+            pack_ms.append((t1 - t0) * 1e3)
+            unpack_ms.append((time.perf_counter() - t1) * 1e3)
+        if hw != (H, W) or not all(np.array_equal(g[0], c) for g, c in zip(got, codes)):
+            raise AssertionError(f"coder round trip of {what} lost bits")
+        bits = sum(c.size for c in codes)
+        log(f"[coder] {what}, {bits} bits: .jpds v{stream[4]} {len(stream)} bytes; pack "
+            f"{np.median(pack_ms):.2f} ms (both context models), unpack "
+            f"{np.median(unpack_ms):.2f} ms, medians of 5 on the host ({card})")
+
+
 def check_codes(what: str, got, want, presign) -> None:
     for name, f, s, p in zip(("netE4label", "netE"), got, want, presign):
         diff = f != s
@@ -520,9 +592,13 @@ def phase_fp32_parity(cfg, kcfg, codec, seed: int) -> None:
 def serve_path(label: str, cfg, state, batches, want_compress: dict, want_decompress: dict,
                card: str):
     """Serve ``batches`` through a CodecServer with every kernel's count set
-    to 0 just before and read just after, asserting each request's launches
-    in compress and decompress. Returns (compress ms, decompress ms medians
-    after the first request, counts over the run, last codes, last image)."""
+    to 0 just before and read just after: every request through the tensor
+    API (compress_codes, decompress_codes), then every request compressed
+    to a .jpds stream and decompressed from it, the stream's codes equal to
+    compress_codes'; each call's launches are asserted. Returns the medians
+    after the first request (ms), the counts over the run, and the last
+    request's codes and image."""
+    from jpdse_tpu_torch import codec_io
     from jpdse_tpu_torch.serve import CodecServer
 
     torch.cuda.empty_cache()  # each path starts from the same allocator state
@@ -535,51 +611,84 @@ def serve_path(label: str, cfg, state, batches, want_compress: dict, want_decomp
     ]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t_comp, t_dec = [], []
+    rows = {k: [] for k in ("compress", "decompress", "compress: device part", "pack", "unpack",
+                            "decompress: device part", "compress_codes", "decompress_codes",
+                            "bytes")}
     reset_counts()
-    for r, batch in enumerate(batches):
+
+    def call(r: int, name: str, want: dict, fn):
         before = read_counts()
         t0 = time.perf_counter()
-        codes = server.compress(batch)
+        out = fn()
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        mid = read_counts()
-        image = server.decompress(codes)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        rows[name].append((time.perf_counter() - t0) * 1e3)
         after = read_counts()
-        t_comp.append(t1 - t0)
-        t_dec.append(t2 - t1)
-        for phase, lo, hi, want in (("compress", before, mid, want_compress),
-                                    ("decompress", mid, after, want_decompress)):
-            rose = {k: hi[k] - lo[k] for k in hi}
-            if rose != {k: want.get(k, 0) for k in hi}:
-                raise AssertionError(f"{label} request {r}: {phase} launched {rose}, want {want}")
+        rose = {k: after[k] - before[k] for k in after}
+        if rose != {k: want.get(k, 0) for k in after}:
+            raise AssertionError(f"{label} request {r}: {name} launched {rose}, want {want}")
+        return out
+
+    # the tensor API first, as a server that keeps codes on the card serves
+    # them: its times compare with a checkout that serves no bytes
+    tensor_codes, tensor_images = [], []
+    for r, batch in enumerate(batches):
+        codes = call(r, "compress_codes", want_compress, lambda: server.compress_codes(batch))
+        image = call(r, "decompress_codes", want_decompress,
+                     lambda: server.decompress_codes(codes))
         if [tuple(c.shape) for c in codes] != code_shapes or any(
             c.dtype != torch.uint8 or int(c.max()) > 1 for c in codes
         ):
             raise AssertionError(f"{label} request {r}: codes "
                                  f"{[(tuple(c.shape), c.dtype) for c in codes]}")
-        if tuple(image.shape) != (1, H, W, 3) or not torch.isfinite(image).all() \
-                or image.abs().max().item() > 1.0:
-            raise AssertionError(f"{label} request {r}: image {tuple(image.shape)} not finite "
-                                 "in [-1, 1]")
+        tensor_codes.append([c.cpu().numpy() for c in codes])
+        tensor_images.append(image[0].cpu().numpy())
+    # then every request through .jpds bytes
+    for r, batch in enumerate(batches):
+        streams = call(r, "compress", want_compress, lambda: server.compress(batch))
+        rows["compress: device part"].append(server.times["compress_codes"])
+        rows["pack"].append(server.times["pack"])
+        image = call(r, "decompress", want_decompress, lambda: server.decompress(streams[0]))
+        rows["unpack"].append(server.times["unpack"])
+        rows["decompress: device part"].append(server.times["decompress_codes"])
+        rows["bytes"].append(len(streams[0]))
+        got, hw = codec_io.unpack(streams[0])
+        if len(streams) != 1 or hw != (H, W) or not all(
+                np.array_equal(g, c) for g, c in zip(got, tensor_codes[r])):
+            raise AssertionError(f"{label} request {r}: the stream's codes differ from "
+                                 "compress_codes'")
+        if image.shape != (H, W, 3) or image.dtype != np.float32 or not np.isfinite(image).all() \
+                or np.abs(image).max() > 1.0:
+            raise AssertionError(f"{label} request {r}: image {image.shape} {image.dtype} not "
+                                 "finite in [-1, 1]")
+        diff = float(np.abs(image - tensor_images[r]).max())
+        if not diff <= 1e-2:  # equal codes, one bf16 decode each
+            raise AssertionError(f"{label} request {r}: decompress of the stream differs from "
+                                 f"decompress_codes of its codes by {diff}")
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    mp = H * W / 1e6
     for r in range(len(batches)):
-        log(f"[serve] {label} request {r}: compress {t_comp[r] * 1e3:.2f} ms, decompress "
-            f"{t_dec[r] * 1e3:.2f} ms ({card})")
+        log(f"[serve] {label} request {r}: .jpds {rows['bytes'][r]} bytes "
+            f"({8 * rows['bytes'][r] / (H * W):.4f} bpp); compress {rows['compress'][r]:.2f} ms "
+            f"(device part {rows['compress: device part'][r]:.2f}, pack {rows['pack'][r]:.2f}), "
+            f"decompress {rows['decompress'][r]:.2f} ms (unpack {rows['unpack'][r]:.2f}, device "
+            f"part {rows['decompress: device part'][r]:.2f}); tensor API compress_codes "
+            f"{rows['compress_codes'][r]:.2f} ms, decompress_codes "
+            f"{rows['decompress_codes'][r]:.2f} ms ({card})")
     rest = slice(1, None) if len(batches) > 1 else slice(None)
-    c_ms = float(np.median(t_comp[rest])) * 1e3
-    d_ms = float(np.median(t_dec[rest])) * 1e3
-    log(f"[serve] {label}: bf16 batch 1 at {W}x{H}, median of requests after the first: "
-        f"compress {c_ms:.2f} ms ({mp / c_ms * 1e3:.2f} MP/s), decompress {d_ms:.2f} ms "
-        f"({mp / d_ms * 1e3:.2f} MP/s), peak memory {peak:.2f} GiB ({card})")
-    log(f"[serve] {label}: codes {code_shapes} uint8 in {{0,1}}; images (1, {H}, {W}, 3) "
-        f"finite in [-1, 1]; launches {counts}, per request: compress {want_compress}, "
-        f"decompress {want_decompress}")
-    return c_ms, d_ms, counts, codes, image
+    med = {k: float(np.median(v[rest])) for k, v in rows.items()}
+    mp = H * W / 1e6
+    log(f"[serve] {label}: bf16 batch 1 at {W}x{H}, medians of requests after the first: "
+        f"compress {med['compress']:.2f} ms ({mp / med['compress'] * 1e3:.2f} MP/s; device "
+        f"part {med['compress: device part']:.2f}, pack {med['pack']:.2f}), decompress "
+        f"{med['decompress']:.2f} ms ({mp / med['decompress'] * 1e3:.2f} MP/s; unpack "
+        f"{med['unpack']:.2f}, device part {med['decompress: device part']:.2f}); tensor API "
+        f"{med['compress_codes']:.2f} / {med['decompress_codes']:.2f} ms; .jpds "
+        f"{med['bytes']:.0f} bytes ({8 * med['bytes'] / (H * W):.4f} bpp); peak memory "
+        f"{peak:.2f} GiB ({card})")
+    log(f"[serve] {label}: codes {code_shapes} uint8 in {{0,1}}, equal to each stream's; images "
+        f"({H}, {W}, 3) finite in [-1, 1]; launches {counts}, per call: compress and "
+        f"compress_codes {want_compress}, decompress and decompress_codes {want_decompress}")
+    return med, counts, codes, image
 
 
 def phase_serve(cfg, kcfg, codec, seed: int, requests: int, card: str) -> dict:
@@ -602,21 +711,23 @@ def phase_serve(cfg, kcfg, codec, seed: int, requests: int, card: str) -> dict:
     }
     results, launches = {}, {}
     for label, (c, want_c, want_d) in paths.items():
-        c_ms, d_ms, counts, codes, image = serve_path(label, c, state, batches, want_c, want_d,
-                                                     card)
-        results[label], launches[label] = (c_ms, d_ms), counts
+        med, counts, codes, image = serve_path(label, c, state, batches, want_c, want_d, card)
+        results[label], launches[label] = med, counts
         if label == "default fast path":
             # the served bf16 image against the fp32 standard path on the same codes
             with torch.inference_mode():
-                ref = codec.decode_from_codes([x.float() for x in codes])
-            diff = (image - ref).abs()
+                ref = codec.decode_from_codes([x.float() for x in codes])[0].cpu().numpy()
+            diff = np.abs(image - ref)
             log(f"[serve] bf16 served image vs fp32 standard decode of its codes: max abs diff "
-                f"{diff.max().item():.3e}, mean {diff.mean().item():.3e} (information)")
-    base_c, base_d = results["default fast path"]
-    for label, (c_ms, d_ms) in results.items():
-        log(f"[serve] medians, {label}: compress {c_ms:.2f} ms ({c_ms / base_c:.3f}x the default "
-            f"fast path's {base_c:.2f}), decompress {d_ms:.2f} ms ({d_ms / base_d:.3f}x its "
-            f"{base_d:.2f}) ({card})")
+                f"{diff.max():.3e}, mean {diff.mean():.3e} (information)")
+    base = results["default fast path"]
+    for label, med in results.items():
+        c_ms, d_ms = med["compress"], med["decompress"]
+        log(f"[serve] medians, {label}: compress {c_ms:.2f} ms ({c_ms / base['compress']:.3f}x "
+            f"the default fast path's {base['compress']:.2f}), decompress {d_ms:.2f} ms "
+            f"({d_ms / base['decompress']:.3f}x its {base['decompress']:.2f}); "
+            f"tensor API {med['compress_codes']:.2f} / {med['decompress_codes']:.2f} ms; host "
+            f"coder pack {med['pack']:.2f}, unpack {med['unpack']:.2f} ms ({card})")
     return launches
 
 
@@ -641,11 +752,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build_all()
-    log(f"[build] built {sorted(logs)} with nvcc in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] built {sorted(logs)} (.cu with nvcc, .cpp with g++) in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
+
+    phase_coder(card, args.seed)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = [phase_k1(card, gen), phase_k2(card, gen), phase_k3(card, gen),

@@ -1,15 +1,18 @@
-"""Build the port's CUDA kernels with ``nvcc``, load them with ctypes, and
-launch them from their wrappers.
+"""Build the port's native code, load it with ctypes, and launch its CUDA
+kernels from their wrappers.
 
-Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), named by
-the hash of its source and flags under ``jpdse_tpu_torch/build/``. A file
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` on its own into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds); each ``csrc/<name>.cpp`` (the host range coder) compiles with
+``g++`` the same way. A library is named by the hash of its source, the
+headers beside it and its flags, under ``jpdse_tpu_torch/build/``. A file
 lock guards the build directory; a library is built at its first use, or
-ahead of time for all sources in parallel by :func:`build_all`.
+ahead of time for all sources in parallel by :func:`build_all`. Nothing is
+built when a module is imported.
 
-Every wrapper follows one rule: a CPU tensor takes the kernel's plain
-version, a CUDA tensor launches the kernel (:func:`check_operand`, then
-:func:`launch`) or raises, and any other device raises.
+Every kernel wrapper follows one rule: a CPU tensor takes the kernel's
+plain version, a CUDA tensor launches the kernel (:func:`check_operand`,
+then :func:`launch`) or raises, and any other device raises.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")  # jpdse_tpu/native/Makefile's
 
 
 def nvcc_path() -> str:
@@ -45,18 +49,48 @@ def nvcc_path() -> str:
     return found
 
 
+def gxx_path() -> str:
+    found = os.environ.get("CXX") or shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: set CXX to a C++17 compiler")
+    return found
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` or ``csrc/<name>.cpp``."""
+    for suffix in (".cu", ".cpp"):
+        src = CSRC_DIR / f"{name}{suffix}"
+        if src.exists():
+            return src
+    raise FileNotFoundError(f"no source csrc/{name}.cu or csrc/{name}.cpp")
+
+
+def _command(src: Path) -> list:
+    """The compiler and its flags for ``src``, without the output."""
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS]
+    return [gxx_path(), *GXX_FLAGS]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source_path(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.h")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def sources() -> list:
+    """The name of every source under ``csrc/``."""
+    return sorted(p.stem for suffix in ("*.cu", "*.cpp") for p in CSRC_DIR.glob(suffix))
 
 
 def build_all(names: Iterable[str] | None = None) -> Dict[str, str]:
     """Compile every named source (default: all of ``csrc/``) whose library
-    is missing, one nvcc per source, all started together. Returns each
+    is missing, one compiler per source, all started together. Returns each
     compiler's output (empty for a library already built); raises with that
     output if one fails."""
-    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu")) if names is None else list(names)
+    names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(exist_ok=True)
     logs = {n: "" for n in names}
     with open(BUILD_DIR / ".lock", "w") as lock:
@@ -67,7 +101,8 @@ def build_all(names: Iterable[str] | None = None) -> Dict[str, str]:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".so.{os.getpid()}")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
+            src = source_path(n)
+            cmd = [*_command(src), "-o", str(tmp), str(src)]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                          text=True), tmp, out)
         failed = []
@@ -80,7 +115,7 @@ def build_all(names: Iterable[str] | None = None) -> Dict[str, str]:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError(
-                "nvcc failed for " + ", ".join(failed) + ":\n"
+                "build failed for " + ", ".join(failed) + ":\n"
                 + "\n".join(logs[n] for n in failed)
             )
     return logs
@@ -88,7 +123,8 @@ def build_all(names: Iterable[str] | None = None) -> Dict[str, str]:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    """The built library of ``csrc/<name>.cu`` or ``.cpp``, building it if
+    needed."""
     path = library_path(name)
     if not path.exists():
         build_all([name])

@@ -161,3 +161,71 @@ def s2d_pad3(x: torch.Tensor, extra_rows: int = 0) -> torch.Tensor:
 
 
 s2d_pad3.launches = 0
+
+
+# -- K2's block plan, mirrored from csrc/realign.cu (launch_front and
+# s2d_pad3_front_kernel) for the CPU tests ---------------------------------
+
+FRONT_TILE_BYTES = 16384  # kFrontTileBytes: the output bytes a block aims at
+
+
+def _fast_div_params(d: int):
+    """(mul, shr) of make_fast_div: n // d == (n * mul >> 32) >> shr for
+    0 <= n < 2**31 (mul = 0 for d = 1)."""
+    if d == 1:
+        return 0, 0
+    lg = (d - 1).bit_length()  # ceil(log2 d)
+    return ((1 << (31 + lg)) + d - 1) // d, lg - 1
+
+
+def _fast_div(n, d: int):
+    """fast_div of the kernel on numpy integers."""
+    n = np.asarray(n, np.uint64)
+    if d == 1:
+        return n.astype(np.int64)
+    mul, shr = _fast_div_params(d)
+    return ((n * np.uint64(mul)) >> np.uint64(32 + shr)).astype(np.int64)
+
+
+def _front_plan(w: int, c: int, elt_size: int):
+    """(tk, ntiles, buf) of launch_front: output pixels a tile, tiles a row,
+    elements of shared memory for each staged source row."""
+    ke = 16 // elt_size
+    wp = w // 2 + 3
+    tk = min(wp, max(1, FRONT_TILE_BYTES // (4 * c * elt_size)))
+    buf = ((2 * tk + 4) * c + 2 * (ke - 1)) // ke * ke
+    return tk, -(-wp // tk), buf
+
+
+def _front_block(h: int, w: int, hp: int, tk: int, ntiles: int, block: int):
+    """What block ``block`` works on: (b, j, k0, n, s0, s1, rows) for batch
+    b, output row j, output pixels [k0, k0 + n), staged fine columns
+    [s0, s1) of the fine rows ``rows`` (for pu = 0 and 1)."""
+    tile, row = block % ntiles, block // ntiles
+    j, b = row % hp, row // hp
+    k0 = tile * tk
+    n = min(tk, w // 2 + 3 - k0)
+    lo, hi = 2 * k0 - 3, 2 * (k0 + n - 1) - 2
+    s0, s1 = max(0, min(lo, 2 * (w - 1) - hi)), min(w, max(hi, -lo) + 1)
+    rows = tuple(int(_reflect(2 * j - 3 + p, h)) for p in (0, 1))
+    return b, j, k0, n, s0, s1, rows
+
+
+def _front_wide(w: int, c: int, k0: int, ke: int, t, o):
+    """Whether the kernel reads the output word of ``ke`` elements that
+    starts at chunk ``t``, offset ``o``, as one run of staged elements:
+    where 2C is a whole number of words, a word inside one chunk of a pixel
+    whose columns do not reflect."""
+    t, o = np.asarray(t), np.asarray(o)
+    k = k0 + (t >> 1)
+    return (2 * c % ke == 0) & (o + ke <= 2 * c) & (k >= 2) & (2 * k - 2 < w)
+
+
+def _front_gather(w: int, c: int, k0: int, s0: int, t, o):
+    """For chunk ``t`` and offset ``o`` (output element e of a tile is
+    t = e // 2C, o = e % 2C): the staged row p and the element offset from
+    column s0 in it."""
+    t, o = np.asarray(t), np.asarray(o)
+    p, k, pv = t & 1, k0 + (t >> 1), (o >= c).astype(np.int64)
+    col = _reflect(2 * k - 3 + pv, w)
+    return p, (col - s0) * c + o - pv * c

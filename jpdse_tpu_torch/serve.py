@@ -1,14 +1,20 @@
 """Serving the learned codec, the port of ``jpdse_tpu/trainer.py``'s
-``compress`` / ``decompress`` (:359-480) up to the code tensors: compress a
-batch to binary codes, and decompress an image from those codes alone. The
-``.jpds`` container and its range coder are not ported yet."""
+``compress`` / ``decompress`` (:359-483) for code-only configurations:
+compress a batch to one ``.jpds`` stream per image (the codes on the card,
+then the host's range coder), and decompress an image from a stream alone.
+The tensor half of each (``compress_codes``, ``decompress_codes``) is
+public too."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
+from jpdse_tpu_torch import codec_io
 from jpdse_tpu_torch.config import Config
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
@@ -18,7 +24,12 @@ class CodecServer:
     """The codec over ``state`` (a ``SemanticCodec`` state dict) on
     ``device``, in the config's compute dtype: the s2d fast path when
     ``cfg.model.fast_inference`` is set, else the standard modules, as
-    ``Trainer._fast`` decides (``jpdse_tpu/trainer.py:188-228``)."""
+    ``Trainer._fast`` decides (``jpdse_tpu/trainer.py:188-228``).
+
+    ``times`` holds the host-clock ms of the stages of the last
+    :meth:`compress` (``compress_codes``, ``pack``) or :meth:`decompress`
+    (``unpack``, ``decompress_codes``), each ending with its result on the
+    host."""
 
     def __init__(self, cfg: Config, state: Dict[str, torch.Tensor], device="cuda"):
         if cfg.model.fast_inference:
@@ -29,16 +40,17 @@ class CodecServer:
             self.codec.load_state_dict(state)
             self.codec.eval()
             self.fast, self.device = None, next(self.codec.parameters()).device
+        self.times: Dict[str, float] = {}
 
     def _batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(batch[k], device=self.device) for k in ("label", "instance", "image")}
 
     @torch.inference_mode()
-    def compress(self, batch: Dict) -> List[torch.Tensor]:
+    def compress_codes(self, batch: Dict) -> List[torch.Tensor]:
         """``label`` (B, H, W), ``instance`` (B, H, W) and ``image``
         (B, H, W, 3) -> one uint8 {0, 1} tensor (B, h, w, C) per binarized
-        module (netE4label, netE). A sign of exactly 0 codes as 0, as the
-        JAX package's ``codec_io.pack`` stores it."""
+        module (netE4label, netE), on the server's device. A sign of exactly
+        0 codes as 0, as ``codec_io.pack`` stores it."""
         batch = self._batch(batch)
         if self.fast is not None:
             codes = self.fast.get_codes_shaped(batch)
@@ -47,9 +59,43 @@ class CodecServer:
         return [c.to(torch.uint8) for c in codes]
 
     @torch.inference_mode()
-    def decompress(self, codes: List[torch.Tensor]) -> torch.Tensor:
-        """Codes from :meth:`compress` -> image (B, H, W, 3), float32."""
-        codes = [c.to(self.device) for c in codes]
+    def decompress_codes(self, codes: Sequence) -> torch.Tensor:
+        """Codes as :meth:`compress_codes` gives them (tensors or arrays,
+        {0, 1}) -> image (B, H, W, 3), float32, on the server's device."""
+        codes = [torch.as_tensor(c).to(self.device) for c in codes]
         if self.fast is not None:
             return self.fast.decode_from_codes(codes).float()
         return self.codec.decode_from_codes(codes).float()
+
+    def compress(self, batch: Dict) -> List[bytes]:
+        """One ``.jpds`` stream per image of the batch. The streams of a
+        batch of several images are packed on a thread pool (the coder
+        releases the GIL), as ``Trainer.compress`` packs them."""
+        t0 = time.perf_counter()
+        codes = [c.cpu().numpy() for c in self.compress_codes(batch)]
+        t1 = time.perf_counter()
+        hw = tuple(int(s) for s in np.shape(batch["image"])[1:3])
+        b = codes[0].shape[0]
+
+        def pack_one(j: int) -> bytes:
+            return codec_io.pack([c[j] for c in codes], hw)
+
+        if b == 1:
+            streams = [pack_one(0)]
+        else:
+            with ThreadPoolExecutor(max_workers=min(8, b)) as ex:
+                streams = list(ex.map(pack_one, range(b)))
+        self.times = {"compress_codes": (t1 - t0) * 1e3,
+                      "pack": (time.perf_counter() - t1) * 1e3}
+        return streams
+
+    def decompress(self, data: bytes) -> np.ndarray:
+        """One ``.jpds`` stream -> its image (H, W, 3), float32, from the
+        stream and the model's weights alone."""
+        t0 = time.perf_counter()
+        codes, _ = codec_io.unpack(data)
+        t1 = time.perf_counter()
+        image = self.decompress_codes(codes)[0].cpu().numpy()
+        self.times = {"unpack": (t1 - t0) * 1e3,
+                      "decompress_codes": (time.perf_counter() - t1) * 1e3}
+        return image

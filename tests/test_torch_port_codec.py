@@ -191,13 +191,13 @@ def test_codec_server_round_trip_matches_jax(ref, port):
     decode_from_codes."""
     cfg, codec, _ = port
     server = CodecServer(cfg, codec.state_dict(), device="cpu")
-    codes = server.compress(ref["batch"])
+    codes = server.compress_codes(ref["batch"])
     assert [c.dtype for c in codes] == [torch.uint8, torch.uint8]
     assert [tuple(c.shape) for c in codes] == [(2, H // 4, W // 4, 16)] * 2
     for name, g, w, p in zip(ENCODERS, codes, ref["codes_u8"], ref["presign"]):
         assert set(np.unique(g.numpy())) <= {0, 1}
         assert_codes_match(g.numpy(), w, p, name)
-    image = server.decompress(codes)
+    image = server.decompress_codes(codes)
     assert image.dtype == torch.float32 and image.shape == (2, H, W, 3)
     np.testing.assert_allclose(image.numpy(), ref["fast_from_codes_u8"], atol=ATOL)
 
@@ -213,7 +213,7 @@ def test_codec_server_bf16_error_is_jax_bf16_error(ref):
     jax_bf16 = np.asarray(JaxFastCodec(jcfg, ref["params"]).decode_from_codes(codes), np.float32)
     cfg = flagship_config(tiny=True)
     server = CodecServer(cfg, from_jax_params(ref["params"]), device="cpu")
-    image = server.decompress([torch.from_numpy(c) for c in ref["codes_u8"]])
+    image = server.decompress_codes([torch.from_numpy(c) for c in ref["codes_u8"]])
     assert image.shape == (2, H, W, 3)
     assert torch.isfinite(image).all() and image.abs().max() <= 1.0
     want = np.abs(jax_bf16 - ref["fast_from_codes_u8"])

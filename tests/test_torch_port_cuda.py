@@ -104,6 +104,50 @@ def test_s2d_pad3_kernel_matches_plain(cuda, shape, extra_rows, dtype):
     assert torch.equal(got, realign.s2d_pad3_plain(x, extra_rows))
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 4, 1), (2, 8, 6, 5), (2, 6, 4, 39), (2, 8, 1024, 3),
+                                   (2, 10, 6, 36), (2, 8, 1024, 39)])
+def test_s2d_pad3_kernel_edge_shapes(cuda, shape, dtype, offset):
+    """K2's tiling at small and odd widths and channel counts, at the largest
+    extra_rows, with the input at and one element past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    x = _input((n + 1,)).to(cuda, dtype)[offset:offset + n].view(shape)
+    extra = shape[1] // 2 - 2
+    got = realign.s2d_pad3(x, extra)
+    torch.cuda.synchronize()
+    assert torch.equal(got, realign.s2d_pad3_plain(x, extra))
+
+
+def test_codec_server_serves_bytes_on_card(cuda):
+    """The tiny flagship's kernel configuration in fp32 (TF32 off), fast and
+    standard path: the card's .jpds streams equal the CPU's, and the card's
+    image decoded from them is within 2e-4 of the CPU's."""
+    from jpdse_tpu_torch.serve import CodecServer
+
+    rng = np.random.default_rng(6)
+    batch = {
+        "label": rng.integers(0, 35, (2, 64, 128)).astype(np.float32),
+        "instance": rng.integers(0, 1000, (2, 64, 128)).astype(np.int32),
+        "image": rng.normal(size=(2, 64, 128, 3)).astype(np.float32),
+    }
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for fast in (True, False):
+            cfg = flagship_config(tiny=True, kernels=True)
+            cfg.model.compute_dtype = "float32"
+            cfg.model.fast_inference = fast
+            state = SemanticCodec(cfg, device="cpu", seed=3).state_dict()
+            cpu, card = CodecServer(cfg, state, device="cpu"), CodecServer(cfg, state, device=cuda)
+            streams = card.compress(batch)
+            assert streams == cpu.compress(batch)
+            for s in streams:
+                np.testing.assert_allclose(card.decompress(s), cpu.decompress(s), atol=2e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("relu,has_res", [(True, False), (False, True), (False, False)])
 @pytest.mark.parametrize("shape", [(2, 8, 12, 6), (1, 64, 128, 64), (2, 16, 8, 1024)])

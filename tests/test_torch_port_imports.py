@@ -26,6 +26,7 @@ import jpdse_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(jpdse_tpu_torch.__path__, "jpdse_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"jpdse_tpu_torch.codec_io", "jpdse_tpu_torch.native"} <= set(names), names
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]
@@ -39,7 +40,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 18  # every module of slices 1 and 2
+    assert int(out.stdout.split()[-1]) >= 20  # every module so far, .jpds serving included
 
 
 def test_entry_points_raise_without_cuda_unless_given_a_device():

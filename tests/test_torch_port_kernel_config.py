@@ -184,10 +184,10 @@ def test_kernel_codec_server_round_trip_matches_jax(ref, port, head):
     state, _, _ = port
     server = CodecServer(_port_cfg(head), state, device="cpu")
     assert server.fast is not None
-    codes = server.compress(ref["batch"])
+    codes = server.compress_codes(ref["batch"])
     for name, g, w, p in zip(ENCODERS, codes, ref[head]["codes_u8"], ref["presign"]):
         assert_codes_match(g.numpy(), w, p, name)
-    image = server.decompress([torch.from_numpy(c) for c in ref[head]["codes_u8"]])
+    image = server.decompress_codes([torch.from_numpy(c) for c in ref[head]["codes_u8"]])
     np.testing.assert_allclose(image.numpy(), ref[head]["from_codes_u8"], atol=ATOL)
 
 
@@ -197,11 +197,11 @@ def test_codec_server_serves_standard_path_without_fast_inference(ref, port):
     state, _, _ = port
     server = CodecServer(_port_cfg(fast_inference=False), state, device="cpu")
     assert server.fast is None and isinstance(server.codec, SemanticCodec)
-    codes = server.compress(ref["batch"])
+    codes = server.compress_codes(ref["batch"])
     assert [c.dtype for c in codes] == [torch.uint8] * 2
     for name, g, w, p in zip(ENCODERS, codes, ref["codes"], ref["presign"]):
         assert_codes_match(g.numpy(), w.astype(np.uint8), p, name)
-    image = server.decompress(codes)
+    image = server.decompress_codes(codes)
     assert image.dtype == torch.float32
     np.testing.assert_allclose(image.numpy(), ref["from_codes"], atol=ATOL)
 
@@ -240,9 +240,9 @@ def test_kernel_calls_per_request(ref, port, monkeypatch):
     def run(server):
         for d in (fast, norm):
             d.update(dict.fromkeys(d, 0))
-        codes = server.compress(batch)
+        codes = server.compress_codes(batch)
         after = {**fast, **norm}
-        server.decompress(codes)
+        server.decompress_codes(codes)
         return after, {k: v - after[k] for k, v in {**fast, **norm}.items()}
 
     comp, dec = run(CodecServer(cfg, state, device="cpu"))

@@ -111,12 +111,12 @@ def main() -> int:
     # one compress + decompress under the profiler: kernels by device time
     from torch.profiler import ProfilerActivity, profile
 
-    codes = server.compress(batch)
-    server.decompress(codes)
+    codes = server.compress_codes(batch)
+    server.decompress_codes(codes)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.decompress(server.compress(batch))
+        server.decompress_codes(server.compress_codes(batch))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
