@@ -29,7 +29,18 @@ Phases, each printing a line as it ends:
      set to 0 just before a path and read just after, and asserted per
      call; stream bytes, bpp, the device part and the host coder's pack
      and unpack times are printed beside the totals;
-  6. summary: the card, a JSON line of per-kernel numbers, the total
+  6. eval and deploy: a synthetic Cityscapes val split (4 triplets at
+     2048x1024, from --seed) read with the flagship's preprocessing
+     ('fixed' to 1024x512), the flagship's opt.json and the seeded codec's
+     params_g.pt; the port's entry points test.main, compress.main and
+     decompress.main run in-process on the default fast path, the kernel
+     configuration's fast path (K1, K2, K4) and its standard path (K3),
+     with every kernel's count set to 0 just before each entry point and
+     read just after, asserted per image; finite metrics, the .rc and .jpds
+     bytes against the reported rates, each decompressed PNG within one
+     uint8 level of the test run's reconstruction, and each image's
+     host-clock split (load, device, coder, metrics, gallery) printed;
+  7. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -39,10 +50,15 @@ Without CUDA it exits non-zero before doing anything. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -731,6 +747,195 @@ def phase_serve(cfg, kcfg, codec, seed: int, requests: int, card: str) -> dict:
     return launches
 
 
+EVAL_IMAGES = 4
+# the flagship's preprocessing and normalization, as its training run saved
+# them (artifacts/flagship_r3/phase3/opt.json): 'fixed', crop 1024, aspect 2
+FLAGSHIP_PREPROCESS = ("fixed", 1024, 1024, 2.0)
+FLAGSHIP_NORMALIZE_STD = (1.0, 1.0, 1.0)
+KERNEL_FLAGS = ["--fused_instance_norm", "1", "--head_pallas", "1", "--front_realign", "pallas"]
+# flags, then kernel launches per image of test.main, compress.main and
+# decompress.main. test.main takes the rate from the standard path's codes
+# (as the JAX Trainer does), reconstructs through the chosen path in one
+# pass, and codes through it again for the .rc dumps: on the fast path in
+# the kernel configuration that is K3 10 (rate), K1 5 + K2 1 + K4 2 (the full
+# pass) and K1 1 + K2 1 + K4 1 (the codes); on its standard path K3 10 + 45
+# + 10.
+EVAL_PATHS = {
+    "default fast path": (["--fast_inference", "1"], {"s2d_realign_pad3": 3}, {},
+                          {"s2d_realign_pad3": 3}),
+    "kernel-config fast path": (
+        ["--fast_inference", "1"] + KERNEL_FLAGS,
+        {"fused_instance_norm": 10, "s2d_realign_pad3": 6, "s2d_pad3": 2, "head_conv_s2d": 3},
+        {"s2d_realign_pad3": 1, "s2d_pad3": 1, "head_conv_s2d": 1},
+        {"s2d_realign_pad3": 4, "head_conv_s2d": 1}),
+    "kernel-config standard path": (
+        ["--fast_inference", "0"] + KERNEL_FLAGS, {"fused_instance_norm": 65},
+        {"fused_instance_norm": 10}, {"fused_instance_norm": 35}),
+}
+_SPLIT = re.compile(r"host clock: load ([\d.]+), device ([\d.]+), coder ([\d.]+), "
+                    r"metrics ([\d.]+), gallery ([\d.]+)")
+
+
+def write_cityscapes(root: Path, seed: int) -> None:
+    """EVAL_IMAGES Cityscapes val triplets at 2048x1024 from ``seed``: a
+    smooth random photo with noise, block labels of 34 classes and 16-bit
+    instance ids (class * 1000 + k), written as PNGs with PIL, the port's
+    image I/O."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for i in range(EVAL_IMAGES):
+        city = ("frankfurt", "lindau")[i % 2]
+        name = f"{city}_{i:06d}_000019"
+        img_dir, gt_dir = root / "leftImg8bit/val" / city, root / "gtFine/val" / city
+        img_dir.mkdir(parents=True, exist_ok=True)
+        gt_dir.mkdir(parents=True, exist_ok=True)
+        small = Image.fromarray(rng.integers(0, 256, (32, 64, 3), dtype=np.uint8))
+        photo = np.asarray(small.resize((2048, 1024), Image.BICUBIC)).astype(np.int16)
+        photo = np.clip(photo + rng.integers(-8, 9, photo.shape), 0, 255).astype(np.uint8)
+        blocks = rng.integers(0, 34, (32, 64))
+        inst = blocks * 1000 + rng.integers(0, 8, blocks.shape)
+        full = np.ones((32, 32), np.int32)
+        Image.fromarray(photo).save(img_dir / f"{name}_leftImg8bit.png")
+        Image.fromarray(np.kron(blocks, full).astype(np.uint8)).save(
+            gt_dir / f"{name}_gtFine_labelIds.png")
+        Image.fromarray(np.kron(inst, full).astype(np.int32)).save(
+            gt_dir / f"{name}_gtFine_instanceIds.png")
+
+
+def run_entry(label: str, name: str, fn, want: dict):
+    """One entry point with every kernel count set to 0 just before and read
+    just after, asserted against ``want`` launches per image; returns its
+    result, its printed text and its counts. What it prints is kept (and
+    shown if it raises); its per-image and summary lines are passed on."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        try:
+            result = fn()
+        except BaseException:
+            sys.stdout.write(out.getvalue())
+            raise
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("batch ", "test set avg", "compressed ", "restored params",
+                            "fast inference")):
+            log(f"[eval] {label}: {name}: {line}")
+    counts = read_counts()
+    per_image = {k: v / EVAL_IMAGES for k, v in counts.items()}
+    if per_image != {k: float(want.get(k, 0)) for k in counts}:
+        raise AssertionError(f"{label}: {name} launched {per_image} per image, want {want}")
+    log(f"[eval] {label}: {name} {seconds:.2f} s for {EVAL_IMAGES} images; launches per image "
+        f"{ {k: v for k, v in per_image.items() if v} }")
+    return result, text, counts
+
+
+def phase_eval(codec, seed: int, card: str) -> dict:
+    """The eval and deploy entry points on the card (see the module's
+    docstring, phase 6); returns each path's launch counts over its three
+    entry points."""
+    from PIL import Image
+
+    from jpdse_tpu_torch import compress, decompress, test
+    from jpdse_tpu_torch.config import derive_eval_config, flagship_config
+    from jpdse_tpu_torch.data.cityscapes import CityscapesDataset
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="jpdse_eval_") as tmp:
+        root, run = Path(tmp) / "cityscapes", Path(tmp) / "run"
+        t0 = time.perf_counter()
+        write_cityscapes(root, seed)
+        cfg = flagship_config()
+        mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+        for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
+            pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
+            pp.aspect_ratio = aspect
+        cfg.data.dataset, cfg.data.root_dir = "cityscapes", str(root)
+        cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+        cfg.data.num_workers = 2
+        cfg.optim.seed = seed
+        run.mkdir()
+        cfg.save(str(run / "opt.json"))
+        save_params(str(run), codec.state_dict())
+        log(f"[eval] wrote {EVAL_IMAGES} Cityscapes val triplets at 2048x1024, the flagship's "
+            f"opt.json ({mode} {crop}x{round(crop / aspect)}, bf16) and params_g.pt in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # what one image costs the data pipeline, on one thread and not
+        # overlapped: the loader's workers hide it behind the rest
+        dataset = CityscapesDataset(derive_eval_config(cfg, "val"))
+        load_ms = []
+        for i in range(EVAL_IMAGES):
+            t0 = time.perf_counter()
+            dataset.__getitem__(i, rng=np.random.default_rng(i))
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"[eval] load + preprocess a 2048x1024 triplet to 1024x512, one thread (ms): "
+            f"{', '.join(f'{t:.1f}' for t in load_ms)} ({card})")
+        base = ["--load_opt", "--opt_file", str(run / "opt.json"), "--checkpoints_dir",
+                str(run), "--mode", "val"]
+        for label, (flags, want_test, want_comp, want_dec) in EVAL_PATHS.items():
+            out = Path(tmp) / label.replace(" ", "_")
+            torch.cuda.empty_cache()
+            metrics, text, c_test = run_entry(label, "test.main", lambda: test.main(
+                base + flags + ["--save_dir", str(out / "test")], device="cuda"), want_test)
+            summary, _, c_comp = run_entry(label, "compress.main", lambda: compress.main(
+                base + flags + ["--save_dir", str(out / "bits")], device="cuda"), want_comp)
+            written, _, c_dec = run_entry(label, "decompress.main", lambda: decompress.main(
+                ["--input", str(out / "bits")] + base + flags
+                + ["--save_dir", str(out / "recon")], device="cuda"), want_dec)
+            launches[label] = {k: c_test[k] + c_comp[k] + c_dec[k] for k in c_test}
+
+            keys = ("L1", "MSE", "PSNR", "MS-SSIM", "shannon_bpp", "actual_bpp", "coded_bpp",
+                    "total_bpp")
+            if metrics["n_images"] != EVAL_IMAGES or not np.isfinite(
+                    [metrics[k] for k in keys]).all():
+                raise AssertionError(f"{label}: metrics {metrics}")
+            rc = sorted((out / "test/codes").glob("*.rc"))
+            rc_bpp = sum(len(p.read_bytes()) * 8.0 / (H * W) for p in rc) / EVAL_IMAGES
+            if len(rc) != EVAL_IMAGES or not np.isclose(metrics["coded_bpp"], rc_bpp,
+                                                        rtol=1e-12, atol=0):
+                raise AssertionError(f"{label}: coded_bpp {metrics['coded_bpp']} but the "
+                                     f"{len(rc)} .rc files make {rc_bpp}")
+            jpds = sorted((out / "bits").glob("*.jpds"))
+            jpds_bpp = sum(len(p.read_bytes()) for p in jpds) * 8.0 / (EVAL_IMAGES * H * W)
+            if len(jpds) != EVAL_IMAGES or summary["avg_bpp"] != jpds_bpp:
+                raise AssertionError(f"{label}: avg_bpp {summary['avg_bpp']} but the "
+                                     f"{len(jpds)} .jpds files make {jpds_bpp}")
+            worst = 0
+            for p in map(Path, written):
+                got = np.asarray(Image.open(p)).astype(np.int16)
+                want = np.asarray(Image.open(
+                    out / "test/test_visualizations/images/reconstructed_image"
+                    / p.name)).astype(np.int16)
+                if got.shape != (H, W, 3):
+                    raise AssertionError(f"{label}: {p.name} has shape {got.shape}")
+                worst = max(worst, int(np.abs(got - want).max()))
+            if len(written) != EVAL_IMAGES or worst > 1:
+                raise AssertionError(f"{label}: decompressed PNGs differ from the test run's "
+                                     f"reconstructions by {worst} uint8 levels")
+            log(f"[eval] {label}: L1 {metrics['L1']:.4f}, MSE {metrics['MSE']:.4f}, PSNR "
+                f"{metrics['PSNR']:.4f} dB, MS-SSIM {metrics['MS-SSIM']:.6f}; shannon "
+                f"{metrics['shannon_bpp']:.6f}, actual {metrics['actual_bpp']:.6f}, coded "
+                f"{metrics['coded_bpp']:.6f} bpp (= the .rc files), .jpds {jpds_bpp:.6f} bpp "
+                f"(= compress_summary.json); decompressed PNGs within {worst} uint8 level(s) "
+                f"of the test run's reconstructions (random weights from seed {seed})")
+            splits = [tuple(float(x) for x in m) for m in _SPLIT.findall(text)]
+            if len(splits) != EVAL_IMAGES:
+                raise AssertionError(f"{label}: {len(splits)} per-image lines, want "
+                                     f"{EVAL_IMAGES}")
+            for i, sp in enumerate(splits):
+                log(f"[eval] {label} image {i}: host clock (ms) load {sp[0] * 1e3:.1f}, device "
+                    f"{sp[1] * 1e3:.1f} (rate, reconstruction, codes), coder {sp[2] * 1e3:.1f}, "
+                    f"metrics {sp[3] * 1e3:.1f}, gallery {sp[4] * 1e3:.1f} ({card})")
+            rest = np.median(np.asarray(splits[1:]), axis=0)
+            log(f"[eval] {label}: median of images after the first, host clock (ms): load "
+                f"{rest[0] * 1e3:.1f}, device {rest[1] * 1e3:.1f}, coder {rest[2] * 1e3:.1f}, "
+                f"metrics {rest[3] * 1e3:.1f}, gallery {rest[4] * 1e3:.1f} ({card})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -772,7 +977,13 @@ def main() -> int:
     log(f"[serve] flagship codec, {n_params} parameters from seed {args.seed}")
     phase_fp32_parity(cfg, kcfg, codec, args.seed)
     launches = phase_serve(cfg, kcfg, codec, args.seed, args.requests, card)
+    eval_launches = phase_eval(codec, args.seed, card)
+    for label, counts in eval_launches.items():
+        launches[f"eval: {label}"] = counts
     for e in entries:
+        in_eval = sum(eval_launches[label][e["name"]] for label in eval_launches)
+        if in_eval == 0:
+            raise AssertionError(f"{e['name']} was not launched in the eval phase")
         by_path = {label: counts[e["name"]] for label, counts in launches.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path

@@ -10,7 +10,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from jpdse_tpu_torch.config import Config
+from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.generator import Encoder, GlobalGenerator
 from jpdse_tpu_torch.models.layers import build
 from jpdse_tpu_torch.ops.semantics import prepare_semantics
@@ -43,6 +43,7 @@ class SemanticCodec(nn.Module):
     def __init__(self, cfg: Config, device="cuda", seed: Optional[int] = 0, dtype=None):
         super().__init__()
         cfg.validate()
+        check_ported(cfg)
         self.cfg = cfg
         self.dtype = dtype or compute_dtype(cfg)
         m = cfg.model

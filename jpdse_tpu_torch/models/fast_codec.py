@@ -11,7 +11,7 @@ from typing import Dict, List
 
 import torch
 
-from jpdse_tpu_torch.config import Config
+from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.codec import compute_dtype, prepare_inputs
 from jpdse_tpu_torch.models.fast_trunk import _FastTrunk
 from jpdse_tpu_torch.platform import resolve_device
@@ -28,12 +28,13 @@ class FastCodec:
 
     def __init__(self, cfg: Config, state: Dict[str, torch.Tensor], device="cuda", dtype=None):
         cfg.validate()
+        check_ported(cfg)
         m = cfg.model
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype or compute_dtype(cfg)
         self.fp = fp = m.fast.resolved()
-        fp.validate()
+        fp.validate(check_combos=False)
         self.netG = _FastTrunk(_sub(state, "netG"), m.n_downsample_global, m.n_blocks_global,
                                "none", self.dtype, self.device, fp)
         self.netE = _FastTrunk(_sub(state, "netE"), m.n_downsample_E, 0, "mid",

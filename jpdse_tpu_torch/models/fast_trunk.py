@@ -13,7 +13,8 @@ The kernel switches of ``config.FastPathConfig`` pick the front:
 head with 'force') as kernel K4 (ops/head_conv.py) fed by K1 with extra
 rows and its channels padded to a multiple of 8 (zero weights for the
 padding); ``front_realign`` enters the s2d domain of the other heads through
-kernel K2 (ops/realign.py ``s2d_pad3``).
+kernel K2 (ops/realign.py ``s2d_pad3``). ``norm_shift`` selects the shifted
+moments of the s2d InstanceNorms (ops/s2d.py ``instance_norm_s2d``).
 """
 
 from __future__ import annotations
@@ -122,7 +123,7 @@ class _FastTrunk:
             else:
                 xp = space_to_depth(reflect_pad(x, 3))
             h = conv_valid(xp, w["head_w"], w["head_b"])
-        h = torch.relu(instance_norm_s2d(h))
+        h = torch.relu(instance_norm_s2d(h, use_shift=self.fp.norm_shift))
         h = conv_valid(_pad_hw(h, 1, 0, 1, 0), w["down0_w"], w["down0_b"])
         return torch.relu(instance_norm(h))
 
@@ -166,7 +167,7 @@ class _FastTrunk:
         """Normal-domain (H/2, W/2, C) -> fine output with tanh."""
         w = self.weights
         y = conv_valid(_pad_hw(h, 0, 1, 0, 1), w["uplast_w"], w["uplast_b"])
-        y = torch.relu(instance_norm_s2d(y))
+        y = torch.relu(instance_norm_s2d(y, use_shift=self.fp.norm_shift))
         yp = s2d_realign_pad3(y.contiguous())
         return depth_to_space(torch.tanh(conv_valid(yp, w["tail_w"], w["tail_b"])))
 

@@ -10,6 +10,8 @@ in its (kh, kw, Cin, Cout) layout; ``hwio_to_oihw`` hands them to PyTorch.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -115,19 +117,30 @@ def weights_fold_w(wp: np.ndarray) -> np.ndarray:
     return wp.reshape(kh, 1, kw * cin, cout)
 
 
-def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, use_shift=None) -> torch.Tensor:
     """InstanceNorm over the fine (H, W) extent of an s2d tensor: the
     statistics of each fine channel pool its 4 sub-position groups. One-pass
-    fp32 moments, as the JAX package computes them (its default, unshifted
-    form)."""
+    fp32 moments, as the JAX package computes them.
+
+    ``use_shift`` (``FastPathConfig.norm_shift``; None reads the env var
+    ``JPDSE_NORM_SHIFT``): subtract each fine channel's value at the first
+    position before the moments. The variance is unchanged in exact
+    arithmetic, and the one-pass form loses fewer fp32 bits where
+    |mean|/std is large."""
     b, h, w, c4 = x.shape
     c = c4 // 4
     x32 = x.float()
     n = h * w * 4
-    s1 = x32.sum(dim=(1, 2)).view(b, 4, c).sum(dim=1)
-    s2 = (x32 * x32).sum(dim=(1, 2)).view(b, 4, c).sum(dim=1)
+    if use_shift is None:
+        use_shift = os.environ.get("JPDSE_NORM_SHIFT", "0") == "1"
+    shift = x32[:, :1, :1, :c] if use_shift else None  # (b, 1, 1, c)
+    d = x32 - shift.repeat(1, 1, 1, 4) if use_shift else x32
+    s1 = d.sum(dim=(1, 2)).view(b, 4, c).sum(dim=1)
+    s2 = (d * d).sum(dim=(1, 2)).view(b, 4, c).sum(dim=1)
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    if use_shift:
+        mean = mean + shift[:, 0, 0, :]
     mean4 = mean.repeat(1, 4)[:, None, None, :]
     rstd4 = torch.rsqrt(var + eps).repeat(1, 4)[:, None, None, :]
     return ((x32 - mean4) * rstd4).to(x.dtype)

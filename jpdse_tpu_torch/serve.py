@@ -59,6 +59,16 @@ class CodecServer:
         return [c.to(torch.uint8) for c in codes]
 
     @torch.inference_mode()
+    def decode(self, batch: Dict) -> torch.Tensor:
+        """The deterministic reconstruction of a batch (encode, binarize,
+        decode in one pass): image (B, H, W, 3), float32, on the server's
+        device."""
+        batch = self._batch(batch)
+        if self.fast is not None:
+            return self.fast.decode(batch).float()
+        return self.codec.decode(self.codec.prepare(batch)).float()
+
+    @torch.inference_mode()
     def decompress_codes(self, codes: Sequence) -> torch.Tensor:
         """Codes as :meth:`compress_codes` gives them (tensors or arrays,
         {0, 1}) -> image (B, H, W, 3), float32, on the server's device."""

@@ -272,3 +272,68 @@ def test_fast_codec_on_card_matches_cpu(cuda):
         assert torch.equal(a, b.cpu())
     want = cpu.decode_from_codes(codes)
     np.testing.assert_allclose(image.cpu().numpy(), want.numpy(), atol=2e-4)
+
+
+def _eval_run(tmp_path, kernels: bool):
+    """A synthetic Cityscapes test split (3 images at 128x256, read at
+    64x128), the tiny flagship's opt.json in fp32 and its params_g.pt."""
+    from PIL import Image
+
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    rng = np.random.default_rng(8)
+    img_dir = tmp_path / "data/leftImg8bit/test/lindau"
+    gt_dir = tmp_path / "data/gtFine/test/lindau"
+    img_dir.mkdir(parents=True)
+    gt_dir.mkdir(parents=True)
+    for i in range(3):
+        name = f"lindau_{i:06d}_000019"
+        Image.fromarray(rng.integers(0, 256, (128, 256, 3), dtype=np.uint8)).save(
+            img_dir / f"{name}_leftImg8bit.png")
+        Image.fromarray(rng.integers(0, 35, (128, 256), dtype=np.uint8)).save(
+            gt_dir / f"{name}_gtFine_labelIds.png")
+        Image.fromarray(rng.integers(0, 6, (128, 256), dtype=np.uint8)).save(
+            gt_dir / f"{name}_gtFine_instanceIds.png")
+    cfg = flagship_config(tiny=True, kernels=kernels)
+    cfg.model.compute_dtype = "float32"
+    if kernels:
+        cfg.model.fast.head_pallas = "force"
+    cfg.data.root_dir = str(tmp_path / "data")
+    cfg.data.test_preprocess.preprocess_mode = "fixed"
+    cfg.data.test_preprocess.crop_size = 128
+    run = tmp_path / "run"
+    run.mkdir()
+    cfg.save(str(run / "opt.json"))
+    save_params(str(run), SemanticCodec(cfg, device="cpu", seed=3).state_dict())
+    return ["--load_opt", "--opt_file", str(run / "opt.json"), "--checkpoints_dir", str(run)]
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("path", ["fast", "standard"])
+def test_evaluate_on_card_matches_cpu(cuda, tmp_path, path, kernels):
+    """test.main at the tiny flagship in fp32 (TF32 off), on the card and on
+    the CPU, in the default and the kernel configuration: rates and the
+    .rc / _code bytes equal, the Shannon estimate within 1e-6 and the
+    distortion within 1e-3 relative; compress writes the same streams."""
+    from jpdse_tpu_torch import compress, test
+
+    argv = _eval_run(tmp_path, kernels) + ["--fast_inference", "1" if path == "fast" else "0"]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = test.main(argv + ["--save_dir", str(tmp_path / "card")], device="cuda")
+        compress.main(argv + ["--save_dir", str(tmp_path / "card_bits")], device="cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = test.main(argv + ["--save_dir", str(tmp_path / "cpu")], device="cpu")
+    compress.main(argv + ["--save_dir", str(tmp_path / "cpu_bits")], device="cpu")
+    for k in ("actual_bpp", "coded_bpp", "total_bpp", "n_images"):
+        assert got[k] == want[k], k
+    assert got["shannon_bpp"] == pytest.approx(want["shannon_bpp"], rel=1e-6)
+    for k in ("L1", "MSE", "PSNR", "MS-SSIM"):
+        assert got[k] == pytest.approx(want[k], rel=1e-3), k
+    for cpu_dir, card_dir in (("cpu/codes", "card/codes"), ("cpu_bits", "card_bits")):
+        files = sorted((tmp_path / cpu_dir).iterdir())
+        assert len(files) == (6 if cpu_dir.endswith("codes") else 4)
+        for f in files:
+            assert (tmp_path / card_dir / f.name).read_bytes() == f.read_bytes(), f.name

@@ -10,11 +10,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from jpdse_tpu_torch import compress, decompress, test
 from jpdse_tpu_torch.config import flagship_config
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
 from jpdse_tpu_torch.ops import build
 from jpdse_tpu_torch.serve import CodecServer
+from jpdse_tpu_torch.trainer import Trainer
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -27,6 +29,11 @@ names = [m.name for m in pkgutil.walk_packages(jpdse_tpu_torch.__path__, "jpdse_
 for name in names:
     importlib.import_module(name)
 assert {"jpdse_tpu_torch.codec_io", "jpdse_tpu_torch.native"} <= set(names), names
+assert {"jpdse_tpu_torch." + m for m in (
+    "cli", "trainer", "test", "compress", "decompress", "ops.metrics", "eval.harness",
+    "train.checkpoint", "utils.misc", "utils.colormap", "utils.visualizer", "data.transforms",
+    "data.folder", "data.paired", "data.cityscapes", "data.ade20k", "data.clic",
+    "data.custom", "data.loader", "data.stats")} <= set(names), names
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]
@@ -40,7 +47,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module so far, .jpds serving included
+    assert int(out.stdout.split()[-1]) >= 44  # every module so far, the eval entry points included
 
 
 def test_entry_points_raise_without_cuda_unless_given_a_device():
@@ -48,8 +55,11 @@ def test_entry_points_raise_without_cuda_unless_given_a_device():
         pytest.skip("a CUDA device is present: the default device is valid here")
     cfg = flagship_config(tiny=True)
     state = SemanticCodec(cfg, device="cpu", seed=0).state_dict()
+    argv = ["--root_dir", "/nonexistent"]
     for make in (lambda: SemanticCodec(cfg), lambda: FastCodec(cfg, state),
-                 lambda: CodecServer(cfg, state)):
+                 lambda: CodecServer(cfg, state), lambda: Trainer(cfg),
+                 lambda: test.main(argv), lambda: compress.main(argv),
+                 lambda: decompress.main(["--input", "/nonexistent"] + argv)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
 
