@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--requests N]
+    python3 chip_smoke.py [--seed N] [--requests N] [--train-steps N]
 
 Phases, each printing a line as it ends:
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -14,7 +14,9 @@ Phases, each printing a line as it ends:
      for data movement), and timed beside its bound and, where one PyTorch
      call computes the same function, that call (K2 and K3 also by the
      profiler's device time and the host's time a call); K3 shown to be one
-     launch per call (profiler) and tried under CUDA-graph capture; K4's
+     launch per call (profiler) and tried under CUDA-graph capture; K3's
+     backward against its plain version at the same shapes (one device
+     kernel per call, timed beside the backward of F.instance_norm); K4's
      dense-A mode against torch.matmul;
   4. the flagship codec at full width (Cityscapes 1024x512, random weights
      from --seed), fp32 with TF32 off: the default s2d fast path, the fast
@@ -40,7 +42,21 @@ Phases, each printing a line as it ends:
      bytes against the reported rates, each decompressed PNG within one
      uint8 level of the test run's reconstruction, and each image's
      host-clock split (load, device, coder, metrics, gallery) printed;
-  7. summary: the card, a JSON line of per-kernel numbers, the total
+  7. training: the flagship's phase-2 GAN recipe
+     (artifacts/flagship_r3/phase2/opt.json: batch 2 at 1024x512, fp32, block
+     remat, VGG, feature matching, distortion) at full width, in the default
+     configuration and the kernel configuration (K3 forward and backward at
+     the 45 generator-side norm sites): (a) one loss_and_grads of each from
+     the same weights and generator seed, fp32 with TF32 off, metrics and
+     every gradient tensor held against each other, binarizer bits near
+     their threshold counted; (b) --train-steps Trainer.steps of each, with
+     PyTorch's default precision (TF32 convolutions): median step time,
+     images/s, peak memory, finite losses and K3's launches per step;
+     (c) the entry point, train.run.main, on a synthetic Cityscapes
+     train/val split: one epoch of 2 steps with validation and a best-val
+     save, then a second main that resumes, validates the load and writes
+     save_dir/latest;
+  8. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -72,11 +88,15 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 # heads and last ups, then the downs / ups, then the res blocks
 NORM_SHAPES = [(1, 512, 1024, 64), (1, 256, 512, 128), (1, 128, 256, 256),
                (1, 64, 128, 512), (1, 32, 64, 1024)]
+# the same sites in the training step (batch 2): the kernels' partition
+# into slabs and chunks depends on the batch
+TRAIN_NORM_SHAPES = [(2,) + s[1:] for s in NORM_SHAPES]
 NORM_COMBOS = [(True, False), (False, True), (False, False)]  # (relu, residual)
 KERNELS = {  # wrapper -> (its module under jpdse_tpu_torch/ops and csrc/, the TPU kernel)
     "s2d_realign_pad3": ("realign", "jpdse_tpu/ops/pallas/realign.py:67"),
     "s2d_pad3": ("realign", "jpdse_tpu/ops/pallas/realign.py:137"),
     "fused_instance_norm": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:125"),
+    "fused_instance_norm_bwd": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:100"),
     "head_conv_s2d": ("head_conv", "jpdse_tpu/ops/pallas/head_conv.py:90"),
 }
 
@@ -313,16 +333,16 @@ def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_k3(card: str, gen) -> dict:
-    """K3 at every distinct norm shape of the standard path, for each
-    (relu, residual) the modules use plus the bare norm: fp32 within 1e-5
-    abs of the plain version, bf16 within 1 ulp beyond that (see
-    bf16_excess_ulps); deterministic; timed in bf16 beside F.instance_norm
-    for the bare norm."""
+    """K3 at every distinct norm shape of the standard path and of the
+    training step, for each (relu, residual) the modules use plus the bare
+    norm: fp32 within 1e-5 abs of the plain version, bf16 within 1 ulp
+    beyond that (see bf16_excess_ulps); deterministic; timed in bf16 beside
+    F.instance_norm for the bare norm at the serving shapes."""
     from jpdse_tpu_torch.ops import instance_norm as k3
 
     max_err = 0.0
     entry = None
-    for shape in NORM_SHAPES:
+    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES:
         base = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
         res32 = torch.randn(shape, device="cuda", generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
@@ -350,6 +370,8 @@ def phase_k3(card: str, gen) -> dict:
                                              "version")
                     log(f"[kernels] {what}: max abs diff {err:.2e}, max {u:.2f} bf16 ulp "
                         "beyond 1e-5 (tolerance 1); two runs bit-equal")
+        if shape in TRAIN_NORM_SHAPES:
+            continue
         # timing, bf16: the bare norm beside the library's InstanceNorm, and
         # the sites' own (relu) and (residual) forms
         x = base.to(torch.bfloat16)
@@ -376,23 +398,31 @@ def phase_k3(card: str, gen) -> dict:
     return kernel_entry("fused_instance_norm", max_err, k, p, bound, "bytes", lib)
 
 
+def one_kernel(what: str, fn) -> dict:
+    """The device kernels of one call of fn() by the profiler; raises unless
+    it is one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    if sum(kernels.values()) != 1:
+        raise AssertionError(f"{what} ran {sum(kernels.values())} device kernels in one call, "
+                             "want 1")
+    return kernels
+
+
 def k3_launch_facts(k3, x, res) -> None:
     """One call of K3 is one kernel launch on the device (profiler); and
     whether its cooperative launch can be captured in a CUDA graph (the
     answer is logged either way); once captured, the replay must give the
     eager call's bits."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    k3.fused_instance_norm(x, res, relu=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        k3.fused_instance_norm(x, res, relu=True)
-        torch.cuda.synchronize()
-    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    kernels = one_kernel("K3", lambda: k3.fused_instance_norm(x, res, relu=True))
     log(f"[kernels] K3 {tuple(x.shape)} one call under the profiler: device kernels {kernels}")
-    if sum(kernels.values()) != 1:
-        raise AssertionError(f"K3 ran {sum(kernels.values())} device kernels in one call, want 1")
     want = k3.fused_instance_norm(x, res, relu=True)
     try:
         graph = torch.cuda.CUDAGraph()
@@ -412,6 +442,91 @@ def k3_launch_facts(k3, x, res) -> None:
     if not torch.equal(got, want):
         raise AssertionError("K3's CUDA-graph replay differs from the eager call")
     log("[kernels] K3 under CUDA-graph capture: captured; replay bit-equal to the eager call")
+
+
+def phase_k3_bwd(card: str, gen) -> dict:
+    """K3's backward at every distinct norm shape of the standard path and of
+    the training step, under the three (relu, residual) forms, through the
+    autograd Function (K3's forward keeps the statistics the backward
+    kernel reads): dx in fp32 within 1e-5 abs of the plain version on the
+    same statistics, bf16 within 1 ulp beyond that, the residual's gradient
+    the output's own; deterministic; one device kernel per call; timed in
+    bf16 at the largest slab beside the backward of F.instance_norm on the
+    same tensor. (Recomputing the statistics, as JAX's _fused_in_bwd does,
+    moves xhat by rounding, and where xhat is 0 to rounding the ReLU's
+    mask, and with it dx, can take the other side of the kink; that
+    difference is logged.)"""
+    from jpdse_tpu_torch.ops import instance_norm as k3
+
+    max_err = 0.0
+    entry = None
+    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES:
+        base = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
+        g32 = torch.randn(shape, device="cuda", generator=gen)
+        res32 = torch.randn(shape, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = g32.to(dtype)
+            for relu, has_res in NORM_COMBOS:
+                x = base.to(dtype, copy=True).requires_grad_()
+                res = res32.to(dtype, copy=True).requires_grad_() if has_res else None
+                y = k3.fused_instance_norm(x, res, relu=relu)
+                grads = torch.autograd.grad(y, [x] + ([res] if has_res else []), g,
+                                            retain_graph=True)
+                again = torch.autograd.grad(y, x, g)[0]
+                # the statistics the Function kept, from a second (bit-equal) forward launch
+                _, stats = k3._forward(x.detach(), None if res is None else res.detach(), relu,
+                                       1e-5)
+                want = k3.fused_instance_norm_bwd_plain(x.detach(), g, relu, stats=stats)
+                recomputed = k3.fused_instance_norm_bwd_plain(x.detach(), g, relu)
+                torch.cuda.synchronize()
+                got = grads[0]
+                what = f"K3 backward {shape} {dt(dtype)} relu={relu} residual={has_res}"
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: not deterministic")
+                if has_res and not torch.equal(grads[1], g):
+                    raise AssertionError(f"{what}: the residual's gradient is not the output's")
+                err = (got.float() - want.float()).abs().max().item()
+                err_re = (got.float() - recomputed.float()).abs().max().item()
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+                    if not err <= 1e-5:
+                        raise AssertionError(f"{what}: max abs diff {err} > 1e-5")
+                    log(f"[kernels] {what}: max abs diff {err:.2e} (tolerance 1e-5; "
+                        f"{err_re:.2e} from the plain version's own statistics); two runs "
+                        "bit-equal")
+                else:
+                    u = bf16_excess_ulps(got, want)
+                    if not u <= 1.0:
+                        raise AssertionError(f"{what}: {u} bf16 ulps beyond 1e-5 from the plain "
+                                             "version")
+                    log(f"[kernels] {what}: max abs diff {err:.2e}, max {u:.2f} bf16 ulp beyond "
+                        f"1e-5 (tolerance 1; {err_re:.2e} from the plain version's own "
+                        "statistics); two runs bit-equal")
+        if entry is not None:
+            continue
+        # timing at the largest slab, bf16: the kernel alone on the forward's
+        # statistics, its plain version, and the library's backward
+        x = base.to(torch.bfloat16)
+        g = g32.to(torch.bfloat16)
+        _, stats = k3._forward(x, None, True, 1e-5)
+        kernels = one_kernel("K3 backward", lambda: k3.fused_instance_norm_bwd(x, g, stats, True))
+        k = cuda_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, True))
+        k_dev = device_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, True))
+        k_plain = cuda_ms(lambda: k3.fused_instance_norm_bwd_plain(x, g, True))
+        xc = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        yc = F.instance_norm(xc, eps=1e-5)
+        gc = g.permute(0, 3, 1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(yc, xc, gc, retain_graph=True))
+        bound = bytes_ms(x, g, x)
+        log(f"[kernels] K3 backward {shape} bf16 relu: one call is {kernels} on the device; "
+            f"kernel {k:.4f} ms (on the device {k_dev:.4f} ms by the profiler; {bound / k_dev:.0%} "
+            f"of its bound), plain {k_plain:.4f} ms, backward of F.instance_norm {lib:.4f} ms, "
+            f"bound {bound * 1e3:.1f} us (bytes: x and g read, dx written) ({card})")
+        entry = (k, k_plain, bound, lib, k_dev)
+    k, p, bound, lib, k_dev = entry
+    e = kernel_entry("fused_instance_norm_bwd", max_err, k, p, bound, "bytes", lib)
+    e["device_ms"] = k_dev
+    return e
 
 
 def phase_k4(card: str, gen) -> dict:
@@ -776,18 +891,18 @@ _SPLIT = re.compile(r"host clock: load ([\d.]+), device ([\d.]+), coder ([\d.]+)
                     r"metrics ([\d.]+), gallery ([\d.]+)")
 
 
-def write_cityscapes(root: Path, seed: int) -> None:
-    """EVAL_IMAGES Cityscapes val triplets at 2048x1024 from ``seed``: a
-    smooth random photo with noise, block labels of 34 classes and 16-bit
-    instance ids (class * 1000 + k), written as PNGs with PIL, the port's
-    image I/O."""
+def write_cityscapes(root: Path, seed: int, split: str = "val") -> None:
+    """EVAL_IMAGES Cityscapes triplets of ``split`` at 2048x1024 from
+    ``seed``: a smooth random photo with noise, block labels of 34 classes
+    and 16-bit instance ids (class * 1000 + k), written as PNGs with PIL,
+    the port's image I/O."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     for i in range(EVAL_IMAGES):
         city = ("frankfurt", "lindau")[i % 2]
         name = f"{city}_{i:06d}_000019"
-        img_dir, gt_dir = root / "leftImg8bit/val" / city, root / "gtFine/val" / city
+        img_dir, gt_dir = root / "leftImg8bit" / split / city, root / "gtFine" / split / city
         img_dir.mkdir(parents=True, exist_ok=True)
         gt_dir.mkdir(parents=True, exist_ok=True)
         small = Image.fromarray(rng.integers(0, 256, (32, 64, 3), dtype=np.uint8))
@@ -803,11 +918,13 @@ def write_cityscapes(root: Path, seed: int) -> None:
             gt_dir / f"{name}_gtFine_instanceIds.png")
 
 
-def run_entry(label: str, name: str, fn, want: dict):
+def run_entry(label: str, name: str, fn, want: dict, per: int = EVAL_IMAGES, tag: str = "[eval]",
+              keep=("batch ", "test set avg", "compressed ", "restored params", "fast inference")):
     """One entry point with every kernel count set to 0 just before and read
-    just after, asserted against ``want`` launches per image; returns its
-    result, its printed text and its counts. What it prints is kept (and
-    shown if it raises); its per-image and summary lines are passed on."""
+    just after, asserted against ``want`` launches per ``per`` (images);
+    returns its result, its printed text and its counts. What it prints is
+    kept (and shown if it raises); its lines starting with ``keep`` are
+    passed on."""
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as out:
@@ -820,15 +937,14 @@ def run_entry(label: str, name: str, fn, want: dict):
     seconds = time.perf_counter() - t0
     text = out.getvalue()
     for line in text.splitlines():
-        if line.startswith(("batch ", "test set avg", "compressed ", "restored params",
-                            "fast inference")):
-            log(f"[eval] {label}: {name}: {line}")
+        if line.startswith(keep):
+            log(f"{tag} {label}: {name}: {line}")
     counts = read_counts()
-    per_image = {k: v / EVAL_IMAGES for k, v in counts.items()}
-    if per_image != {k: float(want.get(k, 0)) for k in counts}:
-        raise AssertionError(f"{label}: {name} launched {per_image} per image, want {want}")
-    log(f"[eval] {label}: {name} {seconds:.2f} s for {EVAL_IMAGES} images; launches per image "
-        f"{ {k: v for k, v in per_image.items() if v} }")
+    per_unit = {k: v / per for k, v in counts.items()}
+    if per_unit != {k: float(want.get(k, 0)) for k in counts}:
+        raise AssertionError(f"{label}: {name} launched {per_unit} per {per}, want {want}")
+    log(f"{tag} {label}: {name} {seconds:.2f} s; launches per {per} "
+        f"{'images' if per > 1 else 'run'} { {k: v for k, v in per_unit.items() if v} }")
     return result, text, counts
 
 
@@ -936,10 +1052,406 @@ def phase_eval(codec, seed: int, card: str) -> dict:
     return launches
 
 
+# -- training ----------------------------------------------------------------------
+TRAIN_BATCH = 2
+K3_SITES = 45  # the generator side's norm sites: netG 27, netE 9, netE4label 9
+GRAD_TOL = 1e-3  # a gradient tensor's relative L2 difference, unless fp32 conditioning is worse
+# ... and never more than this, per network: set from the controls' largest
+# readings on an H100 (G 1.32e-02, D 1.65e-03; the kernel config's 7.92e-03
+# and 1.75e-03), with room both ways
+GRAD_CEIL = {"G": 2e-2, "D": 5e-3}
+K3_SITE_TOL = 1e-5  # K3 at a site of the step against its plain version, of the output's max-abs
+# biases that an InstanceNorm follows have a gradient of 0 in exact arithmetic
+NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up\.\d+|res\.\d+|layer[1-9])\..*bias$")
+
+
+def flagship_train_config(kernels: bool, seed: int):
+    """The flagship's phase-2 recipe (artifacts/flagship_r3/phase2/opt.json):
+    batch 2 at 1024x512 ('fixed', normalize_std 1), fp32, block remat, Adam
+    lr 2e-4 betas (0.5, 0.999), num_D 2, n_layers_D 3, ndf 64, LSGAN, VGG,
+    feature matching and L1 distortion (the config's defaults), at full
+    width; ``kernels``: K3 at every generator-side norm site."""
+    from jpdse_tpu_torch.config import flagship_config
+
+    cfg = flagship_config(kernels=kernels)
+    m = cfg.model
+    m.compute_dtype, m.fast_inference = "float32", False
+    cfg.optim.remat, cfg.optim.remat_granularity, cfg.optim.seed = True, "block", seed
+    cfg.data.batch_size = TRAIN_BATCH
+    cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+    mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+    pp = cfg.data.preprocess
+    pp.preprocess_mode, pp.load_size, pp.crop_size, pp.aspect_ratio = mode, load, crop, aspect
+    cfg.validate()
+    return cfg
+
+
+def k3_per_step(counts: dict, steps: int) -> tuple:
+    return (counts["fused_instance_norm"] / steps, counts["fused_instance_norm_bwd"] / steps)
+
+
+class K3SiteCheck:
+    """While active, every launch of K3's forward and backward is also run
+    through its plain version on the same inputs (the backward's on the
+    forward's statistics, as in phase_k3_bwd; the plain runs launch
+    nothing): the difference, against the output's max-abs (the forward's
+    at least 1), must stay within K3_SITE_TOL. The backward's wrapper is
+    swapped in the module, whose own launch counter then lands on the
+    stand-in; it is carried back on exit."""
+
+    def __init__(self):
+        from jpdse_tpu_torch.ops import instance_norm as k3
+
+        self.k3, self.calls, self.worst = k3, {"forward": 0, "backward": 0}, {}
+
+    def _check(self, kind: str, got: torch.Tensor, want: torch.Tensor, what: tuple) -> None:
+        scale = want.float().abs().max().item()
+        if kind == "forward":
+            scale = max(scale, 1.0)
+        err = (got.float() - want.float()).abs().max().item() / scale
+        self.calls[kind] += 1
+        key = (kind,) + what
+        self.worst[key] = max(self.worst.get(key, 0.0), err)
+        if not err <= K3_SITE_TOL:
+            raise AssertionError(f"K3 {kind} at {what}: {err:.2e} of the output's max-abs from "
+                                 f"the plain version (tolerance {K3_SITE_TOL})")
+
+    def __enter__(self):
+        k3 = self.k3
+        self.fwd, self.bwd = k3._forward, k3.fused_instance_norm_bwd
+
+        def forward(x, residual, relu, eps):
+            y, stats = self.fwd(x, residual, relu, eps)
+            with torch.no_grad():
+                want = k3.fused_instance_norm_plain(x, residual, relu, eps)
+            self._check("forward", y, want, (tuple(x.shape), relu, residual is not None))
+            return y, stats
+
+        def backward(x, g, stats, relu=False, eps=1e-5):
+            dx = self.bwd(x, g, stats, relu, eps)
+            with torch.no_grad():
+                want = k3.fused_instance_norm_bwd_plain(x, g, relu, eps, stats)
+            self._check("backward", dx, want, (tuple(x.shape), relu))
+            return dx
+
+        backward.launches = self.bwd.launches
+        k3._forward, k3.fused_instance_norm_bwd = forward, backward
+        return self
+
+    def __exit__(self, *exc):
+        k3 = self.k3
+        self.bwd.launches = k3.fused_instance_norm_bwd.launches
+        k3._forward, k3.fused_instance_norm_bwd = self.fwd, self.bwd
+
+    def summary(self) -> str:
+        parts = []
+        for kind in ("forward", "backward"):
+            forms = {k[1:]: v for k, v in self.worst.items() if k[0] == kind}
+            err, form = max((v, f) for f, v in forms.items())
+            parts.append(f"{kind} {self.calls[kind]} calls at {len(forms)} (shape, relu, "
+                         f"residual) forms, worst {err:.2e} at {form}")
+        return "; ".join(parts)
+
+
+def phase_train_parity(seed: int, card: str) -> dict:
+    """(a) One loss_and_grads in the kernel configuration against the default
+    one, fp32 with TF32 off, from the same weights and the same generator
+    seed: the eight metrics within 1e-4 relative; every binarizer bit that
+    differs lying within 1e-5 of its threshold (1 - x) / 2 = u; a bias an
+    InstanceNorm follows 0 to rounding (at most 1e-5 of its network's
+    largest gradient); and the gradients no farther from the default's
+    than the step's own fp32 conditioning allows. That is measured in the
+    same run by two controls, the default configuration again on the image
+    with each value moved by 2^-22 of itself, up or down at random (a
+    difference at fp32 rounding, as K3's is, which flips no binarizer
+    bit): for each network the largest relative L2 difference of a tensor,
+    kernel configuration against default, is at most GRAD_TOL or twice the
+    controls' largest, and never more than GRAD_CEIL. (The first card run
+    found the controls at 8e-3 in relative L2 and 5e-2 of a tensor's
+    max-abs: a pre-activation on the other side of a ReLU's kink moves a
+    weight gradient that sums a few thousand positions by percents.) Since
+    that bound is loose for one kernel, every K3 launch of the kernel
+    configuration's step is also held against the plain version on its own
+    inputs (K3SiteCheck). Returns the launch counts of both
+    configurations."""
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.trainer import Trainer
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        base = Trainer(flagship_train_config(False, seed), mode="train", device="cuda")
+        fused = Trainer(flagship_train_config(True, seed), mode="train", device="cuda")
+        for a, b in ((base.gan.codec, fused.gan.codec), (base.gan.disc, fused.gan.disc),
+                     (base.gan.vgg, fused.gan.vgg)):
+            b.load_state_dict(a.state_dict())
+        batch = make_batch(seed, TRAIN_BATCH)
+        controls = []
+        for i in (1, 2):
+            signs = np.random.default_rng(seed + i).choice([-1.0, 1.0], batch["image"].shape)
+            controls.append(dict(batch, image=(batch["image"] * (1 + 2.0**-22 * signs)).astype(
+                np.float32)))
+        n_g = sum(p.numel() for p in base.gan.codec.parameters())
+        n_d = sum(p.numel() for p in base.gan.disc.parameters())
+        log(f"[train] phase-2 recipe at {W}x{H}, batch {TRAIN_BATCH}, fp32: G {n_g} and D {n_d} "
+            f"parameters, VGG19 random from seed 0; two trainers built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out, launches = {}, {}
+        for label, t, b in (("default", base, batch), ("kernel config", fused, batch),
+                            ("control 1", base, controls[0]), ("control 2", base, controls[1])):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            placed = t.place(b)
+            reset_counts()
+            t0 = time.perf_counter()
+            if label == "kernel config":
+                with K3SiteCheck() as sites:
+                    out[label] = step.loss_and_grads(t.gan, placed, gen)
+                    torch.cuda.synchronize()
+            else:
+                out[label] = step.loss_and_grads(t.gan, placed, gen)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            log(f"[train] parity, {label}: loss_and_grads {time.perf_counter() - t0:.2f} s (fp32, "
+                f"TF32 off); launches {counts}")
+            if not label.startswith("control"):
+                launches[label] = counts
+        want_k3 = {"default": (0, 0), "kernel config": (2 * K3_SITES, K3_SITES)}
+        for label, counts in launches.items():
+            if k3_per_step(counts, 1) != want_k3[label]:
+                raise AssertionError(f"{label}: K3 forward and backward launched "
+                                     f"{k3_per_step(counts, 1)}, want {want_k3[label]}")
+        if sites.calls != {"forward": 2 * K3_SITES, "backward": K3_SITES}:
+            raise AssertionError(f"K3 site check saw {sites.calls}")
+        log(f"[parity] train K3 at every launch of the kernel config's step against the plain "
+            f"version on the same inputs (difference / the output's max-abs, tolerance "
+            f"{K3_SITE_TOL}): {sites.summary()}")
+        # the binarizers' draws: netE4label's first, then netE's
+        with torch.no_grad():
+            pre = {label: t.gan.codec.get_presign(t.gan.codec.prepare(t.place(b)))
+                   for label, t, b in (("default", base, batch), ("kernel config", fused, batch),
+                                       ("control 1", base, controls[0]),
+                                       ("control 2", base, controls[1]))}
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for i, name in enumerate(("netE4label", "netE")):
+            x0 = pre["default"][i]
+            u = torch.rand(x0.shape, dtype=x0.dtype, device="cuda", generator=gen)
+            near = ((1.0 - x0) / 2.0 - u).abs() < 1e-5
+            flips = {}
+            for label in ("kernel config", "control 1", "control 2"):
+                flipped = ((1.0 - x0) / 2.0 <= u) != ((1.0 - pre[label][i]) / 2.0 <= u)
+                flips[label] = int(flipped.sum())
+                if (flipped & ~near).any():
+                    raise AssertionError(f"{name}, {label}: a binarizer bit differs away from "
+                                         "its threshold")
+            log(f"[parity] train {name} stochastic bits that differ from the default's, of "
+                f"{x0.numel()}: " + ", ".join(f"{k} {v}" for k, v in flips.items())
+                + f"; all within 1e-5 of the threshold ({int(near.sum())} bits lie there)")
+            if flips["control 1"] or flips["control 2"]:
+                raise AssertionError(f"{name}: a control flipped a binarizer bit, so its "
+                                     "gradients are no measure of rounding alone")
+        (m0, g0), (m1, g1) = out["default"], out["kernel config"]
+        worst = 0.0
+        for k in step.METRICS:
+            a, b = m0[k].item(), m1[k].item()
+            rel = abs(b - a) / abs(a) if a else abs(b)
+            worst = max(worst, rel)
+            if not (np.isfinite(a) and rel <= 1e-4):
+                raise AssertionError(f"parity: {k} {b} against {a}")
+        log(f"[parity] train metrics, kernel config vs default: "
+            + ", ".join(f"{k} {m1[k].item():.6f} / {m0[k].item():.6f}" for k in step.METRICS)
+            + f"; largest relative difference {worst:.2e} (tolerance 1e-4)")
+        others = ("kernel config", "control 1", "control 2")
+        for j, (net, module) in enumerate((("G", base.gan.codec), ("D", base.gan.disc))):
+            names = [n for n, _ in module.named_parameters()]
+            top = max(g.abs().max().item() for g in g0[j])
+            zero = 0.0
+            l2 = dict.fromkeys(others, (0.0, ""))
+            peak = dict.fromkeys(others, (0.0, ""))
+            for i, (n, a) in enumerate(zip(names, g0[j])):
+                if NORMED_BIAS.search(n):
+                    zero = max(zero, a.abs().max().item(), g1[j][i].abs().max().item())
+                    continue
+                for label in others:
+                    d = out[label][1][j][i] - a
+                    rel2 = (d.norm() / a.norm()).item()
+                    relmax = (d.abs().max() / a.abs().max()).item()
+                    l2[label] = max(l2[label], (rel2, n))
+                    peak[label] = max(peak[label], (relmax, n))
+            noise = max(l2["control 1"][0], l2["control 2"][0])
+            bound = min(GRAD_CEIL[net], max(GRAD_TOL, 2 * noise))
+            log(f"[parity] train {net} gradients, {len(names)} tensors; largest relative L2 "
+                f"difference and largest difference against a tensor's max-abs, each against "
+                f"the default: " + "; ".join(
+                    f"{label} {l2[label][0]:.2e} at {l2[label][1]}, {peak[label][0]:.2e} at "
+                    f"{peak[label][1]}" for label in others)
+                + f". Bound for the kernel config: {bound:.2e} (GRAD_TOL {GRAD_TOL} or twice "
+                f"the controls', at most {GRAD_CEIL[net]}). The biases an InstanceNorm follows at most {zero:.2e} (0 to "
+                f"rounding; largest gradient {top:.3e})")
+            if not (l2["kernel config"][0] <= bound and zero <= 1e-5 * top):
+                raise AssertionError(f"parity: {net} gradients differ: {l2}, norm-fed biases "
+                                     f"{zero} (top {top})")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return launches
+
+
+def profile_step(label: str, trainer, batch, card: str) -> None:
+    """One more step under the profiler (after the counted ones): the
+    device's busy time against the step's wall time, split into
+    convolutions and GEMMs (cuDNN, cuBLAS), K3 (forward, backward) and
+    the rest (element-wise, reductions, the optimizer), and the largest
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    groups = {"conv/gemm": 0.0, "K3": 0.0, "rest": 0.0}
+    conv = re.compile(r"conv|cudnn|xmma|gemm|wgrad|dgrad|fprop|cutlass|sm90|sm80", re.I)
+    for e in kernels:
+        key = ("K3" if "instance_norm_kernel" in e.key or "instance_norm_bwd_kernel" in e.key
+               else "conv/gemm" if conv.search(e.key) else "rest")
+        groups[key] += e.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[train] {label}: one profiled step, wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({busy / wall:.0%}): " + ", ".join(f"{k} {v:.1f} ms" for k, v in groups.items())
+        + f"; {sum(e.count for e in kernels)} kernel launches; largest: " + "; ".join(
+            f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms" for e in top)
+        + f" ({card})")
+
+
+def phase_train_steps(seed: int, steps: int, card: str) -> dict:
+    """(b) ``steps`` Trainer.steps of each configuration at PyTorch's default
+    precision (convolutions in TF32, matmuls in fp32): the median step after
+    the first, images/s, peak memory, finite losses, K3's launches per step;
+    then one more step under the profiler. Returns each configuration's
+    launch counts."""
+    from jpdse_tpu_torch.trainer import Trainer
+
+    if not (torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("the timed steps run at PyTorch's default precision")
+    batches = [make_batch(seed + 100 + i, TRAIN_BATCH) for i in range(steps)]
+    launches, medians = {}, {}
+    for label, kernels in (("default", False), ("kernel config", True)):
+        torch.cuda.empty_cache()
+        trainer = Trainer(flagship_train_config(kernels, seed), mode="train", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times, losses = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            metrics = trainer.step(b)  # ends in the metrics' host fetch
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"{label}: losses {metrics}")
+        launches[label] = counts = read_counts()
+        want = (2 * K3_SITES, K3_SITES) if kernels else (0, 0)
+        if k3_per_step(counts, steps) != want:
+            raise AssertionError(f"{label}: K3 forward and backward per step "
+                                 f"{k3_per_step(counts, steps)}, want {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = float(np.median(times[1:] if steps > 1 else times))
+        medians[label] = med
+        k3 = (f"K3 per step: forward {want[0]} ({K3_SITES} + {K3_SITES} in the remat "
+              f"recompute), backward {want[1]}" if kernels else "no K3")
+        log(f"[train] {label}: steps (ms) {', '.join(f'{t:.1f}' for t in times)}; median after "
+            f"the first {med:.1f} ms, {TRAIN_BATCH / med * 1e3:.3f} images/s; peak memory "
+            f"{peak:.2f} GiB; {k3}; convolutions in TF32 ({card})")
+        log(f"[train] {label}: losses of the last step " + ", ".join(
+            f"{k} {v:.4f}" for k, v in losses[-1].items()) + f"; steps taken "
+            f"{trainer.steps_taken}")
+        profile_step(label, trainer, batches[-1], card)
+        del trainer
+    log(f"[train] kernel config step / default step: "
+        f"{medians['kernel config'] / medians['default']:.3f} ({card})")
+    return launches
+
+
+def phase_train_entry(seed: int, card: str) -> dict:
+    """(c) train.run.main in the kernel configuration on a synthetic
+    Cityscapes train/val split (EVAL_IMAGES triplets each at 2048x1024,
+    read 'fixed' to 1024x512): one epoch of 2 steps, validation and a
+    best-val save; a fresh Trainer restores it (steps taken, the eval loss);
+    then a second main resumes, validates the load, trains an epoch and
+    writes save_dir/latest. Counts are set to 0 before each main and
+    asserted after it. Returns both mains' counts."""
+    from jpdse_tpu_torch.cli import parse_config
+    from jpdse_tpu_torch.config import derive_eval_config
+    from jpdse_tpu_torch.data import create_dataloader
+    from jpdse_tpu_torch.train import run
+    from jpdse_tpu_torch.trainer import Trainer
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="jpdse_train_") as tmp:
+        root, out = Path(tmp) / "cityscapes", Path(tmp) / "run"
+        for split in ("train", "val"):
+            write_cityscapes(root, seed + (split == "train"), split)
+        mode, load, crop, _ = FLAGSHIP_PREPROCESS
+        argv = ["--dataset", "cityscapes", "--root_dir", str(root), "--no_generator_binarization",
+                "--normalize_std", "1", "--batch_size", str(TRAIN_BATCH), "--remat", "1",
+                "--seed", str(seed), "--num_workers", "2", "--max_recon_dump", "2",
+                "--fused_instance_norm", "1", "--save_dir", str(out)]
+        for prefix in ("", "val_"):
+            argv += [f"--{prefix}preprocess_mode", mode, f"--{prefix}load_size", str(load),
+                     f"--{prefix}crop_size", str(crop)]
+        steps = EVAL_IMAGES // TRAIN_BATCH
+        images = {"first": EVAL_IMAGES + 2, "resumed": EVAL_IMAGES}  # validated and dumped
+        runs = {"first": argv + ["--num_epochs", "1", "--val_interval", "1"],
+                "resumed": argv + ["--num_epochs", "1", "--val_interval", "5", "--load_model",
+                                   "--checkpoints_dir", str(out), "--latest_interval", "1"]}
+        trainers = {}
+        for label, args in runs.items():
+            torch.cuda.empty_cache()
+            want = {"fused_instance_norm": steps * 2 * K3_SITES + images[label] * K3_SITES,
+                    "fused_instance_norm_bwd": steps * K3_SITES}
+            trainer, _, counts = run_entry(
+                label, "train.run.main", lambda: run.main(args, device="cuda"), want, per=1,
+                tag="[train]", keep=("epoch ", "val set avg", "saving model", "checkpoint",
+                                     "resuming", "latest-state", "device_cache", "restored"))
+            trainers[label] = trainer
+            launches[f"train entry: {label}"] = counts
+            if label == "first":
+                cfg = parse_config(argv, is_train=True)
+                val = next(iter(create_dataloader(derive_eval_config(cfg, "val"))))
+                loss = trainer.get_eval_loss(val)
+                cfg.checkpoints_dir = cfg.save_dir
+                with contextlib.redirect_stdout(io.StringIO()):
+                    again = Trainer(cfg, mode="train", device="cuda")
+                    again.load()
+                got = again.get_eval_loss(val)
+                if again.steps_taken != steps or again.start_epoch != 1 or abs(got - loss) > 1e-4:
+                    raise AssertionError(f"restore: steps {again.steps_taken}, epoch "
+                                         f"{again.start_epoch}, eval loss {got} against {loss}")
+                log(f"[train] restored from the best-val save: steps taken {again.steps_taken}, "
+                    f"eval loss {got:.6f} against {loss:.6f} before the save")
+                del again, trainer
+                trainers.pop(label)
+        resumed = trainers["resumed"]
+        latest = json.loads((out / "latest/trainer_meta.json").read_text())
+        if resumed.start_epoch != 1 or resumed.steps_taken != 2 * steps or latest["epoch"] != 1:
+            raise AssertionError(f"resume: start epoch {resumed.start_epoch}, steps "
+                                 f"{resumed.steps_taken}, latest epoch {latest['epoch']}")
+        files = sorted(p.name for p in out.iterdir())
+        log(f"[train] resumed main: started at epoch {resumed.start_epoch + 1}, steps taken "
+            f"{resumed.steps_taken}, save_dir/latest at epoch {latest['epoch']}; save_dir holds "
+            f"{files}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--train-steps", type=int, default=4)
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -968,7 +1480,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = [phase_k1(card, gen), phase_k2(card, gen), phase_k3(card, gen),
-               phase_k4(card, gen)]
+               phase_k3_bwd(card, gen), phase_k4(card, gen)]
 
     cfg = flagship_config()
     kcfg = flagship_config(kernels=True)
@@ -980,15 +1492,29 @@ def main() -> int:
     eval_launches = phase_eval(codec, args.seed, card)
     for label, counts in eval_launches.items():
         launches[f"eval: {label}"] = counts
+    del codec
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_launches = {f"train parity: {k}": v for k, v in
+                      phase_train_parity(args.seed, card).items()}
+    train_launches.update({f"train steps: {k}": v for k, v in
+                           phase_train_steps(args.seed, args.train_steps, card).items()})
+    train_launches.update(phase_train_entry(args.seed, card))
+    log(f"[train] training phase {time.perf_counter() - t0:.1f} s")
+    launches.update(train_launches)
     for e in entries:
-        in_eval = sum(eval_launches[label][e["name"]] for label in eval_launches)
-        if in_eval == 0:
-            raise AssertionError(f"{e['name']} was not launched in the eval phase")
-        by_path = {label: counts[e["name"]] for label, counts in launches.items()}
+        name = e["name"]
+        in_eval = sum(eval_launches[label][name] for label in eval_launches)
+        in_train = sum(train_launches[label][name] for label in train_launches)
+        if name != "fused_instance_norm_bwd" and in_eval == 0:
+            raise AssertionError(f"{name} was not launched in the eval phase")
+        if name.startswith("fused_instance_norm") and in_train == 0:
+            raise AssertionError(f"{name} was not launched in the training phase")
+        by_path = {label: counts[name] for label, counts in launches.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
         if e["launches"] == 0:
-            raise AssertionError(f"{e['name']} was not launched on any serving path")
+            raise AssertionError(f"{name} was not launched on any path")
 
     log(card)
     log(json.dumps({"kernels": entries}))

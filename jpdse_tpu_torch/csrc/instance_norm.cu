@@ -1,5 +1,5 @@
-// Fused InstanceNorm (+ReLU) (+residual) (kernel K3, forward), for Hopper
-// (sm_90a).
+// Fused InstanceNorm (+ReLU) (+residual) (kernel K3) and its backward, for
+// Hopper (sm_90a).
 //
 // Replaces the forward of jpdse_tpu/ops/pallas/instance_norm.py::
 // fused_instance_norm (_kernel, _forward): for x (B, H, W, C) in NHWC,
@@ -30,6 +30,20 @@
 //      phase 1: the rows read last, still in L2, first, and the rows it
 //      kept in shared memory last, without touching device memory.
 // No float atomics, so two runs give the same bits.
+//
+// The backward (instance_norm_bwd_kernel) replaces _fused_in_bwd of the same
+// file, the custom VJP JAX differentiates K3 through: with xhat = (x - mean)
+// * rstd from the forward's statistics and g' = g * [xhat > 0] under ReLU,
+// dx = rstd * (g' - mean(g') - xhat * mean(g' * xhat)), one cast to x's type;
+// the residual's gradient is g itself and needs no kernel. Bound: bytes, one
+// read of x and of g and one write of dx (at (1, 512, 1024, 64) bf16, 3 x
+// 67.1 MB: 60 us at 3.35 TB/s). The same cooperative launch and partition
+// as the forward: 1. each block sums g' and g' * xhat over its chunk's rows
+// (16-byte loads, fp32), merges its pixel lanes in a fixed tree and writes
+// one partial per (b, chunk, c); grid barrier; 2. one warp per (b, c) adds
+// the chunks in a fixed order into the two means; grid barrier; 3. each
+// block reads its rows of x and g again and writes dx. No shared-memory
+// cache of the first read yet: the second read comes from L2 where it can.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -283,6 +297,177 @@ instance_norm_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __re
   }
 }
 
+// -- K3 backward ---------------------------------------------------------------
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         const float* __restrict__ stats, T* __restrict__ dx,
+                         float* __restrict__ partial, float* __restrict__ means, Plan p,
+                         int relu) {
+  using W = Vec<T, V>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* red_g = reinterpret_cast<float*>(smem);  // per thread: V sums of g', V of g' * xhat
+  float* red_gx = red_g + kThreads * V;
+
+  const int tid = threadIdx.x;
+  const int lane_p = tid / p.tile, gl = tid % p.tile;
+  const int items = p.batch * p.tiles * p.chunks;
+  const W* xv = reinterpret_cast<const W*>(x);
+  const W* gv = reinterpret_cast<const W*>(g);
+  W* dv = reinterpret_cast<W*>(dx);
+
+  // -- 1. per-chunk sums of g' and g' * xhat -------------------------------
+  for (int q = blockIdx.x; q < items; q += gridDim.x) {
+    const Item w = item(p, q);
+    const int gi = w.g0 + gl;
+    const bool active = lane_p < p.pix && gi < p.groups;
+    const long long base = static_cast<long long>(w.b) * p.hw * p.groups + gi;
+    float sg[V], sgx[V], mean[V], rstd[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      sg[v] = sgx[v] = 0.f;
+      mean[v] = rstd[v] = 0.f;
+      if (active) {
+        const float* st = stats + 2 * (static_cast<long long>(w.b) * p.c + gi * V + v);
+        mean[v] = st[0];
+        rstd[v] = st[1];
+      }
+    }
+    for (int k0 = 0; active && k0 < w.iters; k0 += kBatch) {
+      W xb[kBatch], gb[kBatch];
+      bool ok[kBatch];
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
+        ok[kk] = k0 + kk < w.iters && r < w.r1;
+        if (ok[kk]) {
+          xb[kk] = xv[base + r * p.groups];
+          gb[kk] = gv[base + r * p.groups];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        if (!ok[kk]) continue;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float xh = (to_f(xb[kk].v[v]) - mean[v]) * rstd[v];
+          float gg = to_f(gb[kk].v[v]);
+          if (relu && !(xh > 0.f)) gg = 0.f;
+          sg[v] += gg;
+          sgx[v] += gg * xh;
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      red_g[tid * V + v] = sg[v];
+      red_gx[tid * V + v] = sgx[v];
+    }
+    __syncthreads();
+    for (int s = 1; s < p.pix; s *= 2) {
+      if (lane_p % (2 * s) == 0 && lane_p + s < p.pix) {
+        const int o = tid + s * p.tile;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          red_g[tid * V + v] += red_g[o * V + v];
+          red_gx[tid * V + v] += red_gx[o * V + v];
+        }
+      }
+      __syncthreads();
+    }
+    if (lane_p == 0 && gi < p.groups) {
+      const int chunk = q % p.chunks;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float* o = partial + ((static_cast<long long>(w.b) * p.chunks + chunk) * p.c +
+                              gi * V + v) * 2;
+        o[0] = red_g[tid * V + v];
+        o[1] = red_gx[tid * V + v];
+      }
+    }
+    __syncthreads();  // the reduction area is reused by the next item
+  }
+
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  grid.sync();
+
+  // -- 2. one warp per (b, c): the chunks added in a fixed order ------------
+  {
+    const int lane = tid % 32;
+    const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+    const float inv_hw = 1.0f / static_cast<float>(p.hw);
+    for (long long i = (static_cast<long long>(blockIdx.x) * kThreads + tid) / 32;
+         i < static_cast<long long>(p.batch) * p.c; i += warps) {
+      const long long b = i / p.c, ch = i % p.c;
+      float a = 0.f, ax = 0.f;
+      for (int k = lane; k < p.chunks; k += 32) {
+        const float* q = partial + ((b * p.chunks + k) * p.c + ch) * 2;
+        a += q[0];
+        ax += q[1];
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_down_sync(0xffffffffu, a, off);
+        ax += __shfl_down_sync(0xffffffffu, ax, off);
+      }
+      if (lane == 0) {
+        means[2 * i] = a * inv_hw;
+        means[2 * i + 1] = ax * inv_hw;
+      }
+    }
+  }
+  grid.sync();
+
+  // -- 3. dx = rstd * (g' - mean(g') - xhat * mean(g' * xhat)) --------------
+  for (int q = blockIdx.x; q < items; q += gridDim.x) {
+    const Item w = item(p, q);
+    const int gi = w.g0 + gl;
+    if (!(lane_p < p.pix && gi < p.groups)) continue;
+    const long long base = static_cast<long long>(w.b) * p.hw * p.groups + gi;
+    float mean[V], rstd[V], gm[V], gx[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const long long i = static_cast<long long>(w.b) * p.c + gi * V + v;
+      mean[v] = stats[2 * i];
+      rstd[v] = stats[2 * i + 1];
+      gm[v] = means[2 * i];
+      gx[v] = means[2 * i + 1];
+    }
+    for (int k0 = 0; k0 < w.iters; k0 += kBatch) {
+      W xb[kBatch], gb[kBatch];
+      bool ok[kBatch];
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
+        ok[kk] = k0 + kk < w.iters && r < w.r1;
+        if (ok[kk]) {
+          xb[kk] = xv[base + r * p.groups];
+          gb[kk] = gv[base + r * p.groups];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        if (!ok[kk]) continue;
+        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
+        W o;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float xh = (to_f(xb[kk].v[v]) - mean[v]) * rstd[v];
+          float gg = to_f(gb[kk].v[v]);
+          if (relu && !(xh > 0.f)) gg = 0.f;
+          from_f(o.v[v], rstd[v] * (gg - gm[v] - xh * gx[v]));
+        }
+        dv[base + r * p.groups] = o;
+      }
+    }
+  }
+}
+
+template <int V>
+constexpr int bwd_smem_bytes() {
+  return kThreads * 2 * V * static_cast<int>(sizeof(float));
+}
+
 // Dynamic shared memory of one block: all the device lets a block opt in
 // to, so one block sits on each SM and caches what it can.
 int smem_bytes(int* bytes) {
@@ -294,11 +479,13 @@ int smem_bytes(int* bytes) {
 
 constexpr int kMaxDevices = 64;
 
-// The most blocks of instance_norm_kernel<T, V> resident at once on the
-// current device (its SM count x blocks per SM at smem_bytes), which is
-// the most a cooperative launch takes. Asked once per device: the launch
-// is on the host's critical path at batch 1.
-template <typename T, int V>
+// The most blocks of the kernel resident at once on the current device (its
+// SM count x blocks per SM at its shared memory), which is the most a
+// cooperative launch takes: instance_norm_kernel<T, V> with all the shared
+// memory a block may opt in to, or instance_norm_bwd_kernel<T, V> with its
+// reduction area. Asked once per device and kernel: the launch is on the
+// host's critical path at batch 1.
+template <typename T, int V, bool kBwd>
 int max_blocks(int* blocks) {
   static int known[kMaxDevices] = {};
   int dev = 0, sms = 0, smem = 0, per_sm = 0;
@@ -308,15 +495,19 @@ int max_blocks(int* blocks) {
     *blocks = known[dev];
     return 0;
   }
-  rc = static_cast<cudaError_t>(smem_bytes(&smem));
+  const void* kernel = kBwd ? reinterpret_cast<const void*>(instance_norm_bwd_kernel<T, V>)
+                            : reinterpret_cast<const void*>(instance_norm_kernel<T, V>);
+  if (kBwd) {
+    smem = bwd_smem_bytes<V>();
+  } else {
+    rc = static_cast<cudaError_t>(smem_bytes(&smem));
+  }
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess) {
-    rc = cudaFuncSetAttribute(instance_norm_kernel<T, V>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   if (rc == cudaSuccess) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, instance_norm_kernel<T, V>,
-                                                       kThreads, smem);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   }
   *blocks = per_sm * sms;
   if (rc == cudaSuccess && dev < kMaxDevices) known[dev] = *blocks;
@@ -338,6 +529,18 @@ int run(const void* x, const void* res, void* y, float* partial, float* stats, P
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(instance_norm_kernel<T, V>), dim3(grid), dim3(kThreads), args,
       static_cast<size_t>(smem), s));
+}
+
+template <typename T, int V>
+int run_bwd(const void* x, const void* g, const float* stats, void* dx, float* partial,
+            float* means, Plan p, int grid, int relu, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  T* dt = static_cast<T*>(dx);
+  void* args[] = {&xt, &gt, &stats, &dt, &partial, &means, &p, &relu};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(instance_norm_bwd_kernel<T, V>), dim3(grid), dim3(kThreads),
+      args, static_cast<size_t>(bwd_smem_bytes<V>()), s));
 }
 
 // The partition of ops/instance_norm.py::plan: slabs are (batch element,
@@ -385,8 +588,8 @@ extern "C" int instance_norm_launch(const void* x, const void* res, void* y, voi
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int blocks = 0;
-  const int rc = elt_size == 2 ? (vec ? max_blocks<bf16, 8>(&blocks) : max_blocks<bf16, 1>(&blocks))
-                               : (vec ? max_blocks<float, 4>(&blocks) : max_blocks<float, 1>(&blocks));
+  const int rc = elt_size == 2 ? (vec ? max_blocks<bf16, 8, false>(&blocks) : max_blocks<bf16, 1, false>(&blocks))
+                               : (vec ? max_blocks<float, 4, false>(&blocks) : max_blocks<float, 1, false>(&blocks));
   if (rc != 0) return rc;
   if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   int grid = 0;
@@ -400,4 +603,40 @@ extern "C" int instance_norm_launch(const void* x, const void* res, void* y, voi
   }
   return vec ? run<float, 4>(x, res, y, pt, st, p, grid, relu, eps, s)
              : run<float, 1>(x, res, y, pt, st, p, grid, relu, eps, s);
+}
+
+// The backward of instance_norm_launch. x, g (the output's gradient), dx:
+// (batch, hw, c) contiguous, of one type (elt_size 2: bf16, 4: fp32), 16-byte
+// aligned when vec is 1; stats: the forward's (batch, c, 2) fp32 mean and
+// rstd; partial: fp32 workspace of batch * chunk_cap * c * 2; means: fp32
+// workspace of batch * c * 2; all allocated by the caller. One cooperative
+// launch. Returns a cudaError_t: 0 when it was accepted.
+extern "C" int instance_norm_bwd_launch(const void* x, const void* g, const void* stats, void* dx,
+                                        void* partial, void* means, long long hw, int batch,
+                                        int c, int chunk_cap, int relu, int vec, int elt_size,
+                                        void* stream) {
+  const int v = vec ? 16 / (elt_size > 0 ? elt_size : 1) : 1;
+  if (batch < 1 || hw < 1 || c < 1 || chunk_cap < 1 || c % v ||
+      (elt_size != 2 && elt_size != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int blocks = 0;
+  const int rc = elt_size == 2
+                     ? (vec ? max_blocks<bf16, 8, true>(&blocks) : max_blocks<bf16, 1, true>(&blocks))
+                     : (vec ? max_blocks<float, 4, true>(&blocks)
+                            : max_blocks<float, 1, true>(&blocks));
+  if (rc != 0) return rc;
+  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  int grid = 0;
+  Plan p = make_plan(hw, batch, c, v, blocks, chunk_cap, &grid);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* st = static_cast<const float*>(stats);
+  float* pt = static_cast<float*>(partial);
+  float* mt = static_cast<float*>(means);
+  if (elt_size == 2) {
+    return vec ? run_bwd<bf16, 8>(x, g, st, dx, pt, mt, p, grid, relu, s)
+               : run_bwd<bf16, 1>(x, g, st, dx, pt, mt, p, grid, relu, s);
+  }
+  return vec ? run_bwd<float, 4>(x, g, st, dx, pt, mt, p, grid, relu, s)
+             : run_bwd<float, 1>(x, g, st, dx, pt, mt, p, grid, relu, s);
 }

@@ -50,6 +50,9 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
     def _index_batches(self) -> List[List[int]]:
         idx = np.arange(len(self.dataset))
         if self.shuffle:

@@ -9,6 +9,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.generator import Encoder, GlobalGenerator
@@ -36,9 +37,10 @@ class SemanticCodec(nn.Module):
     """netG + netE4label + netE with random weights from ``seed`` (or zeros
     with ``seed=None``, for loading a state dict). Parameters are fp32;
     activations run in ``dtype`` (default: the config's compute dtype).
-    ``model.fused_instance_norm`` runs every norm site through kernel K3,
-    forward only: call it under ``torch.no_grad()`` or
-    ``torch.inference_mode()``."""
+    ``model.fused_instance_norm`` runs every norm site through kernel K3
+    (differentiable). ``optim.remat`` recomputes activations in the
+    backward: each block at ``remat_granularity`` 'block', the whole
+    decode at 'decode'."""
 
     def __init__(self, cfg: Config, device="cuda", seed: Optional[int] = 0, dtype=None):
         super().__init__()
@@ -49,27 +51,49 @@ class SemanticCodec(nn.Module):
         m = cfg.model
         dev = resolve_device(device)
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        remat = cfg.optim.remat and cfg.optim.remat_granularity == "block"
+        self.remat_decode = cfg.optim.remat and cfg.optim.remat_granularity == "decode"
         self.netG = build(lambda: GlobalGenerator(
             cfg.netG_input_nc, cfg.data.num_out_channels, m.ngf,
-            m.n_downsample_global, m.n_blocks_global, m.fused_instance_norm), dev, gen)
+            m.n_downsample_global, m.n_blocks_global, m.fused_instance_norm, remat), dev, gen)
         self.netE = build(lambda: Encoder(
             cfg.netE_input_nc, m.feat_num, m.nef, m.n_downsample_E, binarize=True,
             binarizer_out_channels=m.encoder_binarizer_out_channels,
-            fused=m.fused_instance_norm), dev, gen)
+            fused=m.fused_instance_norm, remat=remat), dev, gen)
         self.netE4label = build(lambda: Encoder(
             cfg.netE4label_input_nc, m.label_encoder_out_channels, m.ne4lf,
             m.n_downsample_E4label, binarize=True,
             binarizer_out_channels=m.label_encoder_binarizer_out_channels,
-            fused=m.fused_instance_norm), dev, gen)
+            fused=m.fused_instance_norm, remat=remat), dev, gen)
 
     def prepare(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return prepare_inputs(self.cfg, batch["label"], batch["instance"], batch["image"].to(self.dtype))
 
-    def decode(self, inputs):
-        """Full reconstruction from prepared inputs (deterministic)."""
-        label = self.netE4label(inputs["input_label"])
-        feat = self.netE(inputs["real_image"])
-        return self.netG(torch.cat([label, feat.to(label.dtype)], dim=-1))
+    def decode(self, inputs, train: bool = False, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None):
+        """Full reconstruction from prepared inputs: (fake image, the label
+        encoder's output), as the JAX package's ``decode`` returns them. In
+        training (``deterministic`` False) the binarizers draw from
+        ``generator``. ``train`` selects the norms' training mode in JAX,
+        which instance norms do not read; it is kept for the signature."""
+        del train
+        if self.remat_decode and torch.is_grad_enabled():
+            # the recompute replays the binarizers' draws from the same state
+            state = None if generator is None else generator.get_state()
+
+            def run(label, image):
+                if state is not None:
+                    generator.set_state(state)
+                return self._decode(label, image, deterministic, generator)
+
+            return checkpoint(run, inputs["input_label"], inputs["real_image"],
+                              use_reentrant=False)
+        return self._decode(inputs["input_label"], inputs["real_image"], deterministic, generator)
+
+    def _decode(self, input_label, image, deterministic, generator):
+        label = self.netE4label(input_label, deterministic, generator)
+        feat = self.netE(image, deterministic, generator)
+        return self.netG(torch.cat([label, feat.to(label.dtype)], dim=-1)), label
 
     def get_codes_shaped(self, inputs) -> List[torch.Tensor]:
         """Codes in (B, h, w, C) layout with values (sign + 1) / 2, in the

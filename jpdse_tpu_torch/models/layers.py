@@ -7,15 +7,24 @@ a layout change. Activations stay NHWC; each conv permutes to PyTorch's NCHW
 view, which on an NHWC-contiguous tensor is the channels-last layout cuDNN
 takes without a copy. Weights are cast to the activation's dtype at the call,
 as Flax's ``dtype=`` does.
+
+``remat`` on a block (``ConvNormAct``, ``ConvTransposeNormAct``,
+``ResnetBlock``) recomputes its forward in the backward instead of keeping
+its activations, the twin of the JAX package's block-granular ``nn.remat``
+(``jpdse_tpu/models/generator.py:58-68``); it acts only where autograd
+records the call.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from jpdse_tpu_torch.ops.instance_norm import fused_instance_norm
 
@@ -63,6 +72,37 @@ def instance_norm(x, eps: float = 1e-5):
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def leaky_relu(x, negative_slope: float = 0.2):
+    return F.leaky_relu(x, negative_slope)
+
+
+@functools.lru_cache(maxsize=64)
+def _pool_valid_counts(h: int, w: int) -> np.ndarray:
+    """Valid-element counts of a 3x3 / stride-2 / pad-1 window over an (h, w)
+    grid."""
+    oh, ow = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
+    ch = np.array([min(2 * i + 2, h) - max(2 * i - 1, 0) for i in range(oh)], np.float32)
+    cw = np.array([min(2 * j + 2, w) - max(2 * j - 1, 0) for j in range(ow)], np.float32)
+    return np.outer(ch, cw)
+
+
+def avg_pool_3s2(x):
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) of an NHWC
+    tensor: the window sums over the valid-element counts, as the JAX
+    package computes it."""
+    sums = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1, divisor_override=1).permute(0, 2, 3, 1)
+    counts = torch.from_numpy(_pool_valid_counts(x.shape[1], x.shape[2])).to(x.device, x.dtype)
+    return sums / counts[None, :, :, None]
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat`` is set and
+    autograd records the call."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _fused_norm(x, relu: bool = False, residual=None):
     """InstanceNorm [+ReLU] [+residual] as one call to kernel K3
     (ops/instance_norm.py)."""
@@ -99,12 +139,15 @@ class ConvNormAct(nn.Module):
     norm and ReLU are one call to kernel K3."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, reflect: int = 0, fused: bool = False):
+                 padding: int = 0, reflect: int = 0, fused: bool = False, remat: bool = False):
         super().__init__()
-        self.reflect, self.fused = reflect, fused
+        self.reflect, self.fused, self.remat = reflect, fused, remat
         self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding)
 
     def forward(self, x):
+        return remat_call(self.remat, self._forward, x)
+
+    def _forward(self, x):
         if self.reflect:
             x = reflect_pad(x, self.reflect)
         if self.fused:
@@ -117,12 +160,15 @@ class ConvTransposeNormAct(nn.Module):
     with ``fused``). Also serves as the Encoder's
     ``GroupedConvTransposeNormAct`` at groups=1, the only grouping ported."""
 
-    def __init__(self, in_ch: int, out_ch: int, fused: bool = False):
+    def __init__(self, in_ch: int, out_ch: int, fused: bool = False, remat: bool = False):
         super().__init__()
-        self.fused = fused
+        self.fused, self.remat = fused, remat
         self.deconv = nn.ConvTranspose2d(in_ch, out_ch, 3, 2, 1, output_padding=1)
 
     def forward(self, x):
+        return remat_call(self.remat, self._forward, x)
+
+    def _forward(self, x):
         h = conv_transpose_nhwc(x, self.deconv.weight, self.deconv.bias)
         if self.fused:
             return _fused_norm(h, relu=True)
@@ -134,13 +180,16 @@ class ResnetBlock(nn.Module):
     With ``fused`` each norm is one K3 call, the second taking the skip as
     its residual."""
 
-    def __init__(self, dim: int, fused: bool = False):
+    def __init__(self, dim: int, fused: bool = False, remat: bool = False):
         super().__init__()
-        self.fused = fused
+        self.fused, self.remat = fused, remat
         self.conv1 = Conv(dim, dim, 3)
         self.conv2 = Conv(dim, dim, 3)
 
     def forward(self, x):
+        return remat_call(self.remat, self._forward, x)
+
+    def _forward(self, x):
         if self.fused:
             h = _fused_norm(self.conv1(reflect_pad(x, 1)), relu=True)
             return _fused_norm(self.conv2(reflect_pad(h, 1)), residual=x)

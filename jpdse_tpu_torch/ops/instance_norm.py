@@ -1,5 +1,6 @@
-"""Fused InstanceNorm (+ReLU) (+residual) (kernel K3, forward), the port of
-``jpdse_tpu/ops/pallas/instance_norm.py::fused_instance_norm``.
+"""Fused InstanceNorm (+ReLU) (+residual) (kernel K3) and its backward, the
+port of ``jpdse_tpu/ops/pallas/instance_norm.py::fused_instance_norm`` and
+its custom VJP ``_fused_in_bwd``.
 
 With ``model.fused_instance_norm`` on, every norm site of the standard
 path's modules (``models/layers.py``, ``models/generator.py``) runs as one
@@ -11,7 +12,13 @@ across the blocks resident on the card (:func:`plan`), so it takes a slab
 of any size; :func:`fused_instance_norm_plain` is its plain PyTorch
 version, which the wrapper takes for CPU tensors.
 
-Forward only: the backward comes with training.
+Under autograd the call is :class:`FusedInstanceNorm`: its forward keeps x
+and, on the card, K3's fp32 per-(b, c) mean and rstd; its backward is a
+second kernel of the same file (``instance_norm_bwd_kernel``, one
+cooperative launch on the forward's partition), wrapped by
+:func:`fused_instance_norm_bwd`, whose plain version
+:func:`fused_instance_norm_bwd_plain` recomputes the statistics from x as
+JAX's ``_fused_in_bwd`` does. The residual's gradient is the output's.
 """
 
 from __future__ import annotations
@@ -27,11 +34,17 @@ THREADS = 512  # csrc/instance_norm.cu kThreads
 MAX_CHUNKS = 1024  # bounds the partials' workspace; the launcher keeps to it
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The type the plain versions compute in: fp32, or float64 for a
+    float64 input (the gradient check)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def fused_instance_norm_plain(x: torch.Tensor, residual: Optional[torch.Tensor] = None,
                               relu: bool = False, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm(x) [+ReLU] [+residual] over (H, W) of an NHWC tensor:
     two-pass fp32 statistics, the residual added in fp32, one cast."""
-    x32 = x.float()
+    x32 = x.to(_acc(x))
     mean = x32.mean(dim=(1, 2), keepdim=True)
     centered = x32 - mean
     var = (centered * centered).mean(dim=(1, 2), keepdim=True)
@@ -39,8 +52,34 @@ def fused_instance_norm_plain(x: torch.Tensor, residual: Optional[torch.Tensor] 
     if relu:
         y = torch.relu(y)
     if residual is not None:
-        y = y + residual.float()
+        y = y + residual.to(y.dtype)
     return y.to(x.dtype)
+
+
+def fused_instance_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor, relu: bool = False,
+                                  eps: float = 1e-5,
+                                  stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dx of :func:`fused_instance_norm_plain` for the output's gradient g,
+    the mirror of JAX's ``_fused_in_bwd``: statistics recomputed from x in
+    fp32, g masked by xhat > 0 under ReLU, dx = rstd * (g - mean(g) - xhat
+    * mean(g * xhat)), one cast to x's dtype. Given ``stats``, the
+    forward's fp32 (b, c, 2) mean and rstd, it uses them as the kernel
+    does: the same xhat, so the same side of the ReLU's kink where xhat is
+    0 to rounding."""
+    acc = _acc(x)
+    x32, g32 = x.to(acc), g.to(acc)
+    if stats is None:
+        mean = x32.mean(dim=(1, 2), keepdim=True)
+        var = ((x32 - mean) ** 2).mean(dim=(1, 2), keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+    else:
+        mean, rstd = (stats[..., i, None, None].transpose(1, 3).to(acc) for i in (0, 1))
+    xhat = (x32 - mean) * rstd
+    if relu:
+        g32 = torch.where(xhat > 0, g32, torch.zeros((), dtype=acc))
+    gm = g32.mean(dim=(1, 2), keepdim=True)
+    gx = (g32 * xhat).mean(dim=(1, 2), keepdim=True)
+    return (rstd * (g32 - gm - xhat * gx)).to(x.dtype)
 
 
 def vector_width(c: int, elt_size: int, aligned: bool = True) -> int:
@@ -99,39 +138,114 @@ def _launcher():
     return build.c_function("instance_norm", "instance_norm_launch", "pppppliiiiiif")
 
 
-def fused_instance_norm(x: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                        relu: bool = False, eps: float = 1e-5) -> torch.Tensor:
-    """InstanceNorm(x) [+ReLU] [+residual] of an NHWC tensor (B, H, W, C),
-    in x's dtype. A CUDA tensor runs the kernel (or raises); a CPU tensor
-    takes the plain version. Forward only: raises when autograd would need
-    a gradient. ``fused_instance_norm.launches`` counts kernel launches."""
-    if torch.is_grad_enabled() and (
-            x.requires_grad or (residual is not None and residual.requires_grad)):
-        raise RuntimeError("fused_instance_norm is forward only: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+@functools.cache
+def _bwd_launcher():
+    return build.c_function("instance_norm", "instance_norm_bwd_launch", "ppppppliiiiii")
+
+
+def _check_shapes(x: torch.Tensor, other: Optional[torch.Tensor], what: str) -> None:
     if x.ndim != 4:
         raise ValueError(f"expected (B, H, W, C), got shape {tuple(x.shape)}")
-    if residual is not None and residual.shape != x.shape:
-        raise ValueError(f"residual {tuple(residual.shape)} differs from x {tuple(x.shape)}")
+    if other is not None and other.shape != x.shape:
+        raise ValueError(f"{what} {tuple(other.shape)} differs from x {tuple(x.shape)}")
+
+
+def _aligned_vec(c: int, *tensors: torch.Tensor) -> int:
+    return vector_width(c, tensors[0].element_size(),
+                        all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _forward(x: torch.Tensor, residual: Optional[torch.Tensor], relu: bool, eps: float):
+    """(y, statistics): the plain version and None for a CPU tensor; on the
+    card K3's output and its fp32 (b, c, 2) mean and rstd."""
     if x.device.type == "cpu":
-        return fused_instance_norm_plain(x, residual, relu, eps)
+        return fused_instance_norm_plain(x, residual, relu, eps), None
     build.check_operand("fused_instance_norm", x)
     if residual is not None:
         build.check_operand("fused_instance_norm", residual, (x.dtype,))
     b, h, w, c = x.shape
     hw = h * w
     y = x.new_empty(x.shape)
-    ptrs = [x.data_ptr(), y.data_ptr()] + ([] if residual is None else [residual.data_ptr()])
-    vec = vector_width(c, x.element_size(), all(p % 16 == 0 for p in ptrs))
+    vec = _aligned_vec(c, x, y, *([] if residual is None else [residual]))
     cap = max_chunks(hw, c, vec)
-    # one fp32 workspace: the partials (b, cap, c, 3), then the statistics (b, c, 2)
-    work = x.new_empty(b * c * (3 * cap + 2), dtype=torch.float32)
+    partial = x.new_empty(b * cap * c * 3, dtype=torch.float32)
+    stats = x.new_empty((b, c, 2), dtype=torch.float32)
     build.launch("fused_instance_norm", _launcher(), x, x.data_ptr(),
                  0 if residual is None else residual.data_ptr(), y.data_ptr(),
-                 work.data_ptr(), work.data_ptr() + 4 * b * c * 3 * cap, hw, b, c, cap,
+                 partial.data_ptr(), stats.data_ptr(), hw, b, c, cap,
                  int(relu), int(vec > 1), x.element_size(), eps)
     fused_instance_norm.launches += 1
-    return y
+    return y, stats
+
+
+def fused_instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, stats: Optional[torch.Tensor],
+                            relu: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """dx of :func:`fused_instance_norm` for the output's gradient g. A CUDA
+    tensor runs the backward kernel on the forward's statistics ``stats``
+    (fp32 (b, c, 2) mean and rstd) or raises; a CPU tensor takes the plain
+    version, which recomputes them. ``fused_instance_norm_bwd.launches``
+    counts kernel launches."""
+    _check_shapes(x, g, "g")
+    if x.device.type == "cpu":
+        return fused_instance_norm_bwd_plain(x, g, relu, eps)
+    build.check_operand("fused_instance_norm_bwd", x)
+    build.check_operand("fused_instance_norm_bwd", g, (x.dtype,))
+    b, h, w, c = x.shape
+    if stats is None or stats.shape != (b, c, 2):
+        raise ValueError(f"fused_instance_norm_bwd: statistics of shape {(b, c, 2)} expected")
+    build.check_operand("fused_instance_norm_bwd", stats, (torch.float32,))
+    hw = h * w
+    dx = x.new_empty(x.shape)
+    vec = _aligned_vec(c, x, g, dx)
+    cap = max_chunks(hw, c, vec)
+    partial = x.new_empty(b * cap * c * 2, dtype=torch.float32)
+    means = x.new_empty((b, c, 2), dtype=torch.float32)
+    build.launch("fused_instance_norm_bwd", _bwd_launcher(), x, x.data_ptr(), g.data_ptr(),
+                 stats.data_ptr(), dx.data_ptr(), partial.data_ptr(), means.data_ptr(), hw, b,
+                 c, cap, int(relu), int(vec > 1), x.element_size())
+    fused_instance_norm_bwd.launches += 1
+    return dx
+
+
+fused_instance_norm_bwd.launches = 0
+
+
+class FusedInstanceNorm(torch.autograd.Function):
+    """K3 under autograd, the twin of JAX's ``_fused_in`` custom VJP: the
+    forward keeps x and the statistics, the backward launches
+    :func:`fused_instance_norm_bwd` for x and hands the output's gradient
+    to the residual."""
+
+    @staticmethod
+    def forward(ctx, x, residual, relu: bool, eps: float):
+        y, stats = _forward(x, residual, relu, eps)
+        ctx.save_for_backward(x, stats)
+        ctx.relu, ctx.eps, ctx.has_res = relu, eps, residual is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats = ctx.saved_tensors
+        dx = dres = None
+        if ctx.needs_input_grad[0]:
+            dx = fused_instance_norm_bwd(x, g.contiguous(), stats, ctx.relu, ctx.eps)
+        if ctx.has_res and ctx.needs_input_grad[1]:
+            dres = g
+        return dx, dres, None, None
+
+
+def fused_instance_norm(x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                        relu: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm(x) [+ReLU] [+residual] of an NHWC tensor (B, H, W, C),
+    in x's dtype. A CUDA tensor runs the kernel (or raises); a CPU tensor
+    takes the plain version. Differentiable: where autograd needs a
+    gradient the call is :class:`FusedInstanceNorm`.
+    ``fused_instance_norm.launches`` counts kernel launches."""
+    _check_shapes(x, residual, "residual")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (residual is not None and residual.requires_grad)):
+        return FusedInstanceNorm.apply(x, residual, relu, eps)
+    return _forward(x, residual, relu, eps)[0]
 
 
 fused_instance_norm.launches = 0

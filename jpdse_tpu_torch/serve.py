@@ -66,7 +66,7 @@ class CodecServer:
         batch = self._batch(batch)
         if self.fast is not None:
             return self.fast.decode(batch).float()
-        return self.codec.decode(self.codec.prepare(batch)).float()
+        return self.codec.decode(self.codec.prepare(batch))[0].float()
 
     @torch.inference_mode()
     def decompress_codes(self, codes: Sequence) -> torch.Tensor:

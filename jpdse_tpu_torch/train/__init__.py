@@ -1,2 +1,3 @@
-"""Training-side state of the port: so far the restore of a generator's
-parameters for evaluation (``checkpoint``)."""
+"""Training of the port: losses, the GAN state and step, the lr schedule,
+checkpoints (``checkpoint``) and the entry point (``run``, ``python -m
+jpdse_tpu_torch.train``)."""

@@ -135,7 +135,7 @@ def test_bridge_round_trip_is_bit_equal(ref):
 def test_semantic_codec_decode_matches_jax(ref, port):
     _, codec, batch = port
     with torch.no_grad():
-        got = codec.decode(codec.prepare(batch)).numpy()
+        got = codec.decode(codec.prepare(batch))[0].numpy()
     assert got.shape == ref["decode"].shape == (2, H, W, 3)
     np.testing.assert_allclose(got, ref["decode"], atol=ATOL)
 

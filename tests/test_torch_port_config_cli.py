@@ -302,7 +302,7 @@ def test_layout_fields_flipped_in_jax_stay_with_the_port(fast_ref, name):
         codec = SemanticCodec(cfg, device="cpu", seed=None)
         codec.load_state_dict(fast_ref["state"])
         with torch.inference_mode():
-            want_default = codec.decode(codec.prepare(fast_ref["tb"])).numpy()
+            want_default = codec.decode(codec.prepare(fast_ref["tb"]))[0].numpy()
     np.testing.assert_allclose(want, want_default, rtol=0, atol=ATOL)
     cfg = config.flagship_config(tiny=True)
     cfg.model.compute_dtype = "float32"

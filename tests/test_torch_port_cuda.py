@@ -68,9 +68,9 @@ def test_kernel_config_on_card_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
-            want = codec.decode(codec.prepare(batch))
+            want = codec.decode(codec.prepare(batch))[0]
             k3 = instance_norm.fused_instance_norm.launches
-            got = card_codec.decode(card_codec.prepare(on_card))
+            got = card_codec.decode(card_codec.prepare(on_card))[0]
             assert instance_norm.fused_instance_norm.launches == k3 + 9 + 2 * 5
         k4 = head_conv.head_conv_s2d.launches
         fast = FastCodec(cfg, state, device=cuda).decode(on_card)
@@ -337,3 +337,84 @@ def test_evaluate_on_card_matches_cpu(cuda, tmp_path, path, kernels):
         assert len(files) == (6 if cpu_dir.endswith("codes") else 4)
         for f in files:
             assert (tmp_path / card_dir / f.name).read_bytes() == f.read_bytes(), f.name
+
+
+# -- training: K3's backward and one train step ----------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [(2, 8, 12, 6), (1, 64, 128, 64), (2, 16, 8, 1024)])
+def test_instance_norm_bwd_kernel_matches_plain(cuda, shape, relu, dtype):
+    """K3's backward on the forward's statistics against its plain version
+    (which recomputes them): fp32 within 1e-5, bf16 within one ulp beyond
+    that; two runs bit-equal; one launch a call."""
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    g = _input(shape, seed=1).to(cuda, dtype)
+    _, stats = instance_norm._forward(x, None, relu, 1e-5)
+    before = instance_norm.fused_instance_norm_bwd.launches
+    got = instance_norm.fused_instance_norm_bwd(x, g, stats, relu)
+    again = instance_norm.fused_instance_norm_bwd(x, g, stats, relu)
+    want = instance_norm.fused_instance_norm_bwd_plain(x, g, relu)
+    torch.cuda.synchronize()
+    assert instance_norm.fused_instance_norm_bwd.launches == before + 2
+    assert torch.equal(got, again) and got.dtype == dtype
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert ((err - 1e-5).clamp_min(0) / ulp).max().item() <= 1.0
+
+
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One training step of the tiny flagship in the kernel configuration
+    (K3 forward, recompute and backward at its 19 norm sites), fp32 with
+    TF32 off, deterministic binarization, on the card against the CPU from
+    the same weights: the distortion-only recipe's metrics within 1e-4
+    relative and its G gradients within 1e-4 of each tensor's max-abs; the
+    GAN recipe's metrics within 1e-4 relative."""
+    from jpdse_tpu_torch.ops import quantizers
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.trainer import Trainer
+
+    monkeypatch.setattr(quantizers, "stochastic_sign_ste",
+                        lambda x, gen: quantizers.deterministic_sign_ste(x))
+    rng = np.random.default_rng(6)
+    batch = {"label": rng.integers(0, 35, (2, 64, 128)).astype(np.float32),
+             "instance": rng.integers(0, 1000, (2, 64, 128)).astype(np.int32),
+             "image": rng.normal(size=(2, 64, 128, 3)).astype(np.float32)}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for gan in (False, True):
+            cfg = flagship_config(tiny=True, kernels=True)
+            cfg.model.compute_dtype, cfg.model.fast_inference, cfg.model.ndf = "float32", False, 8
+            cfg.optim.remat = True
+            cfg.data.preprocess.preprocess_mode, cfg.data.preprocess.crop_size = "fixed", 128
+            L = cfg.loss
+            L.no_d_gan_loss = L.no_g_gan_loss = L.no_gan_feat_loss = L.no_vgg_loss = not gan
+            cpu, card = Trainer(cfg, mode="train", device="cpu"), Trainer(cfg, mode="train",
+                                                                          device=cuda)
+            for a, b in ((cpu.gan.codec, card.gan.codec), (cpu.gan.disc, card.gan.disc),
+                         (cpu.gan.vgg, card.gan.vgg)):
+                if a is not None:
+                    b.load_state_dict(a.state_dict())
+            k3 = (instance_norm.fused_instance_norm.launches,
+                  instance_norm.fused_instance_norm_bwd.launches)
+            want, want_g = step.loss_and_grads(cpu.gan, cpu.place(batch), cpu.generator)
+            got, got_g = step.loss_and_grads(card.gan, card.place(batch), card.generator)
+            torch.cuda.synchronize()
+            assert (instance_norm.fused_instance_norm.launches - k3[0],
+                    instance_norm.fused_instance_norm_bwd.launches - k3[1]) == (38, 19)
+            for k in step.METRICS:
+                np.testing.assert_allclose(got[k].item(), want[k].item(), rtol=1e-4, atol=0,
+                                           err_msg=k)
+            if not gan:
+                for (name, _), g, w in zip(cpu.gan.codec.named_parameters(), got_g[0],
+                                           want_g[0]):
+                    if name.endswith("bias") and "tail" not in name:
+                        continue  # a bias an InstanceNorm follows: 0 to rounding
+                    assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32

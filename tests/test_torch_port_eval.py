@@ -263,8 +263,10 @@ def test_partial_restore_and_fast_path_fallback(ctx, tmp_path, monkeypatch):
 
 def test_trainer_refuses_what_it_cannot_run(tmp_path):
     cfg = flagship_config(tiny=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    cfg.optim.fast_train = True  # training runs since the training slice; this option does not
+    with pytest.raises(NotImplementedError, match="item 9"):
         Trainer(cfg, mode="train", device="cpu")
+    cfg.optim.fast_train = False
     cfg.checkpoints_dir = str(tmp_path)
     trainer = Trainer(cfg, device="cpu")
     with pytest.raises(FileNotFoundError, match=PARAMS_FILE):

@@ -16,6 +16,7 @@ from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
 from jpdse_tpu_torch.ops import build
 from jpdse_tpu_torch.serve import CodecServer
+from jpdse_tpu_torch.train import run
 from jpdse_tpu_torch.trainer import Trainer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -33,7 +34,9 @@ assert {"jpdse_tpu_torch." + m for m in (
     "cli", "trainer", "test", "compress", "decompress", "ops.metrics", "eval.harness",
     "train.checkpoint", "utils.misc", "utils.colormap", "utils.visualizer", "data.transforms",
     "data.folder", "data.paired", "data.cityscapes", "data.ade20k", "data.clic",
-    "data.custom", "data.loader", "data.stats")} <= set(names), names
+    "data.custom", "data.loader", "data.stats", "train.losses", "train.state", "train.step",
+    "train.schedule", "train.run", "train.__main__", "models.discriminator", "models.vgg",
+    "utils.image_pool", "utils.logging")} <= set(names), names
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]
@@ -47,7 +50,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 44  # every module so far, the eval entry points included
+    assert int(out.stdout.split()[-1]) >= 54  # every module so far, training's included
 
 
 def test_entry_points_raise_without_cuda_unless_given_a_device():
@@ -58,6 +61,7 @@ def test_entry_points_raise_without_cuda_unless_given_a_device():
     argv = ["--root_dir", "/nonexistent"]
     for make in (lambda: SemanticCodec(cfg), lambda: FastCodec(cfg, state),
                  lambda: CodecServer(cfg, state), lambda: Trainer(cfg),
+                 lambda: Trainer(cfg, mode="train"), lambda: run.main(argv),
                  lambda: test.main(argv), lambda: compress.main(argv),
                  lambda: decompress.main(["--input", "/nonexistent"] + argv)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

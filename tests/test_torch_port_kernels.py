@@ -129,15 +129,24 @@ def test_instance_norm_plain_matches_pallas_bf16(force_interpret, relu, has_res)
 
 
 def test_instance_norm_wrapper_takes_plain_on_cpu_and_is_forward_only():
+    """The wrapper takes the plain version on the CPU and counts no launch.
+    It was forward only until the training slice: under autograd it is now
+    the FusedInstanceNorm Function, whose CPU backward is the plain one."""
     x = torch.from_numpy(_x((1, 4, 6, 3)))
     before = instance_norm.fused_instance_norm.launches
     assert torch.equal(instance_norm.fused_instance_norm(x, relu=True),
                        instance_norm.fused_instance_norm_plain(x, relu=True))
     assert instance_norm.fused_instance_norm.launches == before
-    with pytest.raises(RuntimeError, match="forward only"):
-        instance_norm.fused_instance_norm(x.requires_grad_())
+    xg = x.clone().requires_grad_()
+    y = instance_norm.fused_instance_norm(xg, relu=True)
+    assert y.grad_fn is not None and torch.equal(y.detach(), instance_norm.fused_instance_norm(x,
+                                                                                      relu=True))
+    g = torch.from_numpy(_x((1, 4, 6, 3), seed=1))
+    (dx,) = torch.autograd.grad(y, xg, g)
+    assert torch.equal(dx, instance_norm.fused_instance_norm_bwd_plain(x, g, relu=True))
     with torch.no_grad():
-        instance_norm.fused_instance_norm(x)
+        assert instance_norm.fused_instance_norm(xg).grad_fn is None
+    assert instance_norm.fused_instance_norm.launches == before
     with pytest.raises(ValueError, match="residual"):
         instance_norm.fused_instance_norm(x.detach(), residual=x.detach()[:, :2])
 
@@ -206,6 +215,11 @@ CASES = {
         _cuda_looking(_x((1, 8, 8, 3))))),
     "fused_instance_norm": (instance_norm, "_launcher", lambda: instance_norm.fused_instance_norm(
         _cuda_looking(_x((1, 4, 4, 8))), relu=True)),
+    "fused_instance_norm_bwd": (instance_norm, "_bwd_launcher",
+                                lambda: instance_norm.fused_instance_norm_bwd(
+                                    _cuda_looking(_x((1, 4, 4, 8))),
+                                    _cuda_looking(_x((1, 4, 4, 8), 1)),
+                                    _cuda_looking(_x((1, 8, 2), 2)), relu=True)),
     "head_conv_s2d": (head_conv, "_launcher", lambda: head_conv.head_conv_s2d(
         _cuda_looking(_x((1, 8, 8, 12))), _cuda_looking(_x((4, 48, 8))))),
     "head_conv_gemm": (head_conv, "_gemm_launcher", lambda: head_conv.head_conv_gemm(
@@ -432,6 +446,7 @@ def _c_prototype(library: str, symbol: str) -> str:
 
 @pytest.mark.parametrize("module,attr", [
     (realign, "_launcher"), (realign, "_front_launcher"), (instance_norm, "_launcher"),
+    (instance_norm, "_bwd_launcher"),
     (head_conv, "_launcher"), (head_conv, "_gemm_launcher")])
 def test_launcher_signatures_match_the_c_prototypes(monkeypatch, module, attr):
     """ctypes passes what the wrapper declares: a letter short or wrong
