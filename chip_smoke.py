@@ -16,8 +16,10 @@ Phases, each printing a line as it ends:
      profiler's device time and the host's time a call); K3 shown to be one
      launch per call (profiler) and tried under CUDA-graph capture; K3's
      backward against its plain version at the same shapes (one device
-     kernel per call, timed beside the backward of F.instance_norm); K4's
-     dense-A mode against torch.matmul;
+     kernel per call; timed at the largest slab in bf16 back to back and
+     after an L2 flush, beside the backward of F.instance_norm, and at each
+     training shape in fp32 beside its bound; its CUDA-graph replay
+     bit-equal to the eager call); K4's dense-A mode against torch.matmul;
   4. the flagship codec at full width (Cityscapes 1024x512, random weights
      from --seed), fp32 with TF32 off: the default s2d fast path, the fast
      path in the kernel configuration (K1, K2, K4) and the standard path
@@ -51,7 +53,8 @@ Phases, each printing a line as it ends:
      every gradient tensor held against each other, binarizer bits near
      their threshold counted; (b) --train-steps Trainer.steps of each, with
      PyTorch's default precision (TF32 convolutions): median step time,
-     images/s, peak memory, finite losses and K3's launches per step;
+     images/s, peak memory, finite losses and K3's launches per step, then
+     one profiled step with K3's forward and backward as separate groups;
      (c) the entry point, train.run.main, on a synthetic Cityscapes
      train/val split: one epoch of 2 steps with validation and a best-val
      save, then a second main that resumes, validates the load and writes
@@ -92,6 +95,11 @@ NORM_SHAPES = [(1, 512, 1024, 64), (1, 256, 512, 128), (1, 128, 256, 256),
 # into slabs and chunks depends on the batch
 TRAIN_NORM_SHAPES = [(2,) + s[1:] for s in NORM_SHAPES]
 NORM_COMBOS = [(True, False), (False, True), (False, False)]  # (relu, residual)
+# K3's backward launches in a training step, by (H, W, C) and ReLU: netG 27,
+# netE 9 and netE4label 9; every head, down and up site and each res block's
+# first norm has the ReLU, each res block's second takes the residual
+K3_BWD_SITES = {(s[1:], True): 6 for s in NORM_SHAPES[:4]}
+K3_BWD_SITES.update({(NORM_SHAPES[4][1:], True): 12, (NORM_SHAPES[4][1:], False): 9})
 KERNELS = {  # wrapper -> (its module under jpdse_tpu_torch/ops and csrc/, the TPU kernel)
     "s2d_realign_pad3": ("realign", "jpdse_tpu/ops/pallas/realign.py:67"),
     "s2d_pad3": ("realign", "jpdse_tpu/ops/pallas/realign.py:137"),
@@ -144,9 +152,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def flushed_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one fn() call made after a 64 MB scratch write
+    has flushed the 50 MB L2, by CUDA events around the call alone."""
+    scratch = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for i in range(iters):
+        scratch.fill_(i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+
 def device_ms(fn, iters: int = 10) -> float:
-    """Mean device time of the kernels fn() launches, in ms per call, from
-    the profiler: what the card spends, without the host's launch time."""
+    """Device time of one fn() call in ms from the profiler, for an fn that
+    launches each of its kernels once: each kernel's mean over the launches
+    the profiler recorded, summed. What the card spends, without the host's
+    launch time; a launch the profiler drops moves no mean."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -156,8 +183,8 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    return sum(e.self_device_time_total / e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count) / 1e3
 
 
 def host_ms(fn, iters: int = 50) -> float:
@@ -502,16 +529,32 @@ def phase_k3_bwd(card: str, gen) -> dict:
                     log(f"[kernels] {what}: max abs diff {err:.2e}, max {u:.2f} bf16 ulp beyond "
                         f"1e-5 (tolerance 1; {err_re:.2e} from the plain version's own "
                         "statistics); two runs bit-equal")
+        if shape in TRAIN_NORM_SHAPES:
+            # timing at the training step's shapes, fp32, with and without the ReLU
+            # (the residual form runs the bare norm's kernel)
+            x, g = base, g32
+            for relu in (True, False):
+                _, stats = k3._forward(x, None, relu, 1e-5)
+                k = cuda_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, relu))
+                k_dev = device_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, relu))
+                bound = bytes_ms(x, g, x)
+                log(f"[kernels] K3 backward {shape} fp32 relu={relu}: kernel {k:.4f} ms (on the "
+                    f"device {k_dev:.4f} ms, {bound / k_dev:.0%} of its bound), bound "
+                    f"{bound * 1e3:.1f} us (bytes); {K3_BWD_SITES.get((shape[1:], relu), 0)} "
+                    f"launches a training step ({card})")
+            continue
         if entry is not None:
             continue
         # timing at the largest slab, bf16: the kernel alone on the forward's
-        # statistics, its plain version, and the library's backward
+        # statistics (back to back, and each call after the L2 is flushed), its
+        # plain version, and the library's backward
         x = base.to(torch.bfloat16)
         g = g32.to(torch.bfloat16)
         _, stats = k3._forward(x, None, True, 1e-5)
         kernels = one_kernel("K3 backward", lambda: k3.fused_instance_norm_bwd(x, g, stats, True))
         k = cuda_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, True))
         k_dev = device_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, True))
+        k_cold = flushed_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, True))
         k_plain = cuda_ms(lambda: k3.fused_instance_norm_bwd_plain(x, g, True))
         xc = x.permute(0, 3, 1, 2).detach().requires_grad_()
         yc = F.instance_norm(xc, eps=1e-5)
@@ -520,13 +563,36 @@ def phase_k3_bwd(card: str, gen) -> dict:
         bound = bytes_ms(x, g, x)
         log(f"[kernels] K3 backward {shape} bf16 relu: one call is {kernels} on the device; "
             f"kernel {k:.4f} ms (on the device {k_dev:.4f} ms by the profiler; {bound / k_dev:.0%} "
-            f"of its bound), plain {k_plain:.4f} ms, backward of F.instance_norm {lib:.4f} ms, "
-            f"bound {bound * 1e3:.1f} us (bytes: x and g read, dx written) ({card})")
+            f"of its bound; {k_cold:.4f} ms a call after an L2 flush), plain {k_plain:.4f} ms, "
+            f"backward of F.instance_norm {lib:.4f} ms, bound {bound * 1e3:.1f} us (bytes: x and "
+            f"g read, dx written) ({card})")
+        k3_bwd_graph(k3, x, g, stats)
         entry = (k, k_plain, bound, lib, k_dev)
     k, p, bound, lib, k_dev = entry
     e = kernel_entry("fused_instance_norm_bwd", max_err, k, p, bound, "bytes", lib)
     e["device_ms"] = k_dev
     return e
+
+
+def k3_bwd_graph(k3, x, g, stats) -> None:
+    """K3's backward, one cooperative launch, captured in a CUDA graph: the
+    replay must give the eager call's bits."""
+    want = k3.fused_instance_norm_bwd(x, g, stats, True)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k3.fused_instance_norm_bwd(x, g, stats, True)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        got = k3.fused_instance_norm_bwd(x, g, stats, True)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K3 backward's CUDA-graph replay differs from the eager call")
+    log("[kernels] K3 backward under CUDA-graph capture: captured; replay bit-equal to the "
+        "eager call")
 
 
 def phase_k4(card: str, gen) -> dict:
@@ -1102,16 +1168,21 @@ class K3SiteCheck:
     def __init__(self):
         from jpdse_tpu_torch.ops import instance_norm as k3
 
-        self.k3, self.calls, self.worst = k3, {"forward": 0, "backward": 0}, {}
+        self.k3, self.worst, self.counts = k3, {}, {}
+
+    @property
+    def calls(self) -> dict:
+        return {kind: sum(n for k, n in self.counts.items() if k[0] == kind)
+                for kind in ("forward", "backward")}
 
     def _check(self, kind: str, got: torch.Tensor, want: torch.Tensor, what: tuple) -> None:
         scale = want.float().abs().max().item()
         if kind == "forward":
             scale = max(scale, 1.0)
         err = (got.float() - want.float()).abs().max().item() / scale
-        self.calls[kind] += 1
         key = (kind,) + what
         self.worst[key] = max(self.worst.get(key, 0.0), err)
+        self.counts[key] = self.counts.get(key, 0) + 1
         if not err <= K3_SITE_TOL:
             raise AssertionError(f"K3 {kind} at {what}: {err:.2e} of the output's max-abs from "
                                  f"the plain version (tolerance {K3_SITE_TOL})")
@@ -1223,6 +1294,10 @@ def phase_train_parity(seed: int, card: str) -> dict:
                                      f"{k3_per_step(counts, 1)}, want {want_k3[label]}")
         if sites.calls != {"forward": 2 * K3_SITES, "backward": K3_SITES}:
             raise AssertionError(f"K3 site check saw {sites.calls}")
+        bwd_forms = {(k[1][1:], k[2]): n for k, n in sites.counts.items() if k[0] == "backward"}
+        if bwd_forms != K3_BWD_SITES:
+            raise AssertionError(f"K3 backward's launches by (H, W, C) and ReLU: {bwd_forms}, "
+                                 f"want {K3_BWD_SITES}")
         log(f"[parity] train K3 at every launch of the kernel config's step against the plain "
             f"version on the same inputs (difference / the output's max-abs, tolerance "
             f"{K3_SITE_TOL}): {sites.summary()}")
@@ -1299,32 +1374,39 @@ def phase_train_parity(seed: int, card: str) -> dict:
 def profile_step(label: str, trainer, batch, card: str) -> None:
     """One more step under the profiler (after the counted ones): the
     device's busy time against the step's wall time, split into
-    convolutions and GEMMs (cuDNN, cuBLAS), K3 (forward, backward) and
-    the rest (element-wise, reductions, the optimizer), and the largest
-    kernels."""
+    convolutions and GEMMs (cuDNN, cuBLAS), K3's forward, K3's backward and
+    the rest (element-wise, reductions, the optimizer); the norm sites whose
+    output gradient came strided and was copied before K3's backward; and
+    the largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from jpdse_tpu_torch.ops.instance_norm import FusedInstanceNorm
+
     torch.cuda.synchronize()
+    FusedInstanceNorm.grad_copies = 0
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.step(batch)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    copies = FusedInstanceNorm.grad_copies
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    groups = {"conv/gemm": 0.0, "K3": 0.0, "rest": 0.0}
+    groups = {"conv/gemm": 0.0, "K3 forward": 0.0, "K3 backward": 0.0, "rest": 0.0}
     conv = re.compile(r"conv|cudnn|xmma|gemm|wgrad|dgrad|fprop|cutlass|sm90|sm80", re.I)
     for e in kernels:
-        key = ("K3" if "instance_norm_kernel" in e.key or "instance_norm_bwd_kernel" in e.key
+        key = ("K3 backward" if "instance_norm_bwd_kernel" in e.key
+               else "K3 forward" if "instance_norm_kernel" in e.key
                else "conv/gemm" if conv.search(e.key) else "rest")
         groups[key] += e.self_device_time_total / 1e3
     busy = sum(groups.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     log(f"[train] {label}: one profiled step, wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"({busy / wall:.0%}): " + ", ".join(f"{k} {v:.1f} ms" for k, v in groups.items())
-        + f"; {sum(e.count for e in kernels)} kernel launches; largest: " + "; ".join(
-            f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms" for e in top)
-        + f" ({card})")
+        + f"; {sum(e.count for e in kernels)} kernel launches; K3's backward found the "
+        f"output's gradient strided (and copied it first) at {copies} sites; largest: "
+        + "; ".join(f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms"
+                    for e in top) + f" ({card})")
 
 
 def phase_train_steps(seed: int, steps: int, card: str) -> dict:

@@ -37,13 +37,33 @@
 // dx = rstd * (g' - mean(g') - xhat * mean(g' * xhat)), one cast to x's type;
 // the residual's gradient is g itself and needs no kernel. Bound: bytes, one
 // read of x and of g and one write of dx (at (1, 512, 1024, 64) bf16, 3 x
-// 67.1 MB: 60 us at 3.35 TB/s). The same cooperative launch and partition
-// as the forward: 1. each block sums g' and g' * xhat over its chunk's rows
-// (16-byte loads, fp32), merges its pixel lanes in a fixed tree and writes
-// one partial per (b, chunk, c); grid barrier; 2. one warp per (b, c) adds
-// the chunks in a fixed order into the two means; grid barrier; 3. each
-// block reads its rows of x and g again and writes dx. No shared-memory
-// cache of the first read yet: the second read comes from L2 where it can.
+// 67.1 MB: 60 us at 3.35 TB/s). dx needs two means over the whole slab, so
+// each byte of x and g is wanted twice, once on each side of a grid
+// barrier: the second read from device memory is what costs, and what the
+// design cuts. The same cooperative launch and partition as the forward,
+// one 512-thread block per SM with all its shared memory: kRing ring slots
+// and then cache_iters cache slots, each one x word and one g word a thread
+// (ops/instance_norm.py::bwd_cache_iters, bwd_walk mirror the slots).
+//   1. a block sums g' and g' * xhat over its chunk's rows in fp32. Every
+//      word comes in by 16-byte cp.async, so loads stay in flight without
+//      holding registers: its first cache_iters loop iterations (counted
+//      across its items, as the forward counts them) into the cache, all of
+//      an item's at once, the rest through the ring, each slot refilled as
+//      it is summed. The block merges its pixel lanes in a fixed tree (the
+//      reduction area lies over the drained ring) and writes one partial
+//      per (b, chunk, c); grid barrier;
+//   2. one warp per (b, c) adds the chunks in a fixed order into the two
+//      means, 8 loads a lane in flight; grid barrier;
+//   3. each block walks phase 1's steps in reverse, its uncached rows
+//      through the ring from the last read, then the cached ones, which
+//      touch no device memory. dx goes out by plain stores: the next
+//      layer's backward reads it, from L2 where it can (evict-first stores
+//      measured alike alone and left it to device memory).
+// Where a block's rows fit its cache (the serving path's res-block slabs)
+// every byte is read from device memory once; at the largest slab the cache
+// holds 11 of a block's 63 iterations. On an H100 the L2 kept no measurable
+// part of the second read (reverse order, evict-last and evict-first hints
+// all measured alike); see PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,6 +98,20 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f(float& d, float v) { d = v; }
 __device__ __forceinline__ void from_f(bf16& d, float v) { d = __float2bfloat16(v); }
+
+// V floats into one word of T, two at a time for bf16 (one packing convert).
+template <typename T, int V>
+__device__ __forceinline__ void pack(Vec<T, V>& o, const float* f) {
+  if constexpr (sizeof(T) == 2 && V % 2 == 0) {
+#pragma unroll
+    for (int v = 0; v < V; v += 2) {
+      *reinterpret_cast<__nv_bfloat162*>(&o.v[v]) = __floats2bfloat162_rn(f[v], f[v + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) from_f(o.v[v], f[v]);
+  }
+}
 
 struct Moments {
   float n, mean, m2;
@@ -299,6 +333,42 @@ instance_norm_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __re
 
 // -- K3 backward ---------------------------------------------------------------
 
+// Loop iterations of x and g a thread has in flight beyond the cache: a ring
+// of shared-memory slots, refilled by cp.async as each is summed, so loads
+// stay in flight without holding registers (bf16's 8 values a word leave no
+// registers for more than 2 rows of x and g in flight). 2, 3, 4, 6 and 8
+// slots measured alike on an H100; the reduction area needs 2.
+constexpr int kRing = 3;
+
+// One word from global memory into this thread's slot of shared memory:
+// asynchronous (cp.async, L1 bypassed) for 16-byte words, else a load and a
+// store.
+template <typename W>
+__device__ __forceinline__ void copy_to_slot(W* dst, const W* src) {
+  if constexpr (sizeof(W) == 16) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(d), "l"(src) : "memory");
+  } else {
+    *dst = *src;
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most n of this thread's committed cp.async groups are pending
+// (a larger n than 15 waits for more than it must, which is safe).
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+#define K3_WAIT(k) case k: asm volatile("cp.async.wait_group " #k ";" ::: "memory"); break;
+    K3_WAIT(0) K3_WAIT(1) K3_WAIT(2) K3_WAIT(3) K3_WAIT(4) K3_WAIT(5) K3_WAIT(6) K3_WAIT(7)
+    K3_WAIT(8) K3_WAIT(9) K3_WAIT(10) K3_WAIT(11) K3_WAIT(12) K3_WAIT(13) K3_WAIT(14)
+#undef K3_WAIT
+    default: asm volatile("cp.async.wait_group 15;" ::: "memory");
+  }
+}
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, 1)
 instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -306,9 +376,14 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                          float* __restrict__ partial, float* __restrict__ means, Plan p,
                          int relu) {
   using W = Vec<T, V>;
+  // Shared memory: kRing ring slots, then cache_iters cache slots. Slot s
+  // holds a thread's x word at [2 s kThreads + tid] and its g word kThreads
+  // on. The reduction area (V sums of g' and V of g' * xhat a thread) lies
+  // over the ring's start: it is written only when every ring is drained.
   extern __shared__ __align__(16) uint8_t smem[];
-  float* red_g = reinterpret_cast<float*>(smem);  // per thread: V sums of g', V of g' * xhat
+  float* red_g = reinterpret_cast<float*>(smem);
   float* red_gx = red_g + kThreads * V;
+  W* slots = reinterpret_cast<W*>(smem);
 
   const int tid = threadIdx.x;
   const int lane_p = tid / p.tile, gl = tid % p.tile;
@@ -316,13 +391,17 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const W* xv = reinterpret_cast<const W*>(x);
   const W* gv = reinterpret_cast<const W*>(g);
   W* dv = reinterpret_cast<W*>(dx);
+  auto slot = [&](int s) { return slots + 2LL * s * kThreads + tid; };
 
   // -- 1. per-chunk sums of g' and g' * xhat -------------------------------
+  int it_count = 0;  // loop iterations so far: the cache's slot index
   for (int q = blockIdx.x; q < items; q += gridDim.x) {
     const Item w = item(p, q);
     const int gi = w.g0 + gl;
     const bool active = lane_p < p.pix && gi < p.groups;
     const long long base = static_cast<long long>(w.b) * p.hw * p.groups + gi;
+    // this item's first kc iterations go to the cache, the rest through the ring
+    const int kc = min(max(p.cache_iters - it_count, 0), w.iters);
     float sg[V], sgx[V], mean[V], rstd[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -334,31 +413,40 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
         rstd[v] = st[1];
       }
     }
-    for (int k0 = 0; active && k0 < w.iters; k0 += kBatch) {
-      W xb[kBatch], gb[kBatch];
-      bool ok[kBatch];
-#pragma unroll
-      for (int kk = 0; kk < kBatch; ++kk) {
-        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
-        ok[kk] = k0 + kk < w.iters && r < w.r1;
-        if (ok[kk]) {
-          xb[kk] = xv[base + r * p.groups];
-          gb[kk] = gv[base + r * p.groups];
-        }
+    auto row = [&](int k) { return w.r0 + lane_p + static_cast<long long>(k) * p.pix; };
+    auto slot_of = [&](int k) { return k < kc ? kRing + it_count + k : (k - kc) % kRing; };
+    // iteration k's copies, one group
+    auto issue = [&](int k) {
+      const long long r = row(k);
+      if (active && r < w.r1) {
+        W* d = slot(slot_of(k));
+        copy_to_slot(d, &xv[base + r * p.groups]);
+        copy_to_slot(d + kThreads, &gv[base + r * p.groups]);
       }
-#pragma unroll
-      for (int kk = 0; kk < kBatch; ++kk) {
-        if (!ok[kk]) continue;
+      cp_async_commit();
+    };
+    // the cached iterations and the ring's first ones in flight at once; then
+    // each ring slot refilled once it is summed
+    int issued = 0;
+    for (const int pre = min(w.iters, kc + kRing); issued < pre; ++issued) issue(issued);
+    for (int k = 0; k < w.iters; ++k) {
+      cp_async_wait(issued - 1 - k);
+      if (active && row(k) < w.r1) {
+        const W* s = slot(slot_of(k));
+        const W xw = s[0], gw = s[kThreads];
 #pragma unroll
         for (int v = 0; v < V; ++v) {
-          const float xh = (to_f(xb[kk].v[v]) - mean[v]) * rstd[v];
-          float gg = to_f(gb[kk].v[v]);
+          const float xh = (to_f(xw.v[v]) - mean[v]) * rstd[v];
+          float gg = to_f(gw.v[v]);
           if (relu && !(xh > 0.f)) gg = 0.f;
           sg[v] += gg;
           sgx[v] += gg * xh;
         }
       }
+      if (k >= kc && issued < w.iters) issue(issued++);
     }
+    it_count += w.iters;
+    __syncthreads();  // every thread's ring drained: the reduction area lies over it
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       red_g[tid * V + v] = sg[v];
@@ -386,14 +474,17 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
         o[1] = red_gx[tid * V + v];
       }
     }
-    __syncthreads();  // the reduction area is reused by the next item
+    __syncthreads();  // the reduction area, the ring, is refilled by the next item
   }
 
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   grid.sync();
 
-  // -- 2. one warp per (b, c): the chunks added in a fixed order ------------
+  // -- 2. one warp per (b, c): the chunks added in a fixed order, a lane's
+  //       loads kFin at a time in flight (a (b, c) has up to 132 chunks;
+  //       one at a time cost the small slabs 4-5%) --------------------------
   {
+    constexpr int kFin = 8;
     const int lane = tid % 32;
     const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
     const float inv_hw = 1.0f / static_cast<float>(p.hw);
@@ -401,10 +492,22 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
          i < static_cast<long long>(p.batch) * p.c; i += warps) {
       const long long b = i / p.c, ch = i % p.c;
       float a = 0.f, ax = 0.f;
-      for (int k = lane; k < p.chunks; k += 32) {
-        const float* q = partial + ((b * p.chunks + k) * p.c + ch) * 2;
-        a += q[0];
-        ax += q[1];
+      for (int k0 = lane; k0 < p.chunks; k0 += 32 * kFin) {
+        float2 v[kFin];
+#pragma unroll
+        for (int u = 0; u < kFin; ++u) {
+          const int k = k0 + 32 * u;
+          if (k < p.chunks) {
+            v[u] = *reinterpret_cast<const float2*>(partial + ((b * p.chunks + k) * p.c + ch) * 2);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kFin; ++u) {
+          if (k0 + 32 * u < p.chunks) {
+            a += v[u].x;
+            ax += v[u].y;
+          }
+        }
       }
       for (int off = 16; off > 0; off >>= 1) {
         a += __shfl_down_sync(0xffffffffu, a, off);
@@ -418,12 +521,19 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
   grid.sync();
 
-  // -- 3. dx = rstd * (g' - mean(g') - xhat * mean(g' * xhat)) --------------
-  for (int q = blockIdx.x; q < items; q += gridDim.x) {
+  // -- 3. dx = rstd * (g' - mean(g') - xhat * mean(g' * xhat)), phase 1's
+  //       steps in reverse: items from the last, each one's uncached
+  //       iterations from the last down (the t-th is k = iters - 1 - t, in
+  //       ring slot t % kRing), then its cached ones
+  int last = -1;
+  for (int q = blockIdx.x; q < items; q += gridDim.x) last = q;
+  for (int q = last; q >= 0; q -= gridDim.x) {
     const Item w = item(p, q);
+    it_count -= w.iters;
     const int gi = w.g0 + gl;
     if (!(lane_p < p.pix && gi < p.groups)) continue;
     const long long base = static_cast<long long>(w.b) * p.hw * p.groups + gi;
+    const int kc = min(max(p.cache_iters - it_count, 0), w.iters);
     float mean[V], rstd[V], gm[V], gx[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -433,39 +543,49 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
       gm[v] = means[2 * i];
       gx[v] = means[2 * i + 1];
     }
-    for (int k0 = 0; k0 < w.iters; k0 += kBatch) {
-      W xb[kBatch], gb[kBatch];
-      bool ok[kBatch];
+    auto row = [&](int k) { return w.r0 + lane_p + static_cast<long long>(k) * p.pix; };
+    auto put = [&](long long r, const W& xw, const W& gw) {
+      float d[V];
 #pragma unroll
-      for (int kk = 0; kk < kBatch; ++kk) {
-        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
-        ok[kk] = k0 + kk < w.iters && r < w.r1;
-        if (ok[kk]) {
-          xb[kk] = xv[base + r * p.groups];
-          gb[kk] = gv[base + r * p.groups];
-        }
+      for (int v = 0; v < V; ++v) {
+        const float xh = (to_f(xw.v[v]) - mean[v]) * rstd[v];
+        float gg = to_f(gw.v[v]);
+        if (relu && !(xh > 0.f)) gg = 0.f;
+        d[v] = rstd[v] * (gg - gm[v] - xh * gx[v]);
       }
-#pragma unroll
-      for (int kk = 0; kk < kBatch; ++kk) {
-        if (!ok[kk]) continue;
-        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
-        W o;
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          const float xh = (to_f(xb[kk].v[v]) - mean[v]) * rstd[v];
-          float gg = to_f(gb[kk].v[v]);
-          if (relu && !(xh > 0.f)) gg = 0.f;
-          from_f(o.v[v], rstd[v] * (gg - gm[v] - xh * gx[v]));
-        }
-        dv[base + r * p.groups] = o;
+      W o;
+      pack(o, d);
+      dv[base + r * p.groups] = o;
+    };
+    const int nu = w.iters - kc;
+    auto issue = [&](int t) {
+      const long long r = row(w.iters - 1 - t);
+      if (r < w.r1) {
+        W* d = slot(t % kRing);
+        copy_to_slot(d, &xv[base + r * p.groups]);
+        copy_to_slot(d + kThreads, &gv[base + r * p.groups]);
+      }
+      cp_async_commit();
+    };
+    int issued = 0;
+    for (const int pre = min(nu, kRing); issued < pre; ++issued) issue(issued);
+    for (int t = 0; t < nu; ++t) {
+      cp_async_wait(issued - 1 - t);
+      const long long r = row(w.iters - 1 - t);
+      if (r < w.r1) {
+        const W* s = slot(t % kRing);
+        put(r, s[0], s[kThreads]);
+      }
+      if (issued < nu) issue(issued++);
+    }
+    for (int k = kc - 1; k >= 0; --k) {
+      const long long r = row(k);
+      if (r < w.r1) {
+        const W* s = slot(kRing + it_count + k);
+        put(r, s[0], s[kThreads]);
       }
     }
   }
-}
-
-template <int V>
-constexpr int bwd_smem_bytes() {
-  return kThreads * 2 * V * static_cast<int>(sizeof(float));
 }
 
 // Dynamic shared memory of one block: all the device lets a block opt in
@@ -481,9 +601,9 @@ constexpr int kMaxDevices = 64;
 
 // The most blocks of the kernel resident at once on the current device (its
 // SM count x blocks per SM at its shared memory), which is the most a
-// cooperative launch takes: instance_norm_kernel<T, V> with all the shared
-// memory a block may opt in to, or instance_norm_bwd_kernel<T, V> with its
-// reduction area. Asked once per device and kernel: the launch is on the
+// cooperative launch takes: instance_norm_kernel<T, V> or
+// instance_norm_bwd_kernel<T, V>, each with all the shared memory a block
+// may opt in to. Asked once per device and kernel: the launch is on the
 // host's critical path at batch 1.
 template <typename T, int V, bool kBwd>
 int max_blocks(int* blocks) {
@@ -497,11 +617,7 @@ int max_blocks(int* blocks) {
   }
   const void* kernel = kBwd ? reinterpret_cast<const void*>(instance_norm_bwd_kernel<T, V>)
                             : reinterpret_cast<const void*>(instance_norm_kernel<T, V>);
-  if (kBwd) {
-    smem = bwd_smem_bytes<V>();
-  } else {
-    rc = static_cast<cudaError_t>(smem_bytes(&smem));
-  }
+  rc = static_cast<cudaError_t>(smem_bytes(&smem));
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess) {
     rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -531,16 +647,26 @@ int run(const void* x, const void* res, void* y, float* partial, float* stats, P
       static_cast<size_t>(smem), s));
 }
 
+// The backward's cache: slots of one x word and one g word a thread, as many
+// as the opt-in shared memory holds after the ring
+// (ops/instance_norm.py::bwd_cache_iters). A slot holds 2 kThreads words of
+// at least 2 V bytes, the reduction area 2 kThreads V floats, so two ring
+// slots cover it.
+static_assert(kRing >= 2, "the ring must cover the reduction area");
 template <typename T, int V>
 int run_bwd(const void* x, const void* g, const float* stats, void* dx, float* partial,
             float* means, Plan p, int grid, int relu, cudaStream_t s) {
+  int smem = 0;  // max_blocks has set the kernel's limit to this
+  const int rc = smem_bytes(&smem);
+  if (rc != 0) return rc;
+  p.cache_iters = smem / (kThreads * 2 * static_cast<int>(sizeof(Vec<T, V>))) - kRing;
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
   T* dt = static_cast<T*>(dx);
   void* args[] = {&xt, &gt, &stats, &dt, &partial, &means, &p, &relu};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(instance_norm_bwd_kernel<T, V>), dim3(grid), dim3(kThreads),
-      args, static_cast<size_t>(bwd_smem_bytes<V>()), s));
+      args, static_cast<size_t>(smem), s));
 }
 
 // The partition of ops/instance_norm.py::plan: slabs are (batch element,
@@ -610,7 +736,9 @@ extern "C" int instance_norm_launch(const void* x, const void* res, void* y, voi
 // aligned when vec is 1; stats: the forward's (batch, c, 2) fp32 mean and
 // rstd; partial: fp32 workspace of batch * chunk_cap * c * 2; means: fp32
 // workspace of batch * c * 2; all allocated by the caller. One cooperative
-// launch. Returns a cudaError_t: 0 when it was accepted.
+// launch of as many blocks as the device holds at once, each with all the
+// shared memory it may opt in to. Returns a cudaError_t: 0 when it was
+// accepted.
 extern "C" int instance_norm_bwd_launch(const void* x, const void* g, const void* stats, void* dx,
                                         void* partial, void* means, long long hw, int batch,
                                         int c, int chunk_cap, int relu, int vec, int elt_size,

@@ -15,7 +15,10 @@ version, which the wrapper takes for CPU tensors.
 Under autograd the call is :class:`FusedInstanceNorm`: its forward keeps x
 and, on the card, K3's fp32 per-(b, c) mean and rstd; its backward is a
 second kernel of the same file (``instance_norm_bwd_kernel``, one
-cooperative launch on the forward's partition), wrapped by
+cooperative launch on the forward's partition that keeps the first
+:func:`bwd_cache_iters` loop iterations of each block's x and g in shared
+memory, streams the rest through a ring of ``RING`` slots, and walks its
+second pass in reverse, :func:`bwd_walk`), wrapped by
 :func:`fused_instance_norm_bwd`, whose plain version
 :func:`fused_instance_norm_bwd_plain` recomputes the statistics from x as
 JAX's ``_fused_in_bwd`` does. The residual's gradient is the output's.
@@ -32,6 +35,8 @@ from jpdse_tpu_torch.ops import build
 
 THREADS = 512  # csrc/instance_norm.cu kThreads
 MAX_CHUNKS = 1024  # bounds the partials' workspace; the launcher keeps to it
+SMEM_OPTIN = 232448  # shared memory a block may opt in to on an H100 (227 KiB)
+RING = 3  # csrc/instance_norm.cu kRing: the backward's cp.async ring, in slots
 
 
 def _acc(x: torch.Tensor) -> torch.dtype:
@@ -133,6 +138,51 @@ def block_items(b: int, hw: int, c: int, vec: int, grid: int, chunks: int, rows:
     return out
 
 
+def bwd_cache_iters(vec: int, elt_size: int, smem: int = SMEM_OPTIN) -> int:
+    """Cache slots of a block of the backward kernel, as its launcher
+    ``run_bwd`` sets ``cache_iters``: the slots of one x word and one g word
+    a thread that the opt-in budget ``smem`` holds after the ``RING`` ring
+    slots (which the reduction area, 2 V fp32 sums a thread, lies over)."""
+    return smem // (THREADS * 2 * vec * elt_size) - RING
+
+
+def bwd_walk(b: int, hw: int, c: int, vec: int, grid: int, chunks: int, rows: int,
+             cache_iters: int, phase: int):
+    """Each block's steps in phase 1 or phase 3 (``phase``) of the backward
+    kernel, the mirror of its loops: a step is (item, k, slot), the item as
+    :func:`block_items` gives it, k the loop iteration whose rows are
+    r0 + lane + k * pix for the block's pixel lanes, and slot the
+    shared-memory slot its x and g words pass through: ("cache", i) or
+    ("ring", i). In phase 1 a block takes its items in order and each
+    item's iterations in order; the first ``cache_iters`` iterations it
+    meets stay in cache slots 0, 1, ..., and the others pass through the
+    ring in turn. In phase 3 it takes its items from the last, each one's
+    uncached iterations from the last down, through the ring in turn, then
+    its cached ones from the last down. The kernel copies a step into its
+    slot ``RING`` steps ahead of summing it (every cached step of an item
+    at once, with its first ``RING`` ring steps)."""
+    pix = _tiling(c, vec)[3]
+    out = []
+    for items in block_items(b, hw, c, vec, grid, chunks, rows):
+        iters = [-(-(it[4] - it[3]) // pix) for it in items]
+        steps = []
+        count = 0 if phase == 1 else sum(iters)
+        walk = list(zip(items, iters))
+        for w, n in walk if phase == 1 else walk[::-1]:
+            if phase != 1:
+                count -= n
+            kc = min(max(cache_iters - count, 0), n)
+            if phase == 1:
+                steps += [(w, k, ("cache", count + k) if k < kc else ("ring", (k - kc) % RING))
+                          for k in range(n)]
+                count += n
+            else:
+                steps += [(w, n - 1 - t, ("ring", t % RING)) for t in range(n - kc)]
+                steps += [(w, k, ("cache", count + k)) for k in range(kc - 1, -1, -1)]
+        out.append(steps)
+    return out
+
+
 @functools.cache
 def _launcher():
     return build.c_function("instance_norm", "instance_norm_launch", "pppppliiiiiif")
@@ -214,7 +264,10 @@ class FusedInstanceNorm(torch.autograd.Function):
     """K3 under autograd, the twin of JAX's ``_fused_in`` custom VJP: the
     forward keeps x and the statistics, the backward launches
     :func:`fused_instance_norm_bwd` for x and hands the output's gradient
-    to the residual."""
+    to the residual. ``grad_copies`` counts the output gradients that came
+    in strided and were copied before the launch."""
+
+    grad_copies = 0
 
     @staticmethod
     def forward(ctx, x, residual, relu: bool, eps: float):
@@ -228,7 +281,10 @@ class FusedInstanceNorm(torch.autograd.Function):
         x, stats = ctx.saved_tensors
         dx = dres = None
         if ctx.needs_input_grad[0]:
-            dx = fused_instance_norm_bwd(x, g.contiguous(), stats, ctx.relu, ctx.eps)
+            if not g.is_contiguous():
+                FusedInstanceNorm.grad_copies += 1
+                g = g.contiguous()
+            dx = fused_instance_norm_bwd(x, g, stats, ctx.relu, ctx.eps)
         if ctx.has_res and ctx.needs_input_grad[1]:
             dres = g
         return dx, dres, None, None

@@ -367,6 +367,35 @@ def test_instance_norm_bwd_kernel_matches_plain(cuda, shape, relu, dtype):
         assert ((err - 1e-5).clamp_min(0) / ulp).max().item() <= 1.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 32, 64, 1024),  # each block's rows fit its shared-memory cache: one read
+    (1, 64, 128, 512),  # the same, at 8 iterations a block in bf16
+    (300, 64, 64, 16),  # blocks take 2-3 whole slabs, the later ones past the cache
+])
+def test_instance_norm_bwd_kernel_cache_shapes(cuda, shape, relu, dtype):
+    """K3's backward where its cache holds a block's whole share and where
+    it holds only the first of several items, against its plain version on
+    the forward's statistics (so the ReLU's mask is the same): fp32 within
+    1e-5, bf16 within one ulp beyond that; two runs bit-equal."""
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    g = _input(shape, seed=1).to(cuda, dtype)
+    _, stats = instance_norm._forward(x, None, relu, 1e-5)
+    got = instance_norm.fused_instance_norm_bwd(x, g, stats, relu)
+    again = instance_norm.fused_instance_norm_bwd(x, g, stats, relu)
+    want = instance_norm.fused_instance_norm_bwd_plain(x, g, relu, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and got.dtype == dtype
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert ((err - 1e-5).clamp_min(0) / ulp).max().item() <= 1.0
+
+
 def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
     """One training step of the tiny flagship in the kernel configuration
     (K3 forward, recompute and backward at its 19 norm sites), fp32 with
