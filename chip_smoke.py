@@ -59,7 +59,22 @@ Phases, each printing a line as it ends:
      train/val split: one epoch of 2 steps with validation and a best-val
      save, then a second main that resumes, validates the load and writes
      save_dir/latest;
-  8. summary: the card, a JSON line of per-kernel numbers, the total
+  8. the flagship's phase-1 recipe (artifacts/flagship_r3/phase1/opt.json:
+     no netE, netG fed by netE4label's one code, no distortion loss) at full
+     width: (a) and (b) as in 7, with K3 at its 36 norm sites (72 forward
+     and 36 backward launches a step); (c) the phase chain through
+     train.run.main: phase 1 with a save, phase 2 restored from it (the
+     matched-leaf count held against the state dicts' names and shapes),
+     phase 1 with --max_host_rss_gb 0.001 (exit 75, save_dir/latest) and a
+     second main that resumes from latest; (d) the phase-1 codec's codes and
+     fp32 images on three paths against the default standard path, then
+     --requests bf16 requests served through one-code .jpds streams on the
+     four paths of 5, launches asserted per call; (e) a codec with the
+     generator's bottleneck binarized (after its residual blocks, the
+     encoders unbinarized) at the flagship's widths: one compress and
+     decompress in fp32 on the standard and the fast path, codes equal and
+     images within 1e-3;
+  9. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -727,14 +742,35 @@ def phase_coder(card: str, seed: int) -> None:
             f"{np.median(unpack_ms):.2f} ms, medians of 5 on the host ({card})")
 
 
-def check_codes(what: str, got, want, presign) -> None:
-    for name, f, s, p in zip(("netE4label", "netE"), got, want, presign):
+def coded_modules(cfg) -> list:
+    """(name, its code's shape at batch 1) of each binarized module, in
+    get_codes_shaped order."""
+    m, out = cfg.model, []
+    for name, on, n_down, c in (
+            ("netE4label", cfg.use_netE4label and not m.no_label_encoder_binarization,
+             m.n_downsample_E4label, m.label_encoder_binarizer_out_channels),
+            ("netE", cfg.use_netE and not m.no_encoder_binarization, m.n_downsample_E,
+             m.encoder_binarizer_out_channels),
+            ("netG", not m.no_generator_binarization, m.n_downsample_global,
+             m.generator_binarizer_out_channels)):
+        if on:
+            out.append((name, (1, H // 2**n_down, W // 2**n_down, c)))
+    return out
+
+
+def check_codes(what: str, got, want, presign, names=("netE4label", "netE"),
+                near: float = 1e-5) -> None:
+    if len(got) != len(want) or len(want) != len(names):
+        raise AssertionError(f"{what}: {len(got)} codes against {len(want)}")
+    for name, f, s, p in zip(names, got, want, presign):
         diff = f != s
-        away = diff & (p.abs() >= 1e-5)
+        away = diff & (p.abs() >= near)
         if away.any():
             raise AssertionError(f"{what} {name} codes: {int(away.sum())} bits differ away from 0")
+        worst = f", the largest |pre-sign| among them {p[diff].abs().max().item():.2e}" \
+            if diff.any() else ""
         log(f"[parity] {what} {name} codes {tuple(f.shape)}: {int(diff.sum())} of "
-            f"{diff.numel()} bits differ (allowed only where |pre-sign| < 1e-5)")
+            f"{diff.numel()} bits differ (allowed only where |pre-sign| < {near}){worst}")
 
 
 def check_image(what: str, got, want) -> None:
@@ -747,10 +783,12 @@ def check_image(what: str, got, want) -> None:
         raise AssertionError(f"{what} differs from the standard path by {err}")
 
 
-def phase_fp32_parity(cfg, kcfg, codec, seed: int) -> None:
+def phase_fp32_parity(cfg, kcfg, codec, seed: int, k3_launches: int = 45,
+                      tag: str = "") -> None:
     """At full width in fp32, TF32 off for convolutions and matmuls, against
     the port's default standard path: the default fast path, the fast path
-    in the kernel configuration (K1, K2, K4) and the standard path with K3."""
+    in the kernel configuration (K1, K2, K4) and the standard path with K3
+    (``k3_launches`` for a compress and a decompress)."""
     from jpdse_tpu_torch.models.codec import SemanticCodec
     from jpdse_tpu_torch.models.fast_codec import FastCodec
 
@@ -765,23 +803,26 @@ def phase_fp32_parity(cfg, kcfg, codec, seed: int) -> None:
             presign = codec.get_presign(inputs)
             std_img = codec.decode_from_codes(std_codes)
         state = codec.state_dict()
+        names = [n for n, _ in coded_modules(cfg)]
         for what, c in (("fp32 default fast path", cfg), ("fp32 kernel-config fast path", kcfg)):
             fast = FastCodec(c, state, device="cuda", dtype=torch.float32)
             reset_counts()
-            check_codes(what, fast.get_codes_shaped(batch), std_codes, presign)
-            check_image(what, fast.decode_from_codes(std_codes), std_img)
-            log(f"[parity] {what}: kernel launches {read_counts()}")
+            check_codes(f"{tag}{what}", fast.get_codes_shaped(batch), std_codes, presign, names)
+            check_image(f"{tag}{what}", fast.decode_from_codes(std_codes), std_img)
+            log(f"[parity] {tag}{what}: kernel launches {read_counts()}")
         fused = SemanticCodec(kcfg, device="cuda", seed=None, dtype=torch.float32)
         fused.load_state_dict(state)
         reset_counts()
+        what = f"{tag}fp32 standard path with K3"
         with torch.inference_mode():
-            check_codes("fp32 standard path with K3", fused.get_codes_shaped(fused.prepare(batch)),
-                        std_codes, presign)
-            check_image("fp32 standard path with K3", fused.decode_from_codes(std_codes), std_img)
+            check_codes(what, fused.get_codes_shaped(fused.prepare(batch)), std_codes, presign,
+                        names)
+            check_image(what, fused.decode_from_codes(std_codes), std_img)
         counts = read_counts()
-        log(f"[parity] fp32 standard path with K3: kernel launches {counts}")
-        if counts["fused_instance_norm"] != 45:
-            raise AssertionError(f"K3 launched {counts['fused_instance_norm']} times, want 45")
+        log(f"[parity] {what}: kernel launches {counts}")
+        if counts["fused_instance_norm"] != k3_launches:
+            raise AssertionError(f"K3 launched {counts['fused_instance_norm']} times, "
+                                 f"want {k3_launches}")
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
@@ -800,12 +841,7 @@ def serve_path(label: str, cfg, state, batches, want_compress: dict, want_decomp
 
     torch.cuda.empty_cache()  # each path starts from the same allocator state
     server = CodecServer(cfg, state, device="cuda")
-    m = cfg.model
-    code_shapes = [
-        (1, H // 2**m.n_downsample_E4label, W // 2**m.n_downsample_E4label,
-         m.label_encoder_binarizer_out_channels),
-        (1, H // 2**m.n_downsample_E, W // 2**m.n_downsample_E, m.encoder_binarizer_out_channels),
-    ]
+    code_shapes = [shape for _, shape in coded_modules(cfg)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows = {k: [] for k in ("compress", "decompress", "compress: device part", "pack", "unpack",
@@ -888,27 +924,34 @@ def serve_path(label: str, cfg, state, batches, want_compress: dict, want_decomp
     return med, counts, codes, image
 
 
-def phase_serve(cfg, kcfg, codec, seed: int, requests: int, card: str) -> dict:
-    """The four serving paths in bf16; returns each path's launch counts."""
+# kernel launches per compress and per decompress on each serving path
+SERVE_LAUNCHES = {
+    "default fast path": ({}, {"s2d_realign_pad3": 3}),
+    "kernel-config fast path": ({"s2d_realign_pad3": 1, "s2d_pad3": 1, "head_conv_s2d": 1},
+                                {"s2d_realign_pad3": 4, "head_conv_s2d": 1}),
+    "kernel-config standard path": ({"fused_instance_norm": 10}, {"fused_instance_norm": 35}),
+    # the same standard path without K3, to read K3's end-to-end effect
+    "default standard path": ({}, {}),
+}
+
+
+def phase_serve(cfg, kcfg, codec, seed: int, requests: int, card: str,
+                want: dict = SERVE_LAUNCHES, tag: str = "") -> dict:
+    """The four serving paths in bf16, each call's launches asserted
+    against ``want``; returns each path's launch counts."""
     import copy
 
     state = codec.state_dict()
     batches = [make_batch(seed + 1 + r) for r in range(requests)]
     kstd, dstd = copy.deepcopy(kcfg), copy.deepcopy(cfg)
     kstd.model.fast_inference = dstd.model.fast_inference = False
-    paths = {
-        "default fast path": (cfg, {}, {"s2d_realign_pad3": 3}),
-        "kernel-config fast path": (
-            kcfg, {"s2d_realign_pad3": 1, "s2d_pad3": 1, "head_conv_s2d": 1},
-            {"s2d_realign_pad3": 4, "head_conv_s2d": 1}),
-        "kernel-config standard path": (
-            kstd, {"fused_instance_norm": 10}, {"fused_instance_norm": 35}),
-        # the same standard path without K3, to read K3's end-to-end effect
-        "default standard path": (dstd, {}, {}),
-    }
+    configs = {"default fast path": cfg, "kernel-config fast path": kcfg,
+               "kernel-config standard path": kstd, "default standard path": dstd}
     results, launches = {}, {}
-    for label, (c, want_c, want_d) in paths.items():
-        med, counts, codes, image = serve_path(label, c, state, batches, want_c, want_d, card)
+    for label, c in configs.items():
+        want_c, want_d = want[label]
+        med, counts, codes, image = serve_path(f"{tag}{label}", c, state, batches, want_c,
+                                               want_d, card)
         results[label], launches[label] = med, counts
         if label == "default fast path":
             # the served bf16 image against the fp32 standard path on the same codes
@@ -920,7 +963,7 @@ def phase_serve(cfg, kcfg, codec, seed: int, requests: int, card: str) -> dict:
     base = results["default fast path"]
     for label, med in results.items():
         c_ms, d_ms = med["compress"], med["decompress"]
-        log(f"[serve] medians, {label}: compress {c_ms:.2f} ms ({c_ms / base['compress']:.3f}x "
+        log(f"[serve] medians, {tag}{label}: compress {c_ms:.2f} ms ({c_ms / base['compress']:.3f}x "
             f"the default fast path's {base['compress']:.2f}), decompress {d_ms:.2f} ms "
             f"({d_ms / base['decompress']:.3f}x its {base['decompress']:.2f}); "
             f"tensor API {med['compress_codes']:.2f} / {med['decompress_codes']:.2f} ms; host "
@@ -1120,7 +1163,12 @@ def phase_eval(codec, seed: int, card: str) -> dict:
 
 # -- training ----------------------------------------------------------------------
 TRAIN_BATCH = 2
-K3_SITES = 45  # the generator side's norm sites: netG 27, netE 9, netE4label 9
+# the generator side's norm sites, by the flagship recipe's phase: netG 27,
+# netE 9 and netE4label 9 in phase 2; phase 1 has no netE
+K3_SITES = {2: 45, 1: 36}
+K3_BWD_SITES_BY_PHASE = {2: K3_BWD_SITES, 1: {
+    **{(s[1:], True): 4 for s in NORM_SHAPES[:4]},
+    (NORM_SHAPES[4][1:], True): 11, (NORM_SHAPES[4][1:], False): 9}}
 GRAD_TOL = 1e-3  # a gradient tensor's relative L2 difference, unless fp32 conditioning is worse
 # ... and never more than this, per network: set from the controls' largest
 # readings on an H100 (G 1.32e-02, D 1.65e-03; the kernel config's 7.92e-03
@@ -1131,12 +1179,14 @@ K3_SITE_TOL = 1e-5  # K3 at a site of the step against its plain version, of the
 NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up\.\d+|res\.\d+|layer[1-9])\..*bias$")
 
 
-def flagship_train_config(kernels: bool, seed: int):
+def flagship_train_config(kernels: bool, seed: int, phase: int = 2):
     """The flagship's phase-2 recipe (artifacts/flagship_r3/phase2/opt.json):
     batch 2 at 1024x512 ('fixed', normalize_std 1), fp32, block remat, Adam
     lr 2e-4 betas (0.5, 0.999), num_D 2, n_layers_D 3, ndf 64, LSGAN, VGG,
     feature matching and L1 distortion (the config's defaults), at full
-    width; ``kernels``: K3 at every generator-side norm site."""
+    width; or its phase-1 recipe (artifacts/flagship_r3/phase1/opt.json:
+    no netE, no distortion loss, normalize_std 0.5); ``kernels``: K3 at
+    every generator-side norm site."""
     from jpdse_tpu_torch.config import flagship_config
 
     cfg = flagship_config(kernels=kernels)
@@ -1145,6 +1195,9 @@ def flagship_train_config(kernels: bool, seed: int):
     cfg.optim.remat, cfg.optim.remat_granularity, cfg.optim.seed = True, "block", seed
     cfg.data.batch_size = TRAIN_BATCH
     cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+    if phase == 1:
+        m.no_feat, cfg.loss.no_distortion_loss = True, True
+        cfg.data.normalize_std = (0.5, 0.5, 0.5)
     mode, load, crop, aspect = FLAGSHIP_PREPROCESS
     pp = cfg.data.preprocess
     pp.preprocess_mode, pp.load_size, pp.crop_size, pp.aspect_ratio = mode, load, crop, aspect
@@ -1224,9 +1277,9 @@ class K3SiteCheck:
         return "; ".join(parts)
 
 
-def phase_train_parity(seed: int, card: str) -> dict:
-    """(a) One loss_and_grads in the kernel configuration against the default
-    one, fp32 with TF32 off, from the same weights and the same generator
+def phase_train_parity(seed: int, card: str, phase: int = 2) -> dict:
+    """(a) One loss_and_grads of the ``phase`` recipe in the kernel
+    configuration against the default one, fp32 with TF32 off, from the same weights and the same generator
     seed: the eight metrics within 1e-4 relative; every binarizer bit that
     differs lying within 1e-5 of its threshold (1 - x) / 2 = u; a bias an
     InstanceNorm follows 0 to rounding (at most 1e-5 of its network's
@@ -1252,8 +1305,9 @@ def phase_train_parity(seed: int, card: str) -> dict:
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         t0 = time.perf_counter()
-        base = Trainer(flagship_train_config(False, seed), mode="train", device="cuda")
-        fused = Trainer(flagship_train_config(True, seed), mode="train", device="cuda")
+        base = Trainer(flagship_train_config(False, seed, phase), mode="train", device="cuda")
+        fused = Trainer(flagship_train_config(True, seed, phase), mode="train", device="cuda")
+        sites_n, tag = K3_SITES[phase], f"phase-{phase} recipe"
         for a, b in ((base.gan.codec, fused.gan.codec), (base.gan.disc, fused.gan.disc),
                      (base.gan.vgg, fused.gan.vgg)):
             b.load_state_dict(a.state_dict())
@@ -1265,7 +1319,7 @@ def phase_train_parity(seed: int, card: str) -> dict:
                 np.float32)))
         n_g = sum(p.numel() for p in base.gan.codec.parameters())
         n_d = sum(p.numel() for p in base.gan.disc.parameters())
-        log(f"[train] phase-2 recipe at {W}x{H}, batch {TRAIN_BATCH}, fp32: G {n_g} and D {n_d} "
+        log(f"[train] {tag} at {W}x{H}, batch {TRAIN_BATCH}, fp32: G {n_g} and D {n_d} "
             f"parameters, VGG19 random from seed 0; two trainers built in "
             f"{time.perf_counter() - t0:.1f} s")
         out, launches = {}, {}
@@ -1283,32 +1337,32 @@ def phase_train_parity(seed: int, card: str) -> dict:
                 out[label] = step.loss_and_grads(t.gan, placed, gen)
             torch.cuda.synchronize()
             counts = read_counts()
-            log(f"[train] parity, {label}: loss_and_grads {time.perf_counter() - t0:.2f} s (fp32, "
+            log(f"[train] {tag} parity, {label}: loss_and_grads {time.perf_counter() - t0:.2f} s (fp32, "
                 f"TF32 off); launches {counts}")
             if not label.startswith("control"):
                 launches[label] = counts
-        want_k3 = {"default": (0, 0), "kernel config": (2 * K3_SITES, K3_SITES)}
+        want_k3 = {"default": (0, 0), "kernel config": (2 * sites_n, sites_n)}
         for label, counts in launches.items():
             if k3_per_step(counts, 1) != want_k3[label]:
                 raise AssertionError(f"{label}: K3 forward and backward launched "
                                      f"{k3_per_step(counts, 1)}, want {want_k3[label]}")
-        if sites.calls != {"forward": 2 * K3_SITES, "backward": K3_SITES}:
+        if sites.calls != {"forward": 2 * sites_n, "backward": sites_n}:
             raise AssertionError(f"K3 site check saw {sites.calls}")
         bwd_forms = {(k[1][1:], k[2]): n for k, n in sites.counts.items() if k[0] == "backward"}
-        if bwd_forms != K3_BWD_SITES:
+        if bwd_forms != K3_BWD_SITES_BY_PHASE[phase]:
             raise AssertionError(f"K3 backward's launches by (H, W, C) and ReLU: {bwd_forms}, "
-                                 f"want {K3_BWD_SITES}")
-        log(f"[parity] train K3 at every launch of the kernel config's step against the plain "
+                                 f"want {K3_BWD_SITES_BY_PHASE[phase]}")
+        log(f"[parity] {tag}: train K3 at every launch of the kernel config's step against the plain "
             f"version on the same inputs (difference / the output's max-abs, tolerance "
             f"{K3_SITE_TOL}): {sites.summary()}")
-        # the binarizers' draws: netE4label's first, then netE's
+        # the binarizers' draws: netE4label's first, then netE's (where there is one)
         with torch.no_grad():
             pre = {label: t.gan.codec.get_presign(t.gan.codec.prepare(t.place(b)))
                    for label, t, b in (("default", base, batch), ("kernel config", fused, batch),
                                        ("control 1", base, controls[0]),
                                        ("control 2", base, controls[1]))}
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        for i, name in enumerate(("netE4label", "netE")):
+        for i, name in enumerate(("netE4label", "netE")[:len(pre["default"])]):
             x0 = pre["default"][i]
             u = torch.rand(x0.shape, dtype=x0.dtype, device="cuda", generator=gen)
             near = ((1.0 - x0) / 2.0 - u).abs() < 1e-5
@@ -1319,7 +1373,7 @@ def phase_train_parity(seed: int, card: str) -> dict:
                 if (flipped & ~near).any():
                     raise AssertionError(f"{name}, {label}: a binarizer bit differs away from "
                                          "its threshold")
-            log(f"[parity] train {name} stochastic bits that differ from the default's, of "
+            log(f"[parity] {tag}: train {name} stochastic bits that differ from the default's, of "
                 f"{x0.numel()}: " + ", ".join(f"{k} {v}" for k, v in flips.items())
                 + f"; all within 1e-5 of the threshold ({int(near.sum())} bits lie there)")
             if flips["control 1"] or flips["control 2"]:
@@ -1333,7 +1387,7 @@ def phase_train_parity(seed: int, card: str) -> dict:
             worst = max(worst, rel)
             if not (np.isfinite(a) and rel <= 1e-4):
                 raise AssertionError(f"parity: {k} {b} against {a}")
-        log(f"[parity] train metrics, kernel config vs default: "
+        log(f"[parity] {tag}: train metrics, kernel config vs default: "
             + ", ".join(f"{k} {m1[k].item():.6f} / {m0[k].item():.6f}" for k in step.METRICS)
             + f"; largest relative difference {worst:.2e} (tolerance 1e-4)")
         others = ("kernel config", "control 1", "control 2")
@@ -1355,7 +1409,7 @@ def phase_train_parity(seed: int, card: str) -> dict:
                     peak[label] = max(peak[label], (relmax, n))
             noise = max(l2["control 1"][0], l2["control 2"][0])
             bound = min(GRAD_CEIL[net], max(GRAD_TOL, 2 * noise))
-            log(f"[parity] train {net} gradients, {len(names)} tensors; largest relative L2 "
+            log(f"[parity] {tag}: train {net} gradients, {len(names)} tensors; largest relative L2 "
                 f"difference and largest difference against a tensor's max-abs, each against "
                 f"the default: " + "; ".join(
                     f"{label} {l2[label][0]:.2e} at {l2[label][1]}, {peak[label][0]:.2e} at "
@@ -1409,8 +1463,8 @@ def profile_step(label: str, trainer, batch, card: str) -> None:
                     for e in top) + f" ({card})")
 
 
-def phase_train_steps(seed: int, steps: int, card: str) -> dict:
-    """(b) ``steps`` Trainer.steps of each configuration at PyTorch's default
+def phase_train_steps(seed: int, steps: int, card: str, phase: int = 2) -> dict:
+    """(b) ``steps`` Trainer.steps of the ``phase`` recipe in each configuration at PyTorch's default
     precision (convolutions in TF32, matmuls in fp32): the median step after
     the first, images/s, peak memory, finite losses, K3's launches per step;
     then one more step under the profiler. Returns each configuration's
@@ -1423,7 +1477,8 @@ def phase_train_steps(seed: int, steps: int, card: str) -> dict:
     launches, medians = {}, {}
     for label, kernels in (("default", False), ("kernel config", True)):
         torch.cuda.empty_cache()
-        trainer = Trainer(flagship_train_config(kernels, seed), mode="train", device="cuda")
+        trainer = Trainer(flagship_train_config(kernels, seed, phase), mode="train",
+                          device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1436,24 +1491,25 @@ def phase_train_steps(seed: int, steps: int, card: str) -> dict:
             if not all(np.isfinite(v) for v in metrics.values()):
                 raise AssertionError(f"{label}: losses {metrics}")
         launches[label] = counts = read_counts()
-        want = (2 * K3_SITES, K3_SITES) if kernels else (0, 0)
+        sites_n = K3_SITES[phase]
+        want = (2 * sites_n, sites_n) if kernels else (0, 0)
         if k3_per_step(counts, steps) != want:
             raise AssertionError(f"{label}: K3 forward and backward per step "
                                  f"{k3_per_step(counts, steps)}, want {want}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         med = float(np.median(times[1:] if steps > 1 else times))
         medians[label] = med
-        k3 = (f"K3 per step: forward {want[0]} ({K3_SITES} + {K3_SITES} in the remat "
+        k3 = (f"K3 per step: forward {want[0]} ({sites_n} + {sites_n} in the remat "
               f"recompute), backward {want[1]}" if kernels else "no K3")
-        log(f"[train] {label}: steps (ms) {', '.join(f'{t:.1f}' for t in times)}; median after "
+        log(f"[train] phase-{phase} recipe, {label}: steps (ms) {', '.join(f'{t:.1f}' for t in times)}; median after "
             f"the first {med:.1f} ms, {TRAIN_BATCH / med * 1e3:.3f} images/s; peak memory "
             f"{peak:.2f} GiB; {k3}; convolutions in TF32 ({card})")
-        log(f"[train] {label}: losses of the last step " + ", ".join(
+        log(f"[train] phase-{phase} recipe, {label}: losses of the last step " + ", ".join(
             f"{k} {v:.4f}" for k, v in losses[-1].items()) + f"; steps taken "
             f"{trainer.steps_taken}")
-        profile_step(label, trainer, batches[-1], card)
+        profile_step(f"phase-{phase} recipe, {label}", trainer, batches[-1], card)
         del trainer
-    log(f"[train] kernel config step / default step: "
+    log(f"[train] phase-{phase} recipe: kernel config step / default step: "
         f"{medians['kernel config'] / medians['default']:.3f} ({card})")
     return launches
 
@@ -1493,8 +1549,9 @@ def phase_train_entry(seed: int, card: str) -> dict:
         trainers = {}
         for label, args in runs.items():
             torch.cuda.empty_cache()
-            want = {"fused_instance_norm": steps * 2 * K3_SITES + images[label] * K3_SITES,
-                    "fused_instance_norm_bwd": steps * K3_SITES}
+            sites_n = K3_SITES[2]
+            want = {"fused_instance_norm": steps * 2 * sites_n + images[label] * sites_n,
+                    "fused_instance_norm_bwd": steps * sites_n}
             trainer, _, counts = run_entry(
                 label, "train.run.main", lambda: run.main(args, device="cuda"), want, per=1,
                 tag="[train]", keep=("epoch ", "val set avg", "saving model", "checkpoint",
@@ -1526,6 +1583,242 @@ def phase_train_entry(seed: int, card: str) -> dict:
         log(f"[train] resumed main: started at epoch {resumed.start_epoch + 1}, steps taken "
             f"{resumed.steps_taken}, save_dir/latest at epoch {latest['epoch']}; save_dir holds "
             f"{files}")
+    return launches
+
+
+# -- the flagship's phase-1 recipe and the generator-input assemblies --------------
+# kernel launches per compress and per decompress of the phase-1 codec (no netE):
+# the fast path's compress re-aligns and convolves netE4label's head (K1, K4 in
+# the kernel configuration), its decompress re-aligns netE4label's back and
+# netG's head and back; the standard path's K3 runs at netE4label's head and
+# downs (5), then its ups and netG's 27 sites (31)
+PHASE1_SERVE_LAUNCHES = {
+    "default fast path": ({}, {"s2d_realign_pad3": 2}),
+    "kernel-config fast path": ({"s2d_realign_pad3": 1, "head_conv_s2d": 1},
+                                {"s2d_realign_pad3": 3, "head_conv_s2d": 1}),
+    "kernel-config standard path": ({"fused_instance_norm": 5}, {"fused_instance_norm": 31}),
+    "default standard path": ({}, {}),
+}
+PHASE1_FLAGS = ["--no_feat", "--no_distortion_loss", "--normalize_std", "0.5"]
+
+
+def phase1_serving_configs():
+    """The flagship's serving configuration (bf16, the fast path) and its
+    kernel configuration, with the phase-1 assembly: netE4label's one code
+    into netG, no netE."""
+    from jpdse_tpu_torch.config import flagship_config
+
+    out = []
+    for kernels in (False, True):
+        cfg = flagship_config(kernels=kernels)
+        cfg.model.no_feat = True
+        cfg.validate()
+        out.append(cfg)
+    return out
+
+
+def phase8_serve(seed: int, requests: int, card: str) -> dict:
+    """(d) The phase-1 codec at full width: codes and fp32 images of the
+    three other paths against the default standard path (TF32 off), then
+    --requests bf16 requests served on the four paths through .jpds bytes
+    (one code a stream), launches asserted per call. Returns each path's
+    counts."""
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+
+    cfg, kcfg = phase1_serving_configs()
+    codec = SemanticCodec(cfg, device="cuda", seed=seed, dtype=torch.float32)
+    log(f"[phase1] phase-1 codec (no netE), {sum(p.numel() for p in codec.parameters())} "
+        f"parameters from seed {seed}; one code {coded_modules(cfg)}")
+    phase_fp32_parity(cfg, kcfg, codec, seed, k3_launches=36, tag="phase-1 codec: ")
+    launches = phase_serve(cfg, kcfg, codec, seed, requests, card, PHASE1_SERVE_LAUNCHES,
+                           "phase-1 codec, ")
+    del codec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase8_g_binarized(seed: int, card: str) -> dict:
+    """(e) The generator's bottleneck binarized after its residual blocks
+    (the encoders unbinarized) at the flagship's widths, fp32 with TF32 off:
+    one compress and one decompress through .jpds bytes on the standard and
+    the fast path; the codes equal but where a pre-sign lies within
+    FP32_ATOL of 0, the images of the standard path's stream within
+    FP32_ATOL; the fast path's launches asserted (compress K1 2: the
+    encoders' backs; decompress K1 1: netG's back). Returns each path's
+    counts."""
+    import copy
+
+    from jpdse_tpu_torch import codec_io
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.serve import CodecServer
+
+    cfg = flagship_config()
+    m = cfg.model
+    m.no_generator_binarization = False
+    m.no_encoder_binarization = m.no_label_encoder_binarization = True
+    m.compute_dtype = "float32"
+    cfg.validate()
+    std_cfg = copy.deepcopy(cfg)
+    std_cfg.model.fast_inference = False
+    codec = SemanticCodec(cfg, device="cuda", seed=seed, dtype=torch.float32)
+    state = codec.state_dict()
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        batch = make_batch(seed + 50)
+        with torch.inference_mode():
+            inputs = codec.prepare({k: torch.as_tensor(v, device="cuda") for k, v in batch.items()})
+            presign = codec.get_presign(inputs)
+        out, launches = {}, {}
+        for label, c, want in (("standard path", std_cfg, ({}, {})),
+                               ("fast path", cfg, ({"s2d_realign_pad3": 2},
+                                                   {"s2d_realign_pad3": 1}))):
+            server = CodecServer(c, state, device="cuda")
+            reset_counts()
+            t0 = time.perf_counter()
+            stream = server.compress(batch)[0]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            comp = read_counts()
+            # both paths decode the standard path's stream, so their images share codes
+            image = server.decompress(out["standard path"][0] if out else stream)
+            t2 = time.perf_counter()
+            counts = read_counts()
+            dec = {k: counts[k] - comp[k] for k in counts}
+            for got, w, what in ((comp, want[0], "compress"), (dec, want[1], "decompress")):
+                if got != {k: w.get(k, 0) for k in got}:
+                    raise AssertionError(f"G-binarized {label}: {what} launched {got}, want {w}")
+            codes, hw = codec_io.unpack(stream)
+            if hw != (H, W) or [c.shape for c in codes] != [shape for _, shape in
+                                                            coded_modules(cfg)]:
+                raise AssertionError(f"G-binarized {label}: stream codes {[c.shape for c in codes]}")
+            out[label] = (stream, codes[0], image)
+            launches[f"G-binarized {label}"] = counts
+            log(f"[phase1] G-binarized codec, {label}: .jpds {len(stream)} bytes "
+                f"({8 * len(stream) / (H * W):.4f} bpp, one code {codes[0].shape[1:]}); "
+                f"compress {(t1 - t0) * 1e3:.2f} ms, decompress {(t2 - t1) * 1e3:.2f} ms (fp32, "
+                f"first call); launches {counts} ({card})")
+        (_, c0, i0), (_, c1, i1) = out["standard path"], out["fast path"]
+        # the code sits behind two whole encoders and netG's front (25 norm
+        # sites): a pre-sign's fp32 difference between the paths reaches the
+        # images' own tolerance, not the shallow encoder codes' 1e-5
+        check_codes("G-binarized fast path", [torch.from_numpy(c1)], [torch.from_numpy(c0)],
+                    [presign[0][:1].cpu()], ["netG"], near=FP32_ATOL)
+        check_image("G-binarized fast path, the standard path's stream,", torch.from_numpy(i1),
+                    torch.from_numpy(i0))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    del codec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _exit_code(fn):
+    """fn() -> None, or the code of the SystemExit it raised."""
+    def run():
+        try:
+            fn()
+        except SystemExit as e:
+            return e.code
+        return None
+    return run
+
+
+def phase8_chain(seed: int, card: str) -> dict:
+    """(c) The flagship's phase chain through train.run.main in the kernel
+    configuration at full width, on a synthetic Cityscapes train/val split:
+    phase 1 for one epoch of 2 steps with a best-val save; phase 2 restored
+    from it (--load_model --checkpoints_dir), its matched-leaf count held
+    against the count worked out from the two state dicts' names and shapes;
+    phase 1 again with --max_host_rss_gb 0.001, which must exit 75 with
+    save_dir/latest written; and a second main with the same flags, which
+    must resume from latest at epoch 2 with 2 steps taken. Counts are set to
+    0 before each main and asserted after it. Returns each main's counts."""
+    from jpdse_tpu_torch.train import run
+    from jpdse_tpu_torch.train.checkpoint import PARAMS_D_FILE, PARAMS_FILE
+
+    launches = {}
+    n1, n2 = K3_SITES[1], K3_SITES[2]
+    steps = EVAL_IMAGES // TRAIN_BATCH
+    keep = ("epoch ", "val set avg", "saving model", "checkpoint", "resuming", "latest-state",
+            "restored", "optimizer state", "host RSS")
+    with tempfile.TemporaryDirectory(prefix="jpdse_phases_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "cityscapes"
+        for split in ("train", "val"):
+            write_cityscapes(root, seed + 10 + (split == "train"), split)
+        mode, load, crop, _ = FLAGSHIP_PREPROCESS
+        base = ["--dataset", "cityscapes", "--root_dir", str(root), "--no_generator_binarization",
+                "--batch_size", str(TRAIN_BATCH), "--remat", "1", "--seed", str(seed),
+                "--num_workers", "2", "--max_recon_dump", "2", "--fused_instance_norm", "1"]
+        for prefix in ("", "val_"):
+            base += [f"--{prefix}preprocess_mode", mode, f"--{prefix}load_size", str(load),
+                     f"--{prefix}crop_size", str(crop)]
+        d1, d2, d3 = (str(tmp / d) for d in ("phase1", "phase2", "phase1_rss"))
+        rss = base + PHASE1_FLAGS + ["--save_dir", d3, "--num_epochs", "2", "--val_interval", "5",
+                                     "--max_host_rss_gb", "0.001"]
+        # (argv, K3 forward and backward launches, the exit code)
+        runs = {
+            "phase 1": (base + PHASE1_FLAGS + ["--save_dir", d1, "--num_epochs", "1",
+                                               "--val_interval", "1"],
+                        steps * 2 * n1 + (EVAL_IMAGES + 2) * n1, steps * n1, None),
+            "phase 2 from phase 1": (
+                base + ["--normalize_std", "1", "--save_dir", d2, "--num_epochs", "1",
+                        "--val_interval", "5", "--load_model", "--checkpoints_dir", d1],
+                EVAL_IMAGES * n2 + steps * 2 * n2, steps * n2, None),
+            "phase 1, host-memory limit": (rss, steps * 2 * n1, steps * n1, 75),
+            "phase 1, resumed": (rss + ["--load_model", "--checkpoints_dir", d3],
+                                 EVAL_IMAGES * n1 + steps * 2 * n1, steps * n1, 75),
+        }
+        for label, (argv, fwd, bwd, code) in runs.items():
+            torch.cuda.empty_cache()
+            result = {}
+
+            def main_run(argv=argv):
+                result["trainer"] = run.main(argv, device="cuda")
+
+            got, text, counts = run_entry(
+                label, "train.run.main", _exit_code(main_run),
+                {"fused_instance_norm": fwd, "fused_instance_norm_bwd": bwd}, per=1,
+                tag="[phase1]", keep=keep)
+            launches[f"phase chain: {label}"] = counts
+            if got != code:
+                raise AssertionError(f"{label}: main exited with {got}, want {code}")
+            if label == "phase 2 from phase 1":
+                trainer = result["trainer"]
+                want_k = want_n = 0
+                for name, template in ((PARAMS_FILE, trainer.gan.codec.state_dict()),
+                                       (PARAMS_D_FILE, trainer.gan.disc.state_dict())):
+                    saved = torch.load(Path(d1) / name, map_location="cpu", weights_only=True)
+                    want_k += sum(k in saved and saved[k].shape == t.shape
+                                  for k, t in template.items())
+                    want_n += len(template)
+                m = re.search(rf"restored params from {re.escape(d1)}: (\d+)/(\d+) leaves "
+                               "matched", text)
+                if not m or (int(m[1]), int(m[2])) != (want_k, want_n) or want_k == want_n:
+                    raise AssertionError(f"phase 2's restore: {m and m[0]}, want {want_k}/{want_n}")
+                if "optimizer state not restored" not in text:
+                    raise AssertionError("phase 2 restored phase 1's Adam state")
+                log(f"[phase1] phase 2 restored {want_k} of {want_n} leaves from phase 1 (netG's "
+                    f"head and netE fresh), the Adams fresh")
+                del trainer, result["trainer"]
+            if label.startswith("phase 1, "):
+                latest = json.loads((Path(d3) / "latest/trainer_meta.json").read_text())
+                opt = torch.load(Path(d3) / "latest/opt.pt", map_location="cpu",
+                                 weights_only=True)
+                first = label.endswith("limit")
+                want_at = (0, steps) if first else (1, 2 * steps)
+                if (latest["epoch"], opt["steps_taken"]) != want_at:
+                    raise AssertionError(f"{label}: latest at epoch {latest['epoch']}, steps "
+                                         f"{opt['steps_taken']}, want {want_at}")
+                if not first and not ("resuming from latest-state checkpoint" in text and
+                                      f"starting from epoch 2 with {steps} steps taken" in text):
+                    raise AssertionError(f"{label}: did not resume from latest at epoch 2 "
+                                         f"with {steps} steps taken")
+                log(f"[phase1] {label}: exit {got}, save_dir/latest at epoch {latest['epoch']} "
+                    f"with {opt['steps_taken']} steps taken"
+                    + ("" if first else "; resumed from latest at epoch 2 after 2 steps"))
     return launches
 
 
@@ -1583,6 +1876,17 @@ def main() -> int:
                            phase_train_steps(args.seed, args.train_steps, card).items()})
     train_launches.update(phase_train_entry(args.seed, card))
     log(f"[train] training phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_launches.update({f"phase-1 train parity: {k}": v for k, v in
+                           phase_train_parity(args.seed, card, phase=1).items()})
+    train_launches.update({f"phase-1 train steps: {k}": v for k, v in
+                           phase_train_steps(args.seed, args.train_steps, card, phase=1).items()})
+    train_launches.update(phase8_chain(args.seed, card))
+    launches.update({f"phase-1 serve: {k}": v for k, v in
+                     phase8_serve(args.seed, args.requests, card).items()})
+    launches.update(phase8_g_binarized(args.seed, card))
+    log(f"[phase1] phase-1 recipe and assemblies phase {time.perf_counter() - t0:.1f} s")
     launches.update(train_launches)
     for e in entries:
         name = e["name"]

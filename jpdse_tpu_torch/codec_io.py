@@ -15,7 +15,7 @@ its output is byte-identical to ``jpdse_tpu.codec_io.pack`` of the same
 codes. :func:`unpack_full` reads versions 1 to 3. Side info (label and
 instance maps, a base codec's payload) is not ported: a stream whose flags
 announce any raises :class:`SideInfoNotPorted` rather than being decoded
-without it.
+without it; :func:`side_requirements` says which configurations need it.
 """
 
 from __future__ import annotations
@@ -37,7 +37,36 @@ _SIDE_SECTIONS = {1: "label map", 2: "instance map", 4: "base codec payload",
 
 
 class SideInfoNotPorted(ValueError):
-    """The stream carries side info, which this package cannot decode yet."""
+    """The stream carries side info, or the configuration needs it, which
+    this package cannot code yet (ROADMAP Queue 1 item 5)."""
+
+
+def side_requirements(cfg) -> Tuple[bool, bool, bool]:
+    """Which side-info sections a configuration needs for a complete
+    decodable stream: (need_label, need_instance, need_base). Raises
+    ValueError for configurations whose visuals are raw *uncompressed*
+    pixels (no stream represents them)."""
+    m = cfg.model
+    if not m.no_generator_binarization:
+        # the generator's bottleneck code carries everything before it
+        return False, False, False
+    sem_in_codes = cfg.use_netE4label and not m.no_label_encoder_binarization
+    vis_in_codes = (not m.no_feat) and cfg.use_netE and not m.no_encoder_binarization
+    vis_raw = (not m.no_feat) and not vis_in_codes
+    if m.sem_masking:
+        need_label = vis_raw  # the label only shapes the semantic mask
+    else:
+        need_label = (not m.no_label) and not sem_in_codes
+    need_inst = (not m.no_instance) and need_label
+    if vis_raw and m.inst_wise_pool and cfg.use_netE:
+        need_inst = True  # an unbinarized encoder pools over instance ids
+    need_base = vis_raw and cfg.codec.use_compressed
+    if vis_raw and not cfg.codec.use_compressed:
+        raise ValueError(
+            "this configuration feeds raw uncompressed pixels to the generator "
+            "(no_feat_encoding without use_compressed) — there is no bitstream "
+            "representation for it")
+    return need_label, need_inst, need_base
 
 
 def contexts_for_shapes(shapes: Sequence[Tuple[int, int, int]]) -> np.ndarray:

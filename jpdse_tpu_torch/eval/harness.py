@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from jpdse_tpu_torch import native
-from jpdse_tpu_torch.config import Config, check_ported
+from jpdse_tpu_torch.codec_io import side_requirements
+from jpdse_tpu_torch.config import Config, NotPorted, check_ported
 from jpdse_tpu_torch.ops.metrics import denormalize_to_uint8, ms_ssim, psnr
 
 
@@ -52,10 +53,18 @@ def coded_stream(code: np.ndarray, contexts: np.ndarray, shapes) -> bytes:
 
 def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dict[str, float]:
     """Run the evaluation; returns the metrics averaged per image."""
-    # the side-info configurations (raw semantics, base codec) that add
-    # sem_side_bpp and base_codec_bpp are ROADMAP Queue 1 item 5
     check_ported(cfg)
+    try:
+        need_side = any(side_requirements(cfg))
+    except ValueError:
+        need_side = False  # raw uncompressed visuals: not deployable, no side accounting
+    if need_side:
+        raise NotPorted("the rate of a configuration whose streams carry side info (raw "
+                        "semantics, an unbinarized encoder's visuals: sem_side_bpp and "
+                        "base_codec_bpp, through encode_idmap) is ROADMAP Queue 1 item 5")
     get_codes = not cfg.do_not_get_codes and cfg.has_binary_codes
+    if not cfg.do_not_get_codes and not cfg.has_binary_codes:
+        print("note: no binarized module in this configuration; skipping code dumps")
     if get_codes and cfg.save_dir:
         os.makedirs(os.path.join(cfg.save_dir, "codes"), exist_ok=True)
 
@@ -143,7 +152,7 @@ def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dic
 
     avgs = {k: v / max(n_images, 1) for k, v in totals.items()}
     # total_bpp: every byte a receiver needs, the coded learned codes (the
-    # configurations ported so far carry no side info)
+    # configurations evaluated here carry no side info)
     if cfg.has_binary_codes and not get_codes:
         avgs["total_bpp"] = None  # the learned-code rate was not measured
     else:

@@ -51,9 +51,10 @@ def _pad_hw(h: torch.Tensor, top: int, bottom: int, left: int, right: int) -> to
 class _FastTrunk:
     """Transformed weights + staged forward for one GlobalGenerator or
     Encoder trunk. ``state``: the trunk's state dict (keys as in
-    ``models/generator.py``). ``binarize``: 'none' or 'mid' (an encoder's
-    binarizer between its downs and ups). ``fp``: the resolved kernel
-    switches."""
+    ``models/generator.py``). ``binarize``: 'none', 'mid' (an encoder's
+    binarizer between its downs and ups), or a generator's bottleneck
+    binarizer 'before_res' or 'after_res' its residual blocks. ``fp``: the
+    resolved kernel switches."""
 
     def __init__(self, state: Dict[str, torch.Tensor], n_down: int, n_blocks: int,
                  binarize: str, dtype: torch.dtype, device, fp: FastPathConfig):
@@ -174,18 +175,27 @@ class _FastTrunk:
     # -- full passes --------------------------------------------------------
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         h = self.mid_down(self.front(x))
-        if self.binarize == "mid":
+        if self.binarize in ("mid", "before_res"):
             h = self.apply_binarizer(h)
-        return self.back(self.mid_up(self.res_blocks(h)))
+        h = self.res_blocks(h)
+        if self.binarize == "after_res":
+            h = self.apply_binarizer(h)
+        return self.back(self.mid_up(h))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Fine input -> {-1, 0, +1} code (through the binarizer)."""
         if self.binarize == "none":
             raise ValueError("no binarizer in this trunk")
-        return self.apply_binarizer(self.mid_down(self.front(x)))
+        h = self.mid_down(self.front(x))
+        if self.binarize == "after_res":
+            h = self.res_blocks(h)
+        return self.apply_binarizer(h)
 
     def decode_from_code(self, code_pm1: torch.Tensor) -> torch.Tensor:
         """Resume after the binarizer from a {-1, +1} code."""
         if self.binarize == "none":
             raise ValueError("no binarizer in this trunk")
-        return self.back(self.mid_up(code_pm1.to(self.dtype)))
+        h = code_pm1.to(self.dtype)
+        if self.binarize == "before_res":
+            h = self.res_blocks(h)
+        return self.back(self.mid_up(h))

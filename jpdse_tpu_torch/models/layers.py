@@ -65,9 +65,9 @@ def reflect_pad(x, pad: int):
 
 
 def instance_norm(x, eps: float = 1e-5):
-    """InstanceNorm2d(affine=False): fp32 statistics over (H, W), biased
-    variance."""
-    x32 = x.float()
+    """InstanceNorm2d(affine=False): fp32 statistics (float64 for a float64
+    input) over (H, W), biased variance."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     var, mean = torch.var_mean(x32, dim=(1, 2), keepdim=True, unbiased=False)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 

@@ -1,5 +1,6 @@
 """Semantic-input transforms (NHWC), the port of ``jpdse_tpu/ops/semantics.py``:
-one-hot label map plus instance-edge channel, the netE4label input."""
+one-hot label map plus instance-edge channel, the netE4label input, and the
+semantic masking of the visuals (``sem_mask``)."""
 
 from __future__ import annotations
 
@@ -63,3 +64,24 @@ def prepare_semantics(
         edge = instance_edges(instance, dtype=dtype)
         label_tensor = edge if label_tensor is None else torch.cat([label_tensor, edge], dim=-1)
     return label_tensor
+
+
+def sem_mask(img: torch.Tensor, label: torch.Tensor, binary_mask: bool = False,
+             img_nc: int = 3) -> torch.Tensor:
+    """Semantic masking, NHWC: ``img`` (B, H, W, img_nc), or (B, H, W,
+    L * img_nc) with one image per semantic channel, gated by each of the
+    ``label`` (B, H, W, L) channels in turn (channel block i is the image,
+    or ones with ``binary_mask``, times label channel i). Returns
+    (B, H, W, L * img_nc)."""
+    b, h, w, n = label.shape
+    c_in = img.shape[-1]
+    if c_in > img_nc:
+        if c_in // img_nc != n:
+            raise ValueError(
+                f"img channels {c_in} not compatible with {n} semantic channels x {img_nc}")
+        block = img.reshape(b, h, w, n, img_nc)
+    else:
+        block = img[..., None, :].expand(b, h, w, n, img_nc)
+    if binary_mask:
+        block = torch.ones_like(block)
+    return (block * label[..., :, None]).reshape(b, h, w, n * img_nc)

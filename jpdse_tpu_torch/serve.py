@@ -1,9 +1,16 @@
-"""Serving the learned codec, the port of ``jpdse_tpu/trainer.py``'s
-``compress`` / ``decompress`` (:359-483) for code-only configurations:
-compress a batch to one ``.jpds`` stream per image (the codes on the card,
-then the host's range coder), and decompress an image from a stream alone.
-The tensor half of each (``compress_codes``, ``decompress_codes``) is
-public too."""
+"""Serving the codec, the port of ``jpdse_tpu/trainer.py``'s ``compress`` /
+``decompress`` (:359-483) for code-only configurations: compress a batch to
+one ``.jpds`` stream per image (the codes on the card, then the host's
+range coder), and decompress an image from a stream alone. A stream holds
+one code per binarized module: netE4label's and netE's, either alone, or
+the generator's bottleneck code. The tensor half of each
+(``compress_codes``, ``decompress_codes``) is public too.
+
+A configuration whose stream needs side info (raw semantics, an
+unbinarized encoder's visuals) raises ``codec_io.SideInfoNotPorted``
+naming ROADMAP Queue 1 item 5 before any device work; one that feeds the
+generator raw uncompressed pixels raises ``ValueError``, as no stream
+represents it."""
 
 from __future__ import annotations
 
@@ -40,17 +47,19 @@ class CodecServer:
             self.codec.load_state_dict(state)
             self.codec.eval()
             self.fast, self.device = None, next(self.codec.parameters()).device
+        self.cfg = cfg
         self.times: Dict[str, float] = {}
 
     def _batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(batch[k], device=self.device) for k in ("label", "instance", "image")}
+        return {k: torch.as_tensor(batch[k], device=self.device)
+                for k in ("label", "instance", "image") if k in batch}
 
     @torch.inference_mode()
     def compress_codes(self, batch: Dict) -> List[torch.Tensor]:
         """``label`` (B, H, W), ``instance`` (B, H, W) and ``image``
         (B, H, W, 3) -> one uint8 {0, 1} tensor (B, h, w, C) per binarized
-        module (netE4label, netE), on the server's device. A sign of exactly
-        0 codes as 0, as ``codec_io.pack`` stores it."""
+        module (netE4label, netE, netG), on the server's device. A sign of
+        exactly 0 codes as 0, as ``codec_io.pack`` stores it."""
         batch = self._batch(batch)
         if self.fast is not None:
             codes = self.fast.get_codes_shaped(batch)
@@ -81,6 +90,13 @@ class CodecServer:
         """One ``.jpds`` stream per image of the batch. The streams of a
         batch of several images are packed on a thread pool (the coder
         releases the GIL), as ``Trainer.compress`` packs them."""
+        if any(codec_io.side_requirements(self.cfg)):
+            raise codec_io.SideInfoNotPorted(
+                "this configuration's streams carry side info (raw semantics or an "
+                "unbinarized encoder's visuals), which is ROADMAP Queue 1 item 5")
+        if not self.cfg.has_binary_codes:
+            raise ValueError("nothing to pack: no binarized module and no side info in this "
+                             "configuration")
         t0 = time.perf_counter()
         codes = [c.cpu().numpy() for c in self.compress_codes(batch)]
         t1 = time.perf_counter()
@@ -104,6 +120,8 @@ class CodecServer:
         stream and the model's weights alone."""
         t0 = time.perf_counter()
         codes, _ = codec_io.unpack(data)
+        if not codes:
+            raise ValueError("empty bitstream: no codes and no side info")
         t1 = time.perf_counter()
         image = self.decompress_codes(codes)[0].cpu().numpy()
         self.times = {"unpack": (t1 - t0) * 1e3,

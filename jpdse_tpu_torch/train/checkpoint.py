@@ -87,15 +87,18 @@ def merge_state(template: Mapping[str, torch.Tensor],
     return out, n
 
 
+def _load_params(checkpoints_dir: str) -> Dict[str, torch.Tensor]:
+    path = os.path.join(checkpoints_dir, PARAMS_FILE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no {PARAMS_FILE} in {checkpoints_dir}")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def restore_params(checkpoints_dir: str,
                    template: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """(merged state, sidecar meta) from ``checkpoints_dir``. A missing
     ``params_g.pt`` raises ``FileNotFoundError``."""
-    path = os.path.join(checkpoints_dir, PARAMS_FILE)
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no {PARAMS_FILE} in {checkpoints_dir}")
-    loaded = torch.load(path, map_location="cpu", weights_only=True)
-    merged, n = merge_state(template, loaded)
+    merged, n = merge_state(template, _load_params(checkpoints_dir))
     print(f"restored params from {checkpoints_dir}: {n}/{len(template)} leaves matched")
     return merged, _read_meta(checkpoints_dir)
 
@@ -136,15 +139,19 @@ def restore_checkpoint(checkpoints_dir: str, state, restore_opt: bool = True) ->
     place: both players' parameters partially (by name and shape), then,
     with ``restore_opt``, the Adams and counters whole or not at all.
     Returns the sidecar's meta."""
-    merged, meta = restore_params(checkpoints_dir, state.codec.state_dict())
-    state.codec.load_state_dict(merged)
+    template_g, template_d = state.codec.state_dict(), state.disc.state_dict()
+    merged_g, n_g = merge_state(template_g, _load_params(checkpoints_dir))
+    merged_d, n_d = template_d, 0
     d_path = os.path.join(checkpoints_dir, PARAMS_D_FILE)
     if os.path.exists(d_path):
-        loaded = torch.load(d_path, map_location="cpu", weights_only=True)
-        merged_d, n = merge_state(state.disc.state_dict(), loaded)
-        state.disc.load_state_dict(merged_d)
-        print(f"restored discriminator from {checkpoints_dir}: {n}/{len(merged_d)} leaves "
-              "matched")
+        merged_d, n_d = merge_state(
+            template_d, torch.load(d_path, map_location="cpu", weights_only=True))
+    state.codec.load_state_dict(merged_g)
+    state.disc.load_state_dict(merged_d)
+    # one count over both players' leaves, as the JAX package's merge_trees counts them
+    print(f"restored params from {checkpoints_dir}: {n_g + n_d}/{len(template_g) + len(template_d)}"
+          " leaves matched")
+    meta = _read_meta(checkpoints_dir)
     opt_path = os.path.join(checkpoints_dir, OPT_FILE)
     if restore_opt and os.path.exists(opt_path):
         opt = torch.load(opt_path, map_location="cpu", weights_only=True)

@@ -4,7 +4,12 @@ late, so the card runs ahead of the host), validation every
 ``val_interval`` epochs capped at 30 batches, the plateau lr schedule,
 best-val-gated checkpoints (or ``always_save``) with the reconstruction
 gallery, ``latest_interval`` resume points, ``loss_log.txt`` and
-``metrics.jsonl``.
+``metrics.jsonl``. ``optim.max_host_rss_gb`` chunks a run by host memory:
+after an epoch whose end finds the process's resident memory above the
+limit, the exact state is saved to ``save_dir/latest`` (unless the epoch
+saved already) and the process exits with code 75, for a wrapper loop to
+start it again with ``--load_model --checkpoints_dir <save_dir>``, which
+resumes from ``latest``.
 
     python -m jpdse_tpu_torch.train --dataset cityscapes --root_dir DATA \\
         --preprocess_mode fixed --load_size 1024 --crop_size 1024 \\
@@ -33,6 +38,17 @@ from jpdse_tpu_torch.utils.logging import MetricsLogger
 from jpdse_tpu_torch.utils.visualizer import HTMLGallery, Visualizer
 
 MAX_VAL_SIZE = 30  # reference train.py:16
+EXIT_RESTART = 75  # the exit code of a run chunked by host memory
+
+
+def host_rss_gb() -> float:
+    """This process's resident memory (VmRSS) in GiB; 0 where the status
+    lists none."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / 1048576
+    return 0.0
 
 
 def log(msg: str, log_file: Optional[str] = None):
@@ -162,6 +178,16 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:
         if (cfg.optim.latest_interval and cfg.save_dir and not saved
                 and not (epoch + 1) % cfg.optim.latest_interval):
             trainer.save_latest(epoch)
+            saved = True
+
+        if cfg.optim.max_host_rss_gb and cfg.save_dir and \
+                host_rss_gb() > cfg.optim.max_host_rss_gb:
+            log(f"host RSS {host_rss_gb():.1f}GB > --max_host_rss_gb "
+                f"{cfg.optim.max_host_rss_gb}; saving latest state and exiting "
+                f"{EXIT_RESTART} for a wrapper restart", log_file)
+            if not saved:  # this epoch's save serves as the resume point
+                trainer.save_latest(epoch)
+            raise SystemExit(EXIT_RESTART)
     return trainer
 
 

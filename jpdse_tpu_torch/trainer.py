@@ -13,7 +13,8 @@ JAX's training Trainer has no fast path), ``scheduler_step``, ``save``,
 ``save_latest``, ``load`` (resuming from ``save_dir/latest`` when it is
 newer, :551-579), ``current_lr``, ``best_val_loss`` and ``steps_taken``.
 The code, rate and stream methods raise in training: they serve saved
-weights through a test-mode Trainer.
+weights through a test-mode Trainer. They take any number of codes (one per
+binarized module); the code methods raise without one.
 The binarizers' and the pool's draws come from one ``torch.Generator``
 seeded by ``optim.seed``; the discriminator's weights from seed 3 and
 VGG's (without a weights file) from 0, the numbers of the JAX Trainer's
@@ -177,7 +178,11 @@ class Trainer:
         return self._server.decode(self.place(batch))
 
     def _shaped_codes(self, batch: Dict) -> List[torch.Tensor]:
-        return self._server.compress_codes(self.place(batch))
+        """One code per binarized module; raises where there is none."""
+        codes = self._server.compress_codes(self.place(batch))
+        if not codes:
+            raise ValueError("no binarized module in this configuration")
+        return codes
 
     def get_code(self, batch: Dict) -> np.ndarray:
         """Concatenated flat binary codes (B, n_bits), uint8 in {0, 1}."""
@@ -199,8 +204,8 @@ class Trainer:
     @torch.inference_mode()
     def get_eval_rate(self, batch: Dict) -> Tuple[float, float]:
         """(shannon_bpp, actual_bpp) averaged over the batch and summed over
-        the codes, computed on the device from the standard path's codes;
-        one host fetch of the two scalars."""
+        the codes (0 without a code), computed on the device from the
+        standard path's codes; one host fetch of the two scalars."""
         self._need_eval()
         b = self.place(batch)
         codec = self._std.codec
@@ -216,7 +221,8 @@ class Trainer:
         return s_v, a_v
 
     def compress(self, batch: Dict) -> List[bytes]:
-        """One ``.jpds`` stream per image of the batch."""
+        """One ``.jpds`` stream per image of the batch; a configuration
+        whose streams need side info raises (``CodecServer.compress``)."""
         return self._server.compress(batch)
 
     def decompress(self, data: bytes) -> np.ndarray:
@@ -301,7 +307,8 @@ class Trainer:
         if self.sched is not None and "scheduler" in meta:
             self.sched.load_state_dict(meta["scheduler"])
             set_lr(self.gan, self.sched.lr)
-        print(f"checkpoint loaded; starting from epoch {self.start_epoch + 1}")
+        print(f"checkpoint loaded; starting from epoch {self.start_epoch + 1} with "
+              f"{self.steps_taken} steps taken")
 
     @property
     def current_lr(self) -> float:

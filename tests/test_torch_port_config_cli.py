@@ -184,11 +184,6 @@ NOT_PORTED = {
     "local netG": (lambda c: setattr(c.model, "netG", "local"), "item 10"),
     "batch norm": (lambda c: setattr(c.model, "norm", "batch"), "item 10"),
     "grouped netE": (lambda c: setattr(c.model, "netE_groups", 2), "item 10"),
-    "raw semantics": (lambda c: setattr(c.model, "no_label_encoding", True), "item 6"),
-    "raw visuals": (lambda c: setattr(c.model, "no_feat_encoding", True), "item 6"),
-    "unbinarized netE": (lambda c: setattr(c.model, "no_encoder_binarization", True), "item 6"),
-    "zero_sem": (lambda c: setattr(c.model, "zero_sem", True), "item 6"),
-    "use_netE_output": (lambda c: setattr(c.model, "use_netE_output", True), "item 6"),
 }
 
 
@@ -203,29 +198,66 @@ def test_configs_of_later_slices_raise_naming_their_item(name):
         SemanticCodec(cfg, device="cpu")
 
 
-def test_generator_binarization_raises_naming_its_item():
-    cfg = config.flagship_config(tiny=True)
-    m = cfg.model
+def _g_binarized(c):
+    m = c.model
     m.no_generator_binarization = False
     m.no_encoder_binarization = m.no_label_encoder_binarization = True
-    cfg.validate()  # a valid configuration, which the port does not run yet
-    with pytest.raises(config.NotPorted, match="item 6"):
-        config.check_ported(cfg)
+
+
+# the configurations that raised naming item 6 before the assemblies and
+# generator binarization were ported
+ITEM_6 = {
+    "raw semantics": lambda c: setattr(c.model, "no_label_encoding", True),
+    "raw visuals": lambda c: setattr(c.model, "no_feat_encoding", True),
+    "unbinarized netE": lambda c: setattr(c.model, "no_encoder_binarization", True),
+    "zero_sem": lambda c: setattr(c.model, "zero_sem", True),
+    "use_netE_output": lambda c: setattr(c.model, "use_netE_output", True),
+    "generator binarization": _g_binarized,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ITEM_6))
+def test_item_6_configs_build_train_and_decode(name):
+    """Each passes check_train_ported, and its Trainer takes a finite
+    training step and reconstructs a batch of the input's shape."""
+    from jpdse_tpu_torch.trainer import Trainer
+
+    cfg = config.flagship_config(tiny=True)
+    ITEM_6[name](cfg)
+    cfg.model.compute_dtype, cfg.model.fast_inference, cfg.model.ndf = "float32", False, 8
+    cfg.loss.no_vgg_loss = True
+    cfg.data.preprocess.preprocess_mode, cfg.data.preprocess.crop_size = "fixed", W
+    cfg.validate()
+    config.check_train_ported(cfg)
+    rng = np.random.default_rng(7)
+    batch = {"label": rng.integers(0, 35, (2, H, W)).astype(np.float32),
+             "instance": rng.integers(0, 1000, (2, H, W)).astype(np.int32),
+             "image": rng.normal(size=(2, H, W, 3)).astype(np.float32)}
+    trainer = Trainer(cfg, mode="train", device="cpu")
+    assert all(np.isfinite(v) for v in trainer.step(batch).values())
+    image = trainer.get_img(batch)
+    assert image.shape == (2, H, W, 3) and torch.isfinite(image).all()
+
+
+# the tracked recipes that the port trains: the flagship's three phases, the
+# three-phase recipe's first, and the low- and mid-rate series without a base codec
+TRAINS = {f"artifacts/{p}/opt.json" for p in (
+    "flagship_r3/phase1", "flagship_r3/phase2", "flagship_r3/phase3", "three_phase/phase1",
+    "flagship_r3_lowrate/phase1", "flagship_r3_lowrate/phaseA", "flagship_r3_lowrate/phaseB",
+    "flagship_r3_midrate/phaseA", "flagship_r3_midrate/phaseB")}
 
 
 def test_every_flagship_opt_json_the_port_runs_is_checked():
-    """The learned-code flagship runs pass the port's check; the
-    base-codec runs name item 5 and the label-only or raw runs item 6."""
+    """Exactly the 9 recipes of TRAINS pass check_train_ported; each of the
+    other tracked recipes raises NotPorted naming item 5 (its base codec)."""
+    assert TRAINS <= set(OPT_FILES) and len(OPT_FILES) == 29
     for path in OPT_FILES:
         cfg = config.Config.load(str(REPO / path))
-        if cfg.codec.use_compressed:
-            with pytest.raises(config.NotPorted, match="item 5"):
-                config.check_ported(cfg)
-        elif not (cfg.use_netE4label and cfg.use_netE):  # raw, no-label or no-feat
-            with pytest.raises(config.NotPorted, match="item 6"):
-                config.check_ported(cfg)
+        if path in TRAINS:
+            config.check_train_ported(cfg)
         else:
-            config.check_ported(cfg)
+            with pytest.raises(config.NotPorted, match="item 5"):
+                config.check_train_ported(cfg)
 
 
 # -- the fast path's fields -------------------------------------------------

@@ -271,9 +271,11 @@ def test_trainer_refuses_what_it_cannot_run(tmp_path):
     trainer = Trainer(cfg, device="cpu")
     with pytest.raises(FileNotFoundError, match=PARAMS_FILE):
         trainer.load()
+    # raw semantics: the Trainer runs it; the rate of its side info is item 5
     cfg.model.no_label_encoding = True
-    with pytest.raises(NotPorted, match="item 6"):
-        Trainer(cfg, device="cpu")
+    raw = Trainer(cfg, device="cpu")
+    with pytest.raises(NotPorted, match="item 5"):
+        evaluate(cfg, raw, [{"image": np.zeros((1, 4, 4, 3), np.float32)}])
     bad = flagship_config(tiny=True)
     bad.data.noise_distribution = "poisson"
     bad.data.add_noise = True

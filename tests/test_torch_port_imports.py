@@ -36,7 +36,8 @@ assert {"jpdse_tpu_torch." + m for m in (
     "data.folder", "data.paired", "data.cityscapes", "data.ade20k", "data.clic",
     "data.custom", "data.loader", "data.stats", "train.losses", "train.state", "train.step",
     "train.schedule", "train.run", "train.__main__", "models.discriminator", "models.vgg",
-    "utils.image_pool", "utils.logging")} <= set(names), names
+    "utils.image_pool", "utils.logging", "ops.semantics", "models.codec", "models.generator",
+    "models.fast_codec", "models.fast_trunk", "serve")} <= set(names), names
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]

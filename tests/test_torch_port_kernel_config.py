@@ -280,6 +280,46 @@ def test_kernel_calls_per_request(ref, port, monkeypatch):
                    "fused_instance_norm": 0}
 
 
+def test_kernel_calls_per_phase1_request(ref, monkeypatch):
+    """The flagship's phase 1 (no netE; netG reads netE4label's 36 channels,
+    144 after s2d) at its depth and channel widths, narrow elsewhere: the
+    kernel configuration's fast compress K1 1 and K4 1 (netE4label's head),
+    decompress K1 3 and K4 1 (netE4label's back, netG's head and back);
+    its standard path K3 5 (netE4label's head and downs) and 31 (netE4label's
+    4 ups, netG's 27); the default fast path K1 2 per decompress. The one
+    code is netE4label's."""
+    cfg = _port_cfg()
+    m = cfg.model
+    m.no_feat, m.label_encoder_out_channels = True, 36
+    m.ngf, m.n_downsample_global, m.n_blocks_global, m.n_downsample_E4label = 8, 4, 9, 4
+    state = SemanticCodec(cfg, device="cpu", seed=0).state_dict()
+    assert not any(k.startswith("netE.") for k in state)
+    batch = {k: v[:1] for k, v in ref["batch"].items()}
+    fast = _count(monkeypatch, fast_trunk, ("s2d_realign_pad3", "s2d_pad3", "head_conv_s2d"))
+    norm = _count(monkeypatch, layers, ("fused_instance_norm",))
+
+    def run(server):
+        for d in (fast, norm):
+            d.update(dict.fromkeys(d, 0))
+        codes = server.compress_codes(batch)
+        assert [tuple(c.shape) for c in codes] == [(1, H // 16, W // 16, 16)]
+        after = {**fast, **norm}
+        server.decompress_codes(codes)
+        return ({k: v for k, v in after.items() if v},
+                {k: v - after[k] for k, v in {**fast, **norm}.items() if v - after[k]})
+
+    assert run(CodecServer(cfg, state, device="cpu")) == (
+        {"s2d_realign_pad3": 1, "head_conv_s2d": 1}, {"s2d_realign_pad3": 3, "head_conv_s2d": 1})
+    cfg.model.fast_inference = False
+    assert run(CodecServer(cfg, state, device="cpu")) == (
+        {"fused_instance_norm": 5}, {"fused_instance_norm": 31})
+    default = flagship_config(tiny=True)
+    for k in ("no_feat", "label_encoder_out_channels", "ngf", "n_downsample_global",
+              "n_blocks_global", "n_downsample_E4label", "compute_dtype"):
+        setattr(default.model, k, getattr(m, k))
+    assert run(CodecServer(default, state, device="cpu")) == ({}, {"s2d_realign_pad3": 2})
+
+
 def test_fast_path_config_env_overrides_and_values(monkeypatch):
     fp = FastPathConfig()
     assert (fp.head_pallas, fp.front_realign) == ("0", "0")

@@ -6,6 +6,7 @@ the JAX package; the training options the port does not run; and kernel
 K3's launches per training step, pinned with counting stubs in place of
 its plain versions (what chip_smoke.py asserts on the card)."""
 
+import copy
 import io
 import json
 from contextlib import redirect_stdout
@@ -118,10 +119,57 @@ def test_train_main_validates_saves_and_resumes(tmp_path):
     assert metrics["n_images"] == 2 and np.isfinite(metrics["PSNR"])
 
 
+def test_max_host_rss_gb_exits_75_with_latest_and_resumes_exactly(tmp_path, monkeypatch):
+    """The flagship's phase 1 (``--no_feat``) with a host-memory limit that
+    any process passes: after its first epoch main logs the limit, writes
+    save_dir/latest and exits with 75. A second main with the same flags and
+    ``--load_model --checkpoints_dir`` resumes from latest: at the start of
+    its epoch the parameters, Adam's moments and the step count equal the
+    saved ones; it trains that epoch and exits with 75 again."""
+    root, run_dir = tmp_path / "cityscapes", tmp_path / "run"
+    write_tree(root)
+    argv = train_argv(root, run_dir, "--no_feat", "--num_epochs", "3", "--val_interval", "5",
+                      "--max_host_rss_gb", "0.001")
+    with pytest.raises(SystemExit) as exit1:
+        _quiet(lambda: run.main(argv, device="cpu"))
+    assert exit1.value.code == run.EXIT_RESTART == 75
+    log = (run_dir / "loss_log.txt").read_text()
+    assert "> --max_host_rss_gb 0.001; saving latest state and exiting 75" in log
+    latest = run_dir / "latest"
+    assert json.loads((latest / "trainer_meta.json").read_text())["epoch"] == 0
+    params = torch.load(latest / "params_g.pt", weights_only=True)
+    opt = torch.load(latest / "opt.pt", weights_only=True)
+    assert opt["steps_taken"] == 2 and not any(k.startswith("netE.") for k in params)
+
+    seen = {}
+    run_epoch = run.run_epoch
+
+    def snapshot(trainer, loader, cfg, epoch, *a):
+        if not seen:
+            seen.update(epoch=epoch, steps=trainer.steps_taken,
+                        params={k: v.clone() for k, v in trainer.gan.codec.state_dict().items()},
+                        opt=copy.deepcopy(trainer.gan.opt_g.state_dict()))
+        return run_epoch(trainer, loader, cfg, epoch, *a)
+
+    monkeypatch.setattr(run, "run_epoch", snapshot)
+    resume = argv + ["--load_model", "--checkpoints_dir", str(run_dir)]
+    with pytest.raises(SystemExit) as exit2:
+        _quiet(lambda: run.main(resume, device="cpu"))
+    assert exit2.value.code == 75
+    assert seen["epoch"] == 1 and seen["steps"] == 2
+    assert seen["params"].keys() == params.keys()
+    assert all(torch.equal(seen["params"][k], params[k]) for k in params)
+    for i, st in opt["opt_g"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(seen["opt"]["state"][i][k], st[k]), (i, k)
+    assert json.loads((latest / "trainer_meta.json").read_text())["epoch"] == 1
+    assert torch.load(latest / "opt.pt", weights_only=True)["steps_taken"] == 4
+
+
 def test_unported_training_options_raise_naming_their_item():
     cases = {"optim.fast_train": ("item 9", True), "model.niter_fix_global": ("item 10", 1),
              "model.use_dropout": ("item 7", True), "profile_dir": ("item 11", "trace"),
-             "optim.max_host_rss_gb": ("item 11", 8.0), "optim.vgg_bf16": ("item 7", True)}
+             "optim.vgg_bf16": ("item 7", True)}
     for field, (item, value) in cases.items():
         cfg = flagship_config(tiny=True)
         obj, _, name = field.rpartition(".")
@@ -185,20 +233,32 @@ def test_k3_launches_per_training_step(monkeypatch, remat):
     assert calls == {"forward": 0, "backward": 0}
 
 
-def test_decode_granularity_remat_replays_the_binarizer_draws():
-    """remat_granularity 'decode' recomputes the whole decode, binarizers
-    included, in the backward; the recompute replays the generator's state,
-    so the stochastic codes, the metrics and the gradients equal those of
-    block remat and of no remat from the same generator seed."""
-    cfg = flagship_config(tiny=True)
+def test_k3_launches_per_phase1_training_step(monkeypatch):
+    """The flagship's phase 1 (no netE) at its depth runs K3 at the 36 norm
+    sites of netG (27) and netE4label (9): forward 72 with block remat,
+    backward 36; evaluation 36."""
+    cfg = flagship_config(tiny=True, kernels=True)
     m = cfg.model
-    m.compute_dtype, m.fast_inference, m.ndf = "float32", False, 8
-    cfg.loss.no_vgg_loss = True
+    m.compute_dtype, m.fast_inference, m.ndf, m.no_feat = "float32", False, 8, True
+    m.n_downsample_global, m.n_blocks_global, m.n_downsample_E4label = 4, 9, 4
+    cfg.loss.no_vgg_loss = cfg.loss.no_distortion_loss = True
+    cfg.optim.remat = True
     cfg.data.preprocess.preprocess_mode, cfg.data.preprocess.crop_size = "fixed", W
-    rng = np.random.default_rng(1)
-    batch = {"label": torch.from_numpy(rng.integers(0, 35, (2, H, W)).astype(np.float32)),
-             "instance": torch.from_numpy(rng.integers(0, 1000, (2, H, W)).astype(np.int32)),
-             "image": torch.from_numpy(rng.normal(size=(2, H, W, 3)).astype(np.float32))}
+    batch = {k: v.numpy() for k, v in _tensor_batch(0).items()}
+    calls = _count(monkeypatch)
+    trainer = Trainer(cfg, mode="train", device="cpu")
+    assert trainer.gan.codec.netE is None
+    assert all(np.isfinite(v) for v in trainer.step(batch).values())
+    assert calls == {"forward": 72, "backward": 36}
+    calls.update(forward=0, backward=0)
+    trainer.get_eval_loss(batch)
+    assert calls == {"forward": 36, "backward": 0}
+
+
+def _remat_replay(cfg, batch):
+    """loss_and_grads without remat, with block remat and with decode remat,
+    from the same generator seed: the metrics and gradients of the last two
+    against the first."""
     from jpdse_tpu_torch.train import step
 
     out = []
@@ -212,6 +272,50 @@ def test_decode_granularity_remat_replays_the_binarizer_draws():
             assert metrics[k].item() == pytest.approx(out[0][0][k].item(), rel=1e-6), k
         for got, want in zip(grads[0] + grads[1], out[0][1][0] + out[0][1][1]):
             assert (got - want).abs().max() <= 1e-5 * max(want.abs().max(), 1e-3)
+
+
+def _tiny_train_config():
+    cfg = flagship_config(tiny=True)
+    m = cfg.model
+    m.compute_dtype, m.fast_inference, m.ndf = "float32", False, 8
+    cfg.loss.no_vgg_loss = True
+    cfg.data.preprocess.preprocess_mode, cfg.data.preprocess.crop_size = "fixed", W
+    return cfg
+
+
+def _tensor_batch(seed):
+    rng = np.random.default_rng(seed)
+    return {"label": torch.from_numpy(rng.integers(0, 35, (2, H, W)).astype(np.float32)),
+            "instance": torch.from_numpy(rng.integers(0, 1000, (2, H, W)).astype(np.int32)),
+            "image": torch.from_numpy(rng.normal(size=(2, H, W, 3)).astype(np.float32))}
+
+
+def test_decode_granularity_remat_replays_the_binarizer_draws():
+    """remat_granularity 'decode' recomputes the whole decode, binarizers
+    included, in the backward; the recompute replays the generator's state,
+    so the stochastic codes, the metrics and the gradients equal those of
+    block remat and of no remat from the same generator seed."""
+    _remat_replay(_tiny_train_config(), _tensor_batch(1))
+
+
+@pytest.mark.parametrize("before_res", [False, True], ids=["after_res", "before_res"])
+def test_decode_remat_replays_the_generator_binarizer_draws(before_res):
+    """The same with the generator's bottleneck binarized (the encoders
+    unbinarized), whose binarizer draws in the decode too; and the draws
+    are the generator's: another seed changes the step."""
+    cfg = _tiny_train_config()
+    m = cfg.model
+    m.no_generator_binarization, m.bin_generator_before_res = False, before_res
+    m.no_encoder_binarization = m.no_label_encoder_binarization = True
+    m.generator_binarizer_out_channels = 16
+    batch = _tensor_batch(6)
+    _remat_replay(cfg, batch)
+    from jpdse_tpu_torch.train import step
+
+    trainer = Trainer(cfg, mode="train", device="cpu")
+    a, b = (step.loss_and_grads(trainer.gan, batch, torch.Generator().manual_seed(s))[0]
+            for s in (4, 5))
+    assert a["G_GAN"].item() != b["G_GAN"].item()
 
 
 def test_bf16_training_step_keeps_fp32_parameters():

@@ -5,8 +5,10 @@ downsamples, 2 res blocks, ndf 8), batch 2, fp32 on the CPU.
 Both sides get the same generator, discriminator and VGG weights (drawn
 with numpy in the Flax layout and carried across by
 ``convert.from_jax_params``) and the same batch, for the flagship's
-phase-2 recipe (the full GAN with VGG, feature matching and distortion)
-and its phase-3 recipe (distortion only, D stepped on zero gradients), in
+phase-1 recipe (no netE: netG fed by netE4label's code; no distortion
+loss), its phase-2 recipe (the full GAN with VGG, feature matching and
+distortion) and its phase-3 recipe (distortion only, D stepped on zero
+gradients), in
 the default configuration and in ``model.fused_instance_norm`` (K3 at every
 norm site; the JAX package runs its off-TPU form of the same switch). Both
 packages' ``stochastic_sign_ste`` is patched to the deterministic sign,
@@ -37,6 +39,7 @@ distortion-only recipe has no such miss (asserted).
 """
 
 import contextlib
+import copy
 import re
 
 import jax
@@ -66,12 +69,23 @@ from test_torch_port_codec import _jax_params
 
 H, W, B = 64, 128, 2
 RTOL = 1e-4
-RECIPES = ("phase2", "phase3")
+RECIPES = ("phase1", "phase2", "phase3")
+# Phase 1's second step at these weights lies where fp32 cannot resolve some
+# of G's gradients: against JAX's float64 step, JAX's own fp32 gradients miss
+# by up to ~1e-2 of their max-abs, and so do the port's, each on its own
+# tensors (a value at its rounding edge before a ReLU); the port in float64
+# matches JAX in float64 to ~2e-7.
+FP32_LIMITED = {"phase1"}
+# the module structure each recipe's weights are drawn for (the others share phase 2's)
+STRUCTURE = {"phase1": "phase1", "g_binarized": "g_binarized"}
 
 
 def jax_config(recipe: str, fused: bool):
     """The tiny flagship with the phase's training recipe
-    (artifacts/flagship_r3/phase{2,3}/opt.json), fp32."""
+    (artifacts/flagship_r3/phase{1,2,3}/opt.json), fp32; or phase 2's
+    recipe with an ablation (``zero_sem``, ``use_netE_output``) or with the
+    generator's bottleneck binarized instead of the encoders
+    (``g_binarized``)."""
     cfg = _flagship_cfg(tiny=True)
     m, L, o = cfg.model, cfg.loss, cfg.optim
     m.compute_dtype = "float32"
@@ -81,9 +95,18 @@ def jax_config(recipe: str, fused: bool):
     o.remat, o.remat_granularity = True, "block"
     cfg.data.normalize_std = (1.0, 1.0, 1.0)
     cfg.data.batch_size = B
+    if recipe == "phase1":
+        m.no_feat, L.no_distortion_loss = True, True
+        cfg.data.normalize_std = (0.5, 0.5, 0.5)
     if recipe == "phase3":
         L.no_d_gan_loss = L.no_g_gan_loss = L.no_gan_feat_loss = L.no_vgg_loss = True
         o.schedule_lr, o.lr_decay_patience = True, 3
+    if recipe in ("zero_sem", "use_netE_output"):
+        setattr(m, recipe, True)
+    if recipe == "g_binarized":
+        m.no_generator_binarization = False
+        m.no_encoder_binarization = m.no_label_encoder_binarization = True
+        m.generator_binarizer_out_channels = 16
     cfg.validate()
     return cfg
 
@@ -99,9 +122,16 @@ def _det_sign(x, key):
     return jq.deterministic_sign_ste(x)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    cfg = jax_config("phase2", False)
+_WEIGHTS = {}
+
+
+def recipe_weights(recipe: str) -> dict:
+    """The batch and the G, D and VGG weights (numpy, Flax layout) for the
+    recipe's module structure, drawn once per structure."""
+    key = STRUCTURE.get(recipe, "phase2")
+    if key in _WEIGHTS:
+        return _WEIGHTS[key]
+    cfg = jax_config(key, False)
     rng = np.random.default_rng(11)
     batch = {k: np.array(v) for k, v in _batch(cfg, B, H, W, rng).items()}
     inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"])
@@ -119,7 +149,8 @@ def weights():
         lambda s: (rng.normal(size=s.shape) * (1.0 / np.sqrt(np.prod(s.shape[:-1]))
                                                if len(s.shape) == 4 else 0.01)
                    ).astype(np.float32), vshapes)
-    return {"batch": batch, "g": params_g, "d": params_d, "v": params_v}
+    _WEIGHTS[key] = {"batch": batch, "g": params_g, "d": params_d, "v": params_v}
+    return _WEIGHTS[key]
 
 
 @contextlib.contextmanager
@@ -203,12 +234,17 @@ def _named(module, grads):
     return _flat(to_jax_params({n: g.double() for n, g in zip(names, grads)}))
 
 
-def assert_step_matches(got, want, modules, arbiter):
+def assert_step_matches(got, want, modules, arbiter, port64=None):
     """Metrics and gradients of one port step against JAX's fp32 step from
     the same point; a gradient tensor that misses it must be within the
     same bound of JAX's float64 step (``arbiter()``, evaluated at the first
-    miss). Returns how many tensors needed it."""
-    (got_metrics, got_grads), exact = got, None
+    miss). With ``port64`` (the recipes of FP32_LIMITED), where a tensor
+    misses that too, the port's float64 step (``port64()``, named gradients
+    of G and D) must be within 1e-5 of its max-abs of JAX's float64 step in
+    every tensor of both players: at a point that fp32 cannot resolve, the
+    two packages compute the same gradients. Returns how many tensors
+    needed JAX's float64 step."""
+    (got_metrics, got_grads), exact, exact_port = got, None, None
     assert sorted(got_metrics) == list(step.METRICS)
     for k in step.METRICS:
         np.testing.assert_allclose(got_metrics[k].item(), want[0][k], rtol=RTOL, atol=0,
@@ -227,36 +263,70 @@ def assert_step_matches(got, want, modules, arbiter):
             if exact is None:
                 exact = arbiter()
             x64 = _flat(exact[1 + j])[k]
-            err = np.abs(got[k] - x64).max()
-            assert err <= RTOL * np.abs(x64).max(), f"{k}: {err} from JAX in float64"
+            err, top_k = np.abs(got[k] - x64).max(), np.abs(x64).max()
             arbitrated += 1
+            if err <= RTOL * top_k:
+                continue
+            assert port64 is not None, f"{k}: {err} from JAX in float64"
+            if exact_port is None:
+                exact_port = port64()
+                for i in (0, 1):  # the same math at this point: every tensor of both players
+                    for n, a in _flat(exact[1 + i]).items():
+                        e = np.abs(exact_port[i][n] - a).max()
+                        assert NORMED_BIAS.search(n) or e <= 1e-5 * np.abs(a).max(), \
+                            f"{n}: the port in float64 {e} from JAX's"
     return arbitrated
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused_instance_norm"])
-@pytest.mark.parametrize("recipe", RECIPES)
-def test_two_train_steps_match_jax(weights, recipe, fused, monkeypatch):
+def port_step_f64(state, batch):
+    """The port's G and D gradients (named as _flat names them) of one step
+    in float64 from the state's parameters."""
+    s = copy.copy(state)
+    s.codec = copy.deepcopy(state.codec).double()
+    s.codec.dtype = torch.float64
+    s.disc = copy.deepcopy(state.disc).double()
+    s.vgg = None if state.vgg is None else copy.deepcopy(state.vgg).double()
+    _, grads = step.loss_and_grads(s, dict(batch, image=batch["image"].double()),
+                                   torch.Generator())
+    return [_named(s.codec, grads[0]), _named(s.disc, grads[1])]
+
+
+def run_steps(recipe, fused, n_steps, monkeypatch):
+    """``n_steps`` port steps of the recipe, each held against JAX's from
+    the same point (codes first); returns the last step's metrics and the
+    port's state."""
     monkeypatch.setattr(quantizers, "stochastic_sign_ste",
                         lambda x, gen: quantizers.deterministic_sign_ste(x))
+    weights = recipe_weights(recipe)
     state = port_state(recipe, fused, weights)
     batch = {k: torch.from_numpy(v) for k, v in weights["batch"].items()}
     gen = torch.Generator().manual_seed(0)
-    for _ in range(2):
+    for _ in range(n_steps):
         want = jax_step(recipe, fused, weights, state)
         with torch.no_grad():
             codes = state.codec.get_codes_shaped(state.codec.prepare(batch))
+        assert len(codes) == len(want[3])
         for got, w in zip(codes, want[3]):
             np.testing.assert_array_equal(got.numpy(), w)
         out = step.loss_and_grads(state, batch, gen)
         arbitrated = assert_step_matches(
             out, want, (state.codec, state.disc),
-            lambda: jax_step(recipe, fused, weights, state, x64=True))
+            lambda: jax_step(recipe, fused, weights, state, x64=True),
+            (lambda: port_step_f64(state, batch)) if recipe in FP32_LIMITED else None)
         if recipe == "phase3":
             assert arbitrated == 0
         step.apply(state, out[1])
-    assert state.steps_taken == 2
+    assert state.steps_taken == n_steps
+    return out[0], state
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused_instance_norm"])
+@pytest.mark.parametrize("recipe", RECIPES)
+def test_two_train_steps_match_jax(recipe, fused, monkeypatch):
+    metrics, state = run_steps(recipe, fused, 2, monkeypatch)
+    if recipe == "phase1":
+        assert state.codec.netE is None and float(metrics["G_Distortion"]) == 0.0
     if recipe == "phase3":
-        metrics = out[0]
         assert all(float(metrics[k]) == 0.0 for k in ("G_GAN", "G_GAN_Feat", "G_VGG",
                                                         "D_real", "D_fake", "loss_D"))
         assert all(s["step"].item() == 2 for s in state.opt_d.state.values())
