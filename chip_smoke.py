@@ -74,7 +74,32 @@ Phases, each printing a line as it ends:
      encoders unbinarized) at the flagship's widths: one compress and
      decompress in fp32 on the standard and the fast path, codes equal and
      images within 1e-3;
-  9. summary: the card, a JSON line of per-kernel numbers, the total
+  9. the base-codec recipe (artifacts/flagship_r3_compressed/phase{A,B}/
+     opt.json: raw one-hot semantics and the edge map beside a base codec's
+     decoded image into netG, no encoder, no code; batch 2 at 1024x512, fp32,
+     block remat, cache_images; phase A the GAN, phase B distortion only) at
+     full width. Its base codec is fixed to jpg q50 (BASE_CODEC, the tracked
+     jpg base-codec recipe's quality) in place of the recipe's heif q30:
+     libheif does not load on the card's machine. (0) the probe: the codecs
+     the machine offers, heif raising CodecUnavailable, one encode and one
+     decode of a 1024x512 scene timed on the host; (a) and (b) as in 7 for
+     phase A, with K3 at netG's 27 norm sites (54 forward and 27 backward
+     launches a step), the base codec's round trip done before the timed
+     steps; (c) phase A through train.run.main on a synthetic split read by
+     PairedDataset with cache_images, two epochs of 2 steps with each
+     epoch's loader wait, and phase B restored from it, every leaf matched;
+     (d) fp32 images of three paths against the default standard path,
+     then --requests bf16 requests through side-info-only .jpds streams on
+     the four serving paths: no launch in a compress, K1 on the fast paths,
+     K4 on the kernel configuration's fast path, K3 on its standard path
+     per decompress, the stream's bytes by section (id maps, base codec) and
+     the host stages (id-map coding, the base codec's decode) beside the
+     device part; (e) netG over the decoded image alone (flagship_r4_nosem's
+     model) on the kernel configuration's fast path, K2 on its 3-channel
+     front; (f) test.main, compress.main and decompress.main on the kernel
+     configuration's fast path, each .jpds file as long as sem_side_bpp and
+     base_codec_bpp say plus its container;
+ 10. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -233,6 +258,13 @@ def make_batch(seed: int, b: int = 1):
         "instance": rng.integers(0, 1000, (b, H, W)).astype(np.int32),
         "image": rng.normal(size=(b, H, W, 3)).astype(np.float32),
     }
+
+
+def train_batch(cfg, seed: int) -> dict:
+    """make_batch at the training batch, with the base codec's round trip
+    of each image where the recipe reads it, as the data pipeline makes it."""
+    batch = make_batch(seed, TRAIN_BATCH)
+    return with_base_codec(cfg, batch) if cfg.codec.use_compressed else batch
 
 
 def kernel_entry(name: str, max_err: float, k: float, p: float, bound_ms: float,
@@ -1014,17 +1046,25 @@ def write_cityscapes(root: Path, seed: int, split: str = "val") -> None:
         img_dir, gt_dir = root / "leftImg8bit" / split / city, root / "gtFine" / split / city
         img_dir.mkdir(parents=True, exist_ok=True)
         gt_dir.mkdir(parents=True, exist_ok=True)
-        small = Image.fromarray(rng.integers(0, 256, (32, 64, 3), dtype=np.uint8))
-        photo = np.asarray(small.resize((2048, 1024), Image.BICUBIC)).astype(np.int16)
-        photo = np.clip(photo + rng.integers(-8, 9, photo.shape), 0, 255).astype(np.uint8)
-        blocks = rng.integers(0, 34, (32, 64))
-        inst = blocks * 1000 + rng.integers(0, 8, blocks.shape)
-        full = np.ones((32, 32), np.int32)
+        photo, label, inst = synthetic_scene(rng, 1024, 2048)
         Image.fromarray(photo).save(img_dir / f"{name}_leftImg8bit.png")
-        Image.fromarray(np.kron(blocks, full).astype(np.uint8)).save(
-            gt_dir / f"{name}_gtFine_labelIds.png")
-        Image.fromarray(np.kron(inst, full).astype(np.int32)).save(
-            gt_dir / f"{name}_gtFine_instanceIds.png")
+        Image.fromarray(label.astype(np.uint8)).save(gt_dir / f"{name}_gtFine_labelIds.png")
+        Image.fromarray(inst).save(gt_dir / f"{name}_gtFine_instanceIds.png")
+
+
+def synthetic_scene(rng, h: int, w: int):
+    """(uint8 photo (h, w, 3), int32 label ids, int32 instance ids): a
+    smooth random photo with noise, 32x32 blocks of 34 classes and instance
+    ids class * 1000 + k, as Cityscapes' conventions have them."""
+    from PIL import Image
+
+    small = Image.fromarray(rng.integers(0, 256, (32, 64, 3), dtype=np.uint8))
+    photo = np.asarray(small.resize((w, h), Image.BICUBIC)).astype(np.int16)
+    photo = np.clip(photo + rng.integers(-8, 9, photo.shape), 0, 255).astype(np.uint8)
+    blocks = rng.integers(0, 34, (h // 32, w // 32))
+    inst = blocks * 1000 + rng.integers(0, 8, blocks.shape)
+    full = np.ones((32, 32), np.int32)
+    return photo, np.kron(blocks, full).astype(np.int32), np.kron(inst, full).astype(np.int32)
 
 
 def run_entry(label: str, name: str, fn, want: dict, per: int = EVAL_IMAGES, tag: str = "[eval]",
@@ -1165,10 +1205,15 @@ def phase_eval(codec, seed: int, card: str) -> dict:
 TRAIN_BATCH = 2
 # the generator side's norm sites, by the flagship recipe's phase: netG 27,
 # netE 9 and netE4label 9 in phase 2; phase 1 has no netE
-K3_SITES = {2: 45, 1: 36}
+K3_SITES = {2: 45, 1: 36, "A": 27, "B": 27}
 K3_BWD_SITES_BY_PHASE = {2: K3_BWD_SITES, 1: {
     **{(s[1:], True): 4 for s in NORM_SHAPES[:4]},
     (NORM_SHAPES[4][1:], True): 11, (NORM_SHAPES[4][1:], False): 9}}
+# the base-codec recipe's phases have netG alone: its head and last up, each
+# down and up, and the res blocks
+K3_BWD_SITES_BY_PHASE["A"] = K3_BWD_SITES_BY_PHASE["B"] = {
+    **{(s[1:], True): 2 for s in NORM_SHAPES[:4]},
+    (NORM_SHAPES[4][1:], True): 10, (NORM_SHAPES[4][1:], False): 9}
 GRAD_TOL = 1e-3  # a gradient tensor's relative L2 difference, unless fp32 conditioning is worse
 # ... and never more than this, per network: set from the controls' largest
 # readings on an H100 (G 1.32e-02, D 1.65e-03; the kernel config's 7.92e-03
@@ -1179,14 +1224,18 @@ K3_SITE_TOL = 1e-5  # K3 at a site of the step against its plain version, of the
 NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up\.\d+|res\.\d+|layer[1-9])\..*bias$")
 
 
-def flagship_train_config(kernels: bool, seed: int, phase: int = 2):
+def flagship_train_config(kernels: bool, seed: int, phase=2):
     """The flagship's phase-2 recipe (artifacts/flagship_r3/phase2/opt.json):
     batch 2 at 1024x512 ('fixed', normalize_std 1), fp32, block remat, Adam
     lr 2e-4 betas (0.5, 0.999), num_D 2, n_layers_D 3, ndf 64, LSGAN, VGG,
     feature matching and L1 distortion (the config's defaults), at full
     width; or its phase-1 recipe (artifacts/flagship_r3/phase1/opt.json:
-    no netE, no distortion loss, normalize_std 0.5); ``kernels``: K3 at
-    every generator-side norm site."""
+    no netE, no distortion loss, normalize_std 0.5); or the base-codec
+    recipe's phase A or B (artifacts/flagship_r3_compressed/phase{A,B}/
+    opt.json, BASE_CODEC in place of its heif: raw semantics and the base
+    codec's decoded image into netG, no encoder, cache_images; B distortion
+    only, the lr on a plateau schedule); ``kernels``: K3 at every
+    generator-side norm site."""
     from jpdse_tpu_torch.config import flagship_config
 
     cfg = flagship_config(kernels=kernels)
@@ -1198,6 +1247,12 @@ def flagship_train_config(kernels: bool, seed: int, phase: int = 2):
     if phase == 1:
         m.no_feat, cfg.loss.no_distortion_loss = True, True
         cfg.data.normalize_std = (0.5, 0.5, 0.5)
+    if phase in ("A", "B"):
+        use_base_codec(cfg)
+    if phase == "B":
+        L = cfg.loss
+        L.no_d_gan_loss = L.no_g_gan_loss = L.no_gan_feat_loss = L.no_vgg_loss = True
+        cfg.optim.schedule_lr, cfg.optim.lr_decay_patience = True, 3
     mode, load, crop, aspect = FLAGSHIP_PREPROCESS
     pp = cfg.data.preprocess
     pp.preprocess_mode, pp.load_size, pp.crop_size, pp.aspect_ratio = mode, load, crop, aspect
@@ -1277,7 +1332,7 @@ class K3SiteCheck:
         return "; ".join(parts)
 
 
-def phase_train_parity(seed: int, card: str, phase: int = 2) -> dict:
+def phase_train_parity(seed: int, card: str, phase=2) -> dict:
     """(a) One loss_and_grads of the ``phase`` recipe in the kernel
     configuration against the default one, fp32 with TF32 off, from the same weights and the same generator
     seed: the eight metrics within 1e-4 relative; every binarizer bit that
@@ -1310,13 +1365,17 @@ def phase_train_parity(seed: int, card: str, phase: int = 2) -> dict:
         sites_n, tag = K3_SITES[phase], f"phase-{phase} recipe"
         for a, b in ((base.gan.codec, fused.gan.codec), (base.gan.disc, fused.gan.disc),
                      (base.gan.vgg, fused.gan.vgg)):
-            b.load_state_dict(a.state_dict())
-        batch = make_batch(seed, TRAIN_BATCH)
+            if a is not None:
+                b.load_state_dict(a.state_dict())
+        batch = train_batch(base.cfg, seed)
         controls = []
-        for i in (1, 2):
-            signs = np.random.default_rng(seed + i).choice([-1.0, 1.0], batch["image"].shape)
-            controls.append(dict(batch, image=(batch["image"] * (1 + 2.0**-22 * signs)).astype(
-                np.float32)))
+        for i in (1, 2):  # the image, and the decoded image where the recipe reads one
+            moved = {}
+            for j, k in enumerate(k for k in ("image", "compressed") if k in batch):
+                signs = np.random.default_rng(seed + i + 10 * j).choice([-1.0, 1.0],
+                                                                      batch[k].shape)
+                moved[k] = (batch[k] * (1 + 2.0**-22 * signs)).astype(np.float32)
+            controls.append(dict(batch, **moved))
         n_g = sum(p.numel() for p in base.gan.codec.parameters())
         n_d = sum(p.numel() for p in base.gan.disc.parameters())
         log(f"[train] {tag} at {W}x{H}, batch {TRAIN_BATCH}, fp32: G {n_g} and D {n_d} "
@@ -1463,7 +1522,7 @@ def profile_step(label: str, trainer, batch, card: str) -> None:
                     for e in top) + f" ({card})")
 
 
-def phase_train_steps(seed: int, steps: int, card: str, phase: int = 2) -> dict:
+def phase_train_steps(seed: int, steps: int, card: str, phase=2) -> dict:
     """(b) ``steps`` Trainer.steps of the ``phase`` recipe in each configuration at PyTorch's default
     precision (convolutions in TF32, matmuls in fp32): the median step after
     the first, images/s, peak memory, finite losses, K3's launches per step;
@@ -1473,7 +1532,9 @@ def phase_train_steps(seed: int, steps: int, card: str, phase: int = 2) -> dict:
 
     if not (torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32):
         raise AssertionError("the timed steps run at PyTorch's default precision")
-    batches = [make_batch(seed + 100 + i, TRAIN_BATCH) for i in range(steps)]
+    cfg = flagship_train_config(False, seed, phase)
+    # the base codec's round trip of each batch is done here, before the timed steps
+    batches = [train_batch(cfg, seed + 100 + i) for i in range(steps)]
     launches, medians = {}, {}
     for label, kernels in (("default", False), ("kernel config", True)):
         torch.cuda.empty_cache()
@@ -1822,6 +1883,485 @@ def phase8_chain(seed: int, card: str) -> dict:
     return launches
 
 
+# -- the base-codec recipe: raw semantics over a base codec's decoded image -----------
+# libheif does not load on the card's machine (heif_available() is False
+# there: no libheif, libx265 or libde265 is installed), so phase 9 fixes the
+# recipe's base codec to jpg at the quality of the repo's
+# tracked jpg base-codec recipe (artifacts/three_phase/phase2/opt.json); the
+# model, the side info and every path are the recipe's own
+BASE_CODEC = ("jpg", 50)
+# kernel launches per decompress of a side-info-only stream (a compress
+# launches none: it is host work): the fast path re-aligns netG's back (K1),
+# in the kernel configuration also its 156-channel head (K1 feeding K4); the
+# standard path's K3 runs at netG's 27 norm sites
+BASE_SERVE_LAUNCHES = {
+    "default fast path": {"s2d_realign_pad3": 1},
+    "kernel-config fast path": {"s2d_realign_pad3": 2, "head_conv_s2d": 1},
+    "kernel-config standard path": {"fused_instance_norm": 27},
+    "default standard path": {},
+}
+# netG over the decoded image alone (no semantics): K2 on its 3-channel front
+NOSEM_LAUNCHES = {"s2d_realign_pad3": 1, "s2d_pad3": 1}
+BASE_FLAGS = ["--no_feat_encoding", "--no_label_encoding", "--use_compressed", "--ext",
+              BASE_CODEC[0], "--quality", str(BASE_CODEC[1]), "--cache_images", "1"]
+
+
+def use_base_codec(cfg, nosem: bool = False) -> None:
+    """The base-codec recipe's model on ``cfg``: raw one-hot semantics and
+    the edge map (36 channels) beside BASE_CODEC's decoded image (3) into
+    netG, no encoder; with ``nosem`` the decoded image alone
+    (artifacts/flagship_r4_nosem_q20/phaseA/opt.json's model)."""
+    m = cfg.model
+    m.no_feat_encoding = m.no_label_encoding = True
+    if nosem:
+        m.no_label = m.no_instance = True
+    cfg.codec.use_compressed = cfg.data.cache_images = True
+    cfg.codec.ext, cfg.codec.quality = BASE_CODEC[0], (BASE_CODEC[1],)
+    cfg.validate()
+
+
+def with_base_codec(cfg, batch: dict) -> dict:
+    """``batch`` with each image's round trip through the base codec, as
+    the data pipeline adds it: ``compressed`` (normalized), the streams,
+    their codec and bytes."""
+    from jpdse_tpu_torch.codecs.bridge import compress_for_model
+    from jpdse_tpu_torch.utils.misc import tensor2im
+
+    d = cfg.data
+    trips = [compress_for_model(tensor2im(im, d.normalize_mean, d.normalize_std), cfg.codec.ext,
+                                cfg.codec.quality, d.normalize_mean, d.normalize_std, True)
+             for im in batch["image"]]
+    return dict(batch, compressed=np.stack([t[0] for t in trips]),
+                base_codec_bytes=np.array([t[1] for t in trips], np.int64),
+                base_codec_streams=[t[2] for t in trips], base_codec_ext=[t[3] for t in trips])
+
+
+def scene_batch(cfg, seed: int) -> dict:
+    """One request of a synthetic scene at 1024x512 (synthetic_scene, the
+    image normalized as the data pipeline does), with its base-codec round
+    trip."""
+    from jpdse_tpu_torch.data.transforms import image_to_normalized
+    from PIL import Image
+
+    photo, label, inst = synthetic_scene(np.random.default_rng(seed), H, W)
+    d = cfg.data
+    image = image_to_normalized(Image.fromarray(photo), d.normalize_mean, d.normalize_std)
+    return with_base_codec(cfg, {"label": label[None].astype(np.float32), "instance": inst[None],
+                                 "image": image[None]})
+
+
+def base_codec_configs(nosem: bool = False):
+    """The recipe's serving configuration (bf16, the fast path) and its
+    kernel configuration."""
+    from jpdse_tpu_torch.config import flagship_config
+
+    out = []
+    for kernels in (False, True):
+        cfg = flagship_config(kernels=kernels)
+        use_base_codec(cfg, nosem)
+        out.append(cfg)
+    return out
+
+
+def phase9_probe(card: str) -> None:
+    """(0) What the card's machine offers: the codecs, libheif; the heif
+    leg raises CodecUnavailable where libheif does not load, as in JAX.
+    One encode and one decode of a 1024x512 scene by BASE_CODEC, timed on
+    the host."""
+    from jpdse_tpu_torch import native
+    from jpdse_tpu_torch.codecs import bridge
+
+    heif = native.heif_available()
+    log(f"[base] available_codecs() {bridge.available_codecs()}; heif_available() {heif}; "
+        f"phase 9's base codec: {BASE_CODEC[0]} q{BASE_CODEC[1]} (fixed in the script)")
+    photo = synthetic_scene(np.random.default_rng(7), H, W)[0]
+    if not heif:
+        try:
+            bridge.encode_bytes(photo, "heif", 30)
+        except bridge.CodecUnavailable as e:
+            log(f"[base] ext heif raises CodecUnavailable here: {e}")
+        else:
+            raise AssertionError("heif encoded without libheif")
+    enc, dec, n = [], [], 0
+    for _ in range(5):
+        t0 = time.perf_counter()
+        stream, ext = bridge.encode_bytes(photo, *BASE_CODEC)
+        t1 = time.perf_counter()
+        out = bridge.decode_bytes(stream, ext)
+        dec.append((time.perf_counter() - t1) * 1e3)
+        enc.append((t1 - t0) * 1e3)
+        n = len(stream)
+    err = np.abs(out.astype(np.int16) - photo).mean()
+    if out.shape != photo.shape or not err < 32:
+        raise AssertionError(f"{BASE_CODEC} round trip: shape {out.shape}, mean error {err}")
+    log(f"[base] {BASE_CODEC[0]} q{BASE_CODEC[1]} of a {W}x{H} scene: {n} bytes "
+        f"({8 * n / (H * W):.4f} bpp, mean abs error {err:.2f} levels); encode {np.median(enc):.2f} ms, decode "
+        f"{np.median(dec):.2f} ms on the host, medians of 5 ({card})")
+
+
+def base_stream_sections(stream: bytes) -> dict:
+    """Bytes of a side-info-only stream by section: the container, the id
+    maps, the base codec's streams."""
+    from jpdse_tpu_torch import codec_io
+
+    bs = codec_io.unpack_full(stream)
+    base = sum(len(p) for p in bs.side.base_payloads or [])
+    flags = stream[14]  # no code: magic 4, version and size 5, n_codes 1, payload length 4
+    n_maps = bin(flags & 3).count("1")
+    container = 15 + 4 * n_maps + (2 + len(bs.side.base_ext) + 4 * len(bs.side.base_payloads)
+                                   if flags & 4 else 0)
+    return {"container": container, "id maps": len(stream) - container - base,
+            "base codec": base}
+
+
+def phase9_serve(seed: int, requests: int, card: str) -> dict:
+    """(d) The recipe's codec at full width: fp32 images of the three other
+    paths against the default standard path (TF32 off, the same side
+    inputs); then --requests bf16 requests through side-info-only .jpds
+    streams on the four serving paths, launches asserted per call (none in
+    a compress), bytes by section and the host stages beside the device
+    part. Returns each path's counts."""
+    import copy
+
+    from jpdse_tpu_torch import codec_io
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.models.fast_codec import FastCodec
+    from jpdse_tpu_torch.serve import CodecServer
+
+    cfg, kcfg = base_codec_configs()
+    codec = SemanticCodec(cfg, device="cuda", seed=seed, dtype=torch.float32)
+    state = codec.state_dict()
+    log(f"[base] base-codec codec: netG over {cfg.netG_input_nc} channels, "
+        f"{sum(p.numel() for p in codec.parameters())} parameters from seed {seed}; "
+        f"side_requirements {codec_io.side_requirements(cfg)}")
+    request = scene_batch(cfg, seed + 60)
+    dev = {k: torch.as_tensor(request[k], device="cuda")
+           for k in ("label", "instance", "image", "compressed")}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = codec.decode(codec.prepare(dev))[0]
+        fused = SemanticCodec(kcfg, device="cuda", seed=None, dtype=torch.float32)
+        fused.load_state_dict(state)
+        for what, fn, launch in (
+                ("fp32 default fast path", lambda: FastCodec(cfg, state, device="cuda",
+                                                             dtype=torch.float32).decode(dev),
+                 BASE_SERVE_LAUNCHES["default fast path"]),
+                ("fp32 kernel-config fast path", lambda: FastCodec(
+                    kcfg, state, device="cuda", dtype=torch.float32).decode(dev),
+                 BASE_SERVE_LAUNCHES["kernel-config fast path"]),
+                ("fp32 standard path with K3", lambda: fused.decode(fused.prepare(dev))[0],
+                 BASE_SERVE_LAUNCHES["kernel-config standard path"])):
+            reset_counts()
+            with torch.inference_mode():
+                got = fn()
+            check_image(f"base-codec codec, {what}", got, want)
+            counts = {k: v for k, v in read_counts().items() if v}
+            if counts != launch:
+                raise AssertionError(f"base-codec {what}: launched {counts}, want {launch}")
+        del fused
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    kstd, dstd = copy.deepcopy(kcfg), copy.deepcopy(cfg)
+    kstd.model.fast_inference = dstd.model.fast_inference = False
+    paths = {"default fast path": cfg, "kernel-config fast path": kcfg,
+             "kernel-config standard path": kstd, "default standard path": dstd}
+    batches = [scene_batch(cfg, seed + 61 + r) for r in range(requests)]
+    launches = {}
+    for label, c in paths.items():
+        torch.cuda.empty_cache()
+        server = CodecServer(c, state, device="cuda")
+        rows = {k: [] for k in ("compress", "idmap", "pack", "decompress", "unpack",
+                                "base_decode", "device part")}
+        reset_counts()
+        for r, batch in enumerate(batches):
+            before = read_counts()
+            t0 = time.perf_counter()
+            streams = server.compress(batch)
+            rows["compress"].append((time.perf_counter() - t0) * 1e3)
+            rows["idmap"].append(server.times["idmap"])
+            rows["pack"].append(server.times["pack"])
+            mid = read_counts()
+            t0 = time.perf_counter()
+            image = server.decompress(streams[0])
+            torch.cuda.synchronize()
+            rows["decompress"].append((time.perf_counter() - t0) * 1e3)
+            for k in ("unpack", "base_decode"):
+                rows[k].append(server.times[k])
+            rows["device part"].append(server.times["decompress_codes"])
+            after = read_counts()
+            comp = {k: mid[k] - before[k] for k in mid}
+            dec = {k: after[k] - mid[k] for k in mid}
+            want_dec = BASE_SERVE_LAUNCHES[label]
+            if any(comp.values()) or dec != {k: want_dec.get(k, 0) for k in dec}:
+                raise AssertionError(f"base-codec {label} request {r}: compress launched "
+                                     f"{comp}, decompress {dec}, want none and {want_dec}")
+            bs = codec_io.unpack_full(streams[0])
+            if bs.codes or bs.image_hw != (H, W) or not np.array_equal(
+                    bs.side.label, batch["label"][0].astype(np.int32)) or \
+                    bs.side.base_payloads != batch["base_codec_streams"][0]:
+                raise AssertionError(f"base-codec {label} request {r}: the stream does not "
+                                     "hold the request's side info alone")
+            if image.shape != (H, W, 3) or not np.isfinite(image).all() or \
+                    np.abs(image).max() > 1.0:
+                raise AssertionError(f"base-codec {label} request {r}: image {image.shape}")
+            sec = base_stream_sections(streams[0])
+            log(f"[base] {label} request {r}: .jpds {len(streams[0])} bytes "
+                f"({8 * len(streams[0]) / (H * W):.4f} bpp: id maps {sec['id maps']} bytes "
+                f"{8 * sec['id maps'] / (H * W):.4f} bpp, {BASE_CODEC[0]} "
+                f"{sec['base codec']} bytes {8 * sec['base codec'] / (H * W):.4f} bpp, container "
+                f"{sec['container']}); compress {rows['compress'][r]:.2f} ms (id-map coding "
+                f"{rows['idmap'][r]:.2f}, pack {rows['pack'][r]:.2f}, no device work), "
+                f"decompress {rows['decompress'][r]:.2f} ms (unpack {rows['unpack'][r]:.2f}, "
+                f"{BASE_CODEC[0]} decode {rows['base_decode'][r]:.2f}, device part "
+                f"{rows['device part'][r]:.2f}) ({card})")
+        launches[f"base-codec serve: {label}"] = read_counts()
+        rest = slice(1, None) if requests > 1 else slice(None)
+        med = {k: float(np.median(v[rest])) for k, v in rows.items()}
+        log(f"[base] {label}: bf16 batch 1 at {W}x{H}, medians after the first request: "
+            f"compress {med['compress']:.2f} ms (id-map coding {med['idmap']:.2f}), decompress "
+            f"{med['decompress']:.2f} ms (unpack {med['unpack']:.2f}, {BASE_CODEC[0]} decode "
+            f"{med['base_decode']:.2f}, device part {med['device part']:.2f}); launches per "
+            f"decompress {BASE_SERVE_LAUNCHES[label]} ({card})")
+        del server
+    del codec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase9_nosem(seed: int, card: str) -> dict:
+    """(e) netG over the decoded image alone (flagship_r4_nosem's model) on
+    the kernel configuration's fast path: K2 on netG's 3-channel front and
+    K1 in its back, asserted; its fp32 image against the default standard
+    path's (TF32 off), and one bf16 request through bytes. Returns the
+    counts."""
+    from jpdse_tpu_torch import codec_io
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.models.fast_codec import FastCodec
+    from jpdse_tpu_torch.serve import CodecServer
+
+    cfg, kcfg = base_codec_configs(nosem=True)
+    codec = SemanticCodec(cfg, device="cuda", seed=seed, dtype=torch.float32)
+    state = codec.state_dict()
+    batch = scene_batch(cfg, seed + 70)
+    dev = {k: torch.as_tensor(batch[k], device="cuda") for k in ("image", "compressed")}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = codec.decode(codec.prepare(dev))[0]
+        fast = FastCodec(kcfg, state, device="cuda", dtype=torch.float32)
+        reset_counts()
+        got = fast.decode(dev)
+        counts = {k: v for k, v in read_counts().items() if v}
+        check_image("nosem codec, fp32 kernel-config fast path", got, want)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    if counts != NOSEM_LAUNCHES:
+        raise AssertionError(f"nosem kernel-config fast decode launched {counts}, want "
+                             f"{NOSEM_LAUNCHES}")
+    server = CodecServer(kcfg, state, device="cuda")
+    reset_counts()
+    stream = server.compress(batch)[0]
+    if any(read_counts().values()) or codec_io.side_requirements(kcfg) != (False, False, True):
+        raise AssertionError("nosem compress: device work, or side info beyond the base codec")
+    t0 = time.perf_counter()
+    image = server.decompress(stream)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    if {k: v for k, v in counts.items() if v} != NOSEM_LAUNCHES or not np.isfinite(image).all():
+        raise AssertionError(f"nosem decompress launched {counts}")
+    log(f"[base] nosem codec (netG over {cfg.netG_input_nc} channels, "
+        f"{sum(p.numel() for p in codec.parameters())} parameters), kernel-config fast path: "
+        f"K2 on netG's 3-channel front and K1 in its back, {counts['s2d_pad3']} and "
+        f"{counts['s2d_realign_pad3']} per decompress; .jpds {len(stream)} bytes "
+        f"({8 * len(stream) / (H * W):.4f} bpp, the {BASE_CODEC[0]} stream alone); bf16 "
+        f"decompress {ms:.2f} ms, first call (device part "
+        f"{server.times['decompress_codes']:.2f}) ({card})")
+    del codec, server
+    torch.cuda.empty_cache()
+    return {"base-codec nosem: kernel-config fast path": counts}
+
+
+def phase9_chain(seed: int, card: str) -> dict:
+    """(c) The recipe through train.run.main in the kernel configuration at
+    full width, on a synthetic Cityscapes train/val split read through
+    PairedDataset with cache_images: phase A for two epochs of 2 steps
+    (each epoch's loader wait printed: the base codec's encodes in the
+    first, its memo in the second) with validation and a best-val save at
+    the end; then phase B (distortion only) restored from it, every leaf
+    matched, validated, for one epoch. Counts are set to 0 before each main
+    and asserted after it. Returns each main's counts."""
+    from jpdse_tpu_torch.train import run
+    from jpdse_tpu_torch.train.checkpoint import PARAMS_D_FILE, PARAMS_FILE
+
+    launches = {}
+    n = K3_SITES["A"]
+    steps = EVAL_IMAGES // TRAIN_BATCH
+    keep = ("epoch ", "val set avg", "saving model", "checkpoint", "restored",
+            "optimizer state", "device_cache")
+    with tempfile.TemporaryDirectory(prefix="jpdse_base_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "cityscapes"
+        for split in ("train", "val"):
+            write_cityscapes(root, seed + 20 + (split == "train"), split)
+        mode, load, crop, _ = FLAGSHIP_PREPROCESS
+        base = ["--dataset", "cityscapes", "--root_dir", str(root), "--no_generator_binarization",
+                "--normalize_std", "1", "--batch_size", str(TRAIN_BATCH), "--remat", "1",
+                "--seed", str(seed), "--num_workers", "2", "--max_recon_dump", "2",
+                "--fused_instance_norm", "1"] + BASE_FLAGS
+        for prefix in ("", "val_"):
+            base += [f"--{prefix}preprocess_mode", mode, f"--{prefix}load_size", str(load),
+                     f"--{prefix}crop_size", str(crop)]
+        da, db = str(tmp / "phaseA"), str(tmp / "phaseB")
+        runs = {
+            "phase A": (base + ["--save_dir", da, "--num_epochs", "2", "--val_interval", "2"],
+                        2 * steps * 2 * n + (EVAL_IMAGES + 2) * n, 2 * steps * n),
+            "phase B from phase A": (
+                base + ["--save_dir", db, "--num_epochs", "1", "--val_interval", "5",
+                        "--no_d_gan_loss", "--no_g_gan_loss", "--no_gan_feat_loss",
+                        "--no_vgg_loss", "--schedule_lr", "1", "--lr_decay_patience", "3",
+                        "--load_model", "--checkpoints_dir", da],
+                EVAL_IMAGES * n + steps * 2 * n, steps * n),
+        }
+        for label, (argv, fwd, bwd) in runs.items():
+            torch.cuda.empty_cache()
+            result = {}
+
+            def main_run(argv=argv):
+                result["trainer"] = run.main(argv, device="cuda")
+
+            _, text, counts = run_entry(
+                label, "train.run.main", main_run,
+                {"fused_instance_norm": fwd, "fused_instance_norm_bwd": bwd}, per=1,
+                tag="[base]", keep=keep)
+            launches[f"base-codec chain: {label}"] = counts
+            trainer = result.pop("trainer")
+            waits = [tuple(float(x) for x in m) for m in re.findall(
+                r"loader wait ([\d.]+) s of ([\d.]+) s", text)]
+            if label == "phase A":
+                if len(waits) != 2 or trainer.steps_taken != 2 * steps:
+                    raise AssertionError(f"phase A: loader waits {waits}, steps "
+                                         f"{trainer.steps_taken}")
+                log(f"[base] phase A: loader wait {waits[0][0]:.3f} s of the first epoch's "
+                    f"{waits[0][1]:.3f} s (every image through {BASE_CODEC[0]}), "
+                    f"{waits[1][0]:.3f} s of the second's {waits[1][1]:.3f} s (the memo, "
+                    f"cache_images) ({card})")
+            else:
+                want_n = len(trainer.gan.codec.state_dict()) + len(trainer.gan.disc.state_dict())
+                for name in (PARAMS_FILE, PARAMS_D_FILE):
+                    if not (Path(da) / name).exists():
+                        raise AssertionError(f"phase A saved no {name}")
+                if f"restored params from {da}: {want_n}/{want_n} leaves matched" not in text:
+                    raise AssertionError(f"phase B's restore: want {want_n}/{want_n}")
+                if trainer.steps_taken != 3 * steps:
+                    raise AssertionError(f"phase B: steps taken {trainer.steps_taken}")
+                log(f"[base] phase B restored all {want_n} leaves from phase A and took "
+                    f"{steps} distortion-only steps; loader wait {waits[0][0]:.3f} s of "
+                    f"{waits[0][1]:.3f} s ({card})")
+            del trainer
+    return launches
+
+
+def phase9_eval(seed: int, card: str) -> dict:
+    """(f) test.main, compress.main and decompress.main of the recipe's
+    codec (random weights from --seed) on the kernel configuration's fast
+    path, on a synthetic Cityscapes val split: finite metrics, the side
+    rates, each .jpds file as long as sem_side_bpp and base_codec_bpp say
+    plus its container's bytes, decompressed PNGs within one uint8 level
+    of the test run's reconstructions. Returns the counts."""
+    from PIL import Image
+
+    from jpdse_tpu_torch import compress, decompress, test
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    _, kcfg = base_codec_configs()
+    per_image = BASE_SERVE_LAUNCHES["kernel-config fast path"]
+    with tempfile.TemporaryDirectory(prefix="jpdse_base_eval_") as tmp:
+        root, run_dir, out = Path(tmp) / "cityscapes", Path(tmp) / "run", Path(tmp) / "out"
+        write_cityscapes(root, seed + 30)
+        mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+        for pp in (kcfg.data.preprocess, kcfg.data.val_preprocess, kcfg.data.test_preprocess):
+            pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
+            pp.aspect_ratio = aspect
+        kcfg.data.dataset, kcfg.data.root_dir = "cityscapes", str(root)
+        kcfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+        kcfg.data.num_workers, kcfg.optim.seed = 2, seed
+        run_dir.mkdir()
+        kcfg.save(str(run_dir / "opt.json"))
+        codec = SemanticCodec(kcfg, device="cuda", seed=seed, dtype=torch.float32)
+        save_params(str(run_dir), codec.state_dict())
+        del codec
+        argv = ["--load_opt", "--opt_file", str(run_dir / "opt.json"), "--checkpoints_dir",
+                str(run_dir), "--mode", "val"]
+        metrics, text, c_test = run_entry("base codec", "test.main", lambda: test.main(
+            argv + ["--save_dir", str(out / "test")], device="cuda"), per_image, tag="[base]")
+        summary, _, c_comp = run_entry("base codec", "compress.main", lambda: compress.main(
+            argv + ["--save_dir", str(out / "bits")], device="cuda"), {}, tag="[base]")
+        written, _, c_dec = run_entry("base codec", "decompress.main", lambda: decompress.main(
+            ["--input", str(out / "bits")] + argv + ["--save_dir", str(out / "recon")],
+            device="cuda"), per_image, tag="[base]")
+        rates = ("sem_side_bpp", "base_codec_bpp", "total_bpp", "PSNR", "MS-SSIM", "L1")
+        if metrics["n_images"] != EVAL_IMAGES or not np.isfinite([metrics[k] for k in rates]).all():
+            raise AssertionError(f"base-codec eval: metrics {metrics}")
+        if not np.isclose(metrics["total_bpp"], metrics["sem_side_bpp"]
+                          + metrics["base_codec_bpp"], rtol=1e-12, atol=0):
+            raise AssertionError(f"base-codec eval: total_bpp {metrics['total_bpp']}")
+        files = sorted((out / "bits").glob("*.jpds"))
+        data = [p.read_bytes() for p in files]
+        container = sum(base_stream_sections(b)["container"] for b in data)
+        side = (metrics["sem_side_bpp"] + metrics["base_codec_bpp"]) * EVAL_IMAGES * H * W / 8
+        if len(files) != EVAL_IMAGES or not np.isclose(sum(map(len, data)), side + container,
+                                                       rtol=0, atol=1e-6):
+            raise AssertionError(f"base-codec deploy: {len(files)} files of "
+                                 f"{sum(map(len, data))} bytes, the rates say {side} + "
+                                 f"{container}")
+        worst = 0
+        for p in map(Path, written):
+            got = np.asarray(Image.open(p)).astype(np.int16)
+            ref = np.asarray(Image.open(out / "test/test_visualizations/images/"
+                                        "reconstructed_image" / p.name)).astype(np.int16)
+            worst = max(worst, int(np.abs(got - ref).max()))
+        if len(written) != EVAL_IMAGES or worst > 1:
+            raise AssertionError(f"base-codec deploy: PNGs differ by {worst} levels")
+        splits = [tuple(float(x) for x in m) for m in re.findall(
+            r"host clock: load ([\d.]+), device ([\d.]+), coder ([\d.]+), metrics ([\d.]+), "
+            r"gallery ([\d.]+), side ([\d.]+)", text)]
+        rest = np.median(np.asarray(splits[1:]), axis=0) * 1e3
+        log(f"[base] eval, kernel-config fast path: PSNR {metrics['PSNR']:.4f} dB, MS-SSIM "
+            f"{metrics['MS-SSIM']:.6f}; sem_side_bpp {metrics['sem_side_bpp']:.6f}, "
+            f"base_codec_bpp {metrics['base_codec_bpp']:.6f}, total_bpp "
+            f"{metrics['total_bpp']:.6f} = the {EVAL_IMAGES} .jpds files' "
+            f"{sum(map(len, data))} bytes less {container} of containers; PNGs within {worst} "
+            f"level(s); per image after the first, host clock (ms): load {rest[0]:.1f}, device "
+            f"{rest[1]:.1f}, id-map rate {rest[5]:.1f}, metrics {rest[3]:.1f}, gallery "
+            f"{rest[4]:.1f} ({card})")
+    return {"base-codec eval: kernel-config fast path": {
+        k: c_test[k] + c_comp[k] + c_dec[k] for k in c_test}}
+
+
+def phase9(seed: int, requests: int, steps: int, card: str) -> tuple:
+    """The base-codec recipe at full width: (0) the probe, (a) one step's
+    parity, (b) timed steps, (c) the phase chain, (d) serving, (e) the nosem
+    codec, (f) eval and deploy. Returns (serving and eval counts, training
+    counts)."""
+    t0 = time.perf_counter()
+    phase9_probe(card)
+    train = {f"phase-A train parity: {k}": v for k, v in
+             phase_train_parity(seed, card, phase="A").items()}
+    train.update({f"phase-A train steps: {k}": v for k, v in
+                  phase_train_steps(seed, steps, card, phase="A").items()})
+    train.update(phase9_chain(seed, card))
+    serve = phase9_serve(seed, requests, card)
+    serve.update(phase9_nosem(seed, card))
+    serve.update(phase9_eval(seed, card))
+    log(f"[base] base-codec recipe phase {time.perf_counter() - t0:.1f} s")
+    return serve, train
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1887,6 +2427,10 @@ def main() -> int:
                      phase8_serve(args.seed, args.requests, card).items()})
     launches.update(phase8_g_binarized(args.seed, card))
     log(f"[phase1] phase-1 recipe and assemblies phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    serve9, train9 = phase9(args.seed, args.requests, args.train_steps, card)
+    launches.update(serve9)
+    train_launches.update(train9)
     launches.update(train_launches)
     for e in entries:
         name = e["name"]

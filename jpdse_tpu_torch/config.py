@@ -598,15 +598,9 @@ def check_ported(cfg: Config) -> None:
     any assembly of ``SemanticCodec._generator_input`` (learned, raw,
     no-label, no-feat, sem_masking, use_netE_output, zero_*), with the
     encoders or the generator binarized or neither, over ungrouped
-    instance-norm encoders, without base-codec inputs or reduced-rate
-    semantics."""
-    m, c = cfg.model, cfg.codec
-    if c.use_compressed:
-        raise NotPorted("codec.use_compressed (base-codec inputs and their side info) "
-                        "is ROADMAP Queue 1 item 5")
-    if c.sem_downsample != 1:
-        raise NotPorted("codec.sem_downsample > 1 (reduced-rate semantics) is ROADMAP "
-                        "Queue 1 item 5")
+    instance-norm encoders, with or without a base codec's decoded image
+    and reduced-rate semantics."""
+    m = cfg.model
     if m.netG != "global":
         raise NotPorted(f"netG {m.netG!r} (LocalEnhancer) is ROADMAP Queue 1 item 10")
     if m.norm != "instance" or m.netE_groups != 1 or m.inst_wise_pool:

@@ -1,6 +1,7 @@
 // Adaptive binary range-coder core (LZMA-family construction,
 // public-domain algorithmics): 32-bit range, 11-bit adaptive probabilities,
-// shift-5 adaptation. Used by range_coder.cpp (binarized bottleneck codes).
+// shift-5 adaptation. Used by range_coder.cpp (binarized bottleneck codes)
+// and idmap_coder.cpp (lossless semantic and instance id maps).
 // The port's own copy of jpdse_tpu/native/rc_core.h, unchanged in its
 // arithmetic: the .jpds streams of the two packages must be byte-identical.
 #ifndef JPDSE_RC_CORE_H_

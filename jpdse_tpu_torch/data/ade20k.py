@@ -12,7 +12,7 @@ from PIL import Image
 
 from jpdse_tpu_torch.config import Config
 from jpdse_tpu_torch.data.folder import make_dataset
-from jpdse_tpu_torch.data.paired import PairedDataset
+from jpdse_tpu_torch.data.paired import PairedDataset, add_compressed
 from jpdse_tpu_torch.data.transforms import (
     apply_transform,
     image_to_normalized,
@@ -84,5 +84,6 @@ class ADE20KDataset(PairedDataset):
                 inst = Image.fromarray(seg[..., 2])  # B channel: instances
                 inst_t = apply_transform(inst, pp, params, Image.NEAREST, is_train)
                 sample["instance"] = np.asarray(inst_t).astype(np.int32)
-
+        if cfg.codec.use_compressed:
+            add_compressed(sample, self._round_trip(sample["image"]))
         return sample

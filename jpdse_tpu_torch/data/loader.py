@@ -19,10 +19,17 @@ PREFETCH = 2  # batches the producer may run ahead of the consumer
 
 
 def collate(samples: List[Dict]) -> Dict:
+    """Stacked arrays; the paths and the base codec's streams and their
+    codec stay host lists, and its bytes one int64 per image."""
     out: Dict = {}
     for key in samples[0]:
         vals = [s[key] for s in samples]
-        out[key] = vals if key == "path" else np.stack(vals)
+        if key in ("path", "base_codec_streams", "base_codec_ext"):
+            out[key] = vals
+        elif key == "base_codec_bytes":
+            out[key] = np.asarray(vals, np.int64)
+        else:
+            out[key] = np.stack(vals)
     return out
 
 

@@ -2,11 +2,13 @@
 ``jpdse_tpu/data/paired.py``: natural-sorted paths with a pairing check, one
 shared random parameter set so image, label and instance get the same crop
 and flip, bicubic image and nearest id-map resampling, the 255 ->
-num_labels remap of unknown labels, and memoized decoding for deterministic
-preprocessing (``data.cache_images``).
-
-The base-codec round trip of ``codec.use_compressed`` is ROADMAP Queue 1
-item 5: a dataset for such a config raises :class:`config.NotPorted`.
+num_labels remap of unknown labels, memoized decoding for deterministic
+preprocessing (``data.cache_images``), and under ``codec.use_compressed``
+the base codec's round trip of the transformed image: its decoded image
+(``compressed``), its streams, their bytes and the codec that decodes them.
+Under ``cache_images`` the round trip is memoized per (index, flip), bit for
+bit the inline path's, so a base codec's encode runs once per image and
+flip, not once per training step.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from PIL import Image
 
-from jpdse_tpu_torch.config import Config, NotPorted
+from jpdse_tpu_torch.codecs.bridge import compress_for_model
+from jpdse_tpu_torch.config import Config
 from jpdse_tpu_torch.data.transforms import (
     apply_transform,
     image_to_normalized,
@@ -25,16 +28,13 @@ from jpdse_tpu_torch.data.transforms import (
     label_to_array,
     sample_params,
 )
-from jpdse_tpu_torch.utils.misc import natural_sort
+from jpdse_tpu_torch.utils.misc import natural_sort, tensor2im
 
 
 class PairedDataset:
     """Base class; subclasses implement get_paths / paths_match."""
 
     def __init__(self, cfg: Config):
-        if cfg.codec.use_compressed:
-            raise NotPorted("codec.use_compressed (the base-codec round trip of the data "
-                            "pipeline) is ROADMAP Queue 1 item 5")
         self.cfg = cfg
         label_paths, image_paths, instance_paths = self.get_paths(cfg)
         natural_sort(label_paths)
@@ -59,6 +59,8 @@ class PairedDataset:
         # arrays per index; valid only for a deterministic geometric
         # transform (no random crop): 'fixed' and 'none'
         self._cache: Dict[int, Tuple] = {}
+        # the base codec's round trips per (index, flip), under the same rule
+        self._comp_cache: Dict[Tuple[int, bool], Tuple] = {}
         self._cache_enabled = cfg.data.cache_images and (
             cfg.data.preprocess.preprocess_mode in ("fixed", "none")
         )
@@ -162,4 +164,42 @@ class PairedDataset:
             if instance is not None:
                 inst_t = apply_transform(instance, pp, params, Image.NEAREST, is_train)
                 sample["instance"] = instance_to_array(inst_t)
+        if cfg.codec.use_compressed:
+            if self._cache_enabled:
+                comp = self._compressed_arrays(index, flip)
+            else:
+                comp = self._round_trip(sample["image"])
+            add_compressed(sample, comp)
         return self.postprocess(sample)
+
+    def _round_trip(self, image_arr: np.ndarray):
+        """The base codec's round trip of a normalized image, as uint8:
+        (decoded and normalized float32 (H, W, 3 * len(quality)), total
+        bytes, streams, the codec that decodes them)."""
+        d = self.cfg.data
+        return compress_for_model(tensor2im(image_arr, d.normalize_mean, d.normalize_std),
+                                  self.cfg.codec.ext, self.cfg.codec.quality, d.normalize_mean,
+                                  d.normalize_std, return_streams=True)
+
+    def _compressed_arrays(self, index: int, flip: bool):
+        """:meth:`_round_trip` of the cached sample at ``flip``, memoized:
+        the same ops on the same arrays as the inline path, so bit-equal."""
+        key = (index, bool(flip))
+        hit = self._comp_cache.get(key)
+        if hit is None:
+            image_u8 = self._resized_arrays(index)[0]
+            if flip:
+                image_u8 = image_u8[:, ::-1]
+            mean = np.asarray(self.cfg.data.normalize_mean, np.float32)
+            std = np.asarray(self.cfg.data.normalize_std, np.float32)
+            hit = self._round_trip((image_u8.astype(np.float32) / 255.0 - mean) / std)
+            self._comp_cache[key] = hit
+        return hit
+
+
+def add_compressed(sample: Dict, comp) -> None:
+    """The base codec's round trip (:meth:`PairedDataset._round_trip`) into
+    a sample: ``compressed``, ``base_codec_bytes``, ``base_codec_streams``
+    and ``base_codec_ext``."""
+    keys = ("compressed", "base_codec_bytes", "base_codec_streams", "base_codec_ext")
+    sample.update(zip(keys, comp))

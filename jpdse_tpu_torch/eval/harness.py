@@ -1,9 +1,11 @@
 """Evaluation harness, the port of ``jpdse_tpu/eval/harness.py``: optional
 input noise, the rate of the binary codes (Shannon estimate, raw length and
-the real range-coded bytes), the reconstruction gallery, the code dumps
-(``codes/<name>_code`` raw, ``<name>_code.rc`` coded), and L1 / MSE / PSNR
-/ MS-SSIM on denormalized uint8 images, computed on the device and weighted
-per image.
+the real range-coded bytes), the rate of the side info (the base codec's
+stream bytes as ``base_codec_bpp``, the id maps as ``pack`` codes them as
+``sem_side_bpp``) and the total a receiver needs, the reconstruction
+gallery, the code dumps (``codes/<name>_code`` raw, ``<name>_code.rc``
+coded), and L1 / MSE / PSNR / MS-SSIM on denormalized uint8 images,
+computed on the device and weighted per image.
 
 Each batch's line also gives the host-clock split of its time: waiting for
 the loader (decode and preprocess not hidden by prefetching), the device
@@ -21,8 +23,8 @@ import numpy as np
 import torch
 
 from jpdse_tpu_torch import native
-from jpdse_tpu_torch.codec_io import side_requirements
-from jpdse_tpu_torch.config import Config, NotPorted, check_ported
+from jpdse_tpu_torch.codec_io import downsample_ids, sem_side_blobs, side_requirements
+from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.ops.metrics import denormalize_to_uint8, ms_ssim, psnr
 
 
@@ -55,13 +57,9 @@ def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dic
     """Run the evaluation; returns the metrics averaged per image."""
     check_ported(cfg)
     try:
-        need_side = any(side_requirements(cfg))
-    except ValueError:
-        need_side = False  # raw uncompressed visuals: not deployable, no side accounting
-    if need_side:
-        raise NotPorted("the rate of a configuration whose streams carry side info (raw "
-                        "semantics, an unbinarized encoder's visuals: sem_side_bpp and "
-                        "base_codec_bpp, through encode_idmap) is ROADMAP Queue 1 item 5")
+        need_label, need_inst, need_base = side_requirements(cfg)
+    except ValueError:  # raw uncompressed visuals: not deployable, no side accounting
+        need_label = need_inst = need_base = False
     get_codes = not cfg.do_not_get_codes and cfg.has_binary_codes
     if not cfg.do_not_get_codes and not cfg.has_binary_codes:
         print("note: no binarized module in this configuration; skipping code dumps")
@@ -83,6 +81,14 @@ def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dic
             batch = add_noise(batch, cfg, rng)
         h, w = batch["image"].shape[1:3]
         b = batch["image"].shape[0]
+        if "base_codec_bytes" in batch:
+            totals["base_codec_bpp"] = totals.get("base_codec_bpp", 0.0) + float(
+                np.sum(np.asarray(batch["base_codec_bytes"], np.float64)) * 8.0 / (h * w))
+        t0 = time.perf_counter()
+        if need_label or need_inst:
+            totals["sem_side_bpp"] = totals.get("sem_side_bpp", 0.0) + sem_side_bytes(
+                cfg, batch, need_label, need_inst) * 8.0 / (h * w)
+        split["side"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         dev = trainer.place(batch)
@@ -145,20 +151,39 @@ def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dic
             f"{l1_v:.4f}/{mse_v:.4f}/{msssim_v:.4f}/{psnr_v:.2f}dB, "
             f"batch processing time (s) {end - start:.4f} (host clock: load "
             f"{split['load']:.4f}, device {split['device']:.4f}, coder {split['coder']:.4f}, "
-            f"metrics {split['metrics']:.4f}, gallery {split['gallery']:.4f})"
+            f"metrics {split['metrics']:.4f}, gallery {split['gallery']:.4f}, "
+            f"side {split['side']:.4f})"
         )
         start = time.time()
         t_wait = time.perf_counter()
 
     avgs = {k: v / max(n_images, 1) for k, v in totals.items()}
-    # total_bpp: every byte a receiver needs, the coded learned codes (the
-    # configurations evaluated here carry no side info)
+    # total_bpp: every byte a receiver needs: the coded learned codes, the
+    # id maps, and the base codec's streams only where the receiver decodes
+    # them (with a binarized netE the base codec only feeds the encoder)
     if cfg.has_binary_codes and not get_codes:
         avgs["total_bpp"] = None  # the learned-code rate was not measured
     else:
         learned = avgs.get("coded_bpp")
         if learned is None:
             learned = avgs.get("actual_bpp", 0.0) if get_codes else 0.0
-        avgs["total_bpp"] = learned
+        avgs["total_bpp"] = learned + avgs.get("sem_side_bpp", 0.0)
+        if need_base:
+            avgs["total_bpp"] += avgs.get("base_codec_bpp", 0.0)
     avgs["n_images"] = n_images
     return avgs
+
+
+def sem_side_bytes(cfg: Config, batch: Dict, need_label: bool, need_inst: bool) -> int:
+    """The bytes of the batch's id-map sections, as ``codec_io.pack`` writes
+    them (at ``codec.sem_downsample``)."""
+    f = cfg.codec.sem_downsample
+    n = 0
+    for j in range(batch["image"].shape[0]):
+        label = inst = None
+        if need_label and "label" in batch:
+            label = downsample_ids(np.asarray(batch["label"][j]).astype(np.int32), f)
+        if need_inst and "instance" in batch:
+            inst = downsample_ids(np.asarray(batch["instance"][j]), f)
+        n += sum(len(blob) for blob in sem_side_blobs(label, inst)[:2] if blob)
+    return n

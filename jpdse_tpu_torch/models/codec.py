@@ -2,10 +2,10 @@
 (``prepare_inputs`` :30 and ``SemanticCodec``): netG, with netE4label coding
 the semantics and netE the visuals where the configuration has them, and
 the generator's input assembled from their outputs, the raw semantics or
-the raw (or semantically masked) image as ``_generator_input`` (:160-208)
-assembles it. The encoders, or the generator's bottleneck, may carry a
-binarizer, whose codes ``get_codes_shaped`` returns and
-``decode_from_codes`` decodes."""
+the raw (or semantically masked) image, or the base codec's decoded image
+(``codec.use_compressed``), as ``_generator_input`` (:160-208) assembles it.
+The encoders, or the generator's bottleneck, may carry a binarizer, whose
+codes ``get_codes_shaped`` returns and ``decode_from_codes`` decodes."""
 
 from __future__ import annotations
 
@@ -18,32 +18,42 @@ from torch.utils.checkpoint import checkpoint
 from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.generator import Encoder, GlobalGenerator
 from jpdse_tpu_torch.models.layers import build
-from jpdse_tpu_torch.ops.semantics import prepare_semantics, sem_mask
+from jpdse_tpu_torch.ops.semantics import degrade_ids, prepare_semantics, sem_mask
 from jpdse_tpu_torch.platform import resolve_device
+from jpdse_tpu_torch.train.step import raw_side_inputs
 
 # the float inputs of a decode, as the remat checkpoint passes them
-_DECODE_TENSORS = ("input_label", "real_image", "masked_img")
+_DECODE_TENSORS = ("input_label", "real_image", "masked_img", "compressed_img")
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
 
 
-def prepare_inputs(cfg: Config, label, instance, image) -> Dict[str, Optional[torch.Tensor]]:
+def prepare_inputs(cfg: Config, label, instance, image,
+                   compressed=None) -> Dict[str, Optional[torch.Tensor]]:
     """One-hot label + edge map (``input_label``) beside the image
     (``real_image``), both in the image's dtype; the instance ids
-    (``instance_ids``); under ``model.sem_masking`` the image gated by each
-    semantic channel (``masked_img``). Unused entries are None."""
+    (``instance_ids``); the base codec's decoded image (``compressed_img``);
+    under ``model.sem_masking`` the visuals (the decoded image under
+    ``codec.use_compressed``) gated by each semantic channel
+    (``masked_img``). Under ``codec.sem_downsample`` the maps are first
+    taken down and back up, as a receiver rebuilds them from the stream.
+    Unused entries are None."""
     m = cfg.model
+    f = cfg.codec.sem_downsample
+    if f > 1:
+        label, instance = degrade_ids(label, f), degrade_ids(instance, f)
     label_tensor = prepare_semantics(
         label, instance, cfg.data.semantic_nc,
         no_label=m.no_label, no_instance=m.no_instance, dtype=image.dtype,
     )
     masked = None
     if m.sem_masking:
-        masked = sem_mask(image, label_tensor, m.binary_mask, m.input_nc)
+        vis = compressed if cfg.codec.use_compressed else image
+        masked = sem_mask(vis, label_tensor, m.binary_mask, m.input_nc)
     return {"input_label": label_tensor, "real_image": image, "instance_ids": instance,
-            "masked_img": masked}
+            "masked_img": masked, "compressed_img": compressed}
 
 
 def _concat(cfg: Config, input_label, feat):
@@ -123,11 +133,29 @@ class SemanticCodec(nn.Module):
         return self.netE is not None and self.netE.binarizer is not None
 
     def prepare(self, batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
+        comp = batch.get("compressed")
         return prepare_inputs(self.cfg, batch.get("label"), batch.get("instance"),
-                              batch["image"].to(self.dtype))
+                              batch["image"].to(self.dtype),
+                              None if comp is None else comp.to(self.dtype))
+
+    def side_inputs(self, side_batch: Optional[Dict]) -> Optional[Dict]:
+        """:meth:`decode_from_codes`'s side inputs from a batch of what a
+        stream's side info holds (``serve.CodecServer`` rebuilds it)."""
+        if side_batch is None:
+            return None
+        if side_batch.get("label") is None:
+            return raw_side_inputs(side_batch, self.dtype)
+        return self.prepare(side_batch)
 
     def _vis(self, inputs):
-        return inputs["masked_img"] if self.cfg.model.sem_masking else inputs["real_image"]
+        """The visuals netE or netG reads: the masked image under
+        sem_masking, else the base codec's decoded image under
+        use_compressed, else the image."""
+        if self.cfg.model.sem_masking:
+            return inputs["masked_img"]
+        if self.cfg.codec.use_compressed:
+            return inputs["compressed_img"]
+        return inputs["real_image"]
 
     def _generator_input(self, inputs, deterministic: bool, generator):
         """(netG's input, the label features D sees, netE's output before

@@ -1,6 +1,7 @@
 """Space-to-depth inference path, the port of
 ``jpdse_tpu/models/fast_codec.py::FastCodec`` for global generators:
-``decode``, ``get_codes_shaped`` and ``decode_from_codes`` over the weights
+``decode``, ``get_codes_shaped`` and ``decode_from_codes`` (with the
+stream's side info as ``side_batch``) over the weights
 of a ``SemanticCodec``, with netG and each encoder the configuration has as
 an s2d ``_FastTrunk``, and the generator's input assembled as the standard
 path assembles it. The kernel switches (``cfg.model.fast``, env overrides
@@ -21,6 +22,7 @@ from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.codec import _concat, assemble, compute_dtype, prepare_inputs
 from jpdse_tpu_torch.models.fast_trunk import _FastTrunk
 from jpdse_tpu_torch.platform import resolve_device
+from jpdse_tpu_torch.train.step import raw_side_inputs
 
 
 def _sub(state: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -67,8 +69,15 @@ class FastCodec:
 
     def _inputs(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Optional[torch.Tensor]]:
         # the one-hot and edge values are exact in bf16, so build them there
+        comp = batch.get("compressed")
         return prepare_inputs(self.cfg, batch.get("label"), batch.get("instance"),
-                              batch["image"].to(self.dtype))
+                              batch["image"].to(self.dtype),
+                              None if comp is None else comp.to(self.dtype))
+
+    def _vis(self, inputs):
+        """The visuals: the base codec's decoded image under use_compressed,
+        else the image."""
+        return inputs["compressed_img" if self.cfg.codec.use_compressed else "real_image"]
 
     def _features(self, inputs):
         """(label features, visual features): each encoder's output where
@@ -78,7 +87,7 @@ class FastCodec:
             label = self.netE4label(label)
         feat = None
         if not self.cfg.model.no_feat:
-            feat = inputs["real_image"]
+            feat = self._vis(inputs)
             if self.netE is not None:
                 feat = self.netE(feat)
         return label, feat
@@ -100,7 +109,7 @@ class FastCodec:
         if self._coded(self.netE4label):
             codes.append(self.netE4label.encode(inputs["input_label"]))
         if self._coded(self.netE):
-            codes.append(self.netE.encode(inputs["real_image"]))
+            codes.append(self.netE.encode(self._vis(inputs)))
         if self.netG.binarize != "none":
             codes.append(self.netG.encode(assemble(self.cfg, *self._features(inputs))[0]))
         return [(c + 1.0) / 2.0 for c in codes]
@@ -110,7 +119,8 @@ class FastCodec:
                           side_batch: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Image from the codes ((B, h, w, C) in {0, 1}) and, for the
         branches they do not carry, ``side_batch``: a batch dict of what the
-        stream's side info holds (the semantic maps, the image)."""
+        stream's side info holds (the semantic maps, the base codec's
+        decoded image as ``compressed``)."""
         m = self.cfg.model
 
         def pm1(c):
@@ -120,7 +130,8 @@ class FastCodec:
             return self.netG.decode_from_code(pm1(codes[0]))
         side = None
         if side_batch is not None:
-            side = self._inputs(side_batch)
+            side = (raw_side_inputs(side_batch, self.dtype) if side_batch.get("label") is None
+                    else self._inputs(side_batch))
 
         def need_side(what):
             if side is None:
@@ -144,7 +155,7 @@ class FastCodec:
                 i += 1
             else:
                 need_side("visual features (base-codec payload)")
-                feat = side["real_image"]
+                feat = self._vis(side)
                 if self.netE is not None:
                     feat = self.netE(feat)
         return self.netG(_concat(self.cfg, label, feat))

@@ -1,11 +1,19 @@
-"""The host's adaptive binary range coder, the port of the four entropy
-coding functions of ``jpdse_tpu/native/__init__.py`` (:145-250).
+"""The host's native code, the port of ``jpdse_tpu/native/__init__.py``:
 
-The coder is ``csrc/range_coder.cpp`` (with ``csrc/rc_core.h``), the port's
-own copy of ``jpdse_tpu/native/range_coder.cpp``, built with ``g++`` by
-``ops/build.py`` at first use and bound here with ctypes. Its streams are
-byte-identical to the JAX package's. A build that fails raises: there is no
-other coder to fall back to.
+* the adaptive binary range coder of the codes (``entropy_*``, :145-250),
+  ``csrc/range_coder.cpp``;
+* the context-modeled coder of the id maps (``idmap_encode`` /
+  ``idmap_decode``, :253-314), ``csrc/idmap_coder.cpp``; both coders share
+  ``csrc/rc_core.h``;
+* the in-process HEVC-intra codec (``heif_available`` / ``heif_encode`` /
+  ``heif_decode``, :316-374), ``csrc/heif_codec.cpp``, which dlopens
+  libheif.
+
+Each source is the port's own copy of the JAX package's, built with ``g++``
+by ``ops/build.py`` at first use and bound here with ctypes; the coders'
+streams are byte-identical to the JAX package's. A build that fails raises:
+there is no other coder to fall back to. Where libheif or its HEVC plugins
+do not load, ``heif_available()`` is False.
 """
 
 from __future__ import annotations
@@ -22,22 +30,46 @@ _U8 = ctypes.POINTER(ctypes.c_uint8)
 _I32 = ctypes.POINTER(ctypes.c_int32)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load_library("range_coder")
-    for name, res, args in (
-        ("jpdse_rc_encode", ctypes.c_int64,
-         [_U8, ctypes.c_int64, _I32, ctypes.c_int32, _U8, ctypes.c_int64]),
-        ("jpdse_rc_decode", ctypes.c_int64,
-         [_U8, ctypes.c_int64, _I32, ctypes.c_int32, _U8, ctypes.c_int64]),
-        ("jpdse_rc_encode_spatial", ctypes.c_int64,
-         [_U8, _I32, ctypes.c_int32, _U8, ctypes.c_int64]),
-        ("jpdse_rc_decode_spatial", ctypes.c_int64,
-         [_U8, ctypes.c_int64, _I32, ctypes.c_int32, _U8]),
-    ):
+_I64 = ctypes.c_int64
+_INT = ctypes.POINTER(ctypes.c_int)
+
+
+def _bind(library: str, signatures) -> ctypes.CDLL:
+    lib = build.load_library(library)
+    for name, res, args in signatures:
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = res, args
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return _bind("range_coder", (
+        ("jpdse_rc_encode", _I64, [_U8, _I64, _I32, ctypes.c_int32, _U8, _I64]),
+        ("jpdse_rc_decode", _I64, [_U8, _I64, _I32, ctypes.c_int32, _U8, _I64]),
+        ("jpdse_rc_encode_spatial", _I64, [_U8, _I32, ctypes.c_int32, _U8, _I64]),
+        ("jpdse_rc_decode_spatial", _I64, [_U8, _I64, _I32, ctypes.c_int32, _U8]),
+    ))
+
+
+@functools.cache
+def _idmap_lib() -> ctypes.CDLL:
+    return _bind("idmap_coder", (
+        ("jpdse_idmap_encode", _I64, [_I32, _I64, _I64, _U8, _I64]),
+        ("jpdse_idmap_decode", _I64, [_U8, _I64, _I32, _I64, _I64]),
+        ("jpdse_idmap_encode_cond", _I64, [_I32, _I32, _I64, _I64, _U8, _I64]),
+        ("jpdse_idmap_decode_cond", _I64, [_U8, _I64, _I32, _I32, _I64, _I64]),
+    ))
+
+
+@functools.cache
+def _heif_lib() -> ctypes.CDLL:
+    return _bind("heif_codec", (
+        ("jpdse_heif_available", ctypes.c_int, []),
+        ("jpdse_heif_encode", _I64,
+         [_U8, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p, _U8, _I64]),
+        ("jpdse_heif_decode", _I64, [_U8, _I64, _U8, _I64, _INT, _INT]),
+    ))
 
 
 def _u8(a: np.ndarray):
@@ -113,3 +145,91 @@ def entropy_decode_spatial(data: bytes, shapes) -> np.ndarray:
     _lib().jpdse_rc_decode_spatial(_u8(src), src.size, sh.ctypes.data_as(_I32), sh.shape[0],
                                    _u8(bits))
     return bits
+
+
+def _i32(a: np.ndarray):
+    return a.ctypes.data_as(_I32)
+
+
+def _cond(cond: Optional[np.ndarray], shape) -> np.ndarray:
+    c = np.ascontiguousarray(cond, dtype=np.int32)
+    if c.shape != tuple(shape):
+        raise ValueError(f"cond shape {c.shape} != id map shape {tuple(shape)}")
+    return c
+
+
+def idmap_encode(ids: np.ndarray, cond: Optional[np.ndarray] = None) -> bytes:
+    """Losslessly encode an (H, W) int32 id map with the context-modeled
+    range coder. With ``cond`` (a same-shape map the decoder already has,
+    the label map when coding the instance map) each neighbour-match bit is
+    also conditioned on whether ``cond`` agrees across that edge; such a
+    stream decodes only with the same ``cond``. Raises RuntimeError where
+    the output outgrows its worst-case buffer (a near-random map)."""
+    a = np.ascontiguousarray(ids, dtype=np.int32)
+    if a.ndim != 2:
+        raise ValueError(f"expected (H, W) id map, got shape {a.shape}")
+    h, w = a.shape
+    cap = a.size * 5 + 4096  # every pixel a literal
+    out = np.empty(cap, dtype=np.uint8)
+    if cond is not None:
+        size = _idmap_lib().jpdse_idmap_encode_cond(_i32(a), _i32(_cond(cond, a.shape)), h, w,
+                                                    _u8(out), cap)
+    else:
+        size = _idmap_lib().jpdse_idmap_encode(_i32(a), h, w, _u8(out), cap)
+    if size < 0:
+        raise RuntimeError("idmap coder overflow")
+    return out[:size].tobytes()
+
+
+def idmap_decode(data: bytes, h: int, w: int, cond: Optional[np.ndarray] = None) -> np.ndarray:
+    """Decode an :func:`idmap_encode` stream back to its (h, w) int32 map,
+    with the ``cond`` it was encoded with."""
+    src = np.ascontiguousarray(np.frombuffer(data, dtype=np.uint8))
+    out = np.empty((h, w), dtype=np.int32)
+    if cond is not None:
+        _idmap_lib().jpdse_idmap_decode_cond(_u8(src), src.size, _i32(out),
+                                             _i32(_cond(cond, (h, w))), h, w)
+    else:
+        _idmap_lib().jpdse_idmap_decode(_u8(src), src.size, _i32(out), h, w)
+    return out
+
+
+def heif_available() -> bool:
+    """Whether libheif loads with an HEVC encoder (x265) and decoder
+    (de265)."""
+    return bool(_heif_lib().jpdse_heif_available())
+
+
+def heif_encode(rgb: np.ndarray, quality: int = 50, preset: str = "fast") -> bytes:
+    """An (H, W, 3) uint8 RGB array -> an HEVC-intra (HEIF) stream, in
+    memory; ``quality`` in [0, 100], ``preset`` x265's speed preset."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected (H, W, 3) uint8, got {rgb.shape}")
+    h, w = rgb.shape[:2]
+    cap = w * h * 3 + (1 << 16)
+    out = np.empty(cap, dtype=np.uint8)
+    size = _heif_lib().jpdse_heif_encode(_u8(rgb), w, h, int(quality),
+                                         preset.encode() if preset else None, _u8(out), cap)
+    if size < 0:
+        raise RuntimeError(f"heif encode failed (code {size})")
+    return out[:size].tobytes()
+
+
+def heif_decode(data: bytes) -> np.ndarray:
+    """An HEVC-intra (HEIF) stream -> its (H, W, 3) uint8 RGB array."""
+    src = np.ascontiguousarray(np.frombuffer(data, dtype=np.uint8))
+    w, h = ctypes.c_int(), ctypes.c_int()
+    # a guess first; a buffer too small (-2) reports the decoded size, and
+    # the retry takes exactly that
+    cap = max(len(data) * 256, 1 << 22)
+    for _ in range(2):
+        out = np.empty(cap, dtype=np.uint8)
+        rc = _heif_lib().jpdse_heif_decode(_u8(src), src.size, _u8(out), cap, ctypes.byref(w),
+                                           ctypes.byref(h))
+        if rc != -2:
+            break
+        cap = w.value * h.value * 3
+    if rc != 0:
+        raise RuntimeError(f"heif decode failed (code {rc})")
+    return out[: w.value * h.value * 3].reshape(h.value, w.value, 3).copy()

@@ -3,8 +3,8 @@ kernels from their wrappers.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds); each ``csrc/<name>.cpp`` (the host range coder) compiles with
-``g++`` the same way. A library is named by the hash of its source, the
+seconds); each ``csrc/<name>.cpp`` (the host range coder, the id-map coder,
+the HEVC bridge) compiles with ``g++`` the same way. A library is named by the hash of its source, the
 headers beside it and its flags, under ``jpdse_tpu_torch/build/``. A file
 lock guards the build directory; a library is built at its first use, or
 ahead of time for all sources in parallel by :func:`build_all`. Nothing is
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")  # jpdse_tpu/native/Makefile's
+LINK_FLAGS = {"heif_codec": ("-ldl",)}  # it dlopens libheif
 
 
 def nvcc_path() -> str:
@@ -65,16 +66,23 @@ def source_path(name: str) -> Path:
     raise FileNotFoundError(f"no source csrc/{name}.cu or csrc/{name}.cpp")
 
 
-def _command(src: Path) -> list:
-    """The compiler and its flags for ``src``, without the output."""
+def _flags(src: Path) -> tuple:
     if src.suffix == ".cu":
-        return [nvcc_path(), *NVCC_FLAGS]
-    return [gxx_path(), *GXX_FLAGS]
+        return NVCC_FLAGS
+    return GXX_FLAGS + LINK_FLAGS.get(src.stem, ())
+
+
+def _command(src: Path, out: Path) -> list:
+    """The compiler's command line that builds ``src`` into ``out``, the
+    libraries to link after the source."""
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [gxx_path(), *GXX_FLAGS, "-o", str(out), str(src), *LINK_FLAGS.get(src.stem, ())]
 
 
 def library_path(name: str) -> Path:
     src = source_path(name)
-    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    flags = _flags(src)
     headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.h")))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -101,10 +109,8 @@ def build_all(names: Iterable[str] | None = None) -> Dict[str, str]:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".so.{os.getpid()}")
-            src = source_path(n)
-            cmd = [*_command(src), "-o", str(tmp), str(src)]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                         text=True), tmp, out)
+            procs[n] = (subprocess.Popen(_command(source_path(n), tmp), stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), tmp, out)
         failed = []
         for n, (proc, tmp, out) in procs.items():
             logs[n] = proc.communicate()[0]

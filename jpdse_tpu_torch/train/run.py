@@ -99,7 +99,9 @@ def dump_reconstructions(trainer: Trainer, val_loader, cfg, gallery, visualizer)
 def run_epoch(trainer: Trainer, loader, cfg, epoch: int, metrics_log, log_file):
     """One pass over the loader; each step's metrics are fetched after the
     next step is queued, and the logged batch time is the interval between
-    two fetches (load, launch and the card's work)."""
+    two fetches (load, launch and the card's work). The epoch ends with the
+    host-clock time it waited for the loader, of its whole time: what the
+    data pipeline (a base codec's encodes among it) did not hide."""
     steps0 = trainer.steps_taken
     n_batches = len(loader)
     pending = None
@@ -119,13 +121,19 @@ def run_epoch(trainer: Trainer, loader, cfg, epoch: int, metrics_log, log_file):
             f"{i + 1}/{n_batches}, distortion ({cfg.loss.distortion_loss_fn}) "
             f"{metrics['G_Distortion']:.4f}, batch processing time (s) {dt:.4f}", log_file)
 
+    t_epoch = t_asked = time.perf_counter()
+    wait = 0.0
     for i, batch in enumerate(loader):
+        wait += time.perf_counter() - t_asked
         handle = trainer.step_async(batch)
         if pending is not None:
             flush(pending)
         pending = (i, handle)
+        t_asked = time.perf_counter()
     if pending is not None:
         flush(pending)
+    log(f"epoch {epoch + 1}: loader wait {wait:.4f} s of {time.perf_counter() - t_epoch:.4f} s",
+        log_file)
 
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:

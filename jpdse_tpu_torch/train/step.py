@@ -1,6 +1,6 @@
 """The GAN training step and the evaluation loss, the port of
 ``jpdse_tpu/train/step.py`` (``make_train_step`` :54-313, ``make_eval_step``
-:316).
+:316, ``raw_side_inputs`` :377).
 
 The JAX package jits one function; here it is two, held apart by the tests
 and ``chip_smoke.py``:
@@ -131,6 +131,20 @@ def apply(state: GANTrainState, grads: Grads) -> None:
     state.steps_taken += 1
     if L.anneal_lambda and state.steps_taken % L.anneal_interval == 0:
         state.lambda_distortion_weight *= L.anneal_factor
+
+
+def raw_side_inputs(side_batch: Dict[str, torch.Tensor], dtype=None) -> Dict:
+    """A decoder's inputs from a stream's side info where the semantics ride
+    in the codes (no label in ``side_batch``): the visuals, the base codec's
+    decoded image, and the instance ids where an unbinarized encoder pools
+    over them. ``prepare_inputs`` would one-hot the missing label, so the
+    dict is assembled directly; both packages' decoders share it."""
+    def cast(t):
+        return t if t is None or dtype is None else t.to(dtype)
+
+    return {"input_label": None, "real_image": cast(side_batch["image"]),
+            "instance_ids": side_batch.get("instance"), "masked_img": None,
+            "compressed_img": cast(side_batch.get("compressed"))}
 
 
 @torch.inference_mode()

@@ -48,7 +48,7 @@ from jpdse_tpu_torch.models.discriminator import build_discriminator
 from jpdse_tpu_torch.models.vgg import init_vgg19
 from jpdse_tpu_torch.ops.metrics import bernoulli_shannon_bpp
 from jpdse_tpu_torch.platform import resolve_device
-from jpdse_tpu_torch.serve import CodecServer
+from jpdse_tpu_torch.serve import DEVICE_KEYS, CodecServer
 from jpdse_tpu_torch.train import step as train_step
 from jpdse_tpu_torch.train.checkpoint import (
     meta_epoch,
@@ -58,8 +58,6 @@ from jpdse_tpu_torch.train.checkpoint import (
 )
 from jpdse_tpu_torch.train.schedule import ReduceLROnPlateau
 from jpdse_tpu_torch.train.state import GANTrainState, create_train_state, get_lr, set_lr
-
-DEVICE_KEYS = ("label", "instance", "image")
 
 
 def train_image_hw(cfg: Config) -> Tuple[int, int]:
@@ -221,8 +219,8 @@ class Trainer:
         return s_v, a_v
 
     def compress(self, batch: Dict) -> List[bytes]:
-        """One ``.jpds`` stream per image of the batch; a configuration
-        whose streams need side info raises (``CodecServer.compress``)."""
+        """One ``.jpds`` stream per image of the batch, with the side info
+        the configuration needs (``CodecServer.compress``)."""
         return self._server.compress(batch)
 
     def decompress(self, data: bytes) -> np.ndarray:

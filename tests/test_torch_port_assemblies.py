@@ -9,8 +9,11 @@ An assembly is the flagship with some of its ``model`` fields changed
 it), raw semantics (``no_label_encoding``), semantic masking with and
 without ``binary_mask``, netE's output as the image (``use_netE_output``),
 the ablations ``zero_sem`` / ``zero_ins`` / ``zero_vis``, unbinarized
-encoders, and the generator's bottleneck binarized after or before its
-residual blocks. Both stacks get the same weights (drawn with numpy in the
+encoders, the generator's bottleneck binarized after or before its
+residual blocks, and the base-codec recipes: raw semantics over a base
+codec's decoded image (``artifacts/flagship_r3_compressed``; also with the
+maps at ``codec.sem_downsample`` 2) and that image alone
+(``flagship_r4_nosem_*``), whose streams are side info only. Both stacks get the same weights (drawn with numpy in the
 Flax layout, carried across by ``convert.from_jax_params``) and the same
 batch. Images agree within 2e-4, as tests/test_torch_port_codec.py holds
 them; codes are equal except where the port's pre-sign value lies within
@@ -23,6 +26,7 @@ decode from codes against JAX's FastCodec, as for every other assembly but
 ``sem_masking``, which both FastCodecs refuse.
 """
 
+import copy
 import os
 
 import jax
@@ -33,9 +37,12 @@ import torch
 
 from __graft_entry__ import _batch, _flagship_cfg
 from jpdse_tpu import codec_io as jax_io
+from jpdse_tpu.codecs.bridge import compress_for_model as jax_compress_for_model
+from jpdse_tpu.eval.harness import evaluate as jax_evaluate
 from jpdse_tpu.models.codec import SemanticCodec as JaxCodec
 from jpdse_tpu.models.codec import prepare_inputs as jax_prepare_inputs
 from jpdse_tpu.models.fast_codec import FastCodec as JaxFastCodec
+from jpdse_tpu.utils.misc import tensor2im as jax_tensor2im
 from jpdse_tpu_torch import codec_io
 from jpdse_tpu_torch.config import Config, NotPorted
 from jpdse_tpu_torch.convert import from_jax_params, to_jax_params
@@ -49,6 +56,10 @@ ATOL = 2e-4
 NEAR_ZERO = 1e-5
 G_BIN = {"no_generator_binarization": False, "no_encoder_binarization": True,
          "no_label_encoder_binarization": True}
+# the flagship_r3_compressed recipe: raw semantics and the base codec's
+# decoded image (jpg here; the recipe's heif where libheif loads)
+BASE_RAW = {"no_feat_encoding": True, "no_label_encoding": True, "use_compressed": True}
+BASE_EXT, BASE_Q = "jpg", 50
 ASSEMBLIES = {
     "no_feat": {"no_feat": True},
     "no_feat_encoding": {"no_feat_encoding": True},
@@ -66,7 +77,11 @@ ASSEMBLIES = {
     "no_label_encoder_binarization": {"no_label_encoder_binarization": True},
     "g_binarized_after_res": G_BIN,
     "g_binarized_before_res": dict(G_BIN, bin_generator_before_res=True),
+    "base_codec_raw": BASE_RAW,
+    "base_codec_raw_sem_downsample": dict(BASE_RAW, sem_downsample=2),
+    "base_codec_nosem": dict(BASE_RAW, no_label=True, no_instance=True),
 }
+CODEC_FIELDS = ("use_compressed", "sem_downsample")  # of cfg.codec; the rest of cfg.model
 ABLATIONS = ("use_netE_output", "zero_sem", "zero_ins", "zero_vis")
 FAST = [n for n, a in ASSEMBLIES.items() if not a.get("sem_masking")]
 
@@ -82,7 +97,8 @@ def jax_config(name: str, kernels: bool = False):
     m = cfg.model
     m.compute_dtype = "float32"
     for k, v in ASSEMBLIES[name].items():
-        setattr(m, k, v)
+        setattr(cfg.codec if k in CODEC_FIELDS else m, k, v)
+    cfg.codec.ext, cfg.codec.quality = BASE_EXT, (BASE_Q,)
     if kernels:
         m.fused_instance_norm = True
         m.fast.head_pallas, m.fast.front_realign = "1", "pallas"
@@ -110,7 +126,19 @@ def ref(name: str) -> dict:
     cfg = jax_config(name)
     jcodec = JaxCodec(cfg)
     batch = {k: np.array(v) for k, v in _batch(cfg, 2, H, W, np.random.default_rng(21)).items()}
-    inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"])
+    base = None
+    if cfg.codec.use_compressed:
+        # the base codec's round trip of each image, as the data pipeline makes it
+        d = cfg.data
+        trips = [jax_compress_for_model(jax_tensor2im(im, d.normalize_mean, d.normalize_std),
+                                        BASE_EXT, [BASE_Q], d.normalize_mean, d.normalize_std,
+                                        return_streams=True) for im in batch["image"]]
+        batch["compressed"] = np.stack([t[0] for t in trips])
+        base = {"base_codec_bytes": np.array([t[1] for t in trips]),
+                "base_codec_streams": [t[2] for t in trips],
+                "base_codec_ext": [t[3] for t in trips]}
+    inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"],
+                                batch.get("compressed"))
     shapes = jax.eval_shape(
         lambda: jcodec.init({"params": jax.random.PRNGKey(0)}, inputs, method=_touch))["params"]
     rng = np.random.default_rng(22)
@@ -127,7 +155,8 @@ def ref(name: str) -> dict:
         from_codes, side = apply(JaxCodec.decode_from_codes, jcodes), False
     except ValueError:
         from_codes, side = apply(JaxCodec.decode_from_codes, jcodes, inputs), True
-    out = {"cfg": cfg, "params": params, "batch": batch, "decode": np.asarray(decode),
+    out = {"cfg": cfg, "params": params, "batch": batch, "base": base,
+           "decode": np.asarray(decode),
            "label": None if label is None else np.asarray(label), "codes": codes,
            "from_codes": np.asarray(from_codes), "side": side}
     _REF[name] = out
@@ -254,12 +283,33 @@ def _jax_side(cfg):
         return str(e)
 
 
+def _jax_streams(r) -> list:
+    """What JAX's Trainer.compress writes for the batch: JAX's codes, and
+    the side info side_requirements asks for, per image."""
+    need_label, need_inst, need_base = jax_io.side_requirements(r["cfg"])
+    f, out = r["cfg"].codec.sem_downsample, []
+    for j in range(2):
+        side = jax_io.SideInfo()
+        if need_label:
+            side.label = jax_io.downsample_ids(r["batch"]["label"][j].astype(np.int32), f)
+        if need_inst:
+            side.instance = jax_io.downsample_ids(r["batch"]["instance"][j].astype(np.int32), f)
+        if need_base:
+            side.base_ext = r["base"]["base_codec_ext"][j]
+            side.base_payloads = list(r["base"]["base_codec_streams"][j])
+        out.append(jax_io.pack([c[j].astype(np.uint8) for c in r["codes"]], (H, W),
+                               None if side.empty() else side))
+    return out
+
+
 @pytest.mark.parametrize("name", sorted(ASSEMBLIES))
 def test_side_requirements_and_compress_raise_as_specified(name):
     """The port's side_requirements agrees with JAX's; CodecServer.compress
-    raises SideInfoNotPorted where a stream needs side info, JAX's
-    ValueError where the generator reads raw pixels, and otherwise packs one
-    stream per image from its codes."""
+    raises JAX's ValueError where the generator reads raw pixels, and
+    otherwise packs one stream per image, with the side info its
+    configuration needs, byte-identical to what JAX's Trainer.compress
+    writes; decompress rebuilds the side inputs from each stream and
+    decodes within 2e-4 of JAX's decode from the codes and the batch."""
     r = ref(name)
     cfg = port_config(name)
     try:
@@ -272,13 +322,15 @@ def test_side_requirements_and_compress_raise_as_specified(name):
     if isinstance(got, str):
         with pytest.raises(ValueError, match="raw uncompressed pixels"):
             server.compress(r["batch"])
-    elif any(got):
-        with pytest.raises(codec_io.SideInfoNotPorted, match="item 5"):
+        return
+    if got[2]:
+        with pytest.raises(ValueError, match="lacks base_codec_streams"):
             server.compress(r["batch"])
-    else:
-        streams = server.compress(r["batch"])
-        assert len(streams) == 2
-        assert [len(codec_io.unpack(s)[0]) for s in streams] == [len(r["codes"])] * 2
+    streams = server.compress(dict(r["batch"], **(r["base"] or {})))
+    assert streams == _jax_streams(r)
+    assert [len(codec_io.unpack(s)[0]) for s in streams] == [len(r["codes"])] * 2
+    for j, stream in enumerate(streams):
+        np.testing.assert_allclose(server.decompress(stream), r["from_codes"][j], atol=ATOL)
 
 
 @pytest.mark.parametrize("name", ["no_feat", "g_binarized_after_res", "g_binarized_before_res"])
@@ -302,11 +354,13 @@ def test_one_code_stream_is_byte_identical_to_jax(name):
 
 
 @pytest.mark.parametrize("name", ["raw_semantics_no_feat", "no_label_encoder_binarization",
-                                  "no_feat_encoding", "raw", "no_feat"])
+                                  "no_feat_encoding", "raw", "no_feat", "base_codec_raw",
+                                  "base_codec_nosem"])
 def test_eval_harness_follows_the_side_requirements(name, tmp_path):
     """Raw uncompressed visuals evaluate without side accounting; a
-    configuration whose rate needs label side info raises NotPorted naming
-    item 5; a code-only one evaluates with its rate."""
+    configuration whose streams carry side info reports the id maps' and
+    the base codec's rates and the total JAX's harness reports (within
+    1e-6 relative); a code-only one evaluates with its rate."""
     cfg = port_config(name)
     cfg.save_dir = str(tmp_path)
     codec, _ = port_codec(name)
@@ -315,34 +369,42 @@ def test_eval_harness_follows_the_side_requirements(name, tmp_path):
         """The standard path's decode and rate, as the Trainer serves them."""
 
         def place(self, batch):
-            return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items() if k != "path"}
+            return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()
+                    if k in ("label", "instance", "image", "compressed")}
 
         def get_img(self, batch):
             with torch.no_grad():
-                return codec.decode(codec.prepare(batch))[0]
+                return codec.decode(codec.prepare(self.place(batch)))[0]
 
         def get_eval_rate(self, batch):
             return 0.5, 1.0
 
         def get_code_and_contexts(self, batch):
             with torch.no_grad():
-                codes = [c.numpy() for c in codec.get_codes_shaped(codec.prepare(batch))]
+                codes = [c.numpy() for c in
+                         codec.get_codes_shaped(codec.prepare(self.place(batch)))]
             shapes = [c.shape[1:] for c in codes]
             flat = np.concatenate([c.reshape(c.shape[0], -1) for c in codes], axis=-1)
             return flat, codec_io.contexts_for_shapes(shapes), shapes
 
     r = ref(name)
-    batch = dict(r["batch"], path=["a.png", "b.png"])
-    if name in ("raw_semantics_no_feat", "no_label_encoder_binarization"):
-        with pytest.raises(NotPorted, match="item 5"):
-            evaluate(cfg, Std(), [batch])
-        return
+    batch = dict(r["batch"], path=["a.png", "b.png"], **(r["base"] or {}))
     metrics = evaluate(cfg, Std(), [batch])
     assert metrics["n_images"] == 2 and np.isfinite(metrics["PSNR"])
     if cfg.has_binary_codes:
         assert metrics["actual_bpp"] == 1.0 and metrics["coded_bpp"] > 0
-    else:
-        assert metrics["total_bpp"] == 0.0
+    jcfg = copy.deepcopy(r["cfg"])
+    jcfg.save_dir = str(tmp_path / "jax")
+    want = jax_evaluate(jcfg, Std(), [batch])
+    rates = {"actual_bpp", "coded_bpp", "sem_side_bpp", "base_codec_bpp", "total_bpp"}
+    assert rates & set(metrics) == rates & set(want)
+    for k in rates & set(want):
+        np.testing.assert_allclose(metrics[k], want[k], rtol=1e-6, err_msg=k)
+    assert ("sem_side_bpp" in metrics) == (name in ("raw_semantics_no_feat", "base_codec_raw",
+                                                     "no_label_encoder_binarization"))
+    assert ("base_codec_bpp" in metrics) == name.startswith("base_codec")
+    if name in ("raw", "no_feat_encoding"):  # raw pixels: nothing a stream could carry
+        assert metrics["total_bpp"] == metrics.get("coded_bpp", 0.0)
 
 
 def test_trainer_code_methods_raise_without_a_binarized_module():

@@ -116,8 +116,9 @@ def test_unknown_coder_mode_raises():
 
 @pytest.mark.parametrize("side", ["label", "instance", "base"])
 def test_side_info_streams_raise(side):
-    """A stream with side info (JAX's SideInfo) names what is not ported;
-    it is never decoded without it."""
+    """A stream with side info (JAX's SideInfo) decodes in the port to the
+    same codes and side info as in JAX; the same stream cut inside its side
+    section raises as JAX's does."""
     codes, hw, _ = _codes("tiny")
     rng = np.random.default_rng(6)
     ids = rng.integers(0, 30, hw).astype(np.int32)
@@ -125,9 +126,19 @@ def test_side_info_streams_raise(side):
             "instance": jax_io.SideInfo(instance=ids * 1000 + 7),
             "base": jax_io.SideInfo(base_ext="jpg", base_payloads=[b"\xff\xd8 not a jpeg"])}[side]
     stream = jax_io.pack(codes, hw, info)
-    assert jax_io.unpack_full(stream).side is not None
-    with pytest.raises(codec_io.SideInfoNotPorted, match="not ported"):
-        codec_io.unpack(stream)
+    want, got = jax_io.unpack_full(stream), codec_io.unpack_full(stream)
+    assert got.image_hw == want.image_hw
+    for g, w in zip(got.codes, want.codes, strict=True):
+        np.testing.assert_array_equal(g, w)
+    for key in ("label", "instance"):
+        if getattr(want.side, key) is None:
+            assert getattr(got.side, key) is None
+        else:
+            np.testing.assert_array_equal(getattr(got.side, key), getattr(want.side, key))
+    assert (got.side.base_ext, got.side.base_payloads) == (want.side.base_ext,
+                                                           want.side.base_payloads)
+    with pytest.raises(ValueError, match="truncated .jpds side-info section"):
+        codec_io.unpack(stream[:-3])
 
 
 def test_v2_stream_without_side_info_decodes():
@@ -143,11 +154,13 @@ def test_v2_stream_without_side_info_decodes():
 
 
 def test_pack_takes_one_image_and_at_least_one_code():
+    """One image at a time; no code at all packs JAX's stream of a payload
+    of 0 bytes (a side-info-only stream carries its side info beside it)."""
     codes, hw, _ = _codes("tiny")
     with pytest.raises(ValueError, match="one image"):
         codec_io.pack([np.stack([codes[0]] * 2)], hw)
-    with pytest.raises(ValueError, match="at least one code"):
-        codec_io.pack([], hw)
+    assert codec_io.pack([], hw) == jax_io.pack([], hw)
+    assert codec_io.unpack(codec_io.pack([], hw)) == ([], hw)
 
 
 def test_coder_is_built_by_gxx_into_the_build_dir():

@@ -179,8 +179,6 @@ def test_flagship_config_keeps_its_values():
 
 
 NOT_PORTED = {
-    "use_compressed": (lambda c: setattr(c.codec, "use_compressed", True), "item 5"),
-    "sem_downsample": (lambda c: setattr(c.codec, "sem_downsample", 2), "item 5"),
     "local netG": (lambda c: setattr(c.model, "netG", "local"), "item 10"),
     "batch norm": (lambda c: setattr(c.model, "norm", "batch"), "item 10"),
     "grouped netE": (lambda c: setattr(c.model, "netE_groups", 2), "item 10"),
@@ -196,6 +194,42 @@ def test_configs_of_later_slices_raise_naming_their_item(name):
         config.check_ported(cfg)
     with pytest.raises(config.NotPorted, match=item):
         SemanticCodec(cfg, device="cpu")
+
+
+# the configurations that raised naming item 5 before the base codecs and
+# side info were ported
+ITEM_5 = {
+    "use_compressed": lambda c: setattr(c.codec, "use_compressed", True),
+    "sem_downsample": lambda c: setattr(c.codec, "sem_downsample", 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ITEM_5))
+def test_configs_of_item_5_check_and_load(name):
+    """Each passes check_ported and check_train_ported, its codec builds,
+    takes JAX's weights for the same configuration, and decodes a batch
+    (with the base codec's decoded image where it reads one) within 2e-4
+    of JAX's decode."""
+    jcfg = _flagship_cfg(tiny=True)
+    jcfg.model.compute_dtype = "float32"
+    ITEM_5[name](jcfg)
+    cfg = config.flagship_config(tiny=True)
+    cfg.model.compute_dtype = "float32"
+    ITEM_5[name](cfg)
+    config.check_ported(cfg)
+    config.check_train_ported(cfg)
+    batch = {k: np.array(v) for k, v in _batch(jcfg, 1, H, W, np.random.default_rng(4)).items()}
+    batch["compressed"] = np.random.default_rng(5).normal(size=(1, H, W, 3)).astype(np.float32)
+    jcodec = JaxCodec(jcfg)
+    inputs = jax_prepare_inputs(jcfg, batch["label"], batch["instance"], batch["image"],
+                                batch["compressed"])
+    params = _jax_params(jcodec, inputs, seed=6)
+    want = np.asarray(jcodec.apply({"params": params}, inputs, method=JaxCodec.decode)[0])
+    codec = SemanticCodec(cfg, device="cpu", seed=None)
+    codec.load_state_dict(from_jax_params(params))
+    with torch.no_grad():
+        got = codec.decode(codec.prepare({k: torch.from_numpy(v) for k, v in batch.items()}))[0]
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
 
 
 def _g_binarized(c):
@@ -239,25 +273,22 @@ def test_item_6_configs_build_train_and_decode(name):
     assert image.shape == (2, H, W, 3) and torch.isfinite(image).all()
 
 
-# the tracked recipes that the port trains: the flagship's three phases, the
-# three-phase recipe's first, and the low- and mid-rate series without a base codec
-TRAINS = {f"artifacts/{p}/opt.json" for p in (
-    "flagship_r3/phase1", "flagship_r3/phase2", "flagship_r3/phase3", "three_phase/phase1",
-    "flagship_r3_lowrate/phase1", "flagship_r3_lowrate/phaseA", "flagship_r3_lowrate/phaseB",
-    "flagship_r3_midrate/phaseA", "flagship_r3_midrate/phaseB")}
+# the tracked recipes that the port does not train yet: the high-resolution
+# series, whose netG is a LocalEnhancer
+REFUSED = {f"artifacts/flagship_r3_hires/{p}/opt.json" for p in ("phaseA", "phaseB")}
 
 
 def test_every_flagship_opt_json_the_port_runs_is_checked():
-    """Exactly the 9 recipes of TRAINS pass check_train_ported; each of the
-    other tracked recipes raises NotPorted naming item 5 (its base codec)."""
-    assert TRAINS <= set(OPT_FILES) and len(OPT_FILES) == 29
+    """27 of the 29 tracked recipes pass check_train_ported, the base-codec
+    ones among them; the two of REFUSED raise NotPorted naming item 10."""
+    assert REFUSED <= set(OPT_FILES) and len(OPT_FILES) == 29
     for path in OPT_FILES:
         cfg = config.Config.load(str(REPO / path))
-        if path in TRAINS:
-            config.check_train_ported(cfg)
-        else:
-            with pytest.raises(config.NotPorted, match="item 5"):
+        if path in REFUSED:
+            with pytest.raises(config.NotPorted, match="item 10"):
                 config.check_train_ported(cfg)
+        else:
+            config.check_train_ported(cfg)
 
 
 # -- the fast path's fields -------------------------------------------------

@@ -181,6 +181,67 @@ def test_loader_batches_equal_jax(dataset, run, tmp_path):
         assert loader.epoch == 2
 
 
+BASE_CODECS = {"jpg": "50", "heif": "30,60"}  # ext: quality, one or two
+
+
+@pytest.mark.parametrize("ext", sorted(BASE_CODECS))
+@pytest.mark.parametrize("dataset,run", [
+    ("cityscapes", "train crop"), ("cityscapes", "train fixed, cached"),
+    ("cityscapes", "eval fixed"), ("ade20k", "train crop")])  # ADE20K reads no cache
+def test_use_compressed_batches_equal_jax(dataset, run, ext, tmp_path):
+    """Under codec.use_compressed each batch holds the base codec's decoded
+    image (``compressed``), its streams, their codec and bytes, equal to the
+    JAX loader's; under cache_images the memoized round trip equals the
+    inline one bit for bit."""
+    from jpdse_tpu_torch import native
+
+    if ext == "heif" and not native.heif_available():
+        pytest.skip("libheif with its HEVC plugins does not load here (heif_available() "
+                    "is False)")
+    is_train = RUNS[run][0]
+    if dataset == "ade20k":
+        _ade20k(tmp_path, np.random.default_rng(8))
+    else:
+        _cityscapes(tmp_path, np.random.default_rng(8), n=4,
+                    split="train" if is_train else "test")
+    cfg, jcfg = _configs(dataset, tmp_path, RUNS[run])
+    for c in (cfg, jcfg):
+        c.codec.use_compressed, c.codec.ext = True, ext
+        c.codec.quality = tuple(int(q) for q in BASE_CODECS[ext].split(","))
+    with redirect_stdout(io.StringIO()):
+        loader, jloader = data.create_dataloader(cfg), jax_data.create_dataloader(jcfg)
+    for _epoch in range(2):
+        got, want = list(loader), list(jloader)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            assert g["base_codec_streams"] == w["base_codec_streams"]
+            assert g["base_codec_ext"] == w["base_codec_ext"] == [ext] * len(g["path"])
+            assert g["compressed"].shape[-1] == 3 * len(cfg.codec.quality)
+            _assert_batches_equal([{k: v for k, v in g.items() if not k.startswith("base_codec_s")
+                                    and k != "base_codec_ext"}],
+                                  [{k: v for k, v in w.items() if not k.startswith("base_codec_s")
+                                    and k != "base_codec_ext"}])
+            assert g["base_codec_bytes"].dtype == np.int64
+            assert list(g["base_codec_bytes"]) == [sum(map(len, s))
+                                                   for s in g["base_codec_streams"]]
+    if RUNS[run][2]:
+        ds = loader.dataset
+        assert ds._comp_cache  # memoized per (index, flip)
+        for (index, flip), hit in list(ds._comp_cache.items()):
+            ds._comp_cache.clear()
+            ds._cache_enabled = False
+            try:
+                image_u8 = ds._resized_arrays(index)[0]
+            finally:
+                ds._cache_enabled = True
+            mean = np.asarray(cfg.data.normalize_mean, np.float32)
+            std = np.asarray(cfg.data.normalize_std, np.float32)
+            image_u8 = image_u8[:, ::-1] if flip else image_u8
+            inline = ds._round_trip((image_u8.astype(np.float32) / 255.0 - mean) / std)
+            assert np.array_equal(inline[0], hit[0]) and inline[1:] == hit[1:]
+
+
 def test_loader_stops_its_producer_and_forwards_errors(tmp_path):
     _cityscapes(tmp_path, np.random.default_rng(2), n=6)
     cfg, _ = _configs("cityscapes", tmp_path, RUNS["train crop"])
@@ -203,8 +264,10 @@ def test_pairing_check_and_not_ported(tmp_path):
     cfg, _ = _configs("cityscapes", tmp_path, RUNS["train crop"])
     with pytest.raises(ValueError, match="do not look paired"):
         data.create_dataloader(cfg)
+    # a base codec's round trip runs since the base-codec slice: the pairing
+    # check still comes first, before any image is coded
     cfg.codec.use_compressed = True
-    with pytest.raises(config.NotPorted, match="item 5"):
+    with pytest.raises(ValueError, match="do not look paired"):
         data.create_dataloader(cfg)
     with pytest.raises(KeyError, match="coco"):
         data.find_dataset_using_name("coco")

@@ -27,6 +27,7 @@ import torch
 from PIL import Image
 
 from jpdse_tpu import cli as jax_cli
+from jpdse_tpu.codec_io import sem_side_blobs as jax_sem_side_blobs
 from jpdse_tpu.config import derive_eval_config as jax_derive
 from jpdse_tpu.data import create_dataloader as jax_loader
 from jpdse_tpu.eval.harness import evaluate as jax_evaluate
@@ -35,7 +36,7 @@ from jpdse_tpu.trainer import Trainer as JaxTrainer
 from jpdse_tpu.utils.misc import tensor2im as jax_tensor2im
 from jpdse_tpu_torch import compress, decompress
 from jpdse_tpu_torch import test as port_test
-from jpdse_tpu_torch.config import NotPorted, flagship_config
+from jpdse_tpu_torch.config import flagship_config
 from jpdse_tpu_torch.convert import from_jax_params
 from jpdse_tpu_torch.data import create_dataloader
 from jpdse_tpu_torch.eval.harness import evaluate
@@ -271,11 +272,22 @@ def test_trainer_refuses_what_it_cannot_run(tmp_path):
     trainer = Trainer(cfg, device="cpu")
     with pytest.raises(FileNotFoundError, match=PARAMS_FILE):
         trainer.load()
-    # raw semantics: the Trainer runs it; the rate of its side info is item 5
+    # raw semantics: the Trainer runs it, and its rate counts the id maps'
+    # bytes as JAX's pack writes them (the label map derived from the
+    # instance map here, so one section)
     cfg.model.no_label_encoding = True
+    cfg.save_dir = str(tmp_path / "raw")
     raw = Trainer(cfg, device="cpu")
-    with pytest.raises(NotPorted, match="item 5"):
-        evaluate(cfg, raw, [{"image": np.zeros((1, 4, 4, 3), np.float32)}])
+    rng = np.random.default_rng(3)
+    label = np.repeat(rng.integers(0, 34, (1, H // 8, W)), 8, axis=1).astype(np.int32)
+    batch = {"label": label.astype(np.float32), "instance": label,
+             "image": rng.normal(size=(1, H, W, 3)).astype(np.float32), "path": ["a.png"]}
+    with redirect_stdout(io.StringIO()):
+        got = evaluate(cfg, raw, [batch])
+    blobs = jax_sem_side_blobs(label[0], label[0])
+    assert blobs[0] is None and blobs[2]
+    assert got["sem_side_bpp"] == len(blobs[1]) * 8 / (H * W)
+    assert got["total_bpp"] == got.get("coded_bpp", got["actual_bpp"]) + got["sem_side_bpp"]
     bad = flagship_config(tiny=True)
     bad.data.noise_distribution = "poisson"
     bad.data.add_noise = True

@@ -9,7 +9,13 @@ packages' own codes); the image the port decodes from the codes it unpacks
 from that stream is within 2e-4 of JAX's, the tolerance the tiny config's
 parity holds (tests/test_torch_port_codec.py).
 
-The full-width test is marked ``slow``: it takes minutes and several GiB of
+The base-codec recipe (``artifacts/flagship_r3_compressed``: raw semantics
+and a jpg-decoded image into netG, no code) is held the same way: both
+packages' ``pack`` of the side info give the same side-info-only stream,
+and the port's ``CodecServer.decompress`` of it is within 2e-4 of JAX's
+decode of the same inputs.
+
+The full-width tests are marked ``slow``: it takes minutes and several GiB of
 host memory, so tier-1 (``-m 'not slow'``) leaves it out. Run it with
 
     JAX_PLATFORMS=cpu python -m pytest -m slow tests/test_torch_port_fullwidth.py
@@ -27,11 +33,14 @@ import torch
 from __graft_entry__ import _batch, _flagship_cfg
 from jpdse_tpu.models.codec import SemanticCodec as JaxCodec
 from jpdse_tpu import codec_io as jax_io
+from jpdse_tpu.codecs.bridge import compress_for_model as jax_compress_for_model
 from jpdse_tpu.models.codec import prepare_inputs as jax_prepare_inputs
+from jpdse_tpu.utils.misc import tensor2im as jax_tensor2im
 from jpdse_tpu_torch import codec_io
-from jpdse_tpu_torch.config import flagship_config
+from jpdse_tpu_torch.config import Config, flagship_config
 from jpdse_tpu_torch.convert import from_jax_params
 from jpdse_tpu_torch.models.codec import SemanticCodec
+from jpdse_tpu_torch.serve import CodecServer
 from test_torch_port_codec import _jax_params, _jax_presign, assert_codes_match
 
 H, W = 512, 1024
@@ -87,3 +96,52 @@ def test_flagship_standard_path_matches_jax_at_full_width():
 
 def test_tiny_standard_path_matches_jax_at_full_extent():
     standard_path_parity(tiny=True)
+
+
+def base_codec_parity(tiny: bool, seed: int = 1) -> float:
+    """One H x W request of the base-codec recipe: the side-info stream both
+    packages pack, and the port's decompress of it against JAX's decode;
+    returns the image's max abs difference."""
+    jcfg = _flagship_cfg(tiny=tiny)
+    m = jcfg.model
+    m.compute_dtype, m.no_feat_encoding, m.no_label_encoding = "float32", True, True
+    jcfg.codec.use_compressed, jcfg.codec.ext, jcfg.codec.quality = True, "jpg", (50,)
+    jcfg.validate()
+    rng = np.random.default_rng(seed)
+    label = np.repeat(np.repeat(rng.integers(0, 34, (1, H // 16, W // 16)), 16, 1), 16, 2)
+    inst = np.where(label >= 24, label * 1000 + rng.integers(0, 3, label.shape), label)
+    image = _batch(jcfg, 1, H, W, rng)["image"]
+    d = jcfg.data
+    comp, _, streams, ext = jax_compress_for_model(
+        jax_tensor2im(np.asarray(image)[0], d.normalize_mean, d.normalize_std), "jpg", [50],
+        d.normalize_mean, d.normalize_std, return_streams=True)
+    batch = {"label": label.astype(np.float32), "instance": inst.astype(np.int32),
+             "image": np.asarray(image), "compressed": comp[None]}
+    jcodec = JaxCodec(jcfg)
+    inputs = jax_prepare_inputs(jcfg, batch["label"], batch["instance"], batch["image"],
+                                batch["compressed"])
+    params = _jax_params(jcodec, inputs, seed=seed)
+    want = np.asarray(jax.jit(lambda p, i: jcodec.apply(
+        {"params": p}, i, method=JaxCodec.decode)[0])(params, inputs))
+    del inputs
+    side = dict(label=label[0].astype(np.int32), instance=inst[0].astype(np.int32),
+                base_ext=ext, base_payloads=streams)
+    stream = jax_io.pack([], (H, W), jax_io.SideInfo(**side))
+    assert codec_io.pack([], (H, W), codec_io.SideInfo(**side)) == stream
+    cfg = Config.from_dict(jcfg.to_dict())
+    server = CodecServer(cfg, from_jax_params(params), device="cpu")
+    got = server.decompress(stream)
+    err = float(np.abs(got - want[0]).max())
+    print(f"{'tiny' if tiny else 'flagship'} base-codec recipe at {W}x{H}: side-info stream "
+          f"{len(stream)} bytes, byte-identical; image max abs diff {err:.3e}")
+    np.testing.assert_allclose(got, want[0], atol=ATOL)
+    return err
+
+
+@pytest.mark.slow
+def test_base_codec_recipe_matches_jax_at_full_width():
+    base_codec_parity(tiny=False)
+
+
+def test_tiny_base_codec_recipe_matches_jax_at_full_extent():
+    base_codec_parity(tiny=True)

@@ -37,7 +37,14 @@ assert {"jpdse_tpu_torch." + m for m in (
     "data.custom", "data.loader", "data.stats", "train.losses", "train.state", "train.step",
     "train.schedule", "train.run", "train.__main__", "models.discriminator", "models.vgg",
     "utils.image_pool", "utils.logging", "ops.semantics", "models.codec", "models.generator",
-    "models.fast_codec", "models.fast_trunk", "serve")} <= set(names), names
+    "models.fast_codec", "models.fast_trunk", "serve", "codecs", "codecs.bridge")
+    } <= set(names), names
+from jpdse_tpu_torch import native
+from jpdse_tpu_torch.codecs import bridge
+assert {"idmap_encode", "idmap_decode", "heif_available", "heif_encode",
+        "heif_decode"} <= set(dir(native))
+assert {"encode_bytes", "decode_bytes", "compress_for_model", "normalize_decoded",
+        "available_codecs", "CodecUnavailable"} <= set(dir(bridge))
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]
@@ -51,7 +58,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 54  # every module so far, training's included
+    assert int(out.stdout.split()[-1]) >= 56  # every module so far, the base codecs' included
 
 
 def test_entry_points_raise_without_cuda_unless_given_a_device():
@@ -85,3 +92,19 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="(?s)realign.*nvcc said no"):
         build.build_all(["realign"])
     assert not list(tmp_path.glob("*.so*"))
+
+
+def test_host_libraries_build_with_gxx_into_the_ignored_build_dir():
+    """The id-map coder and the HEVC bridge compile from csrc/ with g++ (the
+    bridge linking -ldl after its source) into jpdse_tpu_torch/build/,
+    which git ignores, named by their sources' hash."""
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "jpdse_tpu_torch/build/" in ignored
+    for name, tail in (("idmap_coder", []), ("heif_codec", ["-ldl"]), ("range_coder", [])):
+        src = build.source_path(name)
+        assert src.parent == REPO / "jpdse_tpu_torch" / "csrc" and src.suffix == ".cpp"
+        lib = build.library_path(name)
+        assert lib.parent == build.BUILD_DIR and lib.name.startswith(f"lib{name}-")
+        cmd = build._command(src, lib)
+        assert cmd[1:1 + len(build.GXX_FLAGS)] == list(build.GXX_FLAGS)
+        assert cmd[-1 - len(tail):] == [str(src)] + tail

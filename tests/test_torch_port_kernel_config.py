@@ -14,6 +14,7 @@ tests/test_torch_port_codec.py. JAX's ``JPDSE_*`` env overrides beat its
 config, so every test runs with them cleared.
 """
 
+import copy
 import os
 
 import jax
@@ -26,6 +27,7 @@ from __graft_entry__ import _batch, _flagship_cfg
 from jpdse_tpu.models.codec import SemanticCodec as JaxCodec
 from jpdse_tpu.models.codec import prepare_inputs as jax_prepare_inputs
 from jpdse_tpu.models.fast_codec import FastCodec as JaxFastCodec
+from jpdse_tpu_torch import codec_io
 from jpdse_tpu_torch.config import FastPathConfig, flagship_config
 from jpdse_tpu_torch.convert import from_jax_params
 from jpdse_tpu_torch.models import fast_trunk, layers
@@ -336,3 +338,57 @@ def test_fast_path_config_env_overrides_and_values(monkeypatch):
     cfg.model.fast.front_realign = "xla"
     with pytest.raises(ValueError, match="front_realign"):
         cfg.validate()
+
+
+@pytest.mark.parametrize("recipe", ["raw", "nosem"])
+def test_kernel_calls_per_base_codec_request(ref, monkeypatch, recipe):
+    """The base-codec recipes through .jpds bytes, side info only, at netG's
+    depth and head widths: no kernel runs in a compress on any path. A
+    decompress in the kernel configuration's fast path runs K4 on netG's
+    s2d head, fed by K1, where it reads raw semantics over the decoded
+    image (39 channels, 156 after s2d), and K2 on its front where it reads
+    the decoded image alone (3 channels), then K1 in netG's back; its
+    standard path K3 at netG's 27 norm sites; the default fast path K1 in
+    netG's back alone."""
+    from jpdse_tpu_torch.codecs.bridge import compress_for_model
+    from jpdse_tpu_torch.utils.misc import tensor2im
+
+    cfg = _port_cfg()
+    m = cfg.model
+    m.no_feat_encoding = m.no_label_encoding = True
+    if recipe == "nosem":
+        m.no_label = m.no_instance = True
+    m.ngf, m.n_downsample_global, m.n_blocks_global = 8, 4, 9
+    cfg.codec.use_compressed, cfg.codec.ext, cfg.codec.quality = True, "jpg", (50,)
+    cfg.validate()
+    assert cfg.netG_input_nc == (39 if recipe == "raw" else 3)
+    state = SemanticCodec(cfg, device="cpu", seed=0).state_dict()
+    batch = {k: v[:1] for k, v in ref["batch"].items()}
+    d = cfg.data
+    trip = compress_for_model(tensor2im(batch["image"][0], d.normalize_mean, d.normalize_std),
+                              "jpg", [50], d.normalize_mean, d.normalize_std, True)
+    batch.update(compressed=trip[0][None], base_codec_streams=[trip[2]],
+                 base_codec_ext=[trip[3]])
+    fast = _count(monkeypatch, fast_trunk, ("s2d_realign_pad3", "s2d_pad3", "head_conv_s2d"))
+    norm = _count(monkeypatch, layers, ("fused_instance_norm",))
+
+    def run(server):
+        for c in (fast, norm):
+            c.update(dict.fromkeys(c, 0))
+        stream = server.compress(batch)[0]
+        after = {**fast, **norm}
+        assert not any(after.values())
+        assert codec_io.unpack_full(stream).codes == []
+        server.decompress(stream)
+        return {k: v for k, v in {**fast, **norm}.items() if v}
+
+    front = ({"s2d_realign_pad3": 2, "head_conv_s2d": 1} if recipe == "raw"
+             else {"s2d_realign_pad3": 1, "s2d_pad3": 1})
+    assert run(CodecServer(cfg, state, device="cpu")) == front
+    cfg.model.fast_inference = False
+    assert run(CodecServer(cfg, state, device="cpu")) == {"fused_instance_norm": 27}
+    default = copy.deepcopy(cfg)
+    default.model.fused_instance_norm = False
+    default.model.fast = FastPathConfig()
+    default.model.fast_inference = True
+    assert run(CodecServer(default, state, device="cpu")) == {"s2d_realign_pad3": 1}

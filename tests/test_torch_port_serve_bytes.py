@@ -107,7 +107,8 @@ def test_compress_gives_jax_stream(ref, servers, config, path):
     assert (server.fast is not None) == (path == "fast")
     streams = server.compress(r["batch"])
     assert len(streams) == 2 and all(isinstance(s, bytes) for s in streams)
-    assert set(server.times) == {"compress_codes", "pack"}
+    assert set(server.times) == {"compress_codes", "idmap", "pack"}
+    assert server.times["idmap"] == 0.0  # no side info
     for j, stream in enumerate(streams):
         got, hw = codec_io.unpack(stream)
         assert hw == (H, W)
@@ -125,7 +126,7 @@ def test_decompress_of_jax_stream_matches_jax(ref, servers, config, path):
     server = servers[config, path]
     for stream, want in zip(r["streams"], r["images"]):
         image = server.decompress(stream)
-        assert set(server.times) == {"unpack", "decompress_codes"}
+        assert set(server.times) == {"unpack", "base_decode", "decompress_codes"}
         assert isinstance(image, np.ndarray) and image.dtype == np.float32
         assert image.shape == (H, W, 3)
         np.testing.assert_allclose(image, want, atol=ATOL)

@@ -337,3 +337,29 @@ def test_bf16_training_step_keeps_fp32_parameters():
     assert all(p.dtype == torch.float32 for p in trainer.gan.codec.parameters())
     assert all(s["exp_avg"].dtype == torch.float32 for s in trainer.gan.opt_g.state.values())
     assert trainer.gan.vgg(torch.zeros(1, 32, 32, 3, dtype=torch.bfloat16))[0].dtype == torch.float32
+
+
+def test_base_codec_recipe_trains_and_phase_b_restores_it(tmp_path):
+    """The base-codec recipe (raw semantics over a jpg-decoded image, the
+    data pipeline's round trip memoized under cache_images) through
+    train.run.main: phase A trains two epochs and saves, every epoch logs
+    its loader wait; phase B (distortion only) restores every leaf of G
+    from it, its Adams fresh, and trains on."""
+    root, a_dir, b_dir = tmp_path / "cityscapes", tmp_path / "phaseA", tmp_path / "phaseB"
+    write_tree(root)
+    base = ["--no_feat_encoding", "--no_label_encoding", "--use_compressed", "--ext", "jpg",
+            "--quality", "50", "--cache_images", "1", "--no_vgg_loss"]
+    argv_a = train_argv(root, a_dir, *base, "--num_epochs", "2", "--val_interval", "2")
+    trainer, text = _quiet(lambda: run.main(argv_a, device="cpu"))
+    assert trainer.steps_taken == 4 and (a_dir / "params_g.pt").exists()
+    waits = [line for line in text.splitlines() if ": loader wait " in line]
+    assert [w.split(":")[0] for w in waits] == ["epoch 1", "epoch 2"]
+    assert (a_dir / "loss_log.txt").read_text().count(": loader wait ") == 2
+    argv_b = train_argv(root, b_dir, *base, "--num_epochs", "1", "--val_interval", "1",
+                        "--no_d_gan_loss", "--no_g_gan_loss", "--no_gan_feat_loss",
+                        "--schedule_lr", "1", "--load_model", "--checkpoints_dir", str(a_dir))
+    trainer_b, text = _quiet(lambda: run.main(argv_b, device="cpu"))
+    n = len(trainer_b.gan.codec.state_dict()) + len(trainer_b.gan.disc.state_dict())
+    assert f"restored params from {a_dir}: {n}/{n} leaves matched" in text
+    assert trainer_b.start_epoch == 2 and trainer_b.steps_taken == 6  # A's 4, then 2
+    assert trainer_b.gan.codec.netG.head.conv.conv.weight.shape[1] == 39

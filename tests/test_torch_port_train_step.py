@@ -77,7 +77,8 @@ RECIPES = ("phase1", "phase2", "phase3")
 # matches JAX in float64 to ~2e-7.
 FP32_LIMITED = {"phase1"}
 # the module structure each recipe's weights are drawn for (the others share phase 2's)
-STRUCTURE = {"phase1": "phase1", "g_binarized": "g_binarized"}
+STRUCTURE = {"phase1": "phase1", "g_binarized": "g_binarized", "phaseA": "phaseA",
+             "phaseB": "phaseA"}
 
 
 def jax_config(recipe: str, fused: bool):
@@ -85,7 +86,10 @@ def jax_config(recipe: str, fused: bool):
     (artifacts/flagship_r3/phase{1,2,3}/opt.json), fp32; or phase 2's
     recipe with an ablation (``zero_sem``, ``use_netE_output``) or with the
     generator's bottleneck binarized instead of the encoders
-    (``g_binarized``)."""
+    (``g_binarized``); or the base-codec recipe's phases
+    (artifacts/flagship_r3_compressed/phase{A,B}/opt.json: raw semantics and
+    the base codec's decoded image into netG, no encoder; A the GAN, B
+    distortion only)."""
     cfg = _flagship_cfg(tiny=True)
     m, L, o = cfg.model, cfg.loss, cfg.optim
     m.compute_dtype = "float32"
@@ -98,7 +102,10 @@ def jax_config(recipe: str, fused: bool):
     if recipe == "phase1":
         m.no_feat, L.no_distortion_loss = True, True
         cfg.data.normalize_std = (0.5, 0.5, 0.5)
-    if recipe == "phase3":
+    if recipe in ("phaseA", "phaseB"):
+        m.no_feat_encoding = m.no_label_encoding = True
+        cfg.codec.use_compressed = True
+    if recipe in ("phase3", "phaseB"):
         L.no_d_gan_loss = L.no_g_gan_loss = L.no_gan_feat_loss = L.no_vgg_loss = True
         o.schedule_lr, o.lr_decay_patience = True, 3
     if recipe in ("zero_sem", "use_netE_output"):
@@ -134,7 +141,11 @@ def recipe_weights(recipe: str) -> dict:
     cfg = jax_config(key, False)
     rng = np.random.default_rng(11)
     batch = {k: np.array(v) for k, v in _batch(cfg, B, H, W, rng).items()}
-    inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"])
+    if cfg.codec.use_compressed:  # the base codec's decoded image, normalized
+        batch["compressed"] = np.clip(batch["image"] + rng.normal(0, 0.1, batch["image"].shape),
+                                      -1, 1).astype(np.float32)
+    inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"],
+                                batch.get("compressed"))
     codec = JaxCodec(cfg)
     params_g = _jax_params(codec, inputs, seed=12)
     disc = jax_build_disc(cfg)
@@ -188,7 +199,8 @@ def jax_step(recipe, fused, weights, state, x64=False):
                 vgg = lambda x: net.apply({"params": params_v}, x)  # noqa: E731
             fn = jstep.make_train_step(cfg, codec, disc, vgg, donate=False)
             batch = {k: jnp.asarray(v) for k, v in cast(weights["batch"]).items()}
-            inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"])
+            inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"],
+                                        batch.get("compressed"))
             codes = jax.jit(lambda p: codec.apply({"params": p}, inputs,
                                                   method=JaxCodec.get_codes_shaped))
             _JAX[key] = (cfg, fn, batch, codes)
@@ -313,7 +325,7 @@ def run_steps(recipe, fused, n_steps, monkeypatch):
             out, want, (state.codec, state.disc),
             lambda: jax_step(recipe, fused, weights, state, x64=True),
             (lambda: port_step_f64(state, batch)) if recipe in FP32_LIMITED else None)
-        if recipe == "phase3":
+        if recipe in ("phase3", "phaseB"):
             assert arbitrated == 0
         step.apply(state, out[1])
     assert state.steps_taken == n_steps
