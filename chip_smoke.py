@@ -20,6 +20,9 @@ Phases, each printing a line as it ends:
      after an L2 flush, beside the backward of F.instance_norm, and at each
      training shape in fp32 beside its bound; its CUDA-graph replay
      bit-equal to the eager call); K4's dense-A mode against torch.matmul;
+     the hires recipe's shapes among them: K1 at (1, 512, 1024, 128) and as
+     the producer of its 2048x1024 head, K3 and its backward at (1, 1024,
+     2048, 32), K4 on that head with N = 128;
   4. the flagship codec at full width (Cityscapes 1024x512, random weights
      from --seed), fp32 with TF32 off: the default s2d fast path, the fast
      path in the kernel configuration (K1, K2, K4) and the standard path
@@ -99,7 +102,29 @@ Phases, each printing a line as it ends:
      front; (f) test.main, compress.main and decompress.main on the kernel
      configuration's fast path, each .jpds file as long as sem_side_bpp and
      base_codec_bpp say plus its container;
- 10. summary: the card, a JSON line of per-kernel numbers, the total
+ 10. the hires recipe (artifacts/flagship_r3_hires/phase{A,B}/opt.json: phase
+     9's assembly into a LocalEnhancer, ngf 32 (its global trunk at 64 on
+     the input pooled to 1024x512, one enhancer of 3 res blocks), batch 1 at
+     2048x1024, fp32, block remat; BASE_CODEC in place of heif q30, nothing
+     else cut): (a) as in 7 with the trunk unfrozen (K3 72 / 36 a step,
+     each launch against its plain version, the (1, 1024, 2048, 32) slab
+     among them); (b) --train-steps steps of each configuration with the
+     trunk frozen (K3 45 / 9), then as many unfrozen, timed apart, each with
+     one profiled step; (0) and (c) phase 9's phase-A weights re-nested by
+     the warm-start module (jpdse_tpu_torch.train.warmstart), phase A through
+     train.run.main from it (every trunk leaf but the tail restored, the
+     count asserted), the trunk bit-equal through its frozen epoch and
+     trained in the next, phase B restored from it; (d) fp32 images of three
+     paths against the default standard path, then --requests bf16 requests
+     through side-info-only .jpds streams at 2048x1024 on the four paths (no
+     launch in a compress; K1 1 per decompress on the default fast path; K1
+     3 + K4 2, N 256 and 128, on the kernel configuration's; K3 36 on its
+     standard path); (e) test.main, compress.main and decompress.main on the
+     kernel configuration's fast path, 2 images, each .jpds as long as the
+     rates say plus its container; (f) a grouped netE (3 groups) with
+     instance-wise pooling on the standard path, kernel against default
+     configuration, fp32;
+ 11. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -134,6 +159,9 @@ NORM_SHAPES = [(1, 512, 1024, 64), (1, 256, 512, 128), (1, 128, 256, 256),
 # the same sites in the training step (batch 2): the kernels' partition
 # into slabs and chunks depends on the batch
 TRAIN_NORM_SHAPES = [(2,) + s[1:] for s in NORM_SHAPES]
+# the hires recipe's full-resolution sites (its enhancer's c7 and up, batch 1
+# at 2048x1024): 4x the pixels of any other slab, and C = 32
+HIRES_NORM_SHAPES = [(1, 1024, 2048, 32)]
 NORM_COMBOS = [(True, False), (False, True), (False, False)]  # (relu, residual)
 # K3's backward launches in a training step, by (H, W, C) and ReLU: netG 27,
 # netE 9 and netE4label 9; every head, down and up site and each res block's
@@ -249,21 +277,24 @@ def dt(dtype) -> str:
     return str(dtype)[6:]
 
 
-def make_batch(seed: int, b: int = 1):
+def make_batch(seed: int, b: int = 1, h: int = H, w: int = W):
     """A synthetic Cityscapes-like request, as __graft_entry__._batch makes
     it: labels in [0, 35), instance ids, a normal-distributed image."""
     rng = np.random.default_rng(seed)
     return {
-        "label": rng.integers(0, 35, (b, H, W)).astype(np.float32),
-        "instance": rng.integers(0, 1000, (b, H, W)).astype(np.int32),
-        "image": rng.normal(size=(b, H, W, 3)).astype(np.float32),
+        "label": rng.integers(0, 35, (b, h, w)).astype(np.float32),
+        "instance": rng.integers(0, 1000, (b, h, w)).astype(np.int32),
+        "image": rng.normal(size=(b, h, w, 3)).astype(np.float32),
     }
 
 
 def train_batch(cfg, seed: int) -> dict:
-    """make_batch at the training batch, with the base codec's round trip
-    of each image where the recipe reads it, as the data pipeline makes it."""
-    batch = make_batch(seed, TRAIN_BATCH)
+    """make_batch at the recipe's batch and image size, with the base
+    codec's round trip of each image where the recipe reads it, as the data
+    pipeline makes it."""
+    from jpdse_tpu_torch.trainer import train_image_hw
+
+    batch = make_batch(seed, cfg.data.batch_size, *train_image_hw(cfg))
     return with_base_codec(cfg, batch) if cfg.codec.use_compressed else batch
 
 
@@ -295,6 +326,12 @@ def phase_k1(card: str, gen) -> dict:
         ((1, 256, 512, 156), torch.bfloat16, 1, 160),
         ((1, 256, 512, 156), torch.float32, 1, 160),
         ((1, 256, 512, 144), torch.bfloat16, 1, 144),
+        # the hires recipe: its enhancer's back at 2048x1024 (ngf 32), and the
+        # producer of its 2048x1024 head's K4 (156 -> 160 channels)
+        ((1, 512, 1024, 128), torch.bfloat16, 0, None),
+        ((1, 512, 1024, 128), torch.float32, 0, None),
+        ((1, 512, 1024, 156), torch.bfloat16, 1, 160),
+        ((1, 512, 1024, 156), torch.float32, 1, 160),
     ]
     for shape, dtype, extra, channels in cases:
         y = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -320,9 +357,12 @@ def phase_k1(card: str, gen) -> dict:
 
     timed((2, 256, 512, 256), torch.float32)
     timed((2, 256, 512, 256), torch.bfloat16)
+    hires = timed((1, 512, 1024, 128), torch.bfloat16)
     # the serving path's own shape: B=1, bf16
     k, p, bound_ms = timed((1, 256, 512, 256), torch.bfloat16)
-    return kernel_entry("s2d_realign_pad3", max_err, k, p, bound_ms, "bytes", None)
+    e = kernel_entry("s2d_realign_pad3", max_err, k, p, bound_ms, "bytes", None)
+    e["hires_(1, 512, 1024, 128)_bf16"] = dict(zip(("ms", "plain_ms", "bound_ms"), hires))
+    return e
 
 
 def phase_k2(card: str, gen) -> dict:
@@ -415,8 +455,8 @@ def phase_k3(card: str, gen) -> dict:
     from jpdse_tpu_torch.ops import instance_norm as k3
 
     max_err = 0.0
-    entry = None
-    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES:
+    entry = hires = None
+    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES + HIRES_NORM_SHAPES:
         base = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
         res32 = torch.randn(shape, device="cuda", generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
@@ -446,6 +486,20 @@ def phase_k3(card: str, gen) -> dict:
                         "beyond 1e-5 (tolerance 1); two runs bit-equal")
         if shape in TRAIN_NORM_SHAPES:
             continue
+        if shape in HIRES_NORM_SHAPES:
+            # the hires training step's fp32 slab: kernel, plain and library beside the bound
+            xc = base.permute(0, 3, 1, 2)
+            k = cuda_ms(lambda: k3.fused_instance_norm(base, relu=True))
+            k_dev = device_ms(lambda: k3.fused_instance_norm(base, relu=True))
+            p = cuda_ms(lambda: k3.fused_instance_norm_plain(base, relu=True))
+            lib = cuda_ms(lambda: F.instance_norm(xc, eps=1e-5))
+            bound = bytes_ms(base, base)
+            hires = {"shape": str(shape), "dtype": "float32", "ms": k, "device_ms": k_dev,
+                     "plain_ms": p, "bound_ms": bound, "library_ms": lib}
+            log(f"[kernels] K3 {shape} fp32 relu: kernel {k:.4f} ms (on the device {k_dev:.4f} "
+                f"ms, {bound / k_dev:.0%} of its bound), plain {p:.4f} ms, F.instance_norm "
+                f"{lib:.4f} ms, bound {bound * 1e3:.1f} us (bytes) ({card})")
+            continue
         # timing, bf16: the bare norm beside the library's InstanceNorm, and
         # the sites' own (relu) and (residual) forms
         x = base.to(torch.bfloat16)
@@ -469,7 +523,9 @@ def phase_k3(card: str, gen) -> dict:
             entry = (k, p, bound, lib)
             k3_launch_facts(k3, x, res)
     k, p, bound, lib = entry
-    return kernel_entry("fused_instance_norm", max_err, k, p, bound, "bytes", lib)
+    e = kernel_entry("fused_instance_norm", max_err, k, p, bound, "bytes", lib)
+    e["hires"] = hires
+    return e
 
 
 def one_kernel(what: str, fn) -> dict:
@@ -534,7 +590,8 @@ def phase_k3_bwd(card: str, gen) -> dict:
 
     max_err = 0.0
     entry = None
-    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES:
+    hires = {}
+    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES + HIRES_NORM_SHAPES:
         base = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
         g32 = torch.randn(shape, device="cuda", generator=gen)
         res32 = torch.randn(shape, device="cuda", generator=gen)
@@ -576,7 +633,7 @@ def phase_k3_bwd(card: str, gen) -> dict:
                     log(f"[kernels] {what}: max abs diff {err:.2e}, max {u:.2f} bf16 ulp beyond "
                         f"1e-5 (tolerance 1; {err_re:.2e} from the plain version's own "
                         "statistics); two runs bit-equal")
-        if shape in TRAIN_NORM_SHAPES:
+        if shape in TRAIN_NORM_SHAPES or shape in HIRES_NORM_SHAPES:
             # timing at the training step's shapes, fp32, with and without the ReLU
             # (the residual form runs the bare norm's kernel)
             x, g = base, g32
@@ -585,10 +642,22 @@ def phase_k3_bwd(card: str, gen) -> dict:
                 k = cuda_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, relu))
                 k_dev = device_ms(lambda: k3.fused_instance_norm_bwd(x, g, stats, relu))
                 bound = bytes_ms(x, g, x)
+                sites = (K3_BWD_SITES_HIRES if shape in HIRES_NORM_SHAPES else K3_BWD_SITES)
                 log(f"[kernels] K3 backward {shape} fp32 relu={relu}: kernel {k:.4f} ms (on the "
                     f"device {k_dev:.4f} ms, {bound / k_dev:.0%} of its bound), bound "
-                    f"{bound * 1e3:.1f} us (bytes); {K3_BWD_SITES.get((shape[1:], relu), 0)} "
+                    f"{bound * 1e3:.1f} us (bytes); {sites.get((shape[1:], relu), 0)} "
                     f"launches a training step ({card})")
+                if shape in HIRES_NORM_SHAPES and relu:
+                    p = cuda_ms(lambda: k3.fused_instance_norm_bwd_plain(x, g, relu, stats=stats))
+                    xc = x.permute(0, 3, 1, 2).detach().requires_grad_()
+                    yc = F.instance_norm(xc, eps=1e-5)
+                    gc = g.permute(0, 3, 1, 2)
+                    lib = cuda_ms(lambda: torch.autograd.grad(yc, xc, gc, retain_graph=True))
+                    hires = {"shape": str(shape), "dtype": "float32", "ms": k,
+                             "device_ms": k_dev, "plain_ms": p, "bound_ms": bound,
+                             "library_ms": lib}
+                    log(f"[kernels] K3 backward {shape} fp32 relu: plain {p:.4f} ms, backward "
+                        f"of F.instance_norm {lib:.4f} ms ({card})")
             continue
         if entry is not None:
             continue
@@ -618,6 +687,7 @@ def phase_k3_bwd(card: str, gen) -> dict:
     k, p, bound, lib, k_dev = entry
     e = kernel_entry("fused_instance_norm_bwd", max_err, k, p, bound, "bytes", lib)
     e["device_ms"] = k_dev
+    e["hires"] = hires
     return e
 
 
@@ -653,16 +723,21 @@ def phase_k4(card: str, gen) -> dict:
     (131072, 16 * 156) matrix against torch.matmul."""
     from jpdse_tpu_torch.ops import head_conv as k4
 
-    kp, ho, n = 4, H // 2, 256
-    extra = k4.head_conv_extra_rows(ho, kp)
+    kp = 4
     max_err = 0.0
     entry = None
+    hires = None
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for trunk, c_head in (("netG", 156), ("netE4label", 144)):
+        # (trunk, s2d channels, output rows and columns, N): the hires recipe's
+        # enhancer head is 2048x1024 with ngf 32, so N = 4 x 32
+        for trunk, c_head, ho, wo, n in (("netG", 156, H // 2, W // 2, 256),
+                                         ("netE4label", 144, H // 2, W // 2, 256),
+                                         ("hires enhancer", 156, H, W, 128)):
+            extra = k4.head_conv_extra_rows(ho, kp)
             c = k4.padded_channels(c_head)
-            xp32 = torch.randn((1, ho + kp - 1 + extra, W // 2 + 3, c), device="cuda",
+            xp32 = torch.randn((1, ho + kp - 1 + extra, wo + 3, c), device="cuda",
                                generator=gen)
             w32 = torch.randn((kp, kp, c, n), device="cuda", generator=gen) * 0.02
             xp32[..., c_head:] = 0
@@ -677,7 +752,7 @@ def phase_k4(card: str, gen) -> dict:
                 rel = err / want.float().abs().max().item()
                 if dtype == torch.float32:
                     max_err = max(max_err, err)
-                if tuple(got.shape) != (1, ho, W // 2, n) or not rel <= tol:
+                if tuple(got.shape) != (1, ho, wo, n) or not rel <= tol:
                     raise AssertionError(f"K4 {trunk} {dtype}: shape {tuple(got.shape)}, "
                                          f"relative diff {rel} > {tol}")
                 log(f"[kernels] K4 head_conv_s2d {trunk} xp {tuple(xp.shape)} {dt(dtype)}: "
@@ -695,7 +770,7 @@ def phase_k4(card: str, gen) -> dict:
                 xin_h = xin[:, :c_head].contiguous(memory_format=torch.channels_last)
                 w_h = w_oihw[:, :c_head].contiguous(memory_format=torch.channels_last)
                 lib_head = cuda_ms(lambda: F.conv2d(xin_h, w_h))
-            flops = 2.0 * ho * (W // 2) * n * kp * kp * c_head
+            flops = 2.0 * ho * wo * n * kp * kp * c_head
             bound = flops / BF16_FLOPS * 1e3
             moved = bytes_ms(xp[:, : ho + kp - 1, ..., :c_head], w[:, : kp * c_head], got)
             log(f"[kernels] K4 {trunk} bf16: kernel {k:.4f} ms ({flops / k / 1e9:.1f} TFLOP/s of "
@@ -707,12 +782,17 @@ def phase_k4(card: str, gen) -> dict:
                 f"operands; its bytes alone {moved:.4f} ms) ({card})")
             if entry is None:
                 entry = (k, p, bound, lib)
-        dense = phase_k4_dense(card, gen, ho * (W // 2), kp * kp * 156, n)
+            if n == 128:
+                hires = {"trunk": trunk, "xp": str(tuple(xp.shape)), "n": n, "ms": k,
+                         "device_ms": k_dev, "plain_ms": p, "bound_ms": bound,
+                         "library_ms": lib}
+        dense = phase_k4_dense(card, gen, (H // 2) * (W // 2), kp * kp * 156, 256)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     k, p, bound, lib = entry
     e = kernel_entry("head_conv_s2d", max_err, k, p, bound, "operations", lib)
     e["dense_a_leg"] = dense
+    e["hires"] = hires
     return e
 
 
@@ -1214,6 +1294,15 @@ K3_BWD_SITES_BY_PHASE = {2: K3_BWD_SITES, 1: {
 K3_BWD_SITES_BY_PHASE["A"] = K3_BWD_SITES_BY_PHASE["B"] = {
     **{(s[1:], True): 2 for s in NORM_SHAPES[:4]},
     (NORM_SHAPES[4][1:], True): 10, (NORM_SHAPES[4][1:], False): 9}
+# the hires recipe (batch 1): its global trunk's 27 sites at phase A's shapes, and
+# the enhancer's c7 and up at 2048x1024 x 32, d1 and 3 res blocks at 1024x512 x 64;
+# frozen, the enhancer's 9 alone
+K3_BWD_SITES_HIRES_ENHANCER = {(HIRES_NORM_SHAPES[0][1:], True): 2,
+                               (NORM_SHAPES[0][1:], True): 4, (NORM_SHAPES[0][1:], False): 3}
+K3_BWD_SITES_HIRES = dict(K3_BWD_SITES_BY_PHASE["A"])
+K3_BWD_SITES_HIRES[NORM_SHAPES[0][1:], True] += 4
+K3_BWD_SITES_HIRES[NORM_SHAPES[0][1:], False] = 3
+K3_BWD_SITES_HIRES[HIRES_NORM_SHAPES[0][1:], True] = 2
 GRAD_TOL = 1e-3  # a gradient tensor's relative L2 difference, unless fp32 conditioning is worse
 # ... and never more than this, per network: set from the controls' largest
 # readings on an H100 (G 1.32e-02, D 1.65e-03; the kernel config's 7.92e-03
@@ -1221,7 +1310,8 @@ GRAD_TOL = 1e-3  # a gradient tensor's relative L2 difference, unless fp32 condi
 GRAD_CEIL = {"G": 2e-2, "D": 5e-3}
 K3_SITE_TOL = 1e-5  # K3 at a site of the step against its plain version, of the output's max-abs
 # biases that an InstanceNorm follows have a gradient of 0 in exact arithmetic
-NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up\.\d+|res\.\d+|layer[1-9])\..*bias$")
+# (a LocalEnhancer's c7, d1 and up among them)
+NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9]|c7|d1)\..*bias$")
 
 
 def flagship_train_config(kernels: bool, seed: int, phase=2):
@@ -1234,8 +1324,11 @@ def flagship_train_config(kernels: bool, seed: int, phase=2):
     recipe's phase A or B (artifacts/flagship_r3_compressed/phase{A,B}/
     opt.json, BASE_CODEC in place of its heif: raw semantics and the base
     codec's decoded image into netG, no encoder, cache_images; B distortion
-    only, the lr on a plateau schedule); ``kernels``: K3 at every
-    generator-side norm site."""
+    only, the lr on a plateau schedule); or the hires recipe's phase
+    "hiresA" or "hiresB" (artifacts/flagship_r3_hires/phase{A,B}/opt.json:
+    the same assembly into a LocalEnhancer, batch 1 at 2048x1024, A with
+    niter_fix_global 10); ``kernels``: K3 at every generator-side norm
+    site."""
     from jpdse_tpu_torch.config import flagship_config
 
     cfg = flagship_config(kernels=kernels)
@@ -1247,13 +1340,17 @@ def flagship_train_config(kernels: bool, seed: int, phase=2):
     if phase == 1:
         m.no_feat, cfg.loss.no_distortion_loss = True, True
         cfg.data.normalize_std = (0.5, 0.5, 0.5)
-    if phase in ("A", "B"):
+    if phase in ("A", "B", "hiresA", "hiresB"):
         use_base_codec(cfg)
-    if phase == "B":
+    if phase in ("B", "hiresB"):
         L = cfg.loss
         L.no_d_gan_loss = L.no_g_gan_loss = L.no_gan_feat_loss = L.no_vgg_loss = True
         cfg.optim.schedule_lr, cfg.optim.lr_decay_patience = True, 3
     mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+    if phase in ("hiresA", "hiresB"):
+        use_hires(cfg, niter_fix_global=10 if phase == "hiresA" else 0)
+        cfg.data.batch_size = 1
+        mode, load, crop, aspect = HIRES_PREPROCESS
     pp = cfg.data.preprocess
     pp.preprocess_mode, pp.load_size, pp.crop_size, pp.aspect_ratio = mode, load, crop, aspect
     cfg.validate()
@@ -1376,9 +1473,14 @@ def phase_train_parity(seed: int, card: str, phase=2) -> dict:
                                                                       batch[k].shape)
                 moved[k] = (batch[k] * (1 + 2.0**-22 * signs)).astype(np.float32)
             controls.append(dict(batch, **moved))
+        for t in (base, fused):  # every norm site of a LocalEnhancer's step, its trunk too
+            if t.cfg.model.niter_fix_global:
+                t.maybe_unfreeze_global(t.cfg.model.niter_fix_global)
         n_g = sum(p.numel() for p in base.gan.codec.parameters())
         n_d = sum(p.numel() for p in base.gan.disc.parameters())
-        log(f"[train] {tag} at {W}x{H}, batch {TRAIN_BATCH}, fp32: G {n_g} and D {n_d} "
+        _, hh, ww, _ = batch["image"].shape
+        log(f"[train] {tag} at {ww}x{hh}, batch {base.cfg.data.batch_size}, fp32: G {n_g} and "
+            f"D {n_d} "
             f"parameters, VGG19 random from seed 0; two trainers built in "
             f"{time.perf_counter() - t0:.1f} s")
         out, launches = {}, {}
@@ -1936,14 +2038,14 @@ def with_base_codec(cfg, batch: dict) -> dict:
                 base_codec_streams=[t[2] for t in trips], base_codec_ext=[t[3] for t in trips])
 
 
-def scene_batch(cfg, seed: int) -> dict:
-    """One request of a synthetic scene at 1024x512 (synthetic_scene, the
+def scene_batch(cfg, seed: int, h: int = H, w: int = W) -> dict:
+    """One request of a synthetic scene at w x h (synthetic_scene, the
     image normalized as the data pipeline does), with its base-codec round
     trip."""
     from jpdse_tpu_torch.data.transforms import image_to_normalized
     from PIL import Image
 
-    photo, label, inst = synthetic_scene(np.random.default_rng(seed), H, W)
+    photo, label, inst = synthetic_scene(np.random.default_rng(seed), h, w)
     d = cfg.data
     image = image_to_normalized(Image.fromarray(photo), d.normalize_mean, d.normalize_std)
     return with_base_codec(cfg, {"label": label[None].astype(np.float32), "instance": inst[None],
@@ -2014,13 +2116,16 @@ def base_stream_sections(stream: bytes) -> dict:
             "base codec": base}
 
 
-def phase9_serve(seed: int, requests: int, card: str) -> dict:
+def phase9_serve(seed: int, requests: int, card: str, configs=None, table=None,
+                 hw=(H, W), tag: str = "[base]", what: str = "base-codec") -> dict:
     """(d) The recipe's codec at full width: fp32 images of the three other
     paths against the default standard path (TF32 off, the same side
     inputs); then --requests bf16 requests through side-info-only .jpds
     streams on the four serving paths, launches asserted per call (none in
     a compress), bytes by section and the host stages beside the device
-    part. Returns each path's counts."""
+    part. Returns each path's counts. ``configs`` (the serving and the
+    kernel configuration), ``table`` (launches per decompress by path), the
+    requests' ``hw``, ``tag`` and ``what`` serve phase 10's hires recipe."""
     import copy
 
     from jpdse_tpu_torch import codec_io
@@ -2028,13 +2133,15 @@ def phase9_serve(seed: int, requests: int, card: str) -> dict:
     from jpdse_tpu_torch.models.fast_codec import FastCodec
     from jpdse_tpu_torch.serve import CodecServer
 
-    cfg, kcfg = base_codec_configs()
+    cfg, kcfg = configs or base_codec_configs()
+    table = table or BASE_SERVE_LAUNCHES
+    hh, ww = hw
     codec = SemanticCodec(cfg, device="cuda", seed=seed, dtype=torch.float32)
     state = codec.state_dict()
-    log(f"[base] base-codec codec: netG over {cfg.netG_input_nc} channels, "
+    log(f"{tag} {what} codec: netG over {cfg.netG_input_nc} channels, "
         f"{sum(p.numel() for p in codec.parameters())} parameters from seed {seed}; "
         f"side_requirements {codec_io.side_requirements(cfg)}")
-    request = scene_batch(cfg, seed + 60)
+    request = scene_batch(cfg, seed + 60, hh, ww)
     dev = {k: torch.as_tensor(request[k], device="cuda")
            for k in ("label", "instance", "image", "compressed")}
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
@@ -2044,22 +2151,22 @@ def phase9_serve(seed: int, requests: int, card: str) -> dict:
             want = codec.decode(codec.prepare(dev))[0]
         fused = SemanticCodec(kcfg, device="cuda", seed=None, dtype=torch.float32)
         fused.load_state_dict(state)
-        for what, fn, launch in (
+        for path, fn, launch in (
                 ("fp32 default fast path", lambda: FastCodec(cfg, state, device="cuda",
                                                              dtype=torch.float32).decode(dev),
-                 BASE_SERVE_LAUNCHES["default fast path"]),
+                 table["default fast path"]),
                 ("fp32 kernel-config fast path", lambda: FastCodec(
                     kcfg, state, device="cuda", dtype=torch.float32).decode(dev),
-                 BASE_SERVE_LAUNCHES["kernel-config fast path"]),
+                 table["kernel-config fast path"]),
                 ("fp32 standard path with K3", lambda: fused.decode(fused.prepare(dev))[0],
-                 BASE_SERVE_LAUNCHES["kernel-config standard path"])):
+                 table["kernel-config standard path"])):
             reset_counts()
             with torch.inference_mode():
                 got = fn()
-            check_image(f"base-codec codec, {what}", got, want)
+            check_image(f"{what} codec, {path}", got, want)
             counts = {k: v for k, v in read_counts().items() if v}
             if counts != launch:
-                raise AssertionError(f"base-codec {what}: launched {counts}, want {launch}")
+                raise AssertionError(f"{what} {path}: launched {counts}, want {launch}")
         del fused
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
@@ -2068,7 +2175,7 @@ def phase9_serve(seed: int, requests: int, card: str) -> dict:
     kstd.model.fast_inference = dstd.model.fast_inference = False
     paths = {"default fast path": cfg, "kernel-config fast path": kcfg,
              "kernel-config standard path": kstd, "default standard path": dstd}
-    batches = [scene_batch(cfg, seed + 61 + r) for r in range(requests)]
+    batches = [scene_batch(cfg, seed + 61 + r, hh, ww) for r in range(requests)]
     launches = {}
     for label, c in paths.items():
         torch.cuda.empty_cache()
@@ -2094,37 +2201,37 @@ def phase9_serve(seed: int, requests: int, card: str) -> dict:
             after = read_counts()
             comp = {k: mid[k] - before[k] for k in mid}
             dec = {k: after[k] - mid[k] for k in mid}
-            want_dec = BASE_SERVE_LAUNCHES[label]
+            want_dec = table[label]
             if any(comp.values()) or dec != {k: want_dec.get(k, 0) for k in dec}:
-                raise AssertionError(f"base-codec {label} request {r}: compress launched "
+                raise AssertionError(f"{what} {label} request {r}: compress launched "
                                      f"{comp}, decompress {dec}, want none and {want_dec}")
             bs = codec_io.unpack_full(streams[0])
-            if bs.codes or bs.image_hw != (H, W) or not np.array_equal(
+            if bs.codes or bs.image_hw != (hh, ww) or not np.array_equal(
                     bs.side.label, batch["label"][0].astype(np.int32)) or \
                     bs.side.base_payloads != batch["base_codec_streams"][0]:
-                raise AssertionError(f"base-codec {label} request {r}: the stream does not "
+                raise AssertionError(f"{what} {label} request {r}: the stream does not "
                                      "hold the request's side info alone")
-            if image.shape != (H, W, 3) or not np.isfinite(image).all() or \
+            if image.shape != (hh, ww, 3) or not np.isfinite(image).all() or \
                     np.abs(image).max() > 1.0:
-                raise AssertionError(f"base-codec {label} request {r}: image {image.shape}")
+                raise AssertionError(f"{what} {label} request {r}: image {image.shape}")
             sec = base_stream_sections(streams[0])
-            log(f"[base] {label} request {r}: .jpds {len(streams[0])} bytes "
-                f"({8 * len(streams[0]) / (H * W):.4f} bpp: id maps {sec['id maps']} bytes "
-                f"{8 * sec['id maps'] / (H * W):.4f} bpp, {BASE_CODEC[0]} "
-                f"{sec['base codec']} bytes {8 * sec['base codec'] / (H * W):.4f} bpp, container "
+            log(f"{tag} {label} request {r}: .jpds {len(streams[0])} bytes "
+                f"({8 * len(streams[0]) / (hh * ww):.4f} bpp: id maps {sec['id maps']} bytes "
+                f"{8 * sec['id maps'] / (hh * ww):.4f} bpp, {BASE_CODEC[0]} "
+                f"{sec['base codec']} bytes {8 * sec['base codec'] / (hh * ww):.4f} bpp, container "
                 f"{sec['container']}); compress {rows['compress'][r]:.2f} ms (id-map coding "
                 f"{rows['idmap'][r]:.2f}, pack {rows['pack'][r]:.2f}, no device work), "
                 f"decompress {rows['decompress'][r]:.2f} ms (unpack {rows['unpack'][r]:.2f}, "
                 f"{BASE_CODEC[0]} decode {rows['base_decode'][r]:.2f}, device part "
                 f"{rows['device part'][r]:.2f}) ({card})")
-        launches[f"base-codec serve: {label}"] = read_counts()
+        launches[f"{what} serve: {label}"] = read_counts()
         rest = slice(1, None) if requests > 1 else slice(None)
         med = {k: float(np.median(v[rest])) for k, v in rows.items()}
-        log(f"[base] {label}: bf16 batch 1 at {W}x{H}, medians after the first request: "
+        log(f"{tag} {label}: bf16 batch 1 at {ww}x{hh}, medians after the first request: "
             f"compress {med['compress']:.2f} ms (id-map coding {med['idmap']:.2f}), decompress "
             f"{med['decompress']:.2f} ms (unpack {med['unpack']:.2f}, {BASE_CODEC[0]} decode "
             f"{med['base_decode']:.2f}, device part {med['device part']:.2f}); launches per "
-            f"decompress {BASE_SERVE_LAUNCHES[label]} ({card})")
+            f"decompress {table[label]} ({card})")
         del server
     del codec
     torch.cuda.empty_cache()
@@ -2185,7 +2292,7 @@ def phase9_nosem(seed: int, card: str) -> dict:
     return {"base-codec nosem: kernel-config fast path": counts}
 
 
-def phase9_chain(seed: int, card: str) -> dict:
+def phase9_chain(seed: int, card: str, keep_dir: Path) -> dict:
     """(c) The recipe through train.run.main in the kernel configuration at
     full width, on a synthetic Cityscapes train/val split read through
     PairedDataset with cache_images: phase A for two epochs of 2 steps
@@ -2193,7 +2300,10 @@ def phase9_chain(seed: int, card: str) -> dict:
     first, its memo in the second) with validation and a best-val save at
     the end; then phase B (distortion only) restored from it, every leaf
     matched, validated, for one epoch. Counts are set to 0 before each main
-    and asserted after it. Returns each main's counts."""
+    and asserted after it. Phase A's params_g.pt is copied into
+    ``keep_dir`` (phase 10 warm-starts from it). Returns each main's counts."""
+    import shutil
+
     from jpdse_tpu_torch.train import run
     from jpdse_tpu_torch.train.checkpoint import PARAMS_D_FILE, PARAMS_FILE
 
@@ -2258,6 +2368,8 @@ def phase9_chain(seed: int, card: str) -> dict:
                     raise AssertionError(f"phase B's restore: want {want_n}/{want_n}")
                 if trainer.steps_taken != 3 * steps:
                     raise AssertionError(f"phase B: steps taken {trainer.steps_taken}")
+                keep_dir.mkdir(parents=True, exist_ok=True)
+                shutil.copy(Path(da) / PARAMS_FILE, keep_dir / PARAMS_FILE)
                 log(f"[base] phase B restored all {want_n} leaves from phase A and took "
                     f"{steps} distortion-only steps; loader wait {waits[0][0]:.3f} s of "
                     f"{waits[0][1]:.3f} s ({card})")
@@ -2265,25 +2377,31 @@ def phase9_chain(seed: int, card: str) -> dict:
     return launches
 
 
-def phase9_eval(seed: int, card: str) -> dict:
+def phase9_eval(seed: int, card: str, kcfg=None, per_image=None, images: int = EVAL_IMAGES,
+                preprocess=FLAGSHIP_PREPROCESS, tag: str = "[base]",
+                what: str = "base-codec") -> dict:
     """(f) test.main, compress.main and decompress.main of the recipe's
     codec (random weights from --seed) on the kernel configuration's fast
     path, on a synthetic Cityscapes val split: finite metrics, the side
     rates, each .jpds file as long as sem_side_bpp and base_codec_bpp say
     plus its container's bytes, decompressed PNGs within one uint8 level
-    of the test run's reconstructions. Returns the counts."""
+    of the test run's reconstructions. Returns the counts. ``kcfg``,
+    ``per_image`` (launches), the first ``images`` of the split read with
+    ``preprocess``, ``tag`` and ``what`` serve phase 10's hires recipe."""
     from PIL import Image
 
     from jpdse_tpu_torch import compress, decompress, test
     from jpdse_tpu_torch.models.codec import SemanticCodec
     from jpdse_tpu_torch.train.checkpoint import save_params
 
-    _, kcfg = base_codec_configs()
-    per_image = BASE_SERVE_LAUNCHES["kernel-config fast path"]
+    if kcfg is None:
+        _, kcfg = base_codec_configs()
+        per_image = BASE_SERVE_LAUNCHES["kernel-config fast path"]
+    mode, load, crop, aspect = preprocess
+    hh, ww = round(crop / aspect), crop
     with tempfile.TemporaryDirectory(prefix="jpdse_base_eval_") as tmp:
         root, run_dir, out = Path(tmp) / "cityscapes", Path(tmp) / "run", Path(tmp) / "out"
         write_cityscapes(root, seed + 30)
-        mode, load, crop, aspect = FLAGSHIP_PREPROCESS
         for pp in (kcfg.data.preprocess, kcfg.data.val_preprocess, kcfg.data.test_preprocess):
             pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
             pp.aspect_ratio = aspect
@@ -2296,27 +2414,27 @@ def phase9_eval(seed: int, card: str) -> dict:
         save_params(str(run_dir), codec.state_dict())
         del codec
         argv = ["--load_opt", "--opt_file", str(run_dir / "opt.json"), "--checkpoints_dir",
-                str(run_dir), "--mode", "val"]
-        metrics, text, c_test = run_entry("base codec", "test.main", lambda: test.main(
-            argv + ["--save_dir", str(out / "test")], device="cuda"), per_image, tag="[base]")
-        summary, _, c_comp = run_entry("base codec", "compress.main", lambda: compress.main(
-            argv + ["--save_dir", str(out / "bits")], device="cuda"), {}, tag="[base]")
-        written, _, c_dec = run_entry("base codec", "decompress.main", lambda: decompress.main(
+                str(run_dir), "--mode", "val", "--max_dataset_size", str(images)]
+        metrics, text, c_test = run_entry(what, "test.main", lambda: test.main(
+            argv + ["--save_dir", str(out / "test")], device="cuda"), per_image, images, tag)
+        summary, _, c_comp = run_entry(what, "compress.main", lambda: compress.main(
+            argv + ["--save_dir", str(out / "bits")], device="cuda"), {}, images, tag)
+        written, _, c_dec = run_entry(what, "decompress.main", lambda: decompress.main(
             ["--input", str(out / "bits")] + argv + ["--save_dir", str(out / "recon")],
-            device="cuda"), per_image, tag="[base]")
+            device="cuda"), per_image, images, tag)
         rates = ("sem_side_bpp", "base_codec_bpp", "total_bpp", "PSNR", "MS-SSIM", "L1")
-        if metrics["n_images"] != EVAL_IMAGES or not np.isfinite([metrics[k] for k in rates]).all():
-            raise AssertionError(f"base-codec eval: metrics {metrics}")
+        if metrics["n_images"] != images or not np.isfinite([metrics[k] for k in rates]).all():
+            raise AssertionError(f"{what} eval: metrics {metrics}")
         if not np.isclose(metrics["total_bpp"], metrics["sem_side_bpp"]
                           + metrics["base_codec_bpp"], rtol=1e-12, atol=0):
-            raise AssertionError(f"base-codec eval: total_bpp {metrics['total_bpp']}")
+            raise AssertionError(f"{what} eval: total_bpp {metrics['total_bpp']}")
         files = sorted((out / "bits").glob("*.jpds"))
         data = [p.read_bytes() for p in files]
         container = sum(base_stream_sections(b)["container"] for b in data)
-        side = (metrics["sem_side_bpp"] + metrics["base_codec_bpp"]) * EVAL_IMAGES * H * W / 8
-        if len(files) != EVAL_IMAGES or not np.isclose(sum(map(len, data)), side + container,
+        side = (metrics["sem_side_bpp"] + metrics["base_codec_bpp"]) * images * hh * ww / 8
+        if len(files) != images or not np.isclose(sum(map(len, data)), side + container,
                                                        rtol=0, atol=1e-6):
-            raise AssertionError(f"base-codec deploy: {len(files)} files of "
+            raise AssertionError(f"{what} deploy: {len(files)} files of "
                                  f"{sum(map(len, data))} bytes, the rates say {side} + "
                                  f"{container}")
         worst = 0
@@ -2325,40 +2443,311 @@ def phase9_eval(seed: int, card: str) -> dict:
             ref = np.asarray(Image.open(out / "test/test_visualizations/images/"
                                         "reconstructed_image" / p.name)).astype(np.int16)
             worst = max(worst, int(np.abs(got - ref).max()))
-        if len(written) != EVAL_IMAGES or worst > 1:
-            raise AssertionError(f"base-codec deploy: PNGs differ by {worst} levels")
+        if len(written) != images or worst > 1:
+            raise AssertionError(f"{what} deploy: PNGs differ by {worst} levels")
         splits = [tuple(float(x) for x in m) for m in re.findall(
             r"host clock: load ([\d.]+), device ([\d.]+), coder ([\d.]+), metrics ([\d.]+), "
             r"gallery ([\d.]+), side ([\d.]+)", text)]
         rest = np.median(np.asarray(splits[1:]), axis=0) * 1e3
-        log(f"[base] eval, kernel-config fast path: PSNR {metrics['PSNR']:.4f} dB, MS-SSIM "
+        log(f"{tag} eval, kernel-config fast path: PSNR {metrics['PSNR']:.4f} dB, MS-SSIM "
             f"{metrics['MS-SSIM']:.6f}; sem_side_bpp {metrics['sem_side_bpp']:.6f}, "
             f"base_codec_bpp {metrics['base_codec_bpp']:.6f}, total_bpp "
-            f"{metrics['total_bpp']:.6f} = the {EVAL_IMAGES} .jpds files' "
+            f"{metrics['total_bpp']:.6f} = the {images} .jpds files' "
             f"{sum(map(len, data))} bytes less {container} of containers; PNGs within {worst} "
             f"level(s); per image after the first, host clock (ms): load {rest[0]:.1f}, device "
             f"{rest[1]:.1f}, id-map rate {rest[5]:.1f}, metrics {rest[3]:.1f}, gallery "
             f"{rest[4]:.1f} ({card})")
-    return {"base-codec eval: kernel-config fast path": {
+    return {f"{what} eval: kernel-config fast path": {
         k: c_test[k] + c_comp[k] + c_dec[k] for k in c_test}}
 
 
-def phase9(seed: int, requests: int, steps: int, card: str) -> tuple:
+def phase9(seed: int, requests: int, steps: int, card: str, keep: Path) -> tuple:
     """The base-codec recipe at full width: (0) the probe, (a) one step's
-    parity, (b) timed steps, (c) the phase chain, (d) serving, (e) the nosem
-    codec, (f) eval and deploy. Returns (serving and eval counts, training
-    counts)."""
+    parity, (b) timed steps, (c) the phase chain (phase A's weights kept in
+    ``keep``), (d) serving, (e) the nosem codec, (f) eval and deploy.
+    Returns (serving and eval counts, training counts)."""
     t0 = time.perf_counter()
     phase9_probe(card)
     train = {f"phase-A train parity: {k}": v for k, v in
              phase_train_parity(seed, card, phase="A").items()}
     train.update({f"phase-A train steps: {k}": v for k, v in
                   phase_train_steps(seed, steps, card, phase="A").items()})
-    train.update(phase9_chain(seed, card))
+    train.update(phase9_chain(seed, card, keep))
     serve = phase9_serve(seed, requests, card)
     serve.update(phase9_nosem(seed, card))
     serve.update(phase9_eval(seed, card))
     log(f"[base] base-codec recipe phase {time.perf_counter() - t0:.1f} s")
+    return serve, train
+
+
+# -- the hires recipe: a LocalEnhancer at 2048x1024 ----------------------------------
+# artifacts/flagship_r3_hires/phase{A,B}/opt.json: the base-codec recipe's
+# assembly (raw semantics beside BASE_CODEC's decoded image, 39 channels) into a
+# LocalEnhancer (ngf 32: its global trunk at ngf 64 on the input pooled to
+# 1024x512, one enhancer of 3 res blocks at 2048x1024), batch 1, fp32, block
+# remat; phase A the GAN with the trunk frozen for niter_fix_global epochs,
+# phase B distortion only. Its base codec is BASE_CODEC, as in phase 9
+HIRES_H, HIRES_W = 1024, 2048
+HIRES_PREPROCESS = ("fixed", 2048, 2048, 2.0)
+K3_SITES["hiresA"] = K3_SITES["hiresB"] = 36  # the trunk's 27 and the enhancer's 9
+K3_BWD_SITES_BY_PHASE["hiresA"] = K3_BWD_SITES_BY_PHASE["hiresB"] = K3_BWD_SITES_HIRES
+K3_HIRES_FROZEN = (27 + 2 * 9, 9)  # K3 forward and backward a frozen step
+# kernel launches per decompress of a side-info-only stream: the fast path
+# re-aligns the enhancer's back (K1; the trunk has no back), in the kernel
+# configuration also both 156-channel heads (K1 feeding K4, N 256 and 128); the
+# standard path's K3 runs at all 36 norm sites
+HIRES_SERVE_LAUNCHES = {
+    "default fast path": {"s2d_realign_pad3": 1},
+    "kernel-config fast path": {"s2d_realign_pad3": 3, "head_conv_s2d": 2},
+    "kernel-config standard path": {"fused_instance_norm": 36},
+    "default standard path": {},
+}
+HIRES_FLAGS = ["--netG", "local", "--ngf", "32", "--n_local_enhancers", "1",
+               "--n_blocks_local", "3"]
+
+
+def use_hires(cfg, niter_fix_global: int = 0) -> None:
+    """The hires recipe's LocalEnhancer on ``cfg`` (use_base_codec's
+    assembly)."""
+    m = cfg.model
+    m.netG, m.ngf, m.n_local_enhancers, m.n_blocks_local = "local", 32, 1, 3
+    m.niter_fix_global = niter_fix_global
+    cfg.validate()
+
+
+def hires_configs():
+    """The hires recipe's serving configuration (bf16, the fast path) and
+    its kernel configuration."""
+    out = base_codec_configs()
+    for cfg in out:
+        use_hires(cfg)
+    return out
+
+
+def phase10_warmstart(src: Path, dst: Path) -> int:
+    """(0) Phase 9's phase-A weights (a global netG, ngf 64, 39 input
+    channels) re-nested by the warm-start module; returns the trunk's leaf
+    count, every source leaf but the tail's two."""
+    from jpdse_tpu_torch.train import warmstart
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        path = warmstart.main(["--src", str(src), "--dst", str(dst)])
+    params = torch.load(path, map_location="cpu", weights_only=True)
+    source = torch.load(src / "params_g.pt", map_location="cpu", weights_only=True)
+    trunk = [k for k in params if k.startswith("netG.global.")]
+    if len(trunk) != len(source) - 2 or len(params) != len(trunk) or any(
+            not torch.equal(params[k], source["netG." + k[len("netG.global."):]]) for k in trunk):
+        raise AssertionError(f"warm start: {len(trunk)} trunk leaves of {len(source)}")
+    log(f"[hires] warm start: {out.getvalue().strip()}")
+    return len(trunk)
+
+
+def phase10_steps(seed: int, steps: int, card: str) -> dict:
+    """(b) ``steps`` Trainer.steps of phase A in each configuration with the
+    global trunk frozen, then ``steps`` more after it is unfrozen, at
+    PyTorch's default precision: the median of each run after its first
+    step, images/s, peak memory, K3's launches per step, and one profiled
+    step of each. Returns the launch counts."""
+    from jpdse_tpu_torch.trainer import Trainer
+
+    cfg = flagship_train_config(False, seed, "hiresA")
+    batches = [train_batch(cfg, seed + 100 + i) for i in range(steps)]
+    launches, medians = {}, {}
+    for label, kernels in (("default", False), ("kernel config", True)):
+        torch.cuda.empty_cache()
+        trainer = Trainer(flagship_train_config(kernels, seed, "hiresA"), mode="train",
+                          device="cuda")
+        for frozen in (True, False):
+            if not frozen:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    trainer.maybe_unfreeze_global(trainer.cfg.model.niter_fix_global)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            times = []
+            for b in batches:
+                t0 = time.perf_counter()
+                metrics = trainer.step(b)
+                times.append((time.perf_counter() - t0) * 1e3)
+                if not all(np.isfinite(v) for v in metrics.values()):
+                    raise AssertionError(f"hires {label}: losses {metrics}")
+            state = "frozen" if frozen else "unfrozen"
+            launches[f"{label}, {state}"] = counts = read_counts()
+            want = (0, 0)
+            if kernels:
+                want = K3_HIRES_FROZEN if frozen else (72, 36)
+            if k3_per_step(counts, steps) != want:
+                raise AssertionError(f"hires {label}, {state}: K3 per step "
+                                     f"{k3_per_step(counts, steps)}, want {want}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            med = float(np.median(times[1:] if steps > 1 else times))
+            medians[label, state] = med
+            log(f"[hires] phase A, {label}, trunk {state}: steps (ms) "
+                f"{', '.join(f'{t:.1f}' for t in times)}; median after the first {med:.1f} ms, "
+                f"{1e3 / med:.3f} images/s; peak memory {peak:.2f} GiB; K3 per step forward "
+                f"{want[0]}, backward {want[1]}; convolutions in TF32 ({card})")
+            profile_step(f"hires phase A, {label}, trunk {state}", trainer, batches[-1], card)
+        del trainer
+    for state in ("frozen", "unfrozen"):
+        log(f"[hires] phase A, trunk {state}: kernel config step / default step: "
+            f"{medians['kernel config', state] / medians['default', state]:.3f} ({card})")
+    return launches
+
+
+def phase10_chain(seed: int, card: str, warm_src: Path) -> dict:
+    """(0) and (c): the warm start, then phase A through train.run.main in the
+    kernel configuration from it (--load_model), every trunk leaf restored,
+    the trunk frozen for its first epoch (niter_fix_global 2: the warm
+    start's sidecar says epoch 0, so the run starts at epoch 1, as the JAX
+    package's does) and trained in its second, 2 steps each on a synthetic
+    2048x1024 split: the trunk bit-equal to the warm start in the best-val
+    save after the first epoch, changed in save_dir/latest after the
+    second; then phase B restored from latest, every leaf matched. Counts
+    are set to 0 before each main and asserted after it. Returns them."""
+    from jpdse_tpu_torch.train import run
+    from jpdse_tpu_torch.train.checkpoint import PARAMS_FILE
+
+    launches = {}
+    images = 2
+    fwd, bwd = K3_HIRES_FROZEN
+    keep = ("epoch ", "val set avg", "saving model", "checkpoint", "restored",
+            "optimizer state", "now also")
+    with tempfile.TemporaryDirectory(prefix="jpdse_hires_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "cityscapes"
+        for split in ("train", "val"):
+            write_cityscapes(root, seed + 40 + (split == "train"), split)
+        n_trunk = phase10_warmstart(warm_src, tmp / "warm")
+        mode, load, crop, _ = HIRES_PREPROCESS
+        base = ["--dataset", "cityscapes", "--root_dir", str(root), "--no_generator_binarization",
+                "--normalize_std", "1", "--batch_size", "1", "--remat", "1",
+                "--seed", str(seed), "--num_workers", "2", "--max_recon_dump", "2",
+                "--max_dataset_size", str(images), "--fused_instance_norm", "1"]
+        base += BASE_FLAGS + HIRES_FLAGS
+        for prefix in ("", "val_"):
+            base += [f"--{prefix}preprocess_mode", mode, f"--{prefix}load_size", str(load),
+                     f"--{prefix}crop_size", str(crop)]
+        da, db = tmp / "phaseA", tmp / "phaseB"
+        runs = {
+            # validations after the load and after the frozen epoch, with the dump
+            "phase A from the warm start": (
+                base + ["--save_dir", str(da), "--num_epochs", "2", "--val_interval", "2",
+                        "--latest_interval", "1", "--niter_fix_global", "2", "--load_model",
+                        "--checkpoints_dir", str(tmp / "warm")],
+                images * (fwd + 72) + 3 * images * 36, images * (bwd + 36)),
+            "phase B from phase A": (
+                base + ["--save_dir", str(db), "--num_epochs", "1", "--val_interval", "5",
+                        "--no_d_gan_loss", "--no_g_gan_loss", "--no_gan_feat_loss",
+                        "--no_vgg_loss", "--schedule_lr", "1", "--lr_decay_patience", "3",
+                        "--load_model", "--checkpoints_dir", str(da / "latest")],
+                images * 36 + images * 72, images * 36),
+        }
+        for label, (argv, f, b) in runs.items():
+            torch.cuda.empty_cache()
+            result = {}
+
+            def main_run(argv=argv):
+                result["trainer"] = run.main(argv, device="cuda")
+
+            _, text, counts = run_entry(
+                label, "train.run.main", main_run,
+                {"fused_instance_norm": f, "fused_instance_norm_bwd": b}, per=1, tag="[hires]",
+                keep=keep)
+            launches[f"hires chain: {label}"] = counts
+            trainer = result.pop("trainer")
+            sizes = len(trainer.gan.codec.state_dict()) + len(trainer.gan.disc.state_dict())
+            if label.startswith("phase A"):
+                want = f"restored params from {tmp / 'warm'}: {n_trunk}/{sizes} leaves matched"
+                if want not in text or text.count("now also finetuning global generator") != 1:
+                    raise AssertionError(f"phase A: want '{want}' and one unfreeze")
+                warm = torch.load(tmp / "warm" / PARAMS_FILE, weights_only=True)
+                first = torch.load(da / PARAMS_FILE, weights_only=True)
+                second = torch.load(da / "latest" / PARAMS_FILE, weights_only=True)
+                epochs = [json.loads((d / "trainer_meta.json").read_text())["epoch"]
+                          for d in (da, da / "latest")]
+                weights = [k for k in warm if k.endswith("weight")]
+                held = all(torch.equal(first[k], warm[k]) for k in warm)
+                moved = sum(not torch.equal(second[k], warm[k]) for k in weights)
+                if epochs != [1, 2] or not held or moved != len(weights) or \
+                        trainer.steps_taken != 2 * images:
+                    raise AssertionError(f"phase A: epochs {epochs}, trunk held {held}, "
+                                         f"{moved} of {len(weights)} trunk weights moved after")
+                log(f"[hires] phase A restored {n_trunk} of {sizes} leaves from the warm start "
+                    f"(every global-trunk leaf but the tail); all {len(warm)} trunk leaves "
+                    f"bit-equal to it after the frozen epoch 1, all {moved} trunk weights "
+                    f"changed after epoch 2 ({card})")
+            else:
+                if f"restored params from {da / 'latest'}: {sizes}/{sizes} leaves matched" \
+                        not in text or trainer.steps_taken != 3 * images:
+                    raise AssertionError(f"phase B's restore: want {sizes}/{sizes}, steps "
+                                         f"{trainer.steps_taken}")
+                log(f"[hires] phase B restored all {sizes} leaves from phase A's latest state and "
+                    f"took {images} distortion-only steps ({card})")
+            del trainer
+    return launches
+
+
+def phase10_grouped(seed: int, card: str) -> dict:
+    """(f) A codec with a grouped netE (3 groups: nef 48 and a 96-bit code,
+    the flagship's nearest widths that 3 divides) whose output is averaged
+    over each instance, at 1024x512 on the standard path: the kernel
+    configuration (K3 at its 45 sites) against the default, fp32, TF32 off,
+    one decode. Returns the counts."""
+    import copy
+
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+
+    cfgs = []
+    for kernels in (False, True):
+        cfg = flagship_config(kernels=kernels)
+        m = cfg.model
+        m.netE_groups, m.nef, m.encoder_binarizer_out_channels = 3, 48, 96
+        m.inst_wise_pool, m.fast_inference = True, False
+        cfg.validate()
+        cfgs.append(cfg)
+    codec = SemanticCodec(cfgs[0], device="cuda", seed=seed, dtype=torch.float32)
+    fused = SemanticCodec(copy.deepcopy(cfgs[1]), device="cuda", seed=None, dtype=torch.float32)
+    fused.load_state_dict(codec.state_dict())
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in make_batch(seed + 80).items()}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = codec.decode(codec.prepare(batch))[0]
+            reset_counts()
+            got = fused.decode(fused.prepare(batch))[0]
+            counts = read_counts()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    check_image("grouped, instance-pooled netE codec, fp32 standard path with K3", got, want)
+    if {k: v for k, v in counts.items() if v} != {"fused_instance_norm": 45}:
+        raise AssertionError(f"grouped codec: launched {counts}")
+    log(f"[hires] grouped netE (3 groups) with inst_wise_pool: "
+        f"{sum(p.numel() for p in codec.parameters())} parameters; K3 45 a decode ({card})")
+    del codec, fused
+    torch.cuda.empty_cache()
+    return {"grouped netE codec: kernel-config standard path": counts}
+
+
+def phase10(seed: int, requests: int, steps: int, card: str, warm_src: Path) -> tuple:
+    """The hires recipe at full width: (a) one step's parity, (b) frozen and
+    unfrozen timed steps, (0) and (c) the warm start and the phase chain, (d)
+    serving at 2048x1024, (e) eval and deploy, (f) the grouped netE. Returns
+    (serving and eval counts, training counts)."""
+    t0 = time.perf_counter()
+    train = {f"hires train parity: {k}": v for k, v in
+             phase_train_parity(seed, card, phase="hiresA").items()}
+    train.update({f"hires train steps: {k}": v for k, v in
+                  phase10_steps(seed, steps, card).items()})
+    train.update(phase10_chain(seed, card, warm_src))
+    serve = phase9_serve(seed, requests, card, hires_configs(), HIRES_SERVE_LAUNCHES,
+                         (HIRES_H, HIRES_W), "[hires]", "hires")
+    _, kcfg = hires_configs()
+    serve.update(phase9_eval(seed, card, kcfg, HIRES_SERVE_LAUNCHES["kernel-config fast path"],
+                             2, HIRES_PREPROCESS, "[hires]", "hires"))
+    serve.update(phase10_grouped(seed, card))
+    log(f"[hires] hires recipe phase {time.perf_counter() - t0:.1f} s")
     return serve, train
 
 
@@ -2428,9 +2817,15 @@ def main() -> int:
     launches.update(phase8_g_binarized(args.seed, card))
     log(f"[phase1] phase-1 recipe and assemblies phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    serve9, train9 = phase9(args.seed, args.requests, args.train_steps, card)
-    launches.update(serve9)
-    train_launches.update(train9)
+    with tempfile.TemporaryDirectory(prefix="jpdse_warm_src_") as keep:
+        serve9, train9 = phase9(args.seed, args.requests, args.train_steps, card, Path(keep))
+        launches.update(serve9)
+        train_launches.update(train9)
+        torch.cuda.empty_cache()
+        serve10, train10 = phase10(args.seed, args.requests, args.train_steps, card,
+                                   Path(keep))
+    launches.update(serve10)
+    train_launches.update(train10)
     launches.update(train_launches)
     for e in entries:
         name = e["name"]

@@ -594,18 +594,21 @@ class NotPorted(NotImplementedError):
 
 def check_ported(cfg: Config) -> None:
     """Raise :class:`NotPorted`, naming the ROADMAP item (Queue 1) that
-    ports it, unless the port runs this configuration: a global netG fed by
-    any assembly of ``SemanticCodec._generator_input`` (learned, raw,
-    no-label, no-feat, sem_masking, use_netE_output, zero_*), with the
-    encoders or the generator binarized or neither, over ungrouped
-    instance-norm encoders, with or without a base codec's decoded image
-    and reduced-rate semantics."""
+    ports it, unless the port runs this configuration: a global netG or a
+    LocalEnhancer fed by any assembly of ``SemanticCodec._generator_input``
+    (learned, raw, no-label, no-feat, sem_masking, use_netE_output,
+    zero_*), with the encoders or the generator binarized or neither, over
+    grouped or ungrouped encoders with or without instance-wise pooling,
+    instance or identity norms, with or without a base codec's decoded
+    image and reduced-rate semantics."""
     m = cfg.model
-    if m.netG != "global":
-        raise NotPorted(f"netG {m.netG!r} (LocalEnhancer) is ROADMAP Queue 1 item 10")
-    if m.norm != "instance" or m.netE_groups != 1 or m.inst_wise_pool:
-        raise NotPorted("batch / identity norms, grouped encoders and instance-wise "
-                        "pooling are ROADMAP Queue 1 item 10")
+    if m.netG not in ("global", "local"):
+        raise ValueError(f"unknown netG {m.netG!r}")
+    if m.norm == "batch":
+        raise NotPorted("the batch norm (running statistics through the step, checkpoints "
+                        "and eval) is ROADMAP Queue 1 item 10's remainder")
+    if m.norm not in ("instance", "identity"):
+        raise NotImplementedError(f"norm [{m.norm}] not found")
     if m.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
 
@@ -619,9 +622,6 @@ def check_train_ported(cfg: Config) -> None:
     if o.fast_train:
         raise NotPorted("optim.fast_train (the differentiable s2d train decode) is ROADMAP "
                         "Queue 1 item 9")
-    if m.niter_fix_global > 0:
-        raise NotPorted("model.niter_fix_global (the LocalEnhancer's frozen global phase) is "
-                        "ROADMAP Queue 1 item 10")
     if m.use_dropout:
         raise NotPorted("model.use_dropout (Dropout in the res blocks, with an explicit "
                         "generator) is ROADMAP Queue 1 item 7's remainder")

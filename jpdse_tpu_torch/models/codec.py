@@ -5,7 +5,11 @@ the generator's input assembled from their outputs, the raw semantics or
 the raw (or semantically masked) image, or the base codec's decoded image
 (``codec.use_compressed``), as ``_generator_input`` (:160-208) assembles it.
 The encoders, or the generator's bottleneck, may carry a binarizer, whose
-codes ``get_codes_shaped`` returns and ``decode_from_codes`` decodes."""
+codes ``get_codes_shaped`` returns and ``decode_from_codes`` decodes. netG
+is a ``GlobalGenerator`` or, with ``model.netG`` 'local', a
+``LocalEnhancer`` (:105-123), which has no binarizer; netE may be grouped
+(``model.netE_groups``) and average its output over each instance
+(``model.inst_wise_pool``)."""
 
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from jpdse_tpu_torch.config import Config, check_ported
-from jpdse_tpu_torch.models.generator import Encoder, GlobalGenerator
+from jpdse_tpu_torch.models.generator import Encoder, GlobalGenerator, LocalEnhancer
 from jpdse_tpu_torch.models.layers import build
 from jpdse_tpu_torch.ops.semantics import degrade_ids, prepare_semantics, sem_mask
 from jpdse_tpu_torch.platform import resolve_device
@@ -102,25 +106,35 @@ class SemanticCodec(nn.Module):
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
         remat = cfg.optim.remat and cfg.optim.remat_granularity == "block"
         self.remat_decode = cfg.optim.remat and cfg.optim.remat_granularity == "decode"
-        self.netG = build(lambda: GlobalGenerator(
-            cfg.netG_input_nc, cfg.data.num_out_channels, m.ngf,
-            m.n_downsample_global, m.n_blocks_global, m.fused_instance_norm, remat,
-            binarize=not m.no_generator_binarization,
-            binarizer_out_channels=m.generator_binarizer_out_channels,
-            bin_before_res=m.bin_generator_before_res), dev, gen)
+        if m.netG == "local":
+            if not m.no_generator_binarization:
+                raise ValueError("local enhancers do not support binarization "
+                                 "(pix2pixHD_model.py:68 help text)")
+            self.netG = build(lambda: LocalEnhancer(
+                cfg.netG_input_nc, cfg.data.num_out_channels, m.ngf, m.n_downsample_global,
+                m.n_blocks_global, m.n_local_enhancers, m.n_blocks_local, m.norm,
+                fused=m.fused_instance_norm, remat=remat), dev, gen)
+        else:
+            self.netG = build(lambda: GlobalGenerator(
+                cfg.netG_input_nc, cfg.data.num_out_channels, m.ngf,
+                m.n_downsample_global, m.n_blocks_global, m.fused_instance_norm, remat,
+                binarize=not m.no_generator_binarization,
+                binarizer_out_channels=m.generator_binarizer_out_channels,
+                bin_before_res=m.bin_generator_before_res, norm=m.norm), dev, gen)
         self.netE = self.netE4label = None
         if cfg.use_netE:
             self.netE = build(lambda: Encoder(
                 cfg.netE_input_nc, m.feat_num, m.nef, m.n_downsample_E,
                 binarize=not m.no_encoder_binarization,
                 binarizer_out_channels=m.encoder_binarizer_out_channels,
-                fused=m.fused_instance_norm, remat=remat), dev, gen)
+                fused=m.fused_instance_norm, remat=remat, norm=m.norm, groups=m.netE_groups,
+                inst_wise_pool=m.inst_wise_pool, num_segments=m.max_instance_id), dev, gen)
         if cfg.use_netE4label:
             self.netE4label = build(lambda: Encoder(
                 cfg.netE4label_input_nc, m.label_encoder_out_channels, m.ne4lf,
                 m.n_downsample_E4label, binarize=not m.no_label_encoder_binarization,
                 binarizer_out_channels=m.label_encoder_binarizer_out_channels,
-                fused=m.fused_instance_norm, remat=remat), dev, gen)
+                fused=m.fused_instance_norm, remat=remat, norm=m.norm), dev, gen)
 
     @property
     def label_coded(self) -> bool:
@@ -168,7 +182,8 @@ class SemanticCodec(nn.Module):
         feat = None
         if not m.no_feat:
             vis = self._vis(inputs)
-            feat = vis if self.netE is None else self.netE(vis, deterministic, generator)
+            feat = vis if self.netE is None else self.netE(vis, deterministic, generator,
+                                                           inputs["instance_ids"])
         concat, input_label = assemble(self.cfg, input_label, feat)
         return concat, input_label, feat
 
@@ -265,9 +280,11 @@ class SemanticCodec(nn.Module):
             if self.feat_coded:
                 feat = self.netE.decode_from_code(pm1(codes[i]))
                 i += 1
+                if m.inst_wise_pool:
+                    raise ValueError("inst_wise_pool needs instance ids at decode time")
             else:
                 need_side("visual features (base-codec payload)")
                 feat = self._vis(side_inputs)
                 if self.netE is not None:
-                    feat = self.netE(feat)
+                    feat = self.netE(feat, inst=side_inputs.get("instance_ids"))
         return self.netG(_concat(self.cfg, input_label, feat))

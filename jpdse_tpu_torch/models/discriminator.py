@@ -17,18 +17,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from jpdse_tpu_torch.config import NotPorted
-from jpdse_tpu_torch.models.layers import Conv, avg_pool_3s2, build, instance_norm, leaky_relu
-
-
-def _norm(kind: str):
-    if kind == "instance":
-        return instance_norm
-    if kind == "identity":
-        return lambda x: x
-    if kind == "batch":
-        raise NotPorted("the discriminator's batch norm is ROADMAP Queue 1 item 10")
-    raise NotImplementedError(f"norm [{kind}] not found")
+from jpdse_tpu_torch.models.layers import Conv, avg_pool_3s2, build, leaky_relu, norm_fn
 
 
 class NLayerDiscriminator(nn.Module):
@@ -38,7 +27,7 @@ class NLayerDiscriminator(nn.Module):
     def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3, norm: str = "instance",
                  use_sigmoid: bool = False):
         super().__init__()
-        self.norm, self.use_sigmoid, self.n_layers = _norm(norm), use_sigmoid, n_layers
+        self.norm, self.use_sigmoid, self.n_layers = norm_fn(norm), use_sigmoid, n_layers
         kw, padw = 4, 2
         widths = [ndf]
         for _ in range(1, n_layers + 1):

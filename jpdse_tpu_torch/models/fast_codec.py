@@ -1,14 +1,15 @@
 """Space-to-depth inference path, the port of
-``jpdse_tpu/models/fast_codec.py::FastCodec`` for global generators:
-``decode``, ``get_codes_shaped`` and ``decode_from_codes`` (with the
-stream's side info as ``side_batch``) over the weights
-of a ``SemanticCodec``, with netG and each encoder the configuration has as
+``jpdse_tpu/models/fast_codec.py::FastCodec`` for global generators and
+LocalEnhancers (``_FastLocalG``): ``decode``, ``get_codes_shaped`` and
+``decode_from_codes`` (with the stream's side info as ``side_batch``) over
+the weights of a ``SemanticCodec``, with netG and each encoder the configuration has as
 an s2d ``_FastTrunk``, and the generator's input assembled as the standard
 path assembles it. The kernel switches (``cfg.model.fast``, env overrides
 applied) are resolved once, at construction, and passed to every trunk.
 
-``sem_masking`` is refused, as the JAX package refuses it; the standard
-path serves it. The ablations (``zero_*``, ``use_netE_output``) are applied
+``sem_masking``, a grouped netE, ``inst_wise_pool`` and norms other than
+the instance norm are refused, as the JAX package refuses them; the
+standard path serves them. The ablations (``zero_*``, ``use_netE_output``) are applied
 as ``SemanticCodec`` applies them. ``fast.s2d_e2e`` is carried as data: the
 trunk inputs are assembled in the fine domain either way."""
 
@@ -20,13 +21,9 @@ import torch
 
 from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.codec import _concat, assemble, compute_dtype, prepare_inputs
-from jpdse_tpu_torch.models.fast_trunk import _FastTrunk
+from jpdse_tpu_torch.models.fast_trunk import _FastLocalG, _FastTrunk, _sub
 from jpdse_tpu_torch.platform import resolve_device
 from jpdse_tpu_torch.train.step import raw_side_inputs
-
-
-def _sub(state: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
-    return {k[len(prefix) + 1:]: v for k, v in state.items() if k.startswith(prefix + ".")}
 
 
 class FastCodec:
@@ -39,9 +36,10 @@ class FastCodec:
         cfg.validate()
         check_ported(cfg)
         m = cfg.model
-        if m.sem_masking:
-            raise ValueError("FastCodec does not run sem_masking; the standard path "
-                             "(SemanticCodec) serves it")
+        if m.sem_masking or m.netE_groups != 1 or m.inst_wise_pool or m.norm != "instance":
+            raise ValueError("FastCodec runs ungrouped instance-norm configurations without "
+                             "sem_masking or inst_wise_pool; the standard path (SemanticCodec) "
+                             "serves the others")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype or compute_dtype(cfg)
@@ -55,7 +53,13 @@ class FastCodec:
         g_bin = "none"
         if not m.no_generator_binarization:
             g_bin = "before_res" if m.bin_generator_before_res else "after_res"
-        self.netG = trunk("netG", m.n_downsample_global, m.n_blocks_global, g_bin)
+        if m.netG == "local":
+            # a LocalEnhancer has no binarizer (SemanticCodec raises for one)
+            self.netG = _FastLocalG(_sub(state, "netG"), m.n_downsample_global,
+                                    m.n_blocks_global, m.n_local_enhancers, m.n_blocks_local,
+                                    self.dtype, self.device, fp)
+        else:
+            self.netG = trunk("netG", m.n_downsample_global, m.n_blocks_global, g_bin)
         self.netE = self.netE4label = None
         if cfg.use_netE:
             self.netE = trunk("netE", m.n_downsample_E, 0,

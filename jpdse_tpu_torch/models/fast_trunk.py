@@ -1,5 +1,7 @@
-"""s2d-transformed trunk forward, the port of
-``jpdse_tpu/models/fast_trunk.py::_FastTrunk`` for global trunks.
+"""s2d-transformed trunk forwards, the port of
+``jpdse_tpu/models/fast_trunk.py``: ``_FastTrunk`` for one GlobalGenerator
+or Encoder trunk, and ``_FastLocalG`` (:454-505), the LocalEnhancer pyramid
+built of them.
 
 The head 7x7 conv, the first stride-2 downsample, the last transposed conv
 and the 7x7 tail run in the space-to-depth domain with weights transformed
@@ -15,6 +17,15 @@ rows and its channels padded to a multiple of 8 (zero weights for the
 padding); ``front_realign`` enters the s2d domain of the other heads through
 kernel K2 (ops/realign.py ``s2d_pad3``). ``norm_shift`` selects the shifted
 moments of the s2d InstanceNorms (ops/s2d.py ``instance_norm_s2d``).
+
+A trunk's stages are there as its state has them (JAX: fast_trunk.py:84-85,
+140-184): no ``head`` means no front (the trunk starts from a given feature
+map), no ``tail`` no s2d back stage, every ``up`` then running as a plain
+transposed conv. So the enhancer's global trunk (no tail) ends in plain
+transposed convs, each enhancer's downsample stack is a front-only trunk
+and its upsample stack a back-only trunk, the last one's with its tail:
+the same transforms and kernel switches as a global trunk's, at the
+enhancer's full resolution.
 """
 
 from __future__ import annotations
@@ -26,7 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from jpdse_tpu_torch.config import FastPathConfig
-from jpdse_tpu_torch.models.layers import conv_transpose_nhwc, instance_norm, reflect_pad
+from jpdse_tpu_torch.models.layers import (
+    avg_pool_3s2,
+    conv_transpose_nhwc,
+    instance_norm,
+    reflect_pad,
+)
 from jpdse_tpu_torch.ops.head_conv import head_conv_extra_rows, head_conv_s2d, padded_channels
 from jpdse_tpu_torch.ops.realign import s2d_pad3, s2d_realign_pad3
 from jpdse_tpu_torch.ops.s2d import (
@@ -48,18 +64,35 @@ def _pad_hw(h: torch.Tensor, top: int, bottom: int, left: int, right: int) -> to
     return F.pad(h, (0, 0, left, right, top, bottom))
 
 
+def _sub(state: Dict[str, torch.Tensor], prefix: str, rename=()) -> Dict[str, torch.Tensor]:
+    """The entries of ``state`` under ``prefix.``, without it, each key's
+    leading ``old.`` replaced by ``new.`` for (old, new) in ``rename``."""
+    out = {}
+    for k, v in state.items():
+        if k.startswith(prefix + "."):
+            k = k[len(prefix) + 1:]
+            for old, new in rename:
+                if k.startswith(old + "."):
+                    k = new + k[len(old):]
+            out[k] = v
+    return out
+
+
 class _FastTrunk:
     """Transformed weights + staged forward for one GlobalGenerator or
     Encoder trunk. ``state``: the trunk's state dict (keys as in
     ``models/generator.py``). ``binarize``: 'none', 'mid' (an encoder's
     binarizer between its downs and ups), or a generator's bottleneck
     binarizer 'before_res' or 'after_res' its residual blocks. ``fp``: the
-    resolved kernel switches."""
+    resolved kernel switches. The stages follow from the keys of ``state``
+    (the module docstring)."""
 
     def __init__(self, state: Dict[str, torch.Tensor], n_down: int, n_blocks: int,
                  binarize: str, dtype: torch.dtype, device, fp: FastPathConfig):
         self.n_down, self.n_res, self.binarize = n_down, n_blocks, binarize
         self.dtype, self.fp = dtype, fp
+        self.has_front = "head.conv.conv.weight" in state
+        self.has_back = "tail.conv.weight" in state
 
         def cl(t):  # a weight in the compute dtype, channels-last like the activations
             return t.detach().to(device=device, dtype=dtype).contiguous(
@@ -72,23 +105,26 @@ class _FastTrunk:
             return hwio_to_oihw(w, device, dtype)
 
         w: Dict[str, torch.Tensor] = {}
-        wp_head = conv_s1_weights_to_s2d(oihw_to_hwio(state["head.conv.conv.weight"]))
-        self.head_kp, _, c4, _ = wp_head.shape
-        head = self.fp.head_pallas
-        # K4 for heads whose s2d input is wide (JAX: fast_trunk.py:114-129)
-        self.head_fold = "pallas" if head == "force" or (head == "1" and c4 >= 64) else "none"
-        if self.head_fold == "pallas":
-            # K4 reads padded_channels(c4) input channels; the padding's weights are 0
-            self.head_c = padded_channels(c4)
-            wp_pad = np.pad(wp_head, ((0, 0), (0, 0), (0, self.head_c - c4), (0, 0)))
-            w["head_w"] = torch.from_numpy(np.ascontiguousarray(weights_fold_w(wp_pad).reshape(
-                self.head_kp, self.head_kp * self.head_c, -1))).to(device=device, dtype=dtype)
-        else:
-            w["head_w"] = s2d_w(wp_head)
-        w["head_b"] = vec(state["head.conv.conv.bias"].repeat(4))
-        w["down0_w"] = s2d_w(conv_s2_weights_from_s2d_nopad(
-            oihw_to_hwio(state["down.0.conv.conv.weight"])))
-        w["down0_b"] = vec(state["down.0.conv.conv.bias"])
+        self.head_fold = "none"
+        if self.has_front:
+            wp_head = conv_s1_weights_to_s2d(oihw_to_hwio(state["head.conv.conv.weight"]))
+            self.head_kp, _, c4, _ = wp_head.shape
+            head = self.fp.head_pallas
+            # K4 for heads whose s2d input is wide (JAX: fast_trunk.py:114-129)
+            self.head_fold = "pallas" if head == "force" or (head == "1" and c4 >= 64) else "none"
+            if self.head_fold == "pallas":
+                # K4 reads padded_channels(c4) input channels; the padding's weights are 0
+                self.head_c = padded_channels(c4)
+                wp_pad = np.pad(wp_head, ((0, 0), (0, 0), (0, self.head_c - c4), (0, 0)))
+                w["head_w"] = torch.from_numpy(np.ascontiguousarray(
+                    weights_fold_w(wp_pad).reshape(self.head_kp, self.head_kp * self.head_c, -1))
+                ).to(device=device, dtype=dtype)
+            else:
+                w["head_w"] = s2d_w(wp_head)
+            w["head_b"] = vec(state["head.conv.conv.bias"].repeat(4))
+            w["down0_w"] = s2d_w(conv_s2_weights_from_s2d_nopad(
+                oihw_to_hwio(state["down.0.conv.conv.weight"])))
+            w["down0_b"] = vec(state["down.0.conv.conv.bias"])
         for i in range(1, n_down):
             w[f"down{i}_w"] = cl(state[f"down.{i}.conv.conv.weight"])
             w[f"down{i}_b"] = vec(state[f"down.{i}.conv.conv.bias"])
@@ -96,17 +132,22 @@ class _FastTrunk:
             for j in (1, 2):
                 w[f"res{i}_w{j}"] = cl(state[f"res.{i}.conv{j}.conv.weight"])
                 w[f"res{i}_b{j}"] = vec(state[f"res.{i}.conv{j}.conv.bias"])
-        for i in range(n_down - 1):
+        # plain upsamples: all but the last with a back, else every one there is
+        n_up = n_down - 1 if self.has_back else n_down
+        self.n_mid_up = next((i for i in range(n_up) if f"up.{i}.deconv.weight" not in state),
+                             n_up)
+        for i in range(self.n_mid_up):
             w[f"up{i}_w"] = vec(state[f"up.{i}.deconv.weight"])
             w[f"up{i}_b"] = vec(state[f"up.{i}.deconv.bias"])
-        # last upsample straight into s2d form: g is the effective correlation
-        # kernel, the (in, out, kh, kw) ConvTranspose weight as (kh, kw, in, out), flipped
-        wl = state[f"up.{n_down - 1}.deconv.weight"].detach().float().cpu().numpy()
-        g = np.flip(wl.transpose(2, 3, 0, 1), axis=(0, 1))
-        w["uplast_w"] = s2d_w(convT_s2_weights_to_s2d(np.ascontiguousarray(g)))
-        w["uplast_b"] = vec(state[f"up.{n_down - 1}.deconv.bias"].repeat(4))
-        w["tail_w"] = s2d_w(conv_s1_weights_to_s2d(oihw_to_hwio(state["tail.conv.weight"])))
-        w["tail_b"] = vec(state["tail.conv.bias"].repeat(4))
+        if self.has_back:
+            # last upsample straight into s2d form: g is the effective correlation kernel,
+            # the (in, out, kh, kw) ConvTranspose weight as (kh, kw, in, out), flipped
+            wl = state[f"up.{n_down - 1}.deconv.weight"].detach().float().cpu().numpy()
+            g = np.flip(wl.transpose(2, 3, 0, 1), axis=(0, 1))
+            w["uplast_w"] = s2d_w(convT_s2_weights_to_s2d(np.ascontiguousarray(g)))
+            w["uplast_b"] = vec(state[f"up.{n_down - 1}.deconv.bias"].repeat(4))
+            w["tail_w"] = s2d_w(conv_s1_weights_to_s2d(oihw_to_hwio(state["tail.conv.weight"])))
+            w["tail_b"] = vec(state["tail.conv.bias"].repeat(4))
         if binarize != "none":
             w["bin_w"] = cl(state["binarizer.conv.weight"])
         self.weights = w
@@ -160,7 +201,7 @@ class _FastTrunk:
 
     def mid_up(self, h: torch.Tensor) -> torch.Tensor:
         w = self.weights
-        for i in range(self.n_down - 1):
+        for i in range(self.n_mid_up):
             h = torch.relu(instance_norm(conv_transpose_nhwc(h, w[f"up{i}_w"], w[f"up{i}_b"])))
         return h
 
@@ -174,13 +215,15 @@ class _FastTrunk:
 
     # -- full passes --------------------------------------------------------
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.mid_down(self.front(x))
+        h = self.front(x) if self.has_front else x.to(self.dtype)
+        h = self.mid_down(h)
         if self.binarize in ("mid", "before_res"):
             h = self.apply_binarizer(h)
         h = self.res_blocks(h)
         if self.binarize == "after_res":
             h = self.apply_binarizer(h)
-        return self.back(self.mid_up(h))
+        h = self.mid_up(h)
+        return self.back(h) if self.has_back else h
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Fine input -> {-1, 0, +1} code (through the binarizer)."""
@@ -199,3 +242,37 @@ class _FastTrunk:
         if self.binarize == "before_res":
             h = self.res_blocks(h)
         return self.back(self.mid_up(h))
+
+
+class _FastLocalG:
+    """The LocalEnhancer pyramid over s2d trunks (``generator.py:181-261``):
+    the global trunk without its tail on the input pooled n_local times,
+    then per enhancer its front-only downsample trunk (``c7`` as the head,
+    ``d1`` as down 0) on the input at its level, added to the previous
+    output, through its back-only upsample trunk (its res blocks, ``up`` as
+    up 0, and in the last enhancer the tail). ``state``: netG's state dict."""
+
+    binarize = "none"
+
+    def __init__(self, state: Dict[str, torch.Tensor], n_down: int, n_blocks: int,
+                 n_local: int, n_blocks_local: int, dtype: torch.dtype, device,
+                 fp: FastPathConfig):
+        self.n_local, self.dtype = n_local, dtype
+        self.glob = _FastTrunk(_sub(state, "global"), n_down, n_blocks, "none", dtype, device,
+                               fp)
+        self.downs = [_FastTrunk(_sub(state, f"local{n}_down", (("c7", "head"), ("d1", "down.0"))),
+                                 1, 0, "none", dtype, device, fp)
+                      for n in range(1, n_local + 1)]
+        self.ups = [_FastTrunk(_sub(state, f"local{n}_up", (("up", "up.0"),)), 1,
+                               n_blocks_local, "none", dtype, device, fp)
+                    for n in range(1, n_local + 1)]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        pyramid = [x.to(self.dtype)]
+        for _ in range(self.n_local):
+            pyramid.append(avg_pool_3s2(pyramid[-1]))
+        h = self.glob(pyramid[-1])
+        for n in range(self.n_local):
+            d = self.downs[n].front(pyramid[self.n_local - 1 - n])
+            h = self.ups[n](d + h)
+        return h

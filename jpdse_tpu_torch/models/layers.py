@@ -8,11 +8,13 @@ view, which on an NHWC-contiguous tensor is the channels-last layout cuDNN
 takes without a copy. Weights are cast to the activation's dtype at the call,
 as Flax's ``dtype=`` does.
 
-``remat`` on a block (``ConvNormAct``, ``ConvTransposeNormAct``,
-``ResnetBlock``) recomputes its forward in the backward instead of keeping
-its activations, the twin of the JAX package's block-granular ``nn.remat``
-(``jpdse_tpu/models/generator.py:58-68``); it acts only where autograd
-records the call.
+``norm`` is 'instance' or 'identity' (``Norm``, ``layers.py:41-62``); the
+batch norm raises ``NotPorted``. Convolutions take ``groups`` as Flax's
+``feature_group_count``. ``remat`` on a block (``ConvNormAct``,
+``ConvTransposeNormAct``, ``ResnetBlock``) recomputes its forward in the
+backward instead of keeping its activations, the twin of the JAX package's
+block-granular ``nn.remat`` (``jpdse_tpu/models/generator.py:58-68``); it
+acts only where autograd records the call.
 """
 
 from __future__ import annotations
@@ -26,22 +28,24 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from jpdse_tpu_torch.config import NotPorted
 from jpdse_tpu_torch.ops.instance_norm import fused_instance_norm
 
 
-def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0):
+def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
     """F.conv2d on an NHWC tensor with an OIHW weight; returns NHWC."""
     b = None if b is None else b.to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, stride, padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, stride, padding, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
-def conv_transpose_nhwc(x, w, b=None):
+def conv_transpose_nhwc(x, w, b=None, groups: int = 1):
     """ConvTranspose2d(k3, s2, p1, output_padding=1) on NHWC with the
-    (in, out, kh, kw) weight; equals Flax's input-dilated correlation with
-    the flipped kernel."""
+    (in, out/groups, kh, kw) weight; equals Flax's input-dilated correlation
+    with the flipped kernel."""
     b = None if b is None else b.to(x.dtype)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, 2, 1, output_padding=1)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, 2, 1, output_padding=1,
+                           groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -64,12 +68,52 @@ def reflect_pad(x, pad: int):
     return reflect_pad_hw(x, pad, pad, pad, pad)
 
 
+def replicate_pad(x, pad: int):
+    """nn.ReplicationPad2d(pad), NHWC: the edge row and column repeated."""
+    x = x.index_select(1, torch.arange(-pad, x.shape[1] + pad, device=x.device)
+                       .clamp(0, x.shape[1] - 1))
+    return x.index_select(2, torch.arange(-pad, x.shape[2] + pad, device=x.device)
+                          .clamp(0, x.shape[2] - 1))
+
+
 def instance_norm(x, eps: float = 1e-5):
     """InstanceNorm2d(affine=False): fp32 statistics (float64 for a float64
     input) over (H, W), biased variance."""
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     var, mean = torch.var_mean(x32, dim=(1, 2), keepdim=True, unbiased=False)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def norm_fn(kind: str):
+    """The norm of ``Norm(kind)`` as a function of the activation:
+    InstanceNorm or the identity; the batch norm raises ``NotPorted``."""
+    if kind == "instance":
+        return instance_norm
+    if kind == "identity":
+        return lambda x: x
+    if kind == "batch":
+        raise NotPorted("the batch norm (running statistics through the step, checkpoints "
+                        "and eval) is ROADMAP Queue 1 item 10's remainder")
+    raise NotImplementedError(f"norm [{kind}] not found")
+
+
+def instance_wise_avg_pool(feats, inst, num_segments: int):
+    """Every pixel's features replaced by the mean features of its instance
+    (``layers.py:323-349``): ids clipped to [0, num_segments - 1], segment
+    sums and counts in fp32 by ``index_add_``, one cast to feats' dtype.
+    feats (B, H, W, C); inst (B, H, W) or (B, H, W, 1) integer ids."""
+    if inst.ndim == 4:
+        inst = inst[..., 0]
+    b, h, w, c = feats.shape
+    acc = torch.promote_types(feats.dtype, torch.float32)
+    ids = inst.reshape(b, h * w).long().clamp(0, num_segments - 1)
+    flat = feats.reshape(b, h * w, c).to(acc)
+    out = []
+    for f, i in zip(flat, ids):
+        sums = f.new_zeros((num_segments, c)).index_add_(0, i, f)
+        counts = f.new_zeros(num_segments).index_add_(0, i, f.new_ones(h * w))
+        out.append((sums / counts.clamp_min(1.0)[:, None]).index_select(0, i))
+    return torch.stack(out).reshape(b, h, w, c).to(feats.dtype)
 
 
 def leaky_relu(x, negative_slope: float = 0.2):
@@ -125,24 +169,27 @@ class Conv(nn.Module):
     """torch-style Conv2d (zero padding), NHWC."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, bias: bool = True):
+                 padding: int = 0, bias: bool = True, groups: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding, bias=bias)
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding, bias=bias,
+                              groups=groups)
 
     def forward(self, x):
         c = self.conv
-        return conv_nhwc(x, c.weight, c.bias, c.stride, c.padding)
+        return conv_nhwc(x, c.weight, c.bias, c.stride, c.padding, c.groups)
 
 
 class ConvNormAct(nn.Module):
-    """[reflect pad] -> conv -> InstanceNorm -> ReLU; with ``fused`` the
-    norm and ReLU are one call to kernel K3."""
+    """[reflect pad] -> conv -> norm -> ReLU; with ``fused`` an instance
+    norm and the ReLU are one call to kernel K3."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, reflect: int = 0, fused: bool = False, remat: bool = False):
+                 padding: int = 0, reflect: int = 0, fused: bool = False, remat: bool = False,
+                 groups: int = 1, norm: str = "instance"):
         super().__init__()
-        self.reflect, self.fused, self.remat = reflect, fused, remat
-        self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding)
+        self.reflect, self.remat, self.norm = reflect, remat, norm_fn(norm)
+        self.fused = fused and norm == "instance"
+        self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding, groups=groups)
 
     def forward(self, x):
         return remat_call(self.remat, self._forward, x)
@@ -152,49 +199,63 @@ class ConvNormAct(nn.Module):
             x = reflect_pad(x, self.reflect)
         if self.fused:
             return _fused_norm(self.conv(x), relu=True)
-        return torch.relu(instance_norm(self.conv(x)))
+        return torch.relu(self.norm(self.conv(x)))
 
 
 class ConvTransposeNormAct(nn.Module):
-    """ConvTranspose2d(k3, s2, p1, op1) -> InstanceNorm -> ReLU (one K3 call
-    with ``fused``). Also serves as the Encoder's
-    ``GroupedConvTransposeNormAct`` at groups=1, the only grouping ported."""
+    """ConvTranspose2d(k3, s2, p1, op1) -> norm -> ReLU (one K3 call with
+    ``fused`` and an instance norm); with ``groups`` it is also the
+    Encoder's ``GroupedConvTransposeNormAct`` (``generator.py:394-411``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, fused: bool = False, remat: bool = False):
+    def __init__(self, in_ch: int, out_ch: int, fused: bool = False, remat: bool = False,
+                 groups: int = 1, norm: str = "instance"):
         super().__init__()
-        self.fused, self.remat = fused, remat
-        self.deconv = nn.ConvTranspose2d(in_ch, out_ch, 3, 2, 1, output_padding=1)
+        self.remat, self.norm = remat, norm_fn(norm)
+        self.fused = fused and norm == "instance"
+        self.deconv = nn.ConvTranspose2d(in_ch, out_ch, 3, 2, 1, output_padding=1, groups=groups)
 
     def forward(self, x):
         return remat_call(self.remat, self._forward, x)
 
     def _forward(self, x):
-        h = conv_transpose_nhwc(x, self.deconv.weight, self.deconv.bias)
+        d = self.deconv
+        h = conv_transpose_nhwc(x, d.weight, d.bias, d.groups)
         if self.fused:
             return _fused_norm(h, relu=True)
-        return torch.relu(instance_norm(h))
+        return torch.relu(self.norm(h))
 
 
 class ResnetBlock(nn.Module):
-    """pix2pixHD residual block: [pad1 conv3 norm relu pad1 conv3 norm] + x.
-    With ``fused`` each norm is one K3 call, the second taking the skip as
-    its residual."""
+    """pix2pixHD residual block: [pad1 conv3 norm relu pad1 conv3 norm] + x,
+    the pad by ``padding_type``: 'reflect', 'replicate' or 'zero' (the
+    convs' own padding). With ``fused`` and an instance norm each norm is
+    one K3 call, the second taking the skip as its residual."""
 
-    def __init__(self, dim: int, fused: bool = False, remat: bool = False):
+    def __init__(self, dim: int, fused: bool = False, remat: bool = False,
+                 padding_type: str = "reflect", norm: str = "instance"):
         super().__init__()
-        self.fused, self.remat = fused, remat
-        self.conv1 = Conv(dim, dim, 3)
-        self.conv2 = Conv(dim, dim, 3)
+        self.remat, self.norm = remat, norm_fn(norm)
+        self.fused = fused and norm == "instance"
+        pads = {"reflect": reflect_pad, "replicate": replicate_pad, "zero": None}
+        if padding_type not in pads:
+            raise NotImplementedError(f"padding [{padding_type}]")
+        self.pad = pads[padding_type]
+        p = 1 if self.pad is None else 0
+        self.conv1 = Conv(dim, dim, 3, padding=p)
+        self.conv2 = Conv(dim, dim, 3, padding=p)
 
     def forward(self, x):
         return remat_call(self.remat, self._forward, x)
 
+    def _padded(self, x):
+        return x if self.pad is None else self.pad(x, 1)
+
     def _forward(self, x):
         if self.fused:
-            h = _fused_norm(self.conv1(reflect_pad(x, 1)), relu=True)
-            return _fused_norm(self.conv2(reflect_pad(h, 1)), residual=x)
-        h = torch.relu(instance_norm(self.conv1(reflect_pad(x, 1))))
-        return x + instance_norm(self.conv2(reflect_pad(h, 1)))
+            h = _fused_norm(self.conv1(self._padded(x)), relu=True)
+            return _fused_norm(self.conv2(self._padded(h)), residual=x)
+        h = torch.relu(self.norm(self.conv1(self._padded(x))))
+        return x + self.norm(self.conv2(self._padded(h)))
 
 
 def build(make, device, generator: Optional[torch.Generator]) -> nn.Module:

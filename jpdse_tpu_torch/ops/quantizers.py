@@ -1,6 +1,6 @@
 """Binarizer and the sign with a straight-through gradient, the port of
 ``jpdse_tpu/ops/quantizers.py`` (``stochastic_sign_ste`` :28-47,
-``deterministic_sign_ste`` :50-58, ``Binarizer`` :84). The stochastic sign
+``deterministic_sign_ste`` :50-58, ``Binarizer`` :84-107). The stochastic sign
 takes its uniform draws from an explicit ``torch.Generator``; the JAX
 package's ``S2HVQ``, ``S2HVQV2`` and ``rounded_identity`` are ROADMAP Queue
 1 item 7's remainder (no model of either package uses them).
@@ -50,16 +50,17 @@ def deterministic_sign_ste(x: torch.Tensor) -> torch.Tensor:
 
 
 class Binarizer(nn.Module):
-    """1x1 bias-free conv + tanh + sign, NHWC: the sign in evaluation, the
-    stochastic sign in training (``deterministic`` False)."""
+    """1x1 bias-free (optionally grouped) conv + tanh + sign, NHWC: the sign
+    in evaluation, the stochastic sign in training (``deterministic``
+    False)."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, groups: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+        self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False, groups=groups)
 
     def presign(self, x: torch.Tensor) -> torch.Tensor:
         """tanh(conv1x1(x)): the value whose sign is the code bit."""
-        return torch.tanh(conv_nhwc(x, self.conv.weight))
+        return torch.tanh(conv_nhwc(x, self.conv.weight, groups=self.conv.groups))
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -4,9 +4,11 @@ late, so the card runs ahead of the host), validation every
 ``val_interval`` epochs capped at 30 batches, the plateau lr schedule,
 best-val-gated checkpoints (or ``always_save``) with the reconstruction
 gallery, ``latest_interval`` resume points, ``loss_log.txt`` and
-``metrics.jsonl``. ``optim.max_host_rss_gb`` chunks a run by host memory:
-after an epoch whose end finds the process's resident memory above the
-limit, the exact state is saved to ``save_dir/latest`` (unless the epoch
+``metrics.jsonl``; a LocalEnhancer's global trunk stays frozen for the
+first ``model.niter_fix_global`` epochs, a resumed run included
+(``Trainer.maybe_unfreeze_global`` at the top of each epoch).
+``optim.max_host_rss_gb`` chunks a run by host memory: after an epoch
+whose end finds the process's resident memory above the limit, the exact state is saved to ``save_dir/latest`` (unless the epoch
 saved already) and the process exits with code 75, for a wrapper loop to
 start it again with ``--load_model --checkpoints_dir <save_dir>``, which
 resumes from ``latest``.
@@ -167,6 +169,7 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:
         validate(trainer, val_loader, log_file, cfg)  # confirms the load
 
     for epoch in range(trainer.start_epoch, trainer.start_epoch + cfg.optim.num_epochs):
+        trainer.maybe_unfreeze_global(epoch)
         loader.set_epoch(epoch)
         run_epoch(trainer, loader, cfg, epoch, metrics_log, log_file)
 

@@ -13,7 +13,11 @@ and ``chip_smoke.py``:
 * :func:`apply` steps G's Adam, then D's, then anneals the distortion
   weight. Under ``loss.no_d_gan_loss`` D still steps, on zero gradients:
   optax advances its Adam count on every step, and so must this one, or
-  the bias correction drifts.
+  the bias correction drifts. So does a frozen parameter (a
+  LocalEnhancer's global trunk for ``model.niter_fix_global`` epochs,
+  ``trainer.py``): its ``requires_grad`` is off, so autograd skips it (and
+  where nothing upstream trains, records no graph through it), and its
+  gradient is zeros, as ``step.py:273-277`` zeroes the trunk's.
 
 ``optim.remat`` recomputes the decode's blocks (``models/layers.py``) and,
 as the JAX package's whole-function ``jax.checkpoint`` does, D's passes and
@@ -50,10 +54,19 @@ def _d_concat(input_label: Optional[torch.Tensor], image: torch.Tensor) -> torch
 
 
 def _grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
-    if not loss.requires_grad:  # every loss of the player switched off
-        return [torch.zeros_like(p) for p in params]
-    got = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, got)]
+    """The gradient of ``loss`` for each parameter, zeros where there is
+    none: every loss of the player switched off, or a frozen parameter
+    (``requires_grad`` off), which Adam then still steps as optax steps a
+    zeroed leaf."""
+    live = [p for p in params if p.requires_grad]
+    got = {}
+    if loss.requires_grad and live:
+        got = dict(zip(map(id, live), torch.autograd.grad(loss, live, allow_unused=True)))
+    out = []
+    for p in params:
+        g = got.get(id(p))
+        out.append(torch.zeros_like(p) if g is None else g)
+    return out
 
 
 def loss_and_grads(state: GANTrainState, batch: Dict[str, torch.Tensor],

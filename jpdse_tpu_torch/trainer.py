@@ -8,8 +8,10 @@ over ``serve.CodecServer``.
 In training (``mode='train'``): the GAN step (``train/step.py``) over one
 ``train/state.py::GANTrainState`` (``self.gan``): ``step`` /
 ``step_async`` / ``fetch_metrics`` (:300-320, the eight metrics as one
-stacked host fetch), ``get_eval_loss``, ``get_img`` (the standard path, as
-JAX's training Trainer has no fast path), ``scheduler_step``, ``save``,
+stacked host fetch), ``maybe_unfreeze_global`` (a LocalEnhancer's global
+trunk frozen for ``model.niter_fix_global`` epochs), ``get_eval_loss``,
+``get_img`` (the standard path, as JAX's training Trainer has no fast
+path), ``scheduler_step``, ``save``,
 ``save_latest``, ``load`` (resuming from ``save_dir/latest`` when it is
 newer, :551-579), ``current_lr``, ``best_val_loss`` and ``steps_taken``.
 The code, rate and stream methods raise in training: they serve saved
@@ -105,6 +107,11 @@ class Trainer:
         self.gan: GANTrainState = create_train_state(cfg, codec, disc, vgg,
                                                      (h, w, cfg.netD_input_nc))
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # the LocalEnhancer's global trunk trains only after niter_fix_global epochs
+        # (:152-161, update_fixed_params in the reference)
+        self._global_frozen = cfg.model.netG == "local" and cfg.model.niter_fix_global > 0
+        if self._global_frozen:
+            codec.netG.global_trunk.requires_grad_(False)
         self.sched: Optional[ReduceLROnPlateau] = None
         if cfg.optim.schedule_lr:
             self.sched = ReduceLROnPlateau(lr=cfg.optim.lr, factor=cfg.optim.lr_decay_factor,
@@ -264,6 +271,15 @@ class Trainer:
     def step(self, batch: Dict) -> Dict[str, float]:
         """One G and D update; returns the eight metrics."""
         return self.fetch_metrics(self.step_async(batch))
+
+    def maybe_unfreeze_global(self, epoch: int):
+        """From epoch ``niter_fix_global`` on, the frozen global trunk trains
+        too (:496-505)."""
+        self._need_train()
+        if self._global_frozen and epoch >= self.cfg.model.niter_fix_global:
+            print("------------ now also finetuning global generator -----------")
+            self._global_frozen = False
+            self.gan.codec.netG.global_trunk.requires_grad_(True)
 
     def get_eval_loss(self, batch: Dict) -> float:
         self._need_train()

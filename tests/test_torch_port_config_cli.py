@@ -178,10 +178,16 @@ def test_flagship_config_keeps_its_values():
     assert k.fused_instance_norm and (k.fast.head_pallas, k.fast.front_realign) == ("1", "pallas")
 
 
+def _grouped(c):
+    c.model.netE_groups, c.model.nef, c.model.encoder_binarizer_out_channels = 3, 6, 12
+
+
+# the configurations that raised naming item 10 before the LocalEnhancer
+# family was ported load and build now; only the batch norm still raises
 NOT_PORTED = {
-    "local netG": (lambda c: setattr(c.model, "netG", "local"), "item 10"),
+    "local netG": (lambda c: setattr(c.model, "netG", "local"), None),
     "batch norm": (lambda c: setattr(c.model, "norm", "batch"), "item 10"),
-    "grouped netE": (lambda c: setattr(c.model, "netE_groups", 2), "item 10"),
+    "grouped netE": (_grouped, None),
 }
 
 
@@ -190,6 +196,12 @@ def test_configs_of_later_slices_raise_naming_their_item(name):
     cfg = config.flagship_config(tiny=True)
     change, item = NOT_PORTED[name]
     change(cfg)
+    if item is None:
+        config.check_ported(cfg)
+        codec = SemanticCodec(cfg, device="cpu")
+        assert type(codec.netG).__name__ == ("LocalEnhancer" if name == "local netG"
+                                             else "GlobalGenerator")
+        return
     with pytest.raises(config.NotPorted, match=f"ROADMAP Queue 1 {item}"):
         config.check_ported(cfg)
     with pytest.raises(config.NotPorted, match=item):
@@ -273,15 +285,17 @@ def test_item_6_configs_build_train_and_decode(name):
     assert image.shape == (2, H, W, 3) and torch.isfinite(image).all()
 
 
-# the tracked recipes that the port does not train yet: the high-resolution
-# series, whose netG is a LocalEnhancer
-REFUSED = {f"artifacts/flagship_r3_hires/{p}/opt.json" for p in ("phaseA", "phaseB")}
+# the tracked recipes that the port does not train yet: none since the
+# LocalEnhancer family (the high-resolution series) was ported
+REFUSED = set()
 
 
 def test_every_flagship_opt_json_the_port_runs_is_checked():
-    """27 of the 29 tracked recipes pass check_train_ported, the base-codec
-    ones among them; the two of REFUSED raise NotPorted naming item 10."""
+    """All 29 tracked recipes pass check_train_ported, the base-codec ones
+    and the high-resolution LocalEnhancer series among them."""
     assert REFUSED <= set(OPT_FILES) and len(OPT_FILES) == 29
+    assert {f"artifacts/flagship_r3_hires/{p}/opt.json" for p in ("phaseA", "phaseB")} \
+        <= set(OPT_FILES)
     for path in OPT_FILES:
         cfg = config.Config.load(str(REPO / path))
         if path in REFUSED:

@@ -13,7 +13,10 @@ The base-codec recipe (``artifacts/flagship_r3_compressed``: raw semantics
 and a jpg-decoded image into netG, no code) is held the same way: both
 packages' ``pack`` of the side info give the same side-info-only stream,
 and the port's ``CodecServer.decompress`` of it is within 2e-4 of JAX's
-decode of the same inputs.
+decode of the same inputs. So is the hires recipe's model
+(``artifacts/flagship_r3_hires``: the same inputs into a LocalEnhancer,
+ngf 32, its global trunk at ngf 64 on the input pooled to 512x256, one
+enhancer of 3 res blocks), on the fast path too.
 
 The full-width tests are marked ``slow``: it takes minutes and several GiB of
 host memory, so tier-1 (``-m 'not slow'``) leaves it out. Run it with
@@ -98,12 +101,17 @@ def test_tiny_standard_path_matches_jax_at_full_extent():
     standard_path_parity(tiny=True)
 
 
-def base_codec_parity(tiny: bool, seed: int = 1) -> float:
-    """One H x W request of the base-codec recipe: the side-info stream both
-    packages pack, and the port's decompress of it against JAX's decode;
-    returns the image's max abs difference."""
+def base_codec_parity(tiny: bool, seed: int = 1, local: bool = False) -> float:
+    """One H x W request of the base-codec recipe (with ``local``, the hires
+    recipe's LocalEnhancer): the side-info stream both packages pack, and
+    the port's decompress of it against JAX's decode, on the standard path
+    and, for the LocalEnhancer, on the fast path too; returns the image's
+    max abs difference."""
     jcfg = _flagship_cfg(tiny=tiny)
     m = jcfg.model
+    if local:
+        m.netG, m.ngf, m.n_local_enhancers = "local", 4 if tiny else 32, 1
+        m.n_blocks_local = 1 if tiny else 3
     m.compute_dtype, m.no_feat_encoding, m.no_label_encoding = "float32", True, True
     jcfg.codec.use_compressed, jcfg.codec.ext, jcfg.codec.quality = True, "jpg", (50,)
     jcfg.validate()
@@ -128,13 +136,17 @@ def base_codec_parity(tiny: bool, seed: int = 1) -> float:
                 base_ext=ext, base_payloads=streams)
     stream = jax_io.pack([], (H, W), jax_io.SideInfo(**side))
     assert codec_io.pack([], (H, W), codec_io.SideInfo(**side)) == stream
-    cfg = Config.from_dict(jcfg.to_dict())
-    server = CodecServer(cfg, from_jax_params(params), device="cpu")
-    got = server.decompress(stream)
-    err = float(np.abs(got - want[0]).max())
-    print(f"{'tiny' if tiny else 'flagship'} base-codec recipe at {W}x{H}: side-info stream "
-          f"{len(stream)} bytes, byte-identical; image max abs diff {err:.3e}")
-    np.testing.assert_allclose(got, want[0], atol=ATOL)
+    err = 0.0
+    for fast in (False, True) if local else (False,):
+        cfg = Config.from_dict(jcfg.to_dict())
+        cfg.model.fast_inference = fast
+        server = CodecServer(cfg, from_jax_params(params), device="cpu")
+        got = server.decompress(stream)
+        err = max(err, float(np.abs(got - want[0]).max()))
+        print(f"{'tiny' if tiny else 'flagship'} {'hires' if local else 'base-codec'} recipe "
+              f"at {W}x{H}, {'fast' if fast else 'standard'} path: side-info stream "
+              f"{len(stream)} bytes, byte-identical; image max abs diff {err:.3e}")
+        np.testing.assert_allclose(got, want[0], atol=ATOL)
     return err
 
 
@@ -145,3 +157,12 @@ def test_base_codec_recipe_matches_jax_at_full_width():
 
 def test_tiny_base_codec_recipe_matches_jax_at_full_extent():
     base_codec_parity(tiny=True)
+
+
+@pytest.mark.slow
+def test_hires_recipe_matches_jax_at_full_width():
+    base_codec_parity(tiny=False, local=True)
+
+
+def test_tiny_hires_recipe_matches_jax_at_full_extent():
+    base_codec_parity(tiny=True, local=True)

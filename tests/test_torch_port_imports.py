@@ -37,10 +37,14 @@ assert {"jpdse_tpu_torch." + m for m in (
     "data.custom", "data.loader", "data.stats", "train.losses", "train.state", "train.step",
     "train.schedule", "train.run", "train.__main__", "models.discriminator", "models.vgg",
     "utils.image_pool", "utils.logging", "ops.semantics", "models.codec", "models.generator",
-    "models.fast_codec", "models.fast_trunk", "serve", "codecs", "codecs.bridge")
+    "models.fast_codec", "models.fast_trunk", "serve", "codecs", "codecs.bridge",
+    "train.warmstart")
     } <= set(names), names
 from jpdse_tpu_torch import native
 from jpdse_tpu_torch.codecs import bridge
+from jpdse_tpu_torch.models import fast_trunk, generator
+assert {"LocalEnhancer", "LocalDownsample", "LocalUpsample", "Encoder"} <= set(dir(generator))
+assert "_FastLocalG" in dir(fast_trunk)
 assert {"idmap_encode", "idmap_decode", "heif_available", "heif_encode",
         "heif_decode"} <= set(dir(native))
 assert {"encode_bytes", "decode_bytes", "compress_for_model", "normalize_decoded",

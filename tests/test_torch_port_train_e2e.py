@@ -167,7 +167,7 @@ def test_max_host_rss_gb_exits_75_with_latest_and_resumes_exactly(tmp_path, monk
 
 
 def test_unported_training_options_raise_naming_their_item():
-    cases = {"optim.fast_train": ("item 9", True), "model.niter_fix_global": ("item 10", 1),
+    cases = {"optim.fast_train": ("item 9", True),
              "model.use_dropout": ("item 7", True), "profile_dir": ("item 11", "trace"),
              "optim.vgg_bf16": ("item 7", True)}
     for field, (item, value) in cases.items():
@@ -180,6 +180,12 @@ def test_unported_training_options_raise_naming_their_item():
     cfg.model.norm = "batch"
     with pytest.raises(NotPorted, match="item 10"):
         Trainer(cfg, mode="train", device="cpu")
+    # model.niter_fix_global trains now; on a global netG it is ignored, as in JAX
+    cfg = flagship_config(tiny=True)
+    cfg.model.niter_fix_global = 1
+    trainer = Trainer(cfg, mode="train", device="cpu")
+    assert not trainer._global_frozen
+    assert all(p.requires_grad for p in trainer.gan.codec.parameters())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(flagship_config(tiny=True), mode="train")

@@ -58,7 +58,7 @@ from jpdse_tpu.models.codec import prepare_inputs as jax_prepare_inputs
 from jpdse_tpu.models.vgg import Vgg19Features as JaxVgg
 from jpdse_tpu.train.state import create_train_state as jax_create_state
 from jpdse_tpu_torch.config import Config
-from jpdse_tpu_torch.convert import from_jax_params, to_jax_params
+from jpdse_tpu_torch.convert import deconv_groups, from_jax_params, to_jax_params
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.discriminator import build_discriminator
 from jpdse_tpu_torch.models.vgg import Vgg19Features
@@ -75,10 +75,14 @@ RECIPES = ("phase1", "phase2", "phase3")
 # by up to ~1e-2 of their max-abs, and so do the port's, each on its own
 # tensors (a value at its rounding edge before a ReLU); the port in float64
 # matches JAX in float64 to ~2e-7.
-FP32_LIMITED = {"phase1"}
+FP32_LIMITED = {"phase1", "grouped"}
+# The grouped, instance-pooled netE's tail bias (a gradient summed over every
+# pixel through the pooling's segment means) lies there too: JAX's fp32 step
+# misses its float64 step by ~1.4e-4 of that tensor's max-abs, the port's by
+# ~1.8e-4.
 # the module structure each recipe's weights are drawn for (the others share phase 2's)
 STRUCTURE = {"phase1": "phase1", "g_binarized": "g_binarized", "phaseA": "phaseA",
-             "phaseB": "phaseA"}
+             "phaseB": "phaseA", "hiresA": "hiresA", "hiresB": "hiresA", "grouped": "grouped"}
 
 
 def jax_config(recipe: str, fused: bool):
@@ -89,7 +93,10 @@ def jax_config(recipe: str, fused: bool):
     (``g_binarized``); or the base-codec recipe's phases
     (artifacts/flagship_r3_compressed/phase{A,B}/opt.json: raw semantics and
     the base codec's decoded image into netG, no encoder; A the GAN, B
-    distortion only)."""
+    distortion only); or the hires recipe's (artifacts/flagship_r3_hires:
+    the same assembly into a LocalEnhancer, ngf 4, one enhancer of one res
+    block); or phase 2's recipe with a grouped netE (3 groups, nef 6) whose
+    output is averaged over each instance (ids clipped at 600)."""
     cfg = _flagship_cfg(tiny=True)
     m, L, o = cfg.model, cfg.loss, cfg.optim
     m.compute_dtype = "float32"
@@ -102,10 +109,15 @@ def jax_config(recipe: str, fused: bool):
     if recipe == "phase1":
         m.no_feat, L.no_distortion_loss = True, True
         cfg.data.normalize_std = (0.5, 0.5, 0.5)
-    if recipe in ("phaseA", "phaseB"):
+    if recipe in ("phaseA", "phaseB", "hiresA", "hiresB"):
         m.no_feat_encoding = m.no_label_encoding = True
         cfg.codec.use_compressed = True
-    if recipe in ("phase3", "phaseB"):
+    if recipe in ("hiresA", "hiresB"):
+        m.netG, m.ngf, m.n_local_enhancers, m.n_blocks_local = "local", 4, 1, 1
+    if recipe == "grouped":
+        m.netE_groups, m.nef, m.encoder_binarizer_out_channels = 3, 6, 12
+        m.inst_wise_pool, m.max_instance_id = True, 600
+    if recipe in ("phase3", "phaseB", "hiresB"):
         L.no_d_gan_loss = L.no_g_gan_loss = L.no_gan_feat_loss = L.no_vgg_loss = True
         o.schedule_lr, o.lr_decay_patience = True, 3
     if recipe in ("zero_sem", "use_netE_output"):
@@ -179,12 +191,13 @@ def jax_precision(x64: bool):
 _JAX = {}
 
 
-def jax_step(recipe, fused, weights, state, x64=False):
+def jax_step(recipe, fused, weights, state, x64=False, freeze_global=False):
     """JAX's step at the port ``state``'s parameters, lambda and step count:
     (metrics, grads_g, grads_d, codes), in fp32 or, with ``x64``, in float64
-    (codes only in fp32). Each configuration and precision is compiled once;
-    its optimizer is a stand-in that returns the gradients as its state."""
-    key = (recipe, fused, x64)
+    (codes only in fp32); ``freeze_global`` as ``make_train_step`` takes it.
+    Each configuration and precision is compiled once; its optimizer is a
+    stand-in that returns the gradients as its state."""
+    key = (recipe, fused, x64, freeze_global)
     with jax_precision(x64) as ftype, pytest.MonkeyPatch.context() as mp:
         cast = lambda tree: jax.tree_util.tree_map(  # noqa: E731
             lambda a: np.asarray(a, ftype) if np.asarray(a).dtype.kind == "f" else a, tree)
@@ -197,7 +210,8 @@ def jax_step(recipe, fused, weights, state, x64=False):
             if not cfg.loss.no_vgg_loss:
                 params_v, net = cast(weights["v"]), JaxVgg(dtype=ftype)
                 vgg = lambda x: net.apply({"params": params_v}, x)  # noqa: E731
-            fn = jstep.make_train_step(cfg, codec, disc, vgg, donate=False)
+            fn = jstep.make_train_step(cfg, codec, disc, vgg, donate=False,
+                                       freeze_global=freeze_global)
             batch = {k: jnp.asarray(v) for k, v in cast(weights["batch"]).items()}
             inputs = jax_prepare_inputs(cfg, batch["label"], batch["instance"], batch["image"],
                                         batch.get("compressed"))
@@ -205,7 +219,7 @@ def jax_step(recipe, fused, weights, state, x64=False):
                                                   method=JaxCodec.get_codes_shaped))
             _JAX[key] = (cfg, fn, batch, codes)
         cfg, fn, batch, codes = _JAX[key]
-        params_g = cast(to_jax_params(state.codec.state_dict()))
+        params_g = cast(to_jax_params(state.codec.state_dict(), deconv_groups(cfg)))
         jstate = jax_create_state(cfg, params_g, cast(to_jax_params(state.disc.state_dict())))
         jstate = jstate.replace(
             steps_taken=jnp.asarray(state.steps_taken, jnp.int32),
@@ -220,7 +234,7 @@ def jax_step(recipe, fused, weights, state, x64=False):
 def port_state(recipe, fused, weights):
     cfg = Config.from_dict(jax_config(recipe, fused).to_dict())
     codec = SemanticCodec(cfg, device="cpu", seed=None)
-    codec.load_state_dict(from_jax_params(weights["g"]))
+    codec.load_state_dict(from_jax_params(weights["g"], deconv_groups(cfg)))
     disc = build_discriminator(cfg, "cpu", None)
     disc.load_state_dict(from_jax_params(weights["d"]))
     vgg = None
@@ -236,14 +250,17 @@ def _flat(tree):
             for k, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-# biases that an InstanceNorm follows: the generator's and encoders' blocks,
-# the discriminator's normalized layers (Flax key paths)
-NORMED_BIAS = re.compile(r"\['(head|down\d+|up\d+|res\d+|layer[1-9])'\].*\['bias'\]$")
+# biases that an InstanceNorm follows: the generator's and encoders' blocks
+# (a LocalEnhancer's c7, d1 and up among them), the discriminator's
+# normalized layers (Flax key paths)
+NORMED_BIAS = re.compile(r"\['(head|down\d+|up\d*|res\d+|layer[1-9]|c7|d1)'\].*\['bias'\]$")
 
 
 def _named(module, grads):
     names = [n for n, _ in module.named_parameters()]
-    return _flat(to_jax_params({n: g.double() for n, g in zip(names, grads)}))
+    cfg = getattr(module, "cfg", None)  # a codec's grouped netE
+    return _flat(to_jax_params({n: g.double() for n, g in zip(names, grads)},
+                               None if cfg is None else deconv_groups(cfg)))
 
 
 def assert_step_matches(got, want, modules, arbiter, port64=None):
@@ -279,7 +296,7 @@ def assert_step_matches(got, want, modules, arbiter, port64=None):
             arbitrated += 1
             if err <= RTOL * top_k:
                 continue
-            assert port64 is not None, f"{k}: {err} from JAX in float64"
+            assert port64 is not None, f"{k}: {err} from JAX in float64 (max-abs {top_k}; fp32 JAX {np.abs(ref[k] - x64).max()})"
             if exact_port is None:
                 exact_port = port64()
                 for i in (0, 1):  # the same math at this point: every tensor of both players

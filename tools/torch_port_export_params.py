@@ -27,7 +27,7 @@ def export(checkpoints_dir: str, opt_file: str = None) -> str:
     from jpdse_tpu.config import Config, derive_eval_config
     from jpdse_tpu.train.checkpoint import restore_checkpoint
     from jpdse_tpu.trainer import Trainer
-    from jpdse_tpu_torch.convert import from_jax_params
+    from jpdse_tpu_torch.convert import deconv_groups, from_jax_params
     from jpdse_tpu_torch.train.checkpoint import save_params
 
     cfg = derive_eval_config(Config.load(opt_file or os.path.join(checkpoints_dir, "opt.json")),
@@ -37,7 +37,7 @@ def export(checkpoints_dir: str, opt_file: str = None) -> str:
     pp.preprocess_mode, pp.crop_size, pp.aspect_ratio = "fixed", 128, 2.0
     trainer = Trainer(cfg, mode="test")
     state, _ = restore_checkpoint(checkpoints_dir, trainer.state, restore_opt=False)
-    return save_params(checkpoints_dir, from_jax_params(state.params_g))
+    return save_params(checkpoints_dir, from_jax_params(state.params_g, deconv_groups(cfg)))
 
 
 def main(argv=None) -> None:
