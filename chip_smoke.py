@@ -124,7 +124,31 @@ Phases, each printing a line as it ends:
      rates say plus its container; (f) a grouped netE (3 groups) with
      instance-wise pooling on the standard path, kernel against default
      configuration, fp32;
- 11. summary: the card, a JSON line of per-kernel numbers, the total
+ 11. the training options: the phase-2 recipe (batch 2 at 1024x512, full
+     width and depth, random weights from --seed) (a) through the fast
+     train decode (optim.fast_train, models/fast_train.py) against the
+     standard decode, one loss_and_grads in fp32 with TF32 off and both
+     decodes' binarizers deterministic, every run on the standard
+     decode's code bits: metrics within 1e-3 of max(1, |m|), G's gradients
+     by phase 7 (a)'s rule, a tensor over it arbitrated by the same step
+     of both decodes in float64 (every tensor of G and D within 1e-9 in
+     relative L2), K1, K2 and K4 launched 0 times; (b) --train-steps
+     steps with fast train off, on, on, off, then with the bf16 VGG
+     (optim.vgg_bf16), each with one step on a placed batch that copies
+     nothing of pixel size to the card and one profiled step; (c) one step
+     with model.use_dropout in the default and the kernel configuration:
+     each res block's mask keeps 1/2 within 0.01, K3 90 / 45 a step, the
+     eval decode bit-equal to the codec's without dropout; (d) the device
+     cache (data/device_cache.py) on a synthetic split: an epoch's cached
+     batches bit-equal to the host batches on the card for the phase-2
+     recipe and base-codec phase A (both flip variants of its jpg round
+     trip cached), prefetched host batches too, a profiled cached step
+     without a host-to-device copy of pixel size (and a host one with
+     them), train.run.main with the cache on and off in both configurations
+     (the "resident" line, loader waits, step times) and phase A with it;
+     (e) --profile_dir: one trace, of the first epoch, naming K3's kernels
+     in the kernel configuration;
+ 12. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -2296,8 +2320,8 @@ def phase9_chain(seed: int, card: str, keep_dir: Path) -> dict:
     """(c) The recipe through train.run.main in the kernel configuration at
     full width, on a synthetic Cityscapes train/val split read through
     PairedDataset with cache_images: phase A for two epochs of 2 steps
-    (each epoch's loader wait printed: the base codec's encodes in the
-    first, its memo in the second) with validation and a best-val save at
+    (each epoch's loader wait printed; the device cache makes the base
+    codec's round trips when it is built) with validation and a best-val save at
     the end; then phase B (distortion only) restored from it, every leaf
     matched, validated, for one epoch. Counts are set to 0 before each main
     and asserted after it. Phase A's params_g.pt is copied into
@@ -2356,9 +2380,9 @@ def phase9_chain(seed: int, card: str, keep_dir: Path) -> dict:
                     raise AssertionError(f"phase A: loader waits {waits}, steps "
                                          f"{trainer.steps_taken}")
                 log(f"[base] phase A: loader wait {waits[0][0]:.3f} s of the first epoch's "
-                    f"{waits[0][1]:.3f} s (every image through {BASE_CODEC[0]}), "
-                    f"{waits[1][0]:.3f} s of the second's {waits[1][1]:.3f} s (the memo, "
-                    f"cache_images) ({card})")
+                    f"{waits[0][1]:.3f} s, {waits[1][0]:.3f} s of the second's "
+                    f"{waits[1][1]:.3f} s (the device cache: every image's {BASE_CODEC[0]} "
+                    f"round trips made once, when it is built) ({card})")
             else:
                 want_n = len(trainer.gan.codec.state_dict()) + len(trainer.gan.disc.state_dict())
                 for name in (PARAMS_FILE, PARAMS_D_FILE):
@@ -2751,6 +2775,580 @@ def phase10(seed: int, requests: int, steps: int, card: str, warm_src: Path) -> 
     return serve, train
 
 
+# -- phase 11: the fast train decode, dropout, the bf16 VGG, the device cache, the trace --
+FAST_KERNELS = ("s2d_realign_pad3", "s2d_pad3", "head_conv_s2d")
+FAST_METRIC_TOL = 1e-3  # of max(1, |metric|): JAX's own bound (tests/test_fast_train.py:86-109)
+F64_TOL = 1e-9  # a gradient tensor's relative L2 difference between two float64 steps
+# (read 3.4e-14 to 4.7e-14 in G, 7.4e-15 to 8.2e-15 in D on an H100)
+DROPOUT_SHARE_TOL = 0.01  # kept share of a res block's mask around 1/2
+PIXEL_BYTES = H * W  # a host-to-device copy this large carries pixels (one uint8 map)
+K3_TRACE_NAMES = ("instance_norm_kernel", "instance_norm_bwd_kernel")
+
+
+class SignRecorder:
+    """While active, the stochastic sign is the deterministic one (as
+    JAX's tests/test_fast_train.py runs both decodes), and each binarizer's
+    pre-sign (its tanh) is kept, in call order: netE4label's, then netE's.
+    Given ``ref``, another run's pre-signs in the same order, each call
+    takes ref's code bits (its sign where this run's differs), with the
+    sign's own straight-through gradient: two runs then differ by their
+    arithmetic alone, not by a code bit that rounding moved across 0."""
+
+    def __init__(self, ref=None):
+        from jpdse_tpu_torch.ops import quantizers
+
+        self.q, self.calls, self.ref = quantizers, [], ref
+
+    def __enter__(self):
+        self.saved = self.q.stochastic_sign_ste
+
+        def sign(x, generator):
+            k = len(self.calls)
+            self.calls.append(x.detach())
+            y = self.q.deterministic_sign_ste(x)
+            if self.ref is None:
+                return y
+            bits = torch.sign(self.ref[k])
+            return y + (torch.where(torch.sign(x.detach()) == bits, y, bits) - y).detach()
+
+        self.q.stochastic_sign_ste = sign
+        return self
+
+    def __exit__(self, *exc):
+        self.q.stochastic_sign_ste = self.saved
+
+
+def float64_state(gan):
+    """A float64 copy of a GAN training state's networks, the fast train
+    decode rebuilt on the copy's codec: a step whose own rounding is ~1e-16
+    (as tests/test_torch_port_train_step.py::port_step_f64 makes one)."""
+    import copy
+
+    from jpdse_tpu_torch.models.fast_train import make_fast_train_decode
+
+    s = copy.copy(gan)
+    s.codec = copy.deepcopy(gan.codec).double()
+    s.codec.dtype = torch.float64
+    s.disc = copy.deepcopy(gan.disc).double()
+    s.vgg = None if gan.vgg is None else copy.deepcopy(gan.vgg).double()
+    if gan.fast_decode is not None:
+        s.fast_decode = make_fast_train_decode(gan.cfg, s.codec)
+    return s
+
+
+def phase11_parity(seed: int, card: str) -> dict:
+    """(a) The phase-2 recipe passes fast_train_ineligible_reason; one
+    loss_and_grads through the fast train decode against the standard
+    decode, fp32 with TF32 off and both decodes' binarizers deterministic,
+    from the same weights: the eight metrics within FAST_METRIC_TOL of
+    max(1, |m|); every binarizer bit that differs lying within 1e-5 of 0;
+    G's gradient tensors no farther from the standard decode's, in relative
+    L2, than phase 7 (a)'s rule allows (GRAD_TOL or twice two controls' on
+    inputs moved by 2^-22, at most GRAD_CEIL), D's printed beside them; the
+    biases an InstanceNorm follows 0 to rounding on both; and K1, K2, K4
+    (and K3) launched 0 times by the fast decode. As in phase 7, the
+    controls measure rounding alone, so they flip no code bit: the fast
+    decode and the controls take the standard decode's code bits
+    (SignRecorder's ``ref``), a bit that differs lying within 1e-5 of 0
+    (asserted; a code bit moved across 0 by rounding moves G's gradients
+    by ~1e-1, seen at seeds 2 and 3). The three leaves farthest apart are
+    printed with the controls' readings there. G's tail-bias leaf of netE
+    (3 values, each a sum over a million positions that nearly cancels)
+    reads rounding alone at 2.5e-3 to 2.8e-2 between runs of the same seed,
+    cuDNN's atomics reordering it, the controls too: there fp32 cannot
+    decide at the cap. So, as the CPU step tests do, float64 arbitrates:
+    the same step of both decodes in float64 (float64_state; each on the
+    standard float64 decode's code bits), whose gradients of every tensor
+    of G and D must agree within F64_TOL in relative L2; a G tensor over
+    the fp32 bound passes only so, and is named. Returns the counts."""
+    from jpdse_tpu_torch.models.fast_train import fast_train_ineligible_reason
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.trainer import Trainer
+
+    cfg_fast = flagship_train_config(False, seed)
+    cfg_fast.optim.fast_train = True
+    reason = fast_train_ineligible_reason(cfg_fast)
+    if reason is not None:
+        raise AssertionError(f"the phase-2 recipe is not fast-train eligible: {reason}")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        base = Trainer(flagship_train_config(False, seed), mode="train", device="cuda")
+        fast = Trainer(cfg_fast, mode="train", device="cuda")
+        for a, b in ((base.gan.codec, fast.gan.codec), (base.gan.disc, fast.gan.disc),
+                     (base.gan.vgg, fast.gan.vgg)):
+            b.load_state_dict(a.state_dict())
+        batch = train_batch(base.cfg, seed)
+        out, presign, launches = {}, {}, {}
+
+        def run(label, t, b):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            placed = t.place(b)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with SignRecorder(presign.get("standard decode")) as rec:
+                out[label] = step.loss_and_grads(t.gan, placed, gen)
+                torch.cuda.synchronize()
+            presign[label] = rec.calls
+            launches[label] = counts = read_counts()
+            log(f"[fast] parity, {label}: loss_and_grads {time.perf_counter() - t0:.2f} s (fp32, "
+                f"TF32 off, deterministic binarizers); launches {counts}")
+
+        run("standard decode", base, batch)
+        run("fast train decode", fast, batch)
+        if any(launches["fast train decode"].values()):
+            raise AssertionError(f"the fast train decode launched {launches['fast train decode']}")
+        controls = ("control 1", "control 2")
+        for i, label in enumerate(controls, 1):
+            signs = np.random.default_rng(seed + i).choice([-1.0, 1.0], batch["image"].shape)
+            run(label, base, dict(batch, image=(batch["image"] * (1 + 2.0**-22 * signs))
+                                  .astype(np.float32)))
+        ref = presign["standard decode"]
+        for label in ("fast train decode", *controls):
+            if len(presign[label]) != len(ref):
+                raise AssertionError(f"{label}: {len(presign[label])} binarizer calls, the "
+                                     f"standard decode {len(ref)}")
+        for i, name in enumerate(("netE4label", "netE")):
+            x0 = ref[i]
+            near = x0.abs() < 1e-5
+            flips = {}
+            for label in ("fast train decode", *controls):
+                flipped = torch.sign(presign[label][i]) != torch.sign(x0)
+                flips[label] = int(flipped.sum())
+                if (flipped & ~near).any():
+                    raise AssertionError(f"{name}, {label}: a code bit differs away from 0")
+            log(f"[fast] parity: {name} code bits that differ from the standard decode's, of "
+                f"{x0.numel()}: " + ", ".join(f"{k} {v}" for k, v in flips.items())
+                + f"; all within 1e-5 of 0 ({int(near.sum())} pre-signs lie there), and each "
+                "run took the standard decode's bits")
+        out64, pre64 = {}, {}
+        for label, t in (("standard decode", base), ("fast train decode", fast)):
+            s64 = float64_state(t.gan)
+            placed = t.place(batch)
+            placed = dict(placed, image=placed["image"].double())
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with SignRecorder(pre64.get("standard decode")) as rec:
+                m64, g64 = step.loss_and_grads(s64, placed, gen)
+                torch.cuda.synchronize()
+            out64[label], pre64[label] = g64, rec.calls
+            log(f"[fast] parity, {label} in float64: loss_and_grads "
+                f"{time.perf_counter() - t0:.2f} s, loss_G {m64['loss_G'].item():.9f}")
+            del s64, placed
+        (m0, g0), (m1, g1) = out["standard decode"], out["fast train decode"]
+        worst = 0.0
+        for k in step.METRICS:
+            a, b = m0[k].item(), m1[k].item()
+            rel = abs(b - a) / max(1.0, abs(a))
+            worst = max(worst, rel)
+            if not (np.isfinite(b) and rel <= FAST_METRIC_TOL):
+                raise AssertionError(f"fast train: {k} {b} against {a}")
+        log("[fast] parity: metrics, fast train vs standard decode: " + ", ".join(
+            f"{k} {m1[k].item():.6f} / {m0[k].item():.6f}" for k in step.METRICS)
+            + f"; largest difference {worst:.2e} of max(1, |m|) (tolerance {FAST_METRIC_TOL})")
+        others = ("fast train decode", *controls)
+        for j, (net, module) in enumerate((("G", base.gan.codec), ("D", base.gan.disc))):
+            names = [n for n, _ in module.named_parameters()]
+            top = max(g.abs().max().item() for g in g0[j])
+            zero = 0.0
+            rel = {label: {} for label in others}
+            rel64 = {}
+            for i, (n, a) in enumerate(zip(names, g0[j])):
+                if NORMED_BIAS.search(n):
+                    zero = max(zero, a.abs().max().item(), g1[j][i].abs().max().item())
+                    continue
+                for label in others:
+                    rel[label][n] = ((out[label][1][j][i] - a).norm() / a.norm()).item()
+                a64 = out64["standard decode"][j][i]
+                rel64[n] = ((out64["fast train decode"][j][i] - a64).norm() / a64.norm()).item()
+            l2 = {label: max((v, n) for n, v in r.items()) for label, r in rel.items()}
+            noise = max(l2[c][0] for c in controls)
+            bound = min(GRAD_CEIL[net], max(GRAD_TOL, 2 * noise))
+            far = sorted(rel["fast train decode"], key=rel["fast train decode"].get)[-3:][::-1]
+            over = sorted((n for n, v in rel["fast train decode"].items() if v > bound),
+                          key=rel["fast train decode"].get, reverse=True)
+            worst64 = max((v, n) for n, v in rel64.items())
+            log(f"[fast] parity: {net} gradients, {len(names)} tensors; largest relative L2 "
+                f"difference from the standard decode's: " + "; ".join(
+                    f"{label} {l2[label][0]:.2e} at {l2[label][1]}" for label in others)
+                + f". Bound: {bound:.2e}{' (asserted)' if net == 'G' else ''}, the fast train "
+                f"decode's reading {l2['fast train decode'][0] / bound:.2f} of it. Its three "
+                f"largest, with the controls' there: " + "; ".join(
+                    f"{n} {rel['fast train decode'][n]:.2e} ("
+                    + ", ".join(f"{rel[c][n]:.2e}" for c in controls) + ")" for n in far)
+                + f". In float64, the fast train decode's largest relative L2 difference "
+                f"{worst64[0]:.2e} at {worst64[1]} (tolerance {F64_TOL})"
+                + (f"; over the fp32 bound, passed by float64: {', '.join(over)}" if over else "")
+                + f". The biases an InstanceNorm follows at most {zero:.2e} (largest gradient "
+                f"{top:.3e})")
+            if not zero <= 1e-5 * top:
+                raise AssertionError(f"fast train: {net}'s norm-fed biases {zero} (top {top})")
+            if not worst64[0] <= F64_TOL:
+                raise AssertionError(f"fast train: {net} gradients differ in float64: {worst64}, "
+                                     f"in fp32 {l2}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    del base, fast
+    torch.cuda.empty_cache()
+    return {f"fast train parity: {k}": launches[k] for k in
+            ("standard decode", "fast train decode")}
+
+
+def phase11_steps(seed: int, steps: int, card: str) -> dict:
+    """(b) ``steps`` Trainer.steps of the phase-2 recipe in the default
+    configuration at PyTorch's default precision, in the order fast train
+    off, on, on, off, then with the bf16 VGG: each configuration's median
+    step after the first, images/s and peak memory; then one step on a
+    batch already on the card, which copies nothing of pixel size to it
+    (upload_counter: the fast decode's weight re-layouts read index
+    tensors kept on the card), and one profiled step (device busy time and
+    its split). Numbers, not a claim. Returns the counts."""
+    from jpdse_tpu_torch.trainer import Trainer
+
+    cfg = flagship_train_config(False, seed)
+    batches = [train_batch(cfg, seed + 100 + i) for i in range(steps)]
+    runs = (("fast train off", {}), ("fast train on", {"fast_train": True}),
+            ("fast train on, again", {"fast_train": True}), ("fast train off, again", {}),
+            ("vgg_bf16", {"vgg_bf16": True}))
+    medians, launches = {}, {}
+    for label, opts in runs:
+        torch.cuda.empty_cache()
+        cfg = flagship_train_config(False, seed)
+        for k, v in opts.items():
+            setattr(cfg.optim, k, v)
+        trainer = Trainer(cfg, mode="train", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        times = []
+        for b in batches:
+            t0 = time.perf_counter()
+            metrics = trainer.step(b)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"{label}: losses {metrics}")
+        launches[f"fast train steps: {label}"] = counts = read_counts()
+        if any(counts.values()):
+            raise AssertionError(f"{label}: the default configuration launched {counts}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        medians[label] = med = float(np.median(times[1:] if steps > 1 else times))
+        placed = trainer.place(batches[-1])
+        torch.cuda.synchronize()
+        with upload_counter() as uploads:
+            trainer.step(placed)
+        big = [n for n in uploads.sizes if n >= PIXEL_BYTES]
+        if big:
+            raise AssertionError(f"{label}: a step on a placed batch copied {big} bytes to the "
+                                 "card")
+        log(f"[fast] phase-2 recipe, default configuration, {label}: steps (ms) "
+            f"{', '.join(f'{t:.1f}' for t in times)}; median after the first {med:.1f} ms, "
+            f"{TRAIN_BATCH / med * 1e3:.3f} images/s; peak memory {peak:.2f} GiB; losses of "
+            f"the last step G_VGG {metrics['G_VGG']:.4f}, loss_G {metrics['loss_G']:.4f}; "
+            f"a step on a placed batch: {len(uploads.sizes)} host-to-device copies of "
+            f"{sum(uploads.sizes)} bytes, none of >= {PIXEL_BYTES} ({card})")
+        profile_step(f"phase-2 recipe, {label}", trainer, batches[-1], card)
+        del trainer
+    off = (medians["fast train off"] + medians["fast train off, again"]) / 2
+    on = (medians["fast train on"] + medians["fast train on, again"]) / 2
+    log(f"[fast] phase-2 recipe: fast train step / standard step {on / off:.3f} (medians "
+        f"{on:.1f} / {off:.1f} ms, off-on-on-off); vgg_bf16 step / standard step "
+        f"{medians['vgg_bf16'] / off:.3f} ({card})")
+    return launches
+
+
+def phase11_dropout(seed: int, card: str) -> dict:
+    """(c) One step of the phase-2 recipe with model.use_dropout in the
+    default and the kernel configuration: each res block's mask keeps
+    1/2 within DROPOUT_SHARE_TOL (9 masks, drawn once a step under block
+    remat), K3 90 forward and 45 backward a step in the kernel
+    configuration (phase 7's), none by default; then the eval decode of the
+    same weights bit-equal to a codec's without dropout. Returns the
+    counts."""
+    from jpdse_tpu_torch.models import layers
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.trainer import Trainer
+
+    launches = {}
+    batch = train_batch(flagship_train_config(False, seed), seed + 7)
+    draw = layers.dropout_mask
+    for label, kernels in (("default", False), ("kernel config", True)):
+        torch.cuda.empty_cache()
+        cfg = flagship_train_config(kernels, seed)
+        cfg.model.use_dropout = True
+        trainer = Trainer(cfg, mode="train", device="cuda")
+        shares = []
+
+        def recorded(shape, generator, device):
+            mask = draw(shape, generator, device)
+            shares.append(mask.float().mean().item())
+            return mask
+
+        layers.dropout_mask = recorded
+        try:
+            reset_counts()
+            metrics = trainer.step(batch)
+            launches[f"dropout step: {label}"] = counts = read_counts()
+        finally:
+            layers.dropout_mask = draw
+        sites = K3_SITES[2]
+        want = (2 * sites, sites) if kernels else (0, 0)
+        if k3_per_step(counts, 1) != want:
+            raise AssertionError(f"dropout, {label}: K3 {k3_per_step(counts, 1)}, want {want}")
+        n_blocks = cfg.model.n_blocks_global
+        if len(shares) != n_blocks or max(abs(s - 0.5) for s in shares) > DROPOUT_SHARE_TOL:
+            raise AssertionError(f"dropout, {label}: kept shares {shares}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"dropout, {label}: losses {metrics}")
+        plain_cfg = flagship_train_config(kernels, seed)
+        plain = SemanticCodec(plain_cfg, device="cuda", seed=None)
+        plain.load_state_dict(trainer.gan.codec.state_dict())
+        codec = trainer.gan.codec
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with torch.inference_mode():
+                placed = trainer.place(batch)
+                got = codec.decode(codec.prepare(placed))[0]
+                want_img = plain.decode(plain.prepare(placed))[0]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if not torch.equal(got, want_img):
+            raise AssertionError(f"dropout, {label}: the eval decode differs from the codec's "
+                                 "without dropout")
+        log(f"[dropout] phase-2 recipe, {label}: one step with use_dropout; kept shares of the "
+            f"{n_blocks} res blocks' masks {', '.join(f'{s:.4f}' for s in shares)} (1/2 within "
+            f"{DROPOUT_SHARE_TOL}); K3 a step {k3_per_step(counts, 1)}; the eval decode "
+            f"bit-equal to the same weights' without dropout ({card})")
+        del trainer, plain, codec
+    return launches
+
+
+def trace_facts(trace_dir: Path) -> dict:
+    """The one Chrome trace under ``trace_dir``: its host-to-device memcpy
+    records (all, and those of PIXEL_BYTES or more with their bytes),
+    whether it names K3's forward and backward kernels, and how many
+    optimizer steps it holds."""
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{trace_dir}: {len(files)} traces, want 1 (the first epoch's)")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    sized = [int(e.get("args", {}).get("bytes", 0)) for e in events
+             if "HtoD" in e.get("name", "")]
+    pixel = [n for n in sized if n >= PIXEL_BYTES]
+    names = {e.get("name", "") for e in events}
+    return {"copies": len(sized), "pixel_copies": len(pixel), "pixel_bytes": sum(pixel),
+            "k3": all(any(k in n for n in names) for k in K3_TRACE_NAMES),
+            # the host's ranges: the card's copy of each (gpu_user_annotation) left out
+            "optimizer_steps": sum(e.get("name", "").startswith("Optimizer.step#")
+                                   for e in events if e.get("ph") == "X"
+                                   and not e.get("cat", "").startswith("gpu_")),
+            "mb": files[0].stat().st_size / 2**20}
+
+
+def upload_counter():
+    """A dispatch mode that, while active, keeps the bytes of every copy
+    PyTorch makes from host memory to the card (``aten._to_copy`` and
+    ``aten.copy_`` with a CPU source and a CUDA destination): what the
+    profiler's memcpy records show, without relying on them (a trace taken
+    late in this script's process held no memcpy record at all)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    class UploadCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.sizes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten._to_copy.default:
+                src, dst = args[0], out
+            elif func is aten.copy_.default:
+                dst, src = args[0], args[1]
+            else:
+                return out
+            if isinstance(src, torch.Tensor) and src.device.type == "cpu" and \
+                    dst.device.type == "cuda":
+                self.sizes.append(src.numel() * src.element_size())
+            return out
+
+    return UploadCounter()
+
+
+def profiled_steps(cfg, cache, meta, host, tmp: Path, card: str) -> None:
+    """One Trainer of ``cfg`` takes a step (the warm-up: cuDNN's choices,
+    the pooling tables), then one step under ``utils.profiling.trace`` on a
+    batch the device cache assembles and one on a host batch, each placed
+    inside the trace: the cached step copies nothing of pixel size to the
+    card, the host one its image and maps (counted by upload_counter; the
+    trace's own memcpy records printed beside)."""
+    from jpdse_tpu_torch.trainer import Trainer
+    from jpdse_tpu_torch.utils.profiling import trace
+
+    trainer = Trainer(cfg, mode="train", device="cuda")
+    meta.set_epoch(2)
+    host.set_epoch(2)
+    metas, hosts = list(meta), list(host)
+    trainer.step(trainer.place(cache.place(metas[0])))
+    parts = []
+    for label, batch in (("cached", lambda: trainer.place(cache.place(metas[1]))),
+                         ("host", lambda: trainer.place(hosts[1]))):
+        out = tmp / f"step_{label}"
+        with trace(str(out)), upload_counter() as uploads:
+            trainer.step(batch())
+        f = trace_facts(out)
+        pixel = [n for n in uploads.sizes if n >= PIXEL_BYTES]
+        if f["optimizer_steps"] != 2 or (not pixel) != (label == "cached"):
+            raise AssertionError(f"profiled {label} step: uploads {uploads.sizes}, trace {f}")
+        parts.append(f"{label} batch: {len(uploads.sizes)} host-to-device copies by PyTorch, "
+                     f"{len(pixel)} of >= {PIXEL_BYTES} bytes ({sum(pixel) / 2**20:.1f} MiB); "
+                     f"the trace's memcpy records {f['copies']}, {f['pixel_copies']} of them "
+                     f"that large")
+    log(f"[cache] phase-2 recipe, one profiled step after a warm-up: " + "; ".join(parts)
+        + f" ({card})")
+    del trainer
+
+
+def phase11_cache(seed: int, card: str) -> dict:
+    """(d) and (e). On a synthetic Cityscapes train/val split (EVAL_IMAGES
+    triplets at 2048x1024 read 'fixed' to 1024x512, cache_images): the
+    device cache's batches of one epoch against the host batches on the
+    card, bit for bit, for the phase-2 recipe and base-codec phase A (both
+    flip variants of its jpg round trip cached), placed through
+    prefetch_to_device; without the cache, prefetch_to_device's batches
+    against the host batches; one profiled step on a cached batch without
+    a host-to-device copy of pixel size, and one on a host batch with them
+    (profiled_steps). Then train.run.main of the phase-2 recipe with the
+    cache on and off in the default and the kernel configuration, each
+    under --profile_dir: the "resident" line, each epoch's loader wait and
+    step times, one trace of the first epoch only (the cached kernel
+    configuration trains two epochs), K3's kernels named in the kernel
+    configuration's; and phase A for one epoch with the cache. Counts are set to 0 before each
+    main and asserted after it. Returns them."""
+    from jpdse_tpu_torch.cli import parse_config
+    from jpdse_tpu_torch.data import create_dataloader
+    from jpdse_tpu_torch.data.device_cache import maybe_device_cache
+    from jpdse_tpu_torch.data.prefetch import prefetch_to_device
+    from jpdse_tpu_torch.train import run
+
+    launches = {}
+    steps = EVAL_IMAGES // TRAIN_BATCH
+    sites = K3_SITES[2]
+    with tempfile.TemporaryDirectory(prefix="jpdse_cache_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "cityscapes"
+        for split in ("train", "val"):
+            write_cityscapes(root, seed + 60 + (split == "train"), split)
+        mode, load, crop, _ = FLAGSHIP_PREPROCESS
+        base = ["--dataset", "cityscapes", "--root_dir", str(root), "--no_generator_binarization",
+                "--normalize_std", "1", "--batch_size", str(TRAIN_BATCH), "--remat", "1",
+                "--seed", str(seed), "--num_workers", "2", "--cache_images", "1",
+                "--val_interval", "5"]
+        for prefix in ("", "val_"):
+            base += [f"--{prefix}preprocess_mode", mode, f"--{prefix}load_size", str(load),
+                     f"--{prefix}crop_size", str(crop)]
+        for recipe, extra in (("phase-2 recipe", []), ("base-codec phase A", BASE_FLAGS)):
+            cfg = parse_config(base + extra, is_train=True)
+            with contextlib.redirect_stdout(io.StringIO()):
+                host, meta, twin = (create_dataloader(cfg) for _ in range(3))
+                t0 = time.perf_counter()
+                cache = maybe_device_cache(meta, cfg, "cuda")
+            if cache is None:
+                raise AssertionError(f"{recipe}: the device cache declined")
+            built = time.perf_counter() - t0
+            meta.meta_only = True
+            keys = ["image", "label", "instance"] + (["compressed"] if extra else [])
+            n = 0
+            for hb, placed in zip(host, prefetch_to_device(meta, 2, "cuda", cache.place)):
+                for k in keys:
+                    if not (placed[k].is_cuda and torch.equal(placed[k].cpu(),
+                                                              torch.from_numpy(hb[k]))):
+                        raise AssertionError(f"{recipe}: cached {k} differs from the host batch")
+                n += 1
+            if extra and cache.ds["compressed"].shape[0] != 2 * EVAL_IMAGES:
+                raise AssertionError(f"{recipe}: {cache.ds['compressed'].shape[0]} compressed "
+                                     "variants cached")
+            host.set_epoch(1)
+            twin.set_epoch(1)
+            for hb, placed in zip(host, prefetch_to_device(twin, 2, "cuda")):
+                for k in keys:
+                    if not torch.equal(placed[k].cpu(), torch.from_numpy(hb[k])):
+                        raise AssertionError(f"{recipe}: prefetched {k} differs from the host's")
+            log(f"[cache] {recipe}: {EVAL_IMAGES} samples resident ({cache.nbytes / 2**20:.1f} MiB, "
+                f"{', '.join(f'{k} {v.dtype}'.replace('torch.', '') for k, v in cache.ds.items())}"
+                f"), built in {built:.2f} s; {n} cached batches of an epoch bit-equal to the host "
+                f"batches on the card, and {n} prefetched host batches too ({card})")
+            if not extra:
+                profiled_steps(cfg, cache, meta, host, tmp, card)
+            del cache, host, meta, twin
+        runs = {
+            "kernel config, device cache on": (KERNEL_FLAGS, True, 2),
+            "kernel config, device cache off": (KERNEL_FLAGS, False, 1),
+            "default, device cache on": ([], True, 1),
+            "default, device cache off": ([], False, 1),
+            "base-codec phase A, device cache on": (BASE_FLAGS, True, 1),
+        }
+        keep = ("device_cache", "val device_cache", "epoch ")
+        for label, (flags, cached, epochs) in runs.items():
+            torch.cuda.empty_cache()
+            trace_dir = tmp / f"trace{len(launches)}"
+            argv = base + flags + ["--save_dir", str(tmp / f"run{len(launches)}"),
+                                   "--num_epochs", str(epochs), "--device_cache", str(int(cached))]
+            profiled = not label.startswith("base")
+            if profiled:
+                argv += ["--profile_dir", str(trace_dir)]
+            k3 = "fused_instance_norm" in " ".join(flags)
+            n_sites = K3_SITES["A"] if label.startswith("base") else sites
+            want = {"fused_instance_norm": epochs * steps * 2 * n_sites,
+                    "fused_instance_norm_bwd": epochs * steps * n_sites} if k3 else {}
+            trainer, text, counts = run_entry(label, "train.run.main",
+                                              lambda: run.main(argv, device="cuda"), want, per=1,
+                                              tag="[cache]", keep=keep)
+            launches[f"device cache: {label}"] = counts
+            if ("resident on device" in text) != cached or trainer.steps_taken != epochs * steps:
+                raise AssertionError(f"{label}: resident line {'resident on device' in text}, "
+                                     f"steps {trainer.steps_taken}")
+            waits = [tuple(float(x) for x in m) for m in re.findall(
+                r"loader wait ([\d.]+) s of ([\d.]+) s", text)]
+            step_s = [float(x) for x in re.findall(r"batch processing time \(s\) ([\d.]+)", text)]
+            if len(waits) != epochs or len(step_s) != epochs * steps:
+                raise AssertionError(f"{label}: loader waits {waits}, batch times {step_s}")
+            facts = ""
+            if profiled:
+                f = trace_facts(trace_dir)
+                if f["optimizer_steps"] != 2 * steps:
+                    raise AssertionError(f"{label}: the trace holds {f['optimizer_steps']} "
+                                         f"optimizer steps, want {2 * steps} (the first epoch)")
+                if k3 and not f["k3"]:
+                    raise AssertionError(f"{label}: the trace names no K3 kernel")
+                facts = (f"; trace of the first epoch {f['mb']:.1f} MB: {f['copies']} "
+                         f"host-to-device memcpy records, {f['pixel_copies']} of >= "
+                         f"{PIXEL_BYTES} bytes ({f['pixel_bytes'] / 2**20:.1f} MiB)"
+                         + ("; names K3's forward and backward kernels" if k3 else ""))
+            log(f"[cache] {label}: loader wait " + ", ".join(
+                f"{w:.4f} s of {t:.4f} s" for w, t in waits) + "; batch times (s) "
+                + ", ".join(f"{s:.4f}" for s in step_s) + facts + f" ({card})")
+            del trainer
+    return launches
+
+
+def phase11(seed: int, steps: int, card: str) -> dict:
+    """The fast train decode, dropout, the bf16 VGG, the device cache and
+    the trace: (a) parity, (b) steps, (c) dropout, (d) + (e) the device
+    cache, the prefetch and the trace. Returns the training counts."""
+    t0 = time.perf_counter()
+    launches = phase11_parity(seed, card)
+    launches.update(phase11_steps(seed, steps, card))
+    launches.update(phase11_dropout(seed, card))
+    launches.update(phase11_cache(seed, card))
+    log(f"[fast] fast train, dropout, bf16 VGG and device cache phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2826,6 +3424,8 @@ def main() -> int:
                                    Path(keep))
     launches.update(serve10)
     train_launches.update(train10)
+    torch.cuda.empty_cache()
+    train_launches.update(phase11(args.seed, args.train_steps, card))
     launches.update(train_launches)
     for e in entries:
         name = e["name"]

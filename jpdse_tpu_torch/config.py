@@ -77,8 +77,8 @@ class DataConfig:
     # memoize decoded + resized samples ('fixed' / 'none' preprocessing only;
     # flip and normalization still run per call)
     cache_images: bool = False
-    # the JAX package's device-resident training set (data/device_cache.py);
-    # the port's training declines it with a printed reason (ROADMAP item 11)
+    # the training set resident on the device under cache_images, batches
+    # assembled there (data/device_cache.py)
     device_cache: bool = True
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     val_preprocess: PreprocessConfig = field(
@@ -115,9 +115,11 @@ class FastPathConfig:
     spellings; the env beats the config when set, :meth:`resolved` applies
     it).
 
-    Three fields change what the port runs: ``head_pallas`` and
-    ``front_realign`` pick kernels K4 and K2, ``norm_shift`` the shifted
-    variance of the s2d InstanceNorm. The others re-express the same
+    Four fields change what the port runs: ``head_pallas`` and
+    ``front_realign`` pick kernels K4 and K2, ``fused_realign`` whether K1
+    re-aligns the s2d grid (or the composition does, as the fast train
+    decode needs), ``norm_shift`` the shifted variance of
+    the s2d InstanceNorm. The others re-express the same
     arithmetic in layouts that suit the TPU; the port carries them as data
     and computes the same function (``tests/test_torch_port_config_cli.py``
     holds the JAX package's output with each flipped against the port's)."""
@@ -145,9 +147,10 @@ class FastPathConfig:
         "JAX package: width taps per group of the tail split. Carried as data.")
     fused_realign: str = _fp_field(
         "auto", "JPDSE_FUSED_REALIGN",
-        "JAX package: how the back stage re-aligns the s2d grid (one-pass "
-        "kernel, slice-concat or d2s/pad/s2d). All compute the same tensor; "
-        "the port always runs kernel K1 (ops/realign.py).")
+        "how the back stage (and K4's producer) re-aligns the s2d grid: "
+        "'auto' / 'pallas' kernel K1 (ops/realign.py); '0', '1' / 'xla' d2s, "
+        "reflect pad, s2d (the JAX package's '1' / 'xla' slice form computes "
+        "the same tensor).")
     front_realign: str = _fp_field(
         "0", "JPDSE_FRONT_REALIGN",
         "'pallas' / 'auto': a front that does not run K4 enters the s2d "
@@ -614,25 +617,16 @@ def check_ported(cfg: Config) -> None:
 
 
 def check_train_ported(cfg: Config) -> None:
-    """:func:`check_ported`, and beyond it raise :class:`NotPorted` for the
-    training options the port's GAN step does not run, naming their ROADMAP
-    item (Queue 1)."""
+    """:func:`check_ported` (the batch norm raises :class:`NotPorted`
+    there), and the training step's own settings. Every other training
+    option of the JAX package runs: ``optim.fast_train`` (refused with the
+    failed gate for an ineligible model, ``models/fast_train.py``),
+    ``model.use_dropout``, ``optim.vgg_bf16``, ``profile_dir`` and the
+    device cache; the device mesh is ROADMAP Queue 1 item 12."""
     check_ported(cfg)
-    m, o = cfg.model, cfg.optim
-    if o.fast_train:
-        raise NotPorted("optim.fast_train (the differentiable s2d train decode) is ROADMAP "
-                        "Queue 1 item 9")
-    if m.use_dropout:
-        raise NotPorted("model.use_dropout (Dropout in the res blocks, with an explicit "
-                        "generator) is ROADMAP Queue 1 item 7's remainder")
-    if cfg.profile_dir:
-        raise NotPorted("profile_dir (a profiler trace of the first epoch, "
-                        "utils/profiling.py) is ROADMAP Queue 1 item 11")
-    if o.vgg_bf16:
-        raise NotPorted("optim.vgg_bf16 (the bf16 perceptual trunk) is ROADMAP Queue 1 "
-                        "item 7's remainder")
-    if o.remat_granularity not in ("block", "decode"):
-        raise ValueError(f"unknown optim.remat_granularity {o.remat_granularity!r}")
+    granularity = cfg.optim.remat_granularity
+    if granularity not in ("block", "decode"):
+        raise ValueError(f"unknown optim.remat_granularity {granularity!r}")
 
 
 def flagship_config(tiny: bool = False, kernels: bool = False) -> Config:

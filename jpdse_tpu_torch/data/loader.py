@@ -4,6 +4,9 @@ batches while the card computes. Shuffle and drop_last only in training;
 the order and each sample's augmentation draws come from numpy generators
 seeded by (seed, epoch), so the batches equal the JAX package's in order
 and content. Batches are numpy; the trainer moves them to the device.
+With ``meta_only`` set the loader yields {"index", "flip", "path"} batches:
+the same seeded draws as the host path, without the pixels, for the
+device-resident cache (``data/device_cache.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.seed = seed if seed is not None else 0
         self.epoch = 0
+        # yield {"index", "flip", "path"} batches (the device cache's replay)
+        self.meta_only = False
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -77,7 +82,9 @@ class DataLoader:
         sample_seeds = base_rng.integers(0, 2**63 - 1, size=len(self.dataset))
 
         def load_one(i: int) -> Dict:
-            return self.dataset.__getitem__(i, rng=np.random.default_rng(int(sample_seeds[i])))
+            kwargs = {"meta_only": True} if self.meta_only else {}
+            return self.dataset.__getitem__(i, rng=np.random.default_rng(int(sample_seeds[i])),
+                                            **kwargs)
 
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()

@@ -8,7 +8,9 @@ the base codec's round trip of the transformed image: its decoded image
 (``compressed``), its streams, their bytes and the codec that decodes them.
 Under ``cache_images`` the round trip is memoized per (index, flip), bit for
 bit the inline path's, so a base codec's encode runs once per image and
-flip, not once per training step.
+flip, not once per training step; and ``__getitem__(..., meta_only=True)``
+makes the host path's augmentation draws but returns only (index, flip,
+path), for the device-resident cache (``data/device_cache.py``).
 """
 
 from __future__ import annotations
@@ -129,11 +131,22 @@ class PairedDataset:
             self._cache[index] = out
         return out
 
-    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None) -> Dict:
+    def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None,
+                    meta_only: bool = False) -> Dict:
         cfg = self.cfg
         rng = rng if rng is not None else np.random.default_rng()
         pp = cfg.data.preprocess
         is_train = cfg.is_train
+
+        if meta_only:
+            # the device cache's replay (data/device_cache.py): the augmentation
+            # draws the host path makes, and only (index, flip, path) back
+            if not self._cache_enabled:
+                raise ValueError("meta_only requires cache_images")
+            _, _, _, image_path, orig_size = self._resized_arrays(index)
+            params = sample_params(pp, orig_size, rng, cfg.data.no_flip)
+            return {"index": np.int32(index), "flip": np.bool_(is_train and params["flip"]),
+                    "path": image_path}
 
         if self._cache_enabled:
             image_u8, label_arr, inst_arr, image_path, orig_size = self._resized_arrays(index)

@@ -85,6 +85,21 @@ def assemble(cfg: Config, input_label, feat):
     return _concat(cfg, input_label, feat), input_label
 
 
+def checkpoint_decode(decode, inputs, generator, deterministic):
+    """``decode(inputs, deterministic, generator)`` recomputed whole in the
+    backward (``optim.remat_granularity`` 'decode'); the recompute replays
+    the generator's draws from the same state."""
+    state = None if generator is None else generator.get_state()
+    keys = [k for k in _DECODE_TENSORS if inputs.get(k) is not None]
+
+    def run(*tensors):
+        if state is not None:
+            generator.set_state(state)
+        return decode(dict(inputs, **dict(zip(keys, tensors))), deterministic, generator)
+
+    return checkpoint(run, *[inputs[k] for k in keys], use_reentrant=False)
+
+
 class SemanticCodec(nn.Module):
     """netG [+ netE4label] [+ netE] with random weights from ``seed`` (or
     zeros with ``seed=None``, for loading a state dict), assembled by the
@@ -120,7 +135,8 @@ class SemanticCodec(nn.Module):
                 m.n_downsample_global, m.n_blocks_global, m.fused_instance_norm, remat,
                 binarize=not m.no_generator_binarization,
                 binarizer_out_channels=m.generator_binarizer_out_channels,
-                bin_before_res=m.bin_generator_before_res, norm=m.norm), dev, gen)
+                bin_before_res=m.bin_generator_before_res, norm=m.norm,
+                use_dropout=m.use_dropout), dev, gen)
         self.netE = self.netE4label = None
         if cfg.use_netE:
             self.netE = build(lambda: Encoder(
@@ -197,17 +213,7 @@ class SemanticCodec(nn.Module):
         which instance norms do not read; it is kept for the signature."""
         del train
         if self.remat_decode and torch.is_grad_enabled():
-            # the recompute replays the binarizers' draws from the same state
-            state = None if generator is None else generator.get_state()
-            keys = [k for k in _DECODE_TENSORS if inputs.get(k) is not None]
-
-            def run(*tensors):
-                if state is not None:
-                    generator.set_state(state)
-                return self._decode(dict(inputs, **dict(zip(keys, tensors))), deterministic,
-                                    generator)
-
-            return checkpoint(run, *[inputs[k] for k in keys], use_reentrant=False)
+            return checkpoint_decode(self._decode, inputs, generator, deterministic)
         return self._decode(inputs, deterministic, generator)
 
     def _decode(self, inputs, deterministic, generator):

@@ -8,7 +8,7 @@ and the 7x7 tail run in the space-to-depth domain with weights transformed
 once at construction (ops/s2d.py); the mid trunk runs unchanged. The tail is
 the direct s2d conv (the JAX package's ``fast.tail_split=False`` form: its
 tap split exists to fill the TPU's 128 output lanes). The back stage
-re-aligns the s2d grid with kernel K1 (ops/realign.py).
+re-aligns the s2d grid, by default with kernel K1 (ops/realign.py).
 
 The kernel switches of ``config.FastPathConfig`` pick the front:
 ``head_pallas`` runs a wide head (s2d input of >= 64 channels, or every
@@ -30,7 +30,7 @@ enhancer's full resolution.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -44,7 +44,11 @@ from jpdse_tpu_torch.models.layers import (
     reflect_pad,
 )
 from jpdse_tpu_torch.ops.head_conv import head_conv_extra_rows, head_conv_s2d, padded_channels
-from jpdse_tpu_torch.ops.realign import s2d_pad3, s2d_realign_pad3
+from jpdse_tpu_torch.ops.realign import (
+    s2d_pad3,
+    s2d_realign_pad3,
+    s2d_realign_pad3_plain,
+)
 from jpdse_tpu_torch.ops.s2d import (
     conv_s1_weights_to_s2d,
     conv_s2_weights_from_s2d_nopad,
@@ -79,20 +83,47 @@ def _sub(state: Dict[str, torch.Tensor], prefix: str, rename=()) -> Dict[str, to
 
 
 class _FastTrunk:
-    """Transformed weights + staged forward for one GlobalGenerator or
-    Encoder trunk. ``state``: the trunk's state dict (keys as in
-    ``models/generator.py``). ``binarize``: 'none', 'mid' (an encoder's
-    binarizer between its downs and ups), or a generator's bottleneck
-    binarizer 'before_res' or 'after_res' its residual blocks. ``fp``: the
-    resolved kernel switches. The stages follow from the keys of ``state``
-    (the module docstring)."""
+    """Staged s2d forward for one GlobalGenerator or Encoder trunk.
+    ``state``: the trunk's state dict (keys as in ``models/generator.py``).
+    ``binarize``: 'none', 'mid' (an encoder's binarizer between its downs
+    and ups), or a generator's bottleneck binarizer 'before_res' or
+    'after_res' its residual blocks. ``fp``: the resolved kernel switches.
+    The stages follow from the keys of ``state`` (the module docstring).
+
+    The stages read the weights from a dict handed to them (``w``), keyed
+    as :meth:`build_weights` keys it: serving passes ``self.weights``,
+    transformed once here from detached copies; the fast train decode
+    (``models/fast_train.py``) passes one built each step from the live
+    parameters by the differentiable twins of the transforms. With
+    ``weights=False`` the trunk is a skeleton: the structure, no weights."""
 
     def __init__(self, state: Dict[str, torch.Tensor], n_down: int, n_blocks: int,
-                 binarize: str, dtype: torch.dtype, device, fp: FastPathConfig):
+                 binarize: str, dtype: torch.dtype, device, fp: FastPathConfig,
+                 weights: bool = True):
         self.n_down, self.n_res, self.binarize = n_down, n_blocks, binarize
         self.dtype, self.fp = dtype, fp
         self.has_front = "head.conv.conv.weight" in state
         self.has_back = "tail.conv.weight" in state
+        self.head_fold = "none"
+        if self.has_front:
+            _, cin, k, _ = state["head.conv.conv.weight"].shape
+            self.head_kp, c4 = k // 2 + 1, 4 * cin
+            head = fp.head_pallas
+            # K4 for heads whose s2d input is wide (JAX: fast_trunk.py:114-129)
+            if head == "force" or (head == "1" and c4 >= 64):
+                self.head_fold = "pallas"
+                # K4 reads padded_channels(c4) input channels; the padding's weights are 0
+                self.head_c = padded_channels(c4)
+        # plain upsamples: all but the last with a back, else every one there is
+        n_up = n_down - 1 if self.has_back else n_down
+        self.n_mid_up = next((i for i in range(n_up) if f"up.{i}.deconv.weight" not in state),
+                             n_up)
+        self.weights = self.build_weights(state, device) if weights else None
+
+    def build_weights(self, state: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+        """The stages' weight dict from detached copies of ``state``: the
+        s2d transforms in numpy, every weight in the compute dtype."""
+        dtype, n_down = self.dtype, self.n_down
 
         def cl(t):  # a weight in the compute dtype, channels-last like the activations
             return t.detach().to(device=device, dtype=dtype).contiguous(
@@ -105,16 +136,10 @@ class _FastTrunk:
             return hwio_to_oihw(w, device, dtype)
 
         w: Dict[str, torch.Tensor] = {}
-        self.head_fold = "none"
         if self.has_front:
             wp_head = conv_s1_weights_to_s2d(oihw_to_hwio(state["head.conv.conv.weight"]))
-            self.head_kp, _, c4, _ = wp_head.shape
-            head = self.fp.head_pallas
-            # K4 for heads whose s2d input is wide (JAX: fast_trunk.py:114-129)
-            self.head_fold = "pallas" if head == "force" or (head == "1" and c4 >= 64) else "none"
             if self.head_fold == "pallas":
-                # K4 reads padded_channels(c4) input channels; the padding's weights are 0
-                self.head_c = padded_channels(c4)
+                c4 = wp_head.shape[2]
                 wp_pad = np.pad(wp_head, ((0, 0), (0, 0), (0, self.head_c - c4), (0, 0)))
                 w["head_w"] = torch.from_numpy(np.ascontiguousarray(
                     weights_fold_w(wp_pad).reshape(self.head_kp, self.head_kp * self.head_c, -1))
@@ -128,14 +153,10 @@ class _FastTrunk:
         for i in range(1, n_down):
             w[f"down{i}_w"] = cl(state[f"down.{i}.conv.conv.weight"])
             w[f"down{i}_b"] = vec(state[f"down.{i}.conv.conv.bias"])
-        for i in range(n_blocks):
+        for i in range(self.n_res):
             for j in (1, 2):
                 w[f"res{i}_w{j}"] = cl(state[f"res.{i}.conv{j}.conv.weight"])
                 w[f"res{i}_b{j}"] = vec(state[f"res.{i}.conv{j}.conv.bias"])
-        # plain upsamples: all but the last with a back, else every one there is
-        n_up = n_down - 1 if self.has_back else n_down
-        self.n_mid_up = next((i for i in range(n_up) if f"up.{i}.deconv.weight" not in state),
-                             n_up)
         for i in range(self.n_mid_up):
             w[f"up{i}_w"] = vec(state[f"up.{i}.deconv.weight"])
             w[f"up{i}_b"] = vec(state[f"up.{i}.deconv.bias"])
@@ -148,17 +169,16 @@ class _FastTrunk:
             w["uplast_b"] = vec(state[f"up.{n_down - 1}.deconv.bias"].repeat(4))
             w["tail_w"] = s2d_w(conv_s1_weights_to_s2d(oihw_to_hwio(state["tail.conv.weight"])))
             w["tail_b"] = vec(state["tail.conv.bias"].repeat(4))
-        if binarize != "none":
+        if self.binarize != "none":
             w["bin_w"] = cl(state["binarizer.conv.weight"])
-        self.weights = w
+        return w
 
     # -- stages -----------------------------------------------------------
-    def front(self, x: torch.Tensor) -> torch.Tensor:
+    def front(self, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """Fine input -> normal-domain tensor after down0 (H/2, W/2, C1)."""
-        w = self.weights
         x = x.to(self.dtype)
         if self.head_fold == "pallas":
-            h = self._front_head_pallas(x)
+            h = self._front_head_pallas(w, x)
         else:
             if self.fp.front_realign in ("auto", "pallas"):
                 xp = s2d_pad3(x.contiguous())
@@ -169,79 +189,94 @@ class _FastTrunk:
         h = conv_valid(_pad_hw(h, 1, 0, 1, 0), w["down0_w"], w["down0_b"])
         return torch.relu(instance_norm(h))
 
-    def _front_head_pallas(self, x: torch.Tensor) -> torch.Tensor:
+    def _front_head_pallas(self, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """The head conv as K4, with the JAX package's producer: plain
-        space_to_depth, then K1 re-aligning it with the extra rows K4's
-        TPU form needed (fast_trunk.py:272-305) and zero channels up to
-        the multiple of 8 that K4's TMA needs, then the bias."""
+        space_to_depth, then the grid re-alignment (:meth:`_realign`, K1
+        unless ``fused_realign`` says otherwise) with the extra rows K4's
+        TPU form needed (fast_trunk.py:272-305) and zero channels up to the
+        multiple of 8 that K4's TMA needs, then the bias."""
         kp = self.head_kp
         ho = x.shape[1] // 2
-        xp = s2d_realign_pad3(space_to_depth(x), extra_rows=head_conv_extra_rows(ho, kp),
-                              channels=self.head_c)
-        return head_conv_s2d(xp, self.weights["head_w"], kp, ho=ho) + self.weights["head_b"]
+        xp = self._realign(space_to_depth(x), extra_rows=head_conv_extra_rows(ho, kp),
+                           channels=self.head_c)
+        return head_conv_s2d(xp, w["head_w"], kp, ho=ho) + w["head_b"]
 
-    def mid_down(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.weights
+    def mid_down(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         for i in range(1, self.n_down):
             h = conv_valid(_pad_hw(h, 1, 1, 1, 1), w[f"down{i}_w"], w[f"down{i}_b"], stride=2)
             h = torch.relu(instance_norm(h))
         return h
 
-    def apply_binarizer(self, h: torch.Tensor) -> torch.Tensor:
-        return torch.sign(torch.tanh(conv_valid(h, self.weights["bin_w"])))
+    def apply_binarizer(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+        return torch.sign(torch.tanh(conv_valid(h, w["bin_w"])))
 
-    def res_blocks(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.weights
+    def res_block(self, w: Dict[str, torch.Tensor], h: torch.Tensor, i: int) -> torch.Tensor:
+        r = conv_valid(reflect_pad(h, 1), w[f"res{i}_w1"], w[f"res{i}_b1"])
+        r = torch.relu(instance_norm(r))
+        r = conv_valid(reflect_pad(r, 1), w[f"res{i}_w2"], w[f"res{i}_b2"])
+        return h + instance_norm(r)
+
+    def res_blocks(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_res):
-            r = conv_valid(reflect_pad(h, 1), w[f"res{i}_w1"], w[f"res{i}_b1"])
-            r = torch.relu(instance_norm(r))
-            r = conv_valid(reflect_pad(r, 1), w[f"res{i}_w2"], w[f"res{i}_b2"])
-            h = h + instance_norm(r)
+            h = self.res_block(w, h, i)
         return h
 
-    def mid_up(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.weights
+    def mid_up(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_mid_up):
             h = torch.relu(instance_norm(conv_transpose_nhwc(h, w[f"up{i}_w"], w[f"up{i}_b"])))
         return h
 
-    def back(self, h: torch.Tensor) -> torch.Tensor:
+    def _realign(self, y: torch.Tensor, extra_rows: int = 0,
+                 channels: Optional[int] = None) -> torch.Tensor:
+        """Grid re-alignment ``s2d(reflect_pad(d2s(y), 3))`` (with extra
+        rows and zero channels for K4's producer), by ``fp.fused_realign``
+        as the JAX package's ``_FastTrunk._realign`` picks (:341-375):
+        'auto' / 'pallas' kernel K1, else the composition (JAX's '1' /
+        'xla' slice form computes the same tensor bit for bit, so the port
+        runs the composition for it too)."""
+        if self.fp.fused_realign in ("auto", "pallas"):
+            return s2d_realign_pad3(y.contiguous(), extra_rows, channels)
+        return s2d_realign_pad3_plain(y, extra_rows, channels)
+
+    def back(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         """Normal-domain (H/2, W/2, C) -> fine output with tanh."""
-        w = self.weights
         y = conv_valid(_pad_hw(h, 0, 1, 0, 1), w["uplast_w"], w["uplast_b"])
         y = torch.relu(instance_norm_s2d(y, use_shift=self.fp.norm_shift))
-        yp = s2d_realign_pad3(y.contiguous())
+        yp = self._realign(y)
         return depth_to_space(torch.tanh(conv_valid(yp, w["tail_w"], w["tail_b"])))
 
-    # -- full passes --------------------------------------------------------
+    # -- full passes, on the trunk's own weights ----------------------------
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.front(x) if self.has_front else x.to(self.dtype)
-        h = self.mid_down(h)
+        w = self.weights
+        h = self.front(w, x) if self.has_front else x.to(self.dtype)
+        h = self.mid_down(w, h)
         if self.binarize in ("mid", "before_res"):
-            h = self.apply_binarizer(h)
-        h = self.res_blocks(h)
+            h = self.apply_binarizer(w, h)
+        h = self.res_blocks(w, h)
         if self.binarize == "after_res":
-            h = self.apply_binarizer(h)
-        h = self.mid_up(h)
-        return self.back(h) if self.has_back else h
+            h = self.apply_binarizer(w, h)
+        h = self.mid_up(w, h)
+        return self.back(w, h) if self.has_back else h
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Fine input -> {-1, 0, +1} code (through the binarizer)."""
         if self.binarize == "none":
             raise ValueError("no binarizer in this trunk")
-        h = self.mid_down(self.front(x))
+        w = self.weights
+        h = self.mid_down(w, self.front(w, x))
         if self.binarize == "after_res":
-            h = self.res_blocks(h)
-        return self.apply_binarizer(h)
+            h = self.res_blocks(w, h)
+        return self.apply_binarizer(w, h)
 
     def decode_from_code(self, code_pm1: torch.Tensor) -> torch.Tensor:
         """Resume after the binarizer from a {-1, +1} code."""
         if self.binarize == "none":
             raise ValueError("no binarizer in this trunk")
+        w = self.weights
         h = code_pm1.to(self.dtype)
         if self.binarize == "before_res":
-            h = self.res_blocks(h)
-        return self.back(self.mid_up(h))
+            h = self.res_blocks(w, h)
+        return self.back(w, self.mid_up(w, h))
 
 
 class _FastLocalG:
@@ -273,6 +308,7 @@ class _FastLocalG:
             pyramid.append(avg_pool_3s2(pyramid[-1]))
         h = self.glob(pyramid[-1])
         for n in range(self.n_local):
-            d = self.downs[n].front(pyramid[self.n_local - 1 - n])
+            down = self.downs[n]
+            d = down.front(down.weights, pyramid[self.n_local - 1 - n])
             h = self.ups[n](d + h)
         return h

@@ -49,13 +49,17 @@ class GlobalGenerator(nn.Module):
     puts a binarizer in the bottleneck, after the residual blocks or, with
     ``bin_before_res``, before them (the blocks then run at its width);
     ``encode`` and ``decode_from_code`` split the trunk there. Without
-    ``tail`` it is a LocalEnhancer's global trunk: no tail parameters."""
+    ``tail`` it is a LocalEnhancer's global trunk: no tail parameters.
+    ``use_dropout`` puts Dropout(0.5) in the residual blocks, in training
+    only (the reference never passed its flag, ``generator.py:117``; the
+    JAX package honours it, and so does the port)."""
 
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 64,
                  n_downsampling: int = 4, n_blocks: int = 9, fused: bool = False,
                  remat: bool = False, binarize: bool = False,
                  binarizer_out_channels: int = 128, bin_before_res: bool = False,
-                 norm: str = "instance", padding_type: str = "reflect", tail: bool = True):
+                 norm: str = "instance", padding_type: str = "reflect", tail: bool = True,
+                 use_dropout: bool = False):
         super().__init__()
         mid = ngf * 2**n_downsampling
         self.bin_before_res = binarize and bin_before_res
@@ -63,31 +67,32 @@ class GlobalGenerator(nn.Module):
         self.down = _down(ngf, n_downsampling, fused, remat, norm)
         self.binarizer = Binarizer(mid, binarizer_out_channels) if binarize else None
         res_dim = binarizer_out_channels if self.bin_before_res else mid
-        self.res = nn.ModuleList(ResnetBlock(res_dim, fused, remat, padding_type, norm)
-                                 for _ in range(n_blocks))
+        self.res = nn.ModuleList(ResnetBlock(res_dim, fused, remat, padding_type, norm,
+                                             use_dropout) for _ in range(n_blocks))
         self.up = _up(ngf, n_downsampling, binarizer_out_channels if binarize else mid, fused,
                       remat, norm)
         self.tail = Conv(ngf, output_nc, 7) if tail else None
 
-    def _res(self, h):
+    def _res(self, h, deterministic: bool = True, generator=None):
         for blk in self.res:
-            h = blk(h)
+            h = blk(h, deterministic, generator)
         return h
 
-    def features(self, x):
+    def features(self, x, deterministic: bool = True, generator=None):
         """The trunk up to the binarizer's input (the whole front without
         one)."""
         h = self.head(x)
         for blk in self.down:
             h = blk(h)
-        return h if self.bin_before_res else self._res(h)
+        return h if self.bin_before_res else self._res(h, deterministic, generator)
 
     def encode(self, x, deterministic: bool = True, generator=None):
         """Through the binarizer: the {-1, +1} bottleneck code (the
         stochastic sign from ``generator`` in training)."""
         if self.binarizer is None:
             raise AttributeError("GlobalGenerator: no binarizer found")
-        return self.binarizer(self.features(x), deterministic, generator)
+        return self.binarizer(self.features(x, deterministic, generator), deterministic,
+                              generator)
 
     def ups(self, h):
         for blk in self.up:
@@ -97,16 +102,19 @@ class GlobalGenerator(nn.Module):
     def _back(self, h):
         return torch.tanh(self.tail(reflect_pad(self.ups(h), 3)))
 
-    def decode_from_code(self, code):
+    def decode_from_code(self, code, deterministic: bool = True, generator=None):
         """Resume the trunk after the binarizer."""
         if self.binarizer is None:
             raise AttributeError("GlobalGenerator: no binarizer found")
-        return self._back(self._res(code) if self.bin_before_res else code)
+        if self.bin_before_res:
+            code = self._res(code, deterministic, generator)
+        return self._back(code)
 
     def forward(self, x, deterministic: bool = True, generator=None):
         if self.binarizer is None:
-            return self._back(self.features(x))
-        return self.decode_from_code(self.encode(x, deterministic, generator))
+            return self._back(self.features(x, deterministic, generator))
+        return self.decode_from_code(self.encode(x, deterministic, generator), deterministic,
+                                     generator)
 
 
 class LocalDownsample(nn.Module):

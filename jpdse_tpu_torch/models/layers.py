@@ -130,13 +130,21 @@ def _pool_valid_counts(h: int, w: int) -> np.ndarray:
     return np.outer(ch, cw)
 
 
+@functools.lru_cache(maxsize=64)
+def _pool_counts(h: int, w: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_pool_valid_counts` on ``device``, made once per shape: a
+    table as large as the pooled map, not copied to the card each call.
+    Made outside inference mode, so autograd may save it later."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_pool_valid_counts(h, w)).to(device, dtype)
+
+
 def avg_pool_3s2(x):
     """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) of an NHWC
     tensor: the window sums over the valid-element counts, as the JAX
     package computes it."""
     sums = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1, divisor_override=1).permute(0, 2, 3, 1)
-    counts = torch.from_numpy(_pool_valid_counts(x.shape[1], x.shape[2])).to(x.device, x.dtype)
-    return sums / counts[None, :, :, None]
+    return sums / _pool_counts(x.shape[1], x.shape[2], x.device, x.dtype)[None, :, :, None]
 
 
 def remat_call(remat: bool, fn, *args):
@@ -225,16 +233,28 @@ class ConvTransposeNormAct(nn.Module):
         return torch.relu(self.norm(h))
 
 
+def dropout_mask(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """The kept positions of Dropout(0.5): True where a uniform draw from
+    ``generator`` is below 1/2, as ``jax.random.bernoulli`` keeps."""
+    return torch.rand(shape, generator=generator, device=device) < 0.5
+
+
 class ResnetBlock(nn.Module):
-    """pix2pixHD residual block: [pad1 conv3 norm relu pad1 conv3 norm] + x,
-    the pad by ``padding_type``: 'reflect', 'replicate' or 'zero' (the
-    convs' own padding). With ``fused`` and an instance norm each norm is
-    one K3 call, the second taking the skip as its residual."""
+    """pix2pixHD residual block: [pad1 conv3 norm relu [dropout] pad1 conv3
+    norm] + x, the pad by ``padding_type``: 'reflect', 'replicate' or 'zero'
+    (the convs' own padding). With ``fused`` and an instance norm each norm
+    is one K3 call, the second taking the skip as its residual.
+    ``use_dropout`` (``layers.py:292-311``): in training (``deterministic``
+    False) Dropout(0.5) after the first norm's ReLU, the kept values scaled
+    by 2; its mask is drawn from the explicit ``generator`` before the block
+    runs, so a remat recompute applies the same mask. In evaluation the
+    block is as without it."""
 
     def __init__(self, dim: int, fused: bool = False, remat: bool = False,
-                 padding_type: str = "reflect", norm: str = "instance"):
+                 padding_type: str = "reflect", norm: str = "instance",
+                 use_dropout: bool = False):
         super().__init__()
-        self.remat, self.norm = remat, norm_fn(norm)
+        self.remat, self.norm, self.use_dropout = remat, norm_fn(norm), use_dropout
         self.fused = fused and norm == "instance"
         pads = {"reflect": reflect_pad, "replicate": replicate_pad, "zero": None}
         if padding_type not in pads:
@@ -244,17 +264,26 @@ class ResnetBlock(nn.Module):
         self.conv1 = Conv(dim, dim, 3, padding=p)
         self.conv2 = Conv(dim, dim, 3, padding=p)
 
-    def forward(self, x):
-        return remat_call(self.remat, self._forward, x)
+    def forward(self, x, deterministic: bool = True, generator=None):
+        mask = None
+        if self.use_dropout and not deterministic:
+            if generator is None:
+                raise ValueError("dropout in training needs an explicit torch.Generator")
+            mask = dropout_mask(x.shape, generator, x.device)  # conv1 keeps x's shape
+        return remat_call(self.remat, self._forward, x, mask)
 
     def _padded(self, x):
         return x if self.pad is None else self.pad(x, 1)
 
-    def _forward(self, x):
+    def _forward(self, x, mask=None):
         if self.fused:
             h = _fused_norm(self.conv1(self._padded(x)), relu=True)
+        else:
+            h = torch.relu(self.norm(self.conv1(self._padded(x))))
+        if mask is not None:
+            h = torch.where(mask, h * 2.0, torch.zeros_like(h))
+        if self.fused:
             return _fused_norm(self.conv2(self._padded(h)), residual=x)
-        h = torch.relu(self.norm(self.conv1(self._padded(x))))
         return x + self.norm(self.conv2(self._padded(h)))
 
 

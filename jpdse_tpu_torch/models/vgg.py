@@ -46,7 +46,8 @@ class Vgg19Features(nn.Module):
 
     def forward(self, x) -> List[torch.Tensor]:
         """The five slices, computed in the trunk's own dtype (fp32 for a
-        bf16 image, as the JAX package's fp32 trunk takes one)."""
+        bf16 image, as the JAX package's fp32 trunk takes one; bf16 for
+        every image once the weights are cast, ``optim.vgg_bf16``)."""
         x = x.to(self.conv1_1.weight.dtype)
         outs = []
         for name in conv_names():

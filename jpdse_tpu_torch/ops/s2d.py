@@ -6,10 +6,14 @@ An (H, W, C) tensor is stored as (H/2, W/2, 4C) with channel index
 that domain with transformed weights: the same math, equal up to float
 reassociation. The weight transforms are numpy copies of the JAX package's,
 in its (kh, kw, Cin, Cout) layout; ``hwio_to_oihw`` hands them to PyTorch.
+Their differentiable twins (``*_oihw``) re-lay live OIHW parameters with one
+gather each, for the fast train decode (``models/fast_train.py``), whose
+gradients flow back through them to the standard-layout parameters.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -109,6 +113,57 @@ def convT_s2_weights_to_s2d(w: np.ndarray) -> np.ndarray:
     return wp
 
 
+# -- differentiable twins of the transforms, on live OIHW parameters --------
+
+@functools.lru_cache(maxsize=None)
+def _relayout_index(transform, shape, device: torch.device):
+    """The copies ``transform`` makes of an HWIO weight of ``shape``: (the
+    output's shape, the flat output positions that hold a weight, the flat
+    HWIO position each copies), the positions on ``device``, made once (a
+    head's are MBs, not copied to the card each step; made outside
+    inference mode, so autograd may save them). The transform itself
+    computes it, run on the positions + 1 (each output element copies at
+    most one weight, so the layout equals the numpy transform's by
+    construction); the output's zeros copy nothing."""
+    pos = np.arange(1, int(np.prod(shape)) + 1, dtype=np.float64).reshape(shape)
+    out = transform(pos).astype(np.int64)
+    flat = out.reshape(-1) - 1
+    dst = np.flatnonzero(flat >= 0)
+    with torch.inference_mode(False):
+        return (out.shape, torch.from_numpy(dst).to(device),
+                torch.from_numpy(flat[dst]).to(device))
+
+
+def _relayout(transform, w_hwio: torch.Tensor) -> torch.Tensor:
+    """``transform`` of an HWIO weight tensor, returned as an OIHW tensor in
+    channels-last memory: one gather of the weights (its backward sums each
+    weight's few copies, deterministically) copied into zeros (its backward
+    a gather). The output's shape is the numpy transform's."""
+    shape, dst, src = _relayout_index(transform, tuple(w_hwio.shape), w_hwio.device)
+    vals = w_hwio.reshape(-1)[src]
+    out = w_hwio.new_zeros(int(np.prod(shape))).index_copy(0, dst, vals)
+    return out.view(shape).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def conv_s1_weights_to_s2d_oihw(w: torch.Tensor) -> torch.Tensor:
+    """Twin of :func:`conv_s1_weights_to_s2d` on an OIHW weight: the s2d
+    weight in OIHW, equal bit for bit to ``hwio_to_oihw`` of the numpy
+    transform."""
+    return _relayout(conv_s1_weights_to_s2d, w.permute(2, 3, 1, 0))
+
+
+def conv_s2_weights_from_s2d_nopad_oihw(w: torch.Tensor) -> torch.Tensor:
+    """Twin of :func:`conv_s2_weights_from_s2d_nopad` on an OIHW weight."""
+    return _relayout(conv_s2_weights_from_s2d_nopad, w.permute(2, 3, 1, 0))
+
+
+def convT_s2_weights_to_s2d_oihw(w: torch.Tensor) -> torch.Tensor:
+    """Twin of :func:`convT_s2_weights_to_s2d` on a ConvTranspose2d weight
+    (in, out, kh, kw): its effective correlation kernel (kh, kw, in, out),
+    flipped, re-laid into the s2d weight in OIHW."""
+    return _relayout(convT_s2_weights_to_s2d, w.permute(2, 3, 0, 1).flip(0, 1))
+
+
 def weights_fold_w(wp: np.ndarray) -> np.ndarray:
     """(kh, kw, Cin, Cout) -> (kh, 1, kw*Cin, Cout): each kernel row's width
     taps folded into one contraction (folded channel = v*Cin + c), the
@@ -120,7 +175,8 @@ def weights_fold_w(wp: np.ndarray) -> np.ndarray:
 def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, use_shift=None) -> torch.Tensor:
     """InstanceNorm over the fine (H, W) extent of an s2d tensor: the
     statistics of each fine channel pool its 4 sub-position groups. One-pass
-    fp32 moments, as the JAX package computes them.
+    fp32 moments (float64 for a float64 input, as ``layers.instance_norm``),
+    as the JAX package computes them.
 
     ``use_shift`` (``FastPathConfig.norm_shift``; None reads the env var
     ``JPDSE_NORM_SHIFT``): subtract each fine channel's value at the first
@@ -129,7 +185,7 @@ def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, use_shift=None) -> tor
     |mean|/std is large."""
     b, h, w, c4 = x.shape
     c = c4 // 4
-    x32 = x.float()
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     n = h * w * 4
     if use_shift is None:
         use_shift = os.environ.get("JPDSE_NORM_SHIFT", "0") == "1"

@@ -26,10 +26,9 @@ import torch
 from jpdse_tpu_torch import codec_io
 from jpdse_tpu_torch.codecs.bridge import decode_bytes, normalize_decoded
 from jpdse_tpu_torch.config import Config
+from jpdse_tpu_torch.data.prefetch import DEVICE_KEYS
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
-
-DEVICE_KEYS = ("label", "instance", "image", "compressed")
 
 
 class CodecServer:

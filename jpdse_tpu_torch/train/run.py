@@ -17,10 +17,16 @@ resumes from ``latest``.
         --preprocess_mode fixed --load_size 1024 --crop_size 1024 \\
         --normalize_std 1 --batch_size 2 --remat 1 --save_dir runs/x
 
-Runs on the card; ``main(argv, device="cpu")`` runs it on the CPU. The
-JAX package's device-resident dataset cache (``data.device_cache``) is
-declined with a printed reason: batches come from the host loader, the
-same batches bit for bit.
+Batches reach the card through ``data/prefetch.py::prefetch_to_device``
+(two placed ahead, on a side stream). Under ``cache_images`` with
+``data.device_cache`` (the default) the training set is resident on the
+card and each batch is assembled there from the loader's (index, flip)
+(``data/device_cache.py``), and the validation batches are placed once and
+replayed; otherwise the loader's host batches are copied. With
+``profile_dir`` the first trained epoch runs under a ``torch.profiler``
+trace written there (``utils/profiling.py``).
+
+Runs on the card; ``main(argv, device="cpu")`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -30,13 +36,17 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from jpdse_tpu_torch.cli import parse_config, print_config
 from jpdse_tpu_torch.config import derive_eval_config
 from jpdse_tpu_torch.data import create_dataloader
+from jpdse_tpu_torch.data.device_cache import maybe_device_cache, maybe_val_cache
+from jpdse_tpu_torch.data.prefetch import prefetch_to_device
 from jpdse_tpu_torch.platform import resolve_device
 from jpdse_tpu_torch.trainer import Trainer
 from jpdse_tpu_torch.utils.logging import MetricsLogger
+from jpdse_tpu_torch.utils.profiling import trace
 from jpdse_tpu_torch.utils.visualizer import HTMLGallery, Visualizer
 
 MAX_VAL_SIZE = 30  # reference train.py:16
@@ -79,6 +89,11 @@ def validate(trainer: Trainer, val_loader, log_file, cfg) -> float:
     return avg
 
 
+def _host(v):
+    """A batch field as numpy (a placed validation batch holds tensors)."""
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
 def dump_reconstructions(trainer: Trainer, val_loader, cfg, gallery, visualizer):
     print("\nsaving reconstructed val images...\n")
     limit = cfg.max_recon_dump  # None: every image of the (<= 30-batch) val pass
@@ -91,19 +106,25 @@ def dump_reconstructions(trainer: Trainer, val_loader, cfg, gallery, visualizer)
         for j in range(recon.shape[0]):
             visuals = {}
             if not cfg.model.no_label:
-                visuals["label"] = batch["label"][j]
-            visuals["image"] = batch["image"][j]
+                visuals["label"] = _host(batch["label"][j])
+            visuals["image"] = _host(batch["image"][j])
             visuals["reconstructed_image"] = recon[j]
             visualizer.save_images(gallery, visuals, batch["path"][j])
         gallery.save()
 
 
-def run_epoch(trainer: Trainer, loader, cfg, epoch: int, metrics_log, log_file):
-    """One pass over the loader; each step's metrics are fetched after the
-    next step is queued, and the logged batch time is the interval between
-    two fetches (load, launch and the card's work). The epoch ends with the
-    host-clock time it waited for the loader, of its whole time: what the
-    data pipeline (a base codec's encodes among it) did not hide."""
+def run_epoch(trainer: Trainer, loader, cfg, epoch: int, metrics_log, log_file,
+              dev_cache=None):
+    """One pass over the loader, its batches placed two ahead
+    (``prefetch_to_device``; by the device cache from meta batches where
+    there is one); each step's metrics are fetched after the next step is
+    queued, and the logged batch time is the interval between two fetches
+    (load, launch and the card's work). The epoch ends with the host-clock
+    time it waited for the loader and the placement, of its whole time:
+    what the data pipeline (a base codec's encodes among it) did not
+    hide."""
+    place = trainer.place if dev_cache is None else dev_cache.place
+    batches = prefetch_to_device(loader, size=2, device=trainer.device, place_fn=place)
     steps0 = trainer.steps_taken
     n_batches = len(loader)
     pending = None
@@ -125,7 +146,7 @@ def run_epoch(trainer: Trainer, loader, cfg, epoch: int, metrics_log, log_file):
 
     t_epoch = t_asked = time.perf_counter()
     wait = 0.0
-    for i, batch in enumerate(loader):
+    for i, batch in enumerate(batches):
         wait += time.perf_counter() - t_asked
         handle = trainer.step_async(batch)
         if pending is not None:
@@ -160,28 +181,32 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:
     print(f"# trainable params at initialization: {n_params}")
     log_file = os.path.join(cfg.save_dir, "loss_log.txt") if cfg.save_dir else None
     metrics_log = MetricsLogger(cfg.save_dir)
-    if cfg.data.device_cache:
-        print("device_cache: declined (the device-resident dataset cache is ROADMAP Queue 1 "
-              "item 11); reading host batches, the same batches bit for bit")
+    dev_cache = maybe_device_cache(loader, cfg, trainer.device)
+    if dev_cache is not None:
+        loader.meta_only = True
+    val_batches = maybe_val_cache(val_loader, cfg, trainer.device, cap=MAX_VAL_SIZE) or val_loader
 
     if cfg.load_model:
         trainer.load()
-        validate(trainer, val_loader, log_file, cfg)  # confirms the load
+        validate(trainer, val_batches, log_file, cfg)  # confirms the load
 
     for epoch in range(trainer.start_epoch, trainer.start_epoch + cfg.optim.num_epochs):
         trainer.maybe_unfreeze_global(epoch)
         loader.set_epoch(epoch)
-        run_epoch(trainer, loader, cfg, epoch, metrics_log, log_file)
+        # a profiler trace of the first trained epoch, when asked
+        first = epoch == trainer.start_epoch
+        with trace(cfg.profile_dir if first else None):
+            run_epoch(trainer, loader, cfg, epoch, metrics_log, log_file, dev_cache)
 
         saved = False
         if not (epoch + 1) % cfg.optim.val_interval:
-            avg = validate(trainer, val_loader, log_file, cfg)
+            avg = validate(trainer, val_batches, log_file, cfg)
             if cfg.optim.schedule_lr:
                 trainer.scheduler_step(avg)
             metrics_log.log(trainer.steps_taken,
                             {"avg_val_distortion": avg, "lr": trainer.current_lr}, epoch=epoch)
             if cfg.always_save or (avg < trainer.best_val_loss and cfg.save_dir):
-                dump_reconstructions(trainer, val_loader, cfg, gallery, visualizer)
+                dump_reconstructions(trainer, val_batches, cfg, gallery, visualizer)
                 log("saving model...", log_file)
                 trainer.save(epoch, avg)
                 saved = True

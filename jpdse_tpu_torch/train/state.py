@@ -6,13 +6,15 @@ the step (``train/step.py``) reads and updates.
 The two optimizers are ``torch.optim.Adam`` with the reference's
 hyperparameters (lr, betas (beta1, beta2), eps 1e-8); the lr lives in the
 param group, where ``set_lr`` changes it without rebuilding anything, as
-``optax.inject_hyperparams`` keeps it in the optimizer state.
+``optax.inject_hyperparams`` keeps it in the optimizer state. Under
+``optim.fast_train`` the state also holds the s2d train decode, which the
+step runs in place of the codec's decode.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -33,6 +35,8 @@ class GANTrainState:
     lambda_distortion_weight: float = 1.0
     best_val_loss: float = 1e12
     pool: Optional[ImagePoolState] = None
+    # under optim.fast_train the s2d train decode (models/fast_train.py), else None
+    fast_decode: Optional[Callable] = None
 
 
 def make_adam(cfg: Config, params) -> torch.optim.Adam:
@@ -49,8 +53,14 @@ def create_train_state(cfg: Config, codec: nn.Module, disc: nn.Module,
             raise ValueError("pool_size > 0 requires pool_image_shape (H, W, C)")
         pool = init_pool(cfg.model.pool_size, tuple(pool_image_shape),
                          next(codec.parameters()).device)
+    fast_decode = None
+    if cfg.optim.fast_train:
+        # raises ValueError with the failed gate for an ineligible config
+        from jpdse_tpu_torch.models.fast_train import make_fast_train_decode
+
+        fast_decode = make_fast_train_decode(cfg, codec)
     return GANTrainState(cfg, codec, disc, vgg, make_adam(cfg, codec.parameters()),
-                         make_adam(cfg, disc.parameters()), pool=pool)
+                         make_adam(cfg, disc.parameters()), pool=pool, fast_decode=fast_decode)
 
 
 def get_lr(state: GANTrainState) -> float:

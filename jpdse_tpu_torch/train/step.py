@@ -19,9 +19,12 @@ and ``chip_smoke.py``:
   where nothing upstream trains, records no graph through it), and its
   gradient is zeros, as ``step.py:273-277`` zeroes the trunk's.
 
-``optim.remat`` recomputes the decode's blocks (``models/layers.py``) and,
-as the JAX package's whole-function ``jax.checkpoint`` does, D's passes and
-VGG's pass on the fake in the backward.
+Under ``optim.fast_train`` the decode is the s2d train decode
+(``models/fast_train.py``, ``state.fast_decode``), as the JAX package swaps
+it in (:87-98). ``optim.remat`` recomputes the decode's blocks
+(``models/layers.py``) and, as the JAX package's whole-function
+``jax.checkpoint`` does, D's passes and VGG's pass on the fake in the
+backward.
 """
 
 from __future__ import annotations
@@ -85,8 +88,11 @@ def loss_and_grads(state: GANTrainState, batch: Dict[str, torch.Tensor],
     dev = real.device
     zero = torch.zeros((), device=dev)
     with torch.enable_grad():
-        fake, input_label = codec.decode(inputs, train=True, deterministic=False,
-                                         generator=generator)
+        if state.fast_decode is not None:  # optim.fast_train (step.py:87-98)
+            fake, input_label = state.fast_decode(inputs, generator, deterministic=False)
+        else:
+            fake, input_label = codec.decode(inputs, train=True, deterministic=False,
+                                             generator=generator)
         l_g_gan = l_feat = l_vgg = l_dist = zero
         if not (L.no_g_gan_loss and L.no_gan_feat_loss):
             pred_fake = remat_call(remat, disc, _d_concat(input_label, fake), keep)

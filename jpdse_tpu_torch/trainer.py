@@ -20,7 +20,8 @@ binarized module); the code methods raise without one.
 The binarizers' and the pool's draws come from one ``torch.Generator``
 seeded by ``optim.seed``; the discriminator's weights from seed 3 and
 VGG's (without a weights file) from 0, the numbers of the JAX Trainer's
-keys (the draws differ).
+keys (the draws differ). ``optim.vgg_bf16`` casts VGG's weights to bf16
+once, so its trunk runs in bf16.
 
 The fast path is chosen by ``cfg.model.fast_inference`` as the JAX
 package's ``Trainer._fast`` chooses it (:188-228): built once, on the loaded
@@ -50,7 +51,8 @@ from jpdse_tpu_torch.models.discriminator import build_discriminator
 from jpdse_tpu_torch.models.vgg import init_vgg19
 from jpdse_tpu_torch.ops.metrics import bernoulli_shannon_bpp
 from jpdse_tpu_torch.platform import resolve_device
-from jpdse_tpu_torch.serve import DEVICE_KEYS, CodecServer
+from jpdse_tpu_torch.data.prefetch import DEVICE_KEYS, to_device
+from jpdse_tpu_torch.serve import CodecServer
 from jpdse_tpu_torch.train import step as train_step
 from jpdse_tpu_torch.train.checkpoint import (
     meta_epoch,
@@ -103,6 +105,10 @@ class Trainer:
         if not cfg.loss.no_vgg_loss:
             vgg = init_vgg19(dev, torch.Generator(device=dev).manual_seed(0),
                              cfg.loss.vgg_weights_path)
+            if cfg.optim.vgg_bf16:
+                # the bf16 perceptual trunk (:140-149): weights cast once, the trunk
+                # computes in bf16, the slice L1s reduce in fp32 (losses.vgg_loss)
+                vgg = vgg.to(torch.bfloat16)
         h, w = train_image_hw(cfg)
         self.gan: GANTrainState = create_train_state(cfg, codec, disc, vgg,
                                                      (h, w, cfg.netD_input_nc))
@@ -161,17 +167,7 @@ class Trainer:
         """The device fields of a batch on the trainer's device: numpy arrays
         through pinned memory with a non-blocking copy, tensors already there
         passed through."""
-        out = {}
-        for k in DEVICE_KEYS:
-            if k not in batch:
-                continue
-            v = batch[k]
-            if not isinstance(v, torch.Tensor):
-                v = torch.from_numpy(np.ascontiguousarray(v))
-                if self.device.type == "cuda":
-                    v = v.pin_memory()
-            out[k] = v.to(self.device, non_blocking=True)
-        return out
+        return {k: to_device(batch[k], self.device) for k in DEVICE_KEYS if k in batch}
 
     # -- evaluation protocol -------------------------------------------------
     def get_img(self, batch: Dict) -> torch.Tensor:

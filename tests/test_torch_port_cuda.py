@@ -447,3 +447,76 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
                     assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("how", ["0", "1"])
+def test_fused_realign_off_launches_no_k1(cuda, how):
+    """The fast path with ``fused_realign`` '0' or '1' (the composition)
+    launches no K1 and decodes the image K1's form decodes, bit
+    for bit; the fast train decode launches none of K1, K2 and K4 however
+    the kernel switches are set."""
+    from jpdse_tpu_torch.models.fast_train import make_fast_train_decode
+
+    cfg = flagship_config(tiny=True)
+    cfg.model.compute_dtype = "float32"
+    state = SemanticCodec(cfg, device="cpu", seed=5).state_dict()
+    rng = np.random.default_rng(8)
+    batch = {"label": torch.from_numpy(rng.integers(0, 35, (2, 64, 128)).astype(np.float32)),
+             "instance": torch.from_numpy(rng.integers(0, 1000, (2, 64, 128)).astype(np.int32)),
+             "image": torch.from_numpy(rng.normal(size=(2, 64, 128, 3)).astype(np.float32))}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    want = FastCodec(cfg, state, device=cuda).decode(batch)
+    cfg.model.fast.fused_realign = how
+    before = realign.s2d_realign_pad3.launches
+    got = FastCodec(cfg, state, device=cuda).decode(batch)
+    torch.cuda.synchronize()
+    assert realign.s2d_realign_pad3.launches == before
+    assert torch.equal(got, want)
+    cfg.model.fast.fused_realign = "auto"
+    cfg.model.fast.head_pallas, cfg.model.fast.front_realign = "force", "pallas"
+    codec = SemanticCodec(cfg, device=cuda, seed=5)
+    counts = (realign.s2d_realign_pad3.launches, realign.s2d_pad3.launches,
+              head_conv.head_conv_s2d.launches)
+    fake, _ = make_fast_train_decode(cfg, codec)(codec.prepare(batch))
+    fake.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (realign.s2d_realign_pad3.launches, realign.s2d_pad3.launches,
+            head_conv.head_conv_s2d.launches) == counts
+
+
+def test_device_cache_batches_on_card_equal_host(cuda, tmp_path):
+    """The device cache on the card: two epochs of assembled batches equal
+    the host batches bit for bit, placed through the prefetch's side
+    stream."""
+    from PIL import Image
+
+    from jpdse_tpu_torch import cli, data
+    from jpdse_tpu_torch.data.device_cache import maybe_device_cache
+    from jpdse_tpu_torch.data.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(2)
+    for i in range(4):
+        name = f"aachen_{i:06d}_000019"
+        for sub, arr in (("leftImg8bit", rng.integers(0, 256, (48, 100, 3), dtype=np.uint8)),
+                         ("gtFine", rng.integers(0, 34, (48, 100), dtype=np.uint8))):
+            d = tmp_path / sub / "train" / "aachen"
+            d.mkdir(parents=True, exist_ok=True)
+            suffixes = ("_leftImg8bit",) if sub == "leftImg8bit" else ("_gtFine_labelIds",
+                                                                        "_gtFine_instanceIds")
+            for s in suffixes:
+                Image.fromarray(arr).save(d / f"{name}{s}.png")
+    cfg = cli.parse_config(["--dataset", "cityscapes", "--root_dir", str(tmp_path),
+                            "--preprocess_mode", "fixed", "--load_size", "72", "--crop_size",
+                            "72", "--batch_size", "2", "--seed", "5", "--cache_images", "1"],
+                           True)
+    host, meta = data.create_dataloader(cfg), data.create_dataloader(cfg)
+    cache = maybe_device_cache(meta, cfg, cuda)
+    assert cache is not None and cache.ds["image"].is_cuda
+    meta.meta_only = True
+    for epoch in range(2):
+        host.set_epoch(epoch)
+        meta.set_epoch(epoch)
+        for hb, placed in zip(host, prefetch_to_device(meta, 2, cuda, cache.place)):
+            for k in ("image", "label", "instance"):
+                assert placed[k].is_cuda
+                assert torch.equal(placed[k].cpu(), torch.from_numpy(hb[k])), k

@@ -264,10 +264,18 @@ def test_partial_restore_and_fast_path_fallback(ctx, tmp_path, monkeypatch):
 
 def test_trainer_refuses_what_it_cannot_run(tmp_path):
     cfg = flagship_config(tiny=True)
-    cfg.optim.fast_train = True  # training runs since the training slice; this option does not
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(cfg, mode="train", device="cpu")
+    cfg.optim.fast_train = True  # the s2d train decode trains since the fast-train slice
+    cfg.loss.no_vgg_loss = True
+    cfg.data.preprocess.preprocess_mode, cfg.data.preprocess.crop_size = "fixed", W
+    fast = Trainer(cfg, mode="train", device="cpu")
+    assert fast.gan.fast_decode is not None
+    rng = np.random.default_rng(2)
+    metrics = fast.step({"label": rng.integers(0, 34, (1, H, W)).astype(np.float32),
+                         "instance": rng.integers(0, 9, (1, H, W)).astype(np.int32),
+                         "image": rng.normal(size=(1, H, W, 3)).astype(np.float32)})
+    assert all(np.isfinite(v) for v in metrics.values()) and fast.steps_taken == 1
     cfg.optim.fast_train = False
+    cfg.loss.no_vgg_loss = False
     cfg.checkpoints_dir = str(tmp_path)
     trainer = Trainer(cfg, device="cpu")
     with pytest.raises(FileNotFoundError, match=PARAMS_FILE):

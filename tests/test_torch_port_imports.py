@@ -38,13 +38,22 @@ assert {"jpdse_tpu_torch." + m for m in (
     "train.schedule", "train.run", "train.__main__", "models.discriminator", "models.vgg",
     "utils.image_pool", "utils.logging", "ops.semantics", "models.codec", "models.generator",
     "models.fast_codec", "models.fast_trunk", "serve", "codecs", "codecs.bridge",
-    "train.warmstart")
+    "train.warmstart", "models.fast_train", "data.device_cache", "data.prefetch",
+    "utils.profiling")
     } <= set(names), names
 from jpdse_tpu_torch import native
 from jpdse_tpu_torch.codecs import bridge
 from jpdse_tpu_torch.models import fast_trunk, generator
 assert {"LocalEnhancer", "LocalDownsample", "LocalUpsample", "Encoder"} <= set(dir(generator))
 assert "_FastLocalG" in dir(fast_trunk)
+from jpdse_tpu_torch.data import device_cache, prefetch
+from jpdse_tpu_torch.models import fast_train
+from jpdse_tpu_torch.utils import profiling
+assert {"make_fast_train_decode", "fast_train_ineligible_reason"} <= set(dir(fast_train))
+assert {"DeviceDatasetCache", "CachedValBatches", "maybe_device_cache",
+        "maybe_val_cache"} <= set(dir(device_cache))
+assert "prefetch_to_device" in dir(prefetch)
+assert {"trace", "StepTimer", "compiled_cost"} <= set(dir(profiling))
 assert {"idmap_encode", "idmap_decode", "heif_available", "heif_encode",
         "heif_decode"} <= set(dir(native))
 assert {"encode_bytes", "decode_bytes", "compress_for_model", "normalize_decoded",
@@ -62,7 +71,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 56  # every module so far, the base codecs' included
+    assert int(out.stdout.split()[-1]) >= 60  # every module so far, the fast-train slice's included
 
 
 def test_entry_points_raise_without_cuda_unless_given_a_device():

@@ -61,6 +61,7 @@ from jpdse_tpu_torch.config import Config
 from jpdse_tpu_torch.convert import deconv_groups, from_jax_params, to_jax_params
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.discriminator import build_discriminator
+from jpdse_tpu_torch.models.fast_train import make_fast_train_decode
 from jpdse_tpu_torch.models.vgg import Vgg19Features
 from jpdse_tpu_torch.ops import quantizers
 from jpdse_tpu_torch.train import step
@@ -75,7 +76,10 @@ RECIPES = ("phase1", "phase2", "phase3")
 # by up to ~1e-2 of their max-abs, and so do the port's, each on its own
 # tensors (a value at its rounding edge before a ReLU); the port in float64
 # matches JAX in float64 to ~2e-7.
-FP32_LIMITED = {"phase1", "grouped"}
+FP32_LIMITED = {"phase1", "grouped", "fast_train"}
+# Through the fast train decode, netE's binarizer kernel lies there too: JAX's
+# fp32 step misses its float64 step by ~2.5e-3 of that tensor's max-abs, the
+# port's by ~2.2e-3.
 # The grouped, instance-pooled netE's tail bias (a gradient summed over every
 # pixel through the pooling's segment means) lies there too: JAX's fp32 step
 # misses its float64 step by ~1.4e-4 of that tensor's max-abs, the port's by
@@ -90,7 +94,8 @@ def jax_config(recipe: str, fused: bool):
     (artifacts/flagship_r3/phase{1,2,3}/opt.json), fp32; or phase 2's
     recipe with an ablation (``zero_sem``, ``use_netE_output``) or with the
     generator's bottleneck binarized instead of the encoders
-    (``g_binarized``); or the base-codec recipe's phases
+    (``g_binarized``); or phase 2's recipe through the fast train decode
+    (``fast_train``); or the base-codec recipe's phases
     (artifacts/flagship_r3_compressed/phase{A,B}/opt.json: raw semantics and
     the base codec's decoded image into netG, no encoder; A the GAN, B
     distortion only); or the hires recipe's (artifacts/flagship_r3_hires:
@@ -122,6 +127,8 @@ def jax_config(recipe: str, fused: bool):
         o.schedule_lr, o.lr_decay_patience = True, 3
     if recipe in ("zero_sem", "use_netE_output"):
         setattr(m, recipe, True)
+    if recipe == "fast_train":
+        o.fast_train = True
     if recipe == "g_binarized":
         m.no_generator_binarization = False
         m.no_encoder_binarization = m.no_label_encoder_binarization = True
@@ -315,6 +322,8 @@ def port_step_f64(state, batch):
     s.codec.dtype = torch.float64
     s.disc = copy.deepcopy(state.disc).double()
     s.vgg = None if state.vgg is None else copy.deepcopy(state.vgg).double()
+    if state.fast_decode is not None:  # the fast train decode, on the float64 codec
+        s.fast_decode = make_fast_train_decode(state.cfg, s.codec)
     _, grads = step.loss_and_grads(s, dict(batch, image=batch["image"].double()),
                                    torch.Generator())
     return [_named(s.codec, grads[0]), _named(s.disc, grads[1])]

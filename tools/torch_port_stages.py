@@ -20,6 +20,7 @@ Every line carries the card's name and power limit. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import subprocess
 import sys
@@ -48,25 +49,28 @@ def stage_times(fast, batch, iters: int):
         stages.setdefault(name, []).append((start, end))
         return out
 
+    def stage(trunk, name):  # a stage on the trunk's own weights
+        return functools.partial(getattr(trunk, name), trunk.weights)
+
     with torch.inference_mode():
         for _ in range(iters + 1):
             run("compress: input assembly (one-hot, edges)", fast._inputs, batch)
-            c1 = run("compress: netE4label front", e4l.front, lab)
+            c1 = run("compress: netE4label front", stage(e4l, "front"), lab)
             c1 = run("compress: netE4label mid_down + binarizer",
-                     lambda h: e4l.apply_binarizer(e4l.mid_down(h)), c1)
-            c2 = run("compress: netE front", e.front, img)
+                     lambda h: e4l.apply_binarizer(e4l.weights, e4l.mid_down(e4l.weights, h)), c1)
+            c2 = run("compress: netE front", stage(e, "front"), img)
             c2 = run("compress: netE mid_down + binarizer",
-                     lambda h: e.apply_binarizer(e.mid_down(h)), c2)
-            l_ = run("decompress: netE4label mid_up", e4l.mid_up, c1)
-            l_ = run("decompress: netE4label back (K1 inside)", e4l.back, l_)
-            f_ = run("decompress: netE mid_up", e.mid_up, c2)
-            f_ = run("decompress: netE back (K1 inside)", e.back, f_)
+                     lambda h: e.apply_binarizer(e.weights, e.mid_down(e.weights, h)), c2)
+            l_ = run("decompress: netE4label mid_up", stage(e4l, "mid_up"), c1)
+            l_ = run("decompress: netE4label back (K1 inside)", stage(e4l, "back"), l_)
+            f_ = run("decompress: netE mid_up", stage(e, "mid_up"), c2)
+            f_ = run("decompress: netE back (K1 inside)", stage(e, "back"), f_)
             x = torch.cat([l_, f_.to(l_.dtype)], dim=-1)
-            h = run("decompress: netG front", g.front, x)
-            h = run("decompress: netG mid_down", g.mid_down, h)
-            h = run("decompress: netG res_blocks", g.res_blocks, h)
-            h = run("decompress: netG mid_up", g.mid_up, h)
-            run("decompress: netG back (K1 inside)", g.back, h)
+            h = run("decompress: netG front", stage(g, "front"), x)
+            h = run("decompress: netG mid_down", stage(g, "mid_down"), h)
+            h = run("decompress: netG res_blocks", stage(g, "res_blocks"), h)
+            h = run("decompress: netG mid_up", stage(g, "mid_up"), h)
+            run("decompress: netG back (K1 inside)", stage(g, "back"), h)
     torch.cuda.synchronize()
     # drop the first (warm-up) sample of each stage
     return {k: float(np.median([s.elapsed_time(e) for s, e in v[1:]])) for k, v in stages.items()}
