@@ -148,7 +148,23 @@ Phases, each printing a line as it ends:
      (the "resident" line, loader waits, step times) and phase A with it;
      (e) --profile_dir: one trace, of the first epoch, naming K3's kernels
      in the kernel configuration;
- 12. summary: the card, a JSON line of per-kernel numbers, the total
+ 12. data-parallel training and the reference-checkpoint import: (a) the
+     phase-2 recipe in the kernel configuration through a process group of
+     one rank on NCCL against the single-process path, two steps, each from
+     the single-process path's parameters and Adams and on its code bits
+     (PinnedSigns), held by phase 7 (a)'s rule with its two controls, K3
+     90 / 45 a step on both, the all-reduced gradients and metrics
+     bit-equal to their input, then both paths timed; (b) two ranks on the
+     one card over gloo (NCCL refuses two ranks on one device), spawned,
+     each stepping batch 1, its row of the global batch of 2, held against
+     one process's step on the global batch by the same rule, the ranks'
+     uniforms gathered bit-equal to that step's; (c) the reference stack
+     (convert/torch_ref.py's RefLearnedCodec) at the flagship's widths,
+     reference_weights_init seed 0, written as net_*.pth and imported by
+     Trainer.load, one request served through .jpds bytes on the default
+     and the kernel configuration's standard path, fp32 with TF32 off:
+     codes equal to the reference's, images within 1e-3 of its decode;
+ 13. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -161,6 +177,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1453,6 +1470,116 @@ class K3SiteCheck:
         return "; ".join(parts)
 
 
+def perturbed(batch: dict, seed: int) -> list:
+    """Phase 7 (a)'s two controls of ``batch``: the image (and the decoded
+    image where the recipe reads one) with each value moved by 2^-22 of
+    itself, up or down at random."""
+    controls = []
+    for i in (1, 2):
+        moved = {}
+        for j, k in enumerate(k for k in ("image", "compressed") if k in batch):
+            signs = np.random.default_rng(seed + i + 10 * j).choice([-1.0, 1.0], batch[k].shape)
+            moved[k] = (batch[k] * (1 + 2.0**-22 * signs)).astype(np.float32)
+        controls.append(dict(batch, **moved))
+    return controls
+
+
+def hold_step(tag: str, out: dict, pre: dict, modules, seed: int, ref: str, test: str,
+              out64: dict = None) -> None:
+    """Phase 7 (a)'s rule for one loss_and_grads of ``test`` against ``ref``
+    (``out[label]`` = (metrics, (G's, D's gradients)) for both and for the
+    controls "control 1" and "control 2", ``ref`` on perturbed inputs;
+    ``pre[label]`` the binarizers' pre-signs): every binarizer bit that
+    differs lies within 1e-5 of its threshold against the draws of the
+    generator seeded ``seed``, and no control flips one (without ``pre``,
+    every run took ``ref``'s code bits, :class:`PinnedSigns`); the metrics within
+    1e-4 relative; each network's largest relative L2 difference of a
+    gradient tensor at most GRAD_TOL or twice the controls', and never more
+    than GRAD_CEIL; a bias an InstanceNorm follows 0 to rounding.
+    ``modules`` are ``ref``'s codec and discriminator (the names). With
+    ``out64`` (the gradients of ``ref``'s and ``test``'s same step in
+    float64, as phase 11 (a) arbitrates) every G and D tensor must agree
+    within F64_TOL there, and a tensor over the fp32 bound then passes: fp32
+    rounding alone moves netE's tail bias (3 values, each a sum over ~1M
+    positions) by 5e-3 to 2.8e-2 between runs of one path (phase 11 (a))."""
+    from jpdse_tpu_torch.train import step
+
+    # the binarizers' draws: netE4label's first, then netE's (where there is one)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    others = (test, "control 1", "control 2")
+    for i, name in enumerate(("netE4label", "netE")[:len(pre[ref]) if pre else 0]):
+        x0 = pre[ref][i]
+        u = torch.rand(x0.shape, dtype=x0.dtype, device="cuda", generator=gen)
+        near = ((1.0 - x0) / 2.0 - u).abs() < 1e-5
+        flips = {}
+        for label in others:
+            flipped = ((1.0 - x0) / 2.0 <= u) != ((1.0 - pre[label][i]) / 2.0 <= u)
+            flips[label] = int(flipped.sum())
+            if (flipped & ~near).any():
+                raise AssertionError(f"{name}, {label}: a binarizer bit differs away from "
+                                     "its threshold")
+        log(f"[parity] {tag}: train {name} stochastic bits that differ from the {ref}'s, of "
+            f"{x0.numel()}: " + ", ".join(f"{k} {v}" for k, v in flips.items())
+            + f"; all within 1e-5 of the threshold ({int(near.sum())} bits lie there)")
+        if flips["control 1"] or flips["control 2"]:
+            raise AssertionError(f"{name}: a control flipped a binarizer bit, so its "
+                                 "gradients are no measure of rounding alone")
+    (m0, g0), (m1, g1) = out[ref], out[test]
+    worst = 0.0
+    for k in step.METRICS:
+        a, b = m0[k].item(), m1[k].item()
+        rel = abs(b - a) / abs(a) if a else abs(b)
+        worst = max(worst, rel)
+        if not (np.isfinite(a) and rel <= 1e-4):
+            raise AssertionError(f"parity: {k} {b} against {a}")
+    log(f"[parity] {tag}: train metrics, {test} vs {ref}: "
+        + ", ".join(f"{k} {m1[k].item():.6f} / {m0[k].item():.6f}" for k in step.METRICS)
+        + f"; largest relative difference {worst:.2e} (tolerance 1e-4)")
+    for j, (net, module) in enumerate((("G", modules[0]), ("D", modules[1]))):
+        names = [n for n, _ in module.named_parameters()]
+        top = max(g.abs().max().item() for g in g0[j])
+        zero = 0.0
+        l2 = dict.fromkeys(others, (0.0, ""))
+        peak = dict.fromkeys(others, (0.0, ""))
+        rel_test, worst64 = {}, (0.0, "")
+        for i, (n, a) in enumerate(zip(names, g0[j])):
+            if NORMED_BIAS.search(n):
+                zero = max(zero, a.abs().max().item(), g1[j][i].abs().max().item())
+                continue
+            for label in others:
+                d = out[label][1][j][i] - a
+                rel2 = (d.norm() / a.norm()).item()
+                relmax = (d.abs().max() / a.abs().max()).item()
+                l2[label] = max(l2[label], (rel2, n))
+                peak[label] = max(peak[label], (relmax, n))
+                if label == test:
+                    rel_test[n] = rel2
+            if out64 is not None:
+                a64 = out64[ref][j][i]
+                worst64 = max(worst64, (((out64[test][j][i] - a64).norm() / a64.norm()).item(), n))
+        noise = max(l2["control 1"][0], l2["control 2"][0])
+        bound = min(GRAD_CEIL[net], max(GRAD_TOL, 2 * noise))
+        over = sorted(n for n, v in rel_test.items() if v > bound)
+        if out64 is not None:
+            log(f"[parity] {tag}: train {net} gradients in float64, {test} vs {ref}: largest "
+                f"relative L2 {worst64[0]:.2e} at {worst64[1]} (tolerance {F64_TOL}); tensors "
+                f"over the fp32 bound, decided by float64: {over or 'none'}")
+            if not worst64[0] <= F64_TOL:
+                raise AssertionError(f"parity: {net} gradients differ in float64: {worst64}")
+            over = []
+        log(f"[parity] {tag}: train {net} gradients, {len(names)} tensors; largest relative L2 "
+            f"difference and largest difference against a tensor's max-abs, each against "
+            f"the {ref}: " + "; ".join(
+                f"{label} {l2[label][0]:.2e} at {l2[label][1]}, {peak[label][0]:.2e} at "
+                f"{peak[label][1]}" for label in others)
+            + f". Bound for the {test}: {bound:.2e} (GRAD_TOL {GRAD_TOL} or twice "
+            f"the controls', at most {GRAD_CEIL[net]}). The biases an InstanceNorm follows at "
+            f"most {zero:.2e} (0 to rounding; largest gradient {top:.3e})")
+        if over or not zero <= 1e-5 * top:
+            raise AssertionError(f"parity: {net} gradients differ: {l2}, norm-fed biases "
+                                 f"{zero} (top {top})")
+
+
 def phase_train_parity(seed: int, card: str, phase=2) -> dict:
     """(a) One loss_and_grads of the ``phase`` recipe in the kernel
     configuration against the default one, fp32 with TF32 off, from the same weights and the same generator
@@ -1489,14 +1616,7 @@ def phase_train_parity(seed: int, card: str, phase=2) -> dict:
             if a is not None:
                 b.load_state_dict(a.state_dict())
         batch = train_batch(base.cfg, seed)
-        controls = []
-        for i in (1, 2):  # the image, and the decoded image where the recipe reads one
-            moved = {}
-            for j, k in enumerate(k for k in ("image", "compressed") if k in batch):
-                signs = np.random.default_rng(seed + i + 10 * j).choice([-1.0, 1.0],
-                                                                      batch[k].shape)
-                moved[k] = (batch[k] * (1 + 2.0**-22 * signs)).astype(np.float32)
-            controls.append(dict(batch, **moved))
+        controls = perturbed(batch, seed)
         for t in (base, fused):  # every norm site of a LocalEnhancer's step, its trunk too
             if t.cfg.model.niter_fix_global:
                 t.maybe_unfreeze_global(t.cfg.model.niter_fix_global)
@@ -1540,71 +1660,13 @@ def phase_train_parity(seed: int, card: str, phase=2) -> dict:
         log(f"[parity] {tag}: train K3 at every launch of the kernel config's step against the plain "
             f"version on the same inputs (difference / the output's max-abs, tolerance "
             f"{K3_SITE_TOL}): {sites.summary()}")
-        # the binarizers' draws: netE4label's first, then netE's (where there is one)
         with torch.no_grad():
             pre = {label: t.gan.codec.get_presign(t.gan.codec.prepare(t.place(b)))
                    for label, t, b in (("default", base, batch), ("kernel config", fused, batch),
                                        ("control 1", base, controls[0]),
                                        ("control 2", base, controls[1]))}
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        for i, name in enumerate(("netE4label", "netE")[:len(pre["default"])]):
-            x0 = pre["default"][i]
-            u = torch.rand(x0.shape, dtype=x0.dtype, device="cuda", generator=gen)
-            near = ((1.0 - x0) / 2.0 - u).abs() < 1e-5
-            flips = {}
-            for label in ("kernel config", "control 1", "control 2"):
-                flipped = ((1.0 - x0) / 2.0 <= u) != ((1.0 - pre[label][i]) / 2.0 <= u)
-                flips[label] = int(flipped.sum())
-                if (flipped & ~near).any():
-                    raise AssertionError(f"{name}, {label}: a binarizer bit differs away from "
-                                         "its threshold")
-            log(f"[parity] {tag}: train {name} stochastic bits that differ from the default's, of "
-                f"{x0.numel()}: " + ", ".join(f"{k} {v}" for k, v in flips.items())
-                + f"; all within 1e-5 of the threshold ({int(near.sum())} bits lie there)")
-            if flips["control 1"] or flips["control 2"]:
-                raise AssertionError(f"{name}: a control flipped a binarizer bit, so its "
-                                     "gradients are no measure of rounding alone")
-        (m0, g0), (m1, g1) = out["default"], out["kernel config"]
-        worst = 0.0
-        for k in step.METRICS:
-            a, b = m0[k].item(), m1[k].item()
-            rel = abs(b - a) / abs(a) if a else abs(b)
-            worst = max(worst, rel)
-            if not (np.isfinite(a) and rel <= 1e-4):
-                raise AssertionError(f"parity: {k} {b} against {a}")
-        log(f"[parity] {tag}: train metrics, kernel config vs default: "
-            + ", ".join(f"{k} {m1[k].item():.6f} / {m0[k].item():.6f}" for k in step.METRICS)
-            + f"; largest relative difference {worst:.2e} (tolerance 1e-4)")
-        others = ("kernel config", "control 1", "control 2")
-        for j, (net, module) in enumerate((("G", base.gan.codec), ("D", base.gan.disc))):
-            names = [n for n, _ in module.named_parameters()]
-            top = max(g.abs().max().item() for g in g0[j])
-            zero = 0.0
-            l2 = dict.fromkeys(others, (0.0, ""))
-            peak = dict.fromkeys(others, (0.0, ""))
-            for i, (n, a) in enumerate(zip(names, g0[j])):
-                if NORMED_BIAS.search(n):
-                    zero = max(zero, a.abs().max().item(), g1[j][i].abs().max().item())
-                    continue
-                for label in others:
-                    d = out[label][1][j][i] - a
-                    rel2 = (d.norm() / a.norm()).item()
-                    relmax = (d.abs().max() / a.abs().max()).item()
-                    l2[label] = max(l2[label], (rel2, n))
-                    peak[label] = max(peak[label], (relmax, n))
-            noise = max(l2["control 1"][0], l2["control 2"][0])
-            bound = min(GRAD_CEIL[net], max(GRAD_TOL, 2 * noise))
-            log(f"[parity] {tag}: train {net} gradients, {len(names)} tensors; largest relative L2 "
-                f"difference and largest difference against a tensor's max-abs, each against "
-                f"the default: " + "; ".join(
-                    f"{label} {l2[label][0]:.2e} at {l2[label][1]}, {peak[label][0]:.2e} at "
-                    f"{peak[label][1]}" for label in others)
-                + f". Bound for the kernel config: {bound:.2e} (GRAD_TOL {GRAD_TOL} or twice "
-                f"the controls', at most {GRAD_CEIL[net]}). The biases an InstanceNorm follows at most {zero:.2e} (0 to "
-                f"rounding; largest gradient {top:.3e})")
-            if not (l2["kernel config"][0] <= bound and zero <= 1e-5 * top):
-                raise AssertionError(f"parity: {net} gradients differ: {l2}, norm-fed biases "
-                                     f"{zero} (top {top})")
+        hold_step(tag, out, pre, (base.gan.codec, base.gan.disc), seed, "default",
+                  "kernel config")
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     return launches
@@ -3349,6 +3411,409 @@ def phase11(seed: int, steps: int, card: str) -> dict:
     return launches
 
 
+# -- phase 12: data-parallel training and the reference-checkpoint import ------------
+class PinnedSigns(SignRecorder):
+    """SignRecorder that also draws each binarizer's uniforms as the
+    stochastic sign does (for the global batch under a mesh, this rank's
+    rows) and keeps them: the draws are checked, the code bits are ``ref``'s
+    (so a control or another path differs from ``ref`` by its arithmetic
+    alone, not by a bit that rounding moved across 0)."""
+
+    def __enter__(self):
+        from jpdse_tpu_torch.parallel.mesh import draw_rows
+
+        super().__enter__()
+        pinned, self.draws = self.q.stochastic_sign_ste, []
+
+        def sign(x, generator):
+            self.draws.append(draw_rows(x.shape, lambda shape: torch.rand(
+                shape, dtype=x.dtype, device=x.device, generator=generator)))
+            return pinned(x, generator)
+
+        self.q.stochastic_sign_ste = sign
+        return self
+
+
+def pinned_bits(tag: str, ref: list, runs: dict) -> None:
+    """Each run's code bits against ``ref``'s (pre-signs, in call order):
+    where a sign differs, ``ref``'s pre-sign lies within 1e-5 of 0 (the runs
+    took ``ref``'s bits there, PinnedSigns)."""
+    for i, name in enumerate(("netE4label", "netE")[:len(ref)]):
+        flips = {}
+        for label, pre in runs.items():
+            flipped = torch.sign(pre[i]) != torch.sign(ref[i])
+            flips[label] = int(flipped.sum())
+            if (flipped & (ref[i].abs() >= 1e-5)).any():
+                raise AssertionError(f"{tag}, {name}, {label}: a code bit differs away from 0")
+        log(f"[parity] {tag}: {name} pre-signs whose sign differs from the reference run's, "
+            f"of {ref[i].numel()}: " + ", ".join(f"{k} {v}" for k, v in flips.items())
+            + " (each within 1e-5 of 0; every run takes the reference's bits)")
+
+
+REF_TOL = FP32_ATOL  # the imported codec against the reference stack, fp32, TF32 off
+DP_TIMED_STEPS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def tf32_off():
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def counted_step(gan, batch: dict, gen) -> tuple:
+    """One loss_and_grads with every kernel's count set to 0 just before it
+    and read just after: (metrics, grads), counts."""
+    from jpdse_tpu_torch.train import step
+
+    reset_counts()
+    out = step.loss_and_grads(gan, batch, gen)
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def timed_steps(label: str, trainer, batch: dict, card: str) -> None:
+    """DP_TIMED_STEPS Trainer.steps after one untimed: the host clock per
+    step (ending in a synchronize) and the CUDA events' time, medians."""
+    placed = trainer.place(batch)
+    trainer.step(placed)
+    host, dev = [], []
+    for _ in range(DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        trainer.step(placed)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    log(f"[dp] {label}: step median {np.median(host):.1f} ms host clock, {np.median(dev):.1f} ms "
+        f"CUDA events ({DP_TIMED_STEPS} steps after one, TF32 convolutions, batch "
+        f"{batch['image'].shape[0]}; {card})")
+
+
+def f64_step(t, batch: dict, seed: int, ref=None):
+    """One loss_and_grads of trainer ``t``'s state in float64 (its mesh
+    kept), on ``ref``'s code bits: (G's and D's gradients, the pre-signs).
+    K3 has no float64 form, so its sites run the plain InstanceNorm."""
+    from jpdse_tpu_torch.train import step
+
+    s64 = float64_state(t.gan)
+    for module in s64.codec.modules():
+        if getattr(module, "fused", False):
+            module.fused = False
+    placed = t.place(batch)
+    placed = dict(placed, image=placed["image"].double())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with PinnedSigns(ref) as rec:
+        _, g64 = step.loss_and_grads(s64, placed, gen)
+    torch.cuda.synchronize()
+    return g64, rec.calls
+
+
+def f64_steps(runs: dict, seed: int) -> dict:
+    """The float64 gradients of each (trainer, batch) in ``runs``, every run
+    on the first one's code bits."""
+    out, ref = {}, None
+    for label, (t, batch) in runs.items():
+        t0 = time.perf_counter()
+        out[label], calls = f64_step(t, batch, seed, ref)
+        ref = ref if ref is not None else calls
+        log(f"[dp] {label} in float64: loss_and_grads {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def phase12_world1(seed: int, card: str) -> dict:
+    """(a) The phase-2 recipe in the kernel configuration through the
+    data-parallel path, a process group of one rank on NCCL, against the
+    single-process path: two steps, each from the single-process path's
+    parameters and Adams, each loss_and_grads held by phase 7 (a)'s rule
+    (fp32, TF32 off, two perturbed-input controls of the single-process
+    path; every run on the single-process run's code bits, PinnedSigns; a
+    tensor over the fp32 bound decided by the same step of both paths in
+    float64, every tensor within F64_TOL), K3 forward and backward at all 45 sites and the
+    same launches in both, the all-reduced metrics and gradients bit-equal
+    to their input; then both paths timed. Returns the launch counts."""
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.parallel import distributed
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    single = Trainer(flagship_train_config(True, seed), mode="train", device="cuda")
+    assert single.mesh is None
+    distributed.initialize("cuda", f"localhost:{free_port()}", 1, 0)
+    launches = {}
+    try:
+        dp = Trainer(flagship_train_config(True, seed), mode="train", device="cuda")
+        if dp.mesh is None or dp.mesh.world != 1 or dist.get_backend() != "nccl":
+            raise AssertionError(f"the data-parallel trainer has no NCCL mesh: {dp.mesh}")
+        batch = train_batch(single.cfg, seed)
+        controls = perturbed(batch, seed)
+        log(f"[dp] (a) world 1 on NCCL, phase-2 recipe, kernel configuration, batch 2 at "
+            f"1024x512: trainers built in {time.perf_counter() - t0:.1f} s")
+        for k in range(2):
+            tag = f"phase-2 recipe, world 1, step {k + 1}"
+            # both paths take their gradients at the same point: an Adam step moves a
+            # parameter whose gradient is rounding noise by up to lr, either way
+            for a, b in ((single.gan.codec, dp.gan.codec), (single.gan.disc, dp.gan.disc),
+                         (single.gan.opt_g, dp.gan.opt_g), (single.gan.opt_d, dp.gan.opt_d)):
+                b.load_state_dict(a.state_dict())
+            dp.gan.steps_taken = single.gan.steps_taken
+            dp.gan.lambda_distortion_weight = single.gan.lambda_distortion_weight
+            out, pre = {}, {}
+            with tf32_off():
+                ref = None
+                for label, t, b in (("single process", single, batch), ("world 1", dp, batch),
+                                    ("control 1", single, controls[0]),
+                                    ("control 2", single, controls[1])):
+                    gen = torch.Generator(device="cuda").manual_seed(seed + k)
+                    with PinnedSigns(ref) as rec:
+                        out[label], counts = counted_step(t.gan, t.place(b), gen)
+                    pre[label] = rec.calls
+                    ref = pre["single process"]
+                    if label in ("single process", "world 1"):
+                        launches[f"dp world 1 step {k + 1}: {label}"] = counts
+                        if k3_per_step(counts, 1) != (2 * K3_SITES[2], K3_SITES[2]):
+                            raise AssertionError(f"{tag}, {label}: K3 launched "
+                                                 f"{k3_per_step(counts, 1)}")
+            pinned_bits(tag, ref, {k_: v for k_, v in pre.items() if k_ != "single process"})
+            out64 = f64_steps({"single process": (single, batch), "world 1": (dp, batch)},
+                              seed + k)
+            hold_step(tag, out, None, (single.gan.codec, single.gan.disc), seed + k,
+                      "single process", "world 1", out64)
+            m, g = out["single process"]
+            m2 = {key: v.clone() for key, v in m.items()}
+            g2 = ([x.clone() for x in g[0]], [x.clone() for x in g[1]])
+            step.reduce_over_ranks(m2, g2)
+            torch.cuda.synchronize()
+            same = all(torch.equal(m[key], m2[key]) for key in m) and all(
+                torch.equal(a, b) for i in (0, 1) for a, b in zip(g[i], g2[i]))
+            if not same:
+                raise AssertionError(f"{tag}: the world-1 all-reduce changed its input")
+            n_bytes = sum(x.numel() * x.element_size() for x in g[0] + g[1])
+            log(f"[dp] {tag}: K3 {k3_per_step(launches[f'dp world 1 step {k + 1}: world 1'], 1)} "
+                f"on both paths; the NCCL all-reduce of {n_bytes / 2**20:.1f} MiB of gradients "
+                f"and the 8 metrics bit-equal to its input")
+            step.apply(single.gan, out["single process"][1])
+            step.apply(dp.gan, out["world 1"][1])
+        tb = train_batch(single.cfg, seed + 7)
+        for label, t in (("single process", single), ("world 1 (NCCL)", dp),
+                         ("world 1 (NCCL)", dp), ("single process", single)):
+            timed_steps(f"(a) {label}", t, tb, card)
+    finally:
+        dist.destroy_process_group()
+    del single, dp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _phase12_rank(rank: int, port: int, seed: int, work: str) -> None:
+    """(b) One of two ranks on the one card (gloo, which all-reduces CUDA
+    tensors there; NCCL refuses two ranks on one device): both build the
+    data-parallel trainer and a single-process twin (broadcasts in one
+    order). Rank 0 steps the twin on the global batch of 2 and sends its
+    pre-signs; each rank then steps batch 1, its row, on those code bits
+    (PinnedSigns); the same in float64; rank 0 holds the global step against
+    the twin's by phase 7 (a)'s rule with two controls and the float64
+    arbiter, and the ranks' uniforms, gathered, against the twin's bit for
+    bit."""
+    os.environ["LOCAL_RANK"] = "0"
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.ops.build import build_all
+    from jpdse_tpu_torch.parallel import distributed
+    from jpdse_tpu_torch.trainer import Trainer
+
+    build_all()  # loads the kernels the parent built
+    distributed.initialize("cuda", f"localhost:{port}", 2, rank, backend="gloo")
+    dp = Trainer(flagship_train_config(True, seed), mode="train", device="cuda:0")
+    twin = Trainer(flagship_train_config(True, seed), mode="train", device="cuda:0")
+    twin.mesh = twin.gan.mesh = None  # the same weights, stepped as one process
+    if dp.mesh is None or dp.mesh.world != 2 or dist.get_backend() != "gloo":
+        raise AssertionError(f"rank {rank}: no gloo mesh of 2: {dp.mesh}")
+    batch = train_batch(dp.cfg, seed)
+    rows = {k: v[dp.mesh.rows(1)] for k, v in batch.items()}
+    tag = "phase-2 recipe, 2 ranks of batch 1 on one card"
+    out, pre = {}, {}
+    with tf32_off():
+        with torch.no_grad():  # the twin's pre-signs' shapes, then rank 0's values
+            ref = twin.gan.codec.get_presign(twin.gan.codec.prepare(twin.place(batch)))
+        if rank == 0:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            with PinnedSigns() as rec:
+                out["single process"], _ = counted_step(twin.gan, twin.place(batch), gen)
+            ref, single_draws = rec.calls, rec.draws
+        distributed.broadcast_(ref)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        with PinnedSigns([r[dp.mesh.rows(1)] for r in ref]) as rec:
+            out["2 ranks"], counts = counted_step(dp.gan, dp.place(rows), gen)
+        log(f"[dp] (b) rank {rank}: loss_and_grads of its row {time.perf_counter() - t0:.2f} s "
+            f"(fp32, TF32 off, the gloo all-reduce of CUDA tensors included); launches {counts}")
+        if k3_per_step(counts, 1) != (2 * K3_SITES[2], K3_SITES[2]):
+            raise AssertionError(f"rank {rank}: K3 launched {k3_per_step(counts, 1)}")
+        pre["2 ranks"] = [dp.mesh.gather_rows(x) for x in rec.calls]
+        draws = [dp.mesh.gather_rows(u) for u in rec.draws]
+        # the same step in float64 on both sides, which arbitrates fp32's rounding
+        out64 = {}
+        ref64 = [r.double() for r in ref]
+        if rank == 0:
+            out64["single process"], ref64 = f64_step(twin, batch, seed)
+        distributed.broadcast_(ref64)
+        out64["2 ranks"], _ = f64_step(dp, rows, seed, [r[dp.mesh.rows(1)] for r in ref64])
+        if rank == 0:
+            if not all(torch.equal(a, b) for a, b in zip(draws, single_draws)):
+                raise AssertionError(f"{tag}: the ranks' uniforms are not the global draws' rows")
+            for i, b in enumerate(perturbed(batch, seed)):
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                with PinnedSigns(ref) as rec:
+                    out[f"control {i + 1}"], _ = counted_step(twin.gan, twin.place(b), gen)
+                pre[f"control {i + 1}"] = rec.calls
+            pinned_bits(tag, ref, pre)
+            hold_step(tag, out, None, (twin.gan.codec, twin.gan.disc), seed, "single process",
+                      "2 ranks", out64)
+            log(f"[dp] {tag}: the ranks' {sum(u.numel() for u in draws)} binarizer uniforms, "
+                f"gathered, bit-equal to one process's on the global batch")
+            with open(os.path.join(work, "counts.json"), "w") as f:
+                json.dump(counts, f)
+    distributed.barrier()
+    dist.destroy_process_group()
+
+
+def phase12_two_ranks(seed: int, card: str) -> dict:
+    """(b) Two ranks of one process each on the card (gloo), spawned; the
+    parent waits and reads rank 0's launch counts."""
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="jpdse_dp_") as work:
+        port = free_port()
+        procs = [ctx.Process(target=_phase12_rank, args=(r, port, seed, work)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if codes != [0, 0]:
+            raise AssertionError(f"(b) the two ranks exited with {codes}")
+        with open(os.path.join(work, "counts.json")) as f:
+            counts = json.load(f)
+    log(f"[dp] (b) two gloo ranks on one card held against the single-process step on the "
+        f"global batch; {time.perf_counter() - t0:.1f} s with the spawn ({card})")
+    return {"dp 2 ranks, rank 0": counts}
+
+
+def phase12_reference(seed: int, card: str) -> dict:
+    """(c) The reference-architecture stack (convert/torch_ref.py,
+    RefLearnedCodec) at the flagship's widths, weights from
+    reference_weights_init with seed 0, written as net_*.pth and imported by
+    Trainer.load; one request served through .jpds bytes on the default
+    standard path and on the kernel configuration's (K3), fp32 with TF32
+    off: the codes equal the reference's (a bit may differ only within 1e-5
+    of its threshold), the decompressed image within REF_TOL of the
+    reference's decode of the same codes, and, where no bit differs, of its
+    own forward. Returns the launch counts per path."""
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.convert import torch_ref
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    golden = torch_ref.RefLearnedCodec(seed=0).cuda()
+    n_down = 4
+    cut = 4 + 3 * n_down  # each encoder's Binarizer in its Sequential
+    batch = make_batch(seed + 12)
+    batch["instance"] = np.random.default_rng(seed + 13).integers(0, 6, batch["instance"].shape
+                                                                  ).astype(np.int32)
+    oh = torch_ref.phase2_generator_input(batch["label"][0], batch["instance"][0],
+                                          np.zeros_like(batch["image"][0]))[..., :36]
+    x_lab = torch.from_numpy(oh.transpose(2, 0, 1)[None].copy()).cuda()
+    x_img = torch.from_numpy(batch["image"][0].transpose(2, 0, 1)[None].copy()).cuda()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="jpdse_ref_") as ckpt, tf32_off(), torch.no_grad():
+        for name in ("netG", "netE", "netE4label"):
+            torch.save(getattr(golden, name).state_dict(),
+                       os.path.join(ckpt, name.replace("net", "net_") + ".pth"))
+        e4, e = golden.netE4label.model, golden.netE.model
+        ref_pre = [torch.tanh(e4[cut].conv(e4[:cut](x_lab))),  # tanh of the binarizers' input
+                   torch.tanh(e[cut].conv(e[:cut](x_img)))]
+        ref_codes = [torch.sign(p) for p in ref_pre]
+        whole = golden(x_lab, x_img).permute(0, 2, 3, 1)[0]
+        log(f"[ref] (c) RefLearnedCodec at flagship widths ({sum(p.numel() for p in golden.parameters())} "
+            f"parameters, reference_weights_init seed 0) written as net_*.pth in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for label, kernels in (("default standard", False), ("kernel config standard", True)):
+            cfg = flagship_config(kernels=kernels)
+            cfg.model.compute_dtype, cfg.model.fast_inference = "float32", False
+            cfg.checkpoints_dir = ckpt
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainer = Trainer(cfg, mode="test", device="cuda")
+                trainer.load()
+            if "imported the reference checkpoint" not in buf.getvalue():
+                raise AssertionError(f"(c) {label}: the reference checkpoint was not imported")
+            reset_counts()
+            t1 = time.perf_counter()
+            stream = trainer.compress(batch)[0]
+            image = trainer.decompress(stream)
+            torch.cuda.synchronize()
+            dt_ms = (time.perf_counter() - t1) * 1e3
+            launches[f"reference import: {label}"] = read_counts()
+            codes = trainer._server.compress_codes(batch)
+            flips = []
+            for c, r, p in zip(codes, ref_codes, ref_pre):
+                diff = c[0].permute(2, 0, 1).float() * 2 - 1 != r[0]
+                flips.append(int(diff.sum()))
+                if (diff & (p[0].abs() >= 1e-5)).any():
+                    raise AssertionError(f"(c) {label}: a code bit differs from the reference's "
+                                         "away from its threshold")
+            # the reference's decode of the port's codes
+            lab = golden.netE4label.model[cut + 1:](codes[0].permute(0, 3, 1, 2).float() * 2 - 1)
+            feat = golden.netE.model[cut + 1:](codes[1].permute(0, 3, 1, 2).float() * 2 - 1)
+            want = golden.netG(torch.cat([lab, feat], 1)).permute(0, 2, 3, 1)[0].cpu().numpy()
+            err = float(np.abs(image - want).max())
+            err_whole = (f"{float((torch.from_numpy(image).cuda() - whole).abs().max()):.2e}"
+                         if not any(flips) else "not compared (a bit differs)")
+            log(f"[ref] (c) {label}: one request through .jpds bytes, {len(stream)} bytes, "
+                f"{dt_ms:.1f} ms host clock; code bits that differ from the reference's, of "
+                f"{[c.numel() for c in codes]}: {flips}; image against the reference's decode "
+                f"of the same codes {err:.2e}, against its own forward {err_whole} (tolerance "
+                f"{REF_TOL}, fp32, TF32 off); launches {launches[f'reference import: {label}']} "
+                f"({card})")
+            if not err <= REF_TOL or (not any(flips) and not float(err_whole) <= REF_TOL):
+                raise AssertionError(f"(c) {label}: the imported codec misses the reference")
+            del trainer
+    del golden
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase12(seed: int, card: str) -> tuple:
+    """Phase 12: (a) world 1 on NCCL, (b) two gloo ranks on the card, (c)
+    the reference-checkpoint import. Returns (serve counts, train counts)."""
+    t0 = time.perf_counter()
+    train = phase12_world1(seed, card)
+    train.update(phase12_two_ranks(seed, card))
+    serve = phase12_reference(seed, card)
+    log(f"[dp] data-parallel and reference-import phase {time.perf_counter() - t0:.1f} s")
+    return serve, train
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3426,6 +3891,10 @@ def main() -> int:
     train_launches.update(train10)
     torch.cuda.empty_cache()
     train_launches.update(phase11(args.seed, args.train_steps, card))
+    torch.cuda.empty_cache()
+    serve12, train12 = phase12(args.seed, card)
+    launches.update(serve12)
+    train_launches.update(train12)
     launches.update(train_launches)
     for e in entries:
         name = e["name"]

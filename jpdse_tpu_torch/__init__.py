@@ -18,5 +18,8 @@ the s2d fast path or the standard modules, in the default configuration
 and in the JAX package's kernel configuration, with all four TPU kernels
 (K1-K4) in CUDA; and the eval and deploy entry points over it
 (``python -m jpdse_tpu_torch.test`` / ``.compress`` / ``.decompress``)
-with the config, flags, data pipeline, metrics and eval harness.
+with the config, flags, data pipeline, metrics and eval harness; training
+(``python -m jpdse_tpu_torch.train``), on one device or data-parallel over
+a process group (``parallel/``); and the import of the reference's
+``net_*.pth`` checkpoints (``convert/``).
 """

@@ -335,7 +335,9 @@ class CodecConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device mesh (read by the multi-device slice of the port)."""
+    """Device mesh. One port process drives one device, so under a process
+    group ``data_axis`` is -1 or 1 per process and the data axis spans the
+    processes (``parallel/mesh.py``); ``spatial_axis > 1`` is not ported."""
 
     data_axis: int = -1
     spatial_axis: int = 1
@@ -614,6 +616,19 @@ def check_ported(cfg: Config) -> None:
         raise NotImplementedError(f"norm [{m.norm}] not found")
     if m.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
+    check_parallel(cfg)
+
+
+SPATIAL_NOT_PORTED = ("parallel.spatial_axis > 1 (H-sharded convolutions with halo exchange) is "
+                      "ROADMAP Queue 1 item 12's remainder (the spatial axis)")
+
+
+def check_parallel(cfg: Config) -> None:
+    """Raise :class:`NotPorted` for the spatial axis. The data axis runs over
+    a process group (``parallel/mesh.py::mesh_from_config``, which raises
+    for a request the group cannot meet)."""
+    if cfg.parallel.spatial_axis > 1:
+        raise NotPorted(SPATIAL_NOT_PORTED)
 
 
 def check_train_ported(cfg: Config) -> None:
@@ -621,8 +636,10 @@ def check_train_ported(cfg: Config) -> None:
     there), and the training step's own settings. Every other training
     option of the JAX package runs: ``optim.fast_train`` (refused with the
     failed gate for an ineligible model, ``models/fast_train.py``),
-    ``model.use_dropout``, ``optim.vgg_bf16``, ``profile_dir`` and the
-    device cache; the device mesh is ROADMAP Queue 1 item 12."""
+    ``model.use_dropout``, ``optim.vgg_bf16``, ``profile_dir``, the
+    device cache and the data axis over a process group
+    (``parallel/mesh.py``); the spatial axis raises :class:`NotPorted`
+    (:func:`check_parallel`)."""
     check_ported(cfg)
     granularity = cfg.optim.remat_granularity
     if granularity not in ("block", "decode"):

@@ -19,9 +19,9 @@ validation, the JAX package's numbers, so one config gets one decision in
 both packages. Under ``use_compressed`` both flip variants of the base
 codec's decoded image are cached (the codec's round trip is not
 flip-equivariant) and picked by index. Anything else declines with the JAX
-package's printed reason and the host batches are used. Its mesh and
-multi-process gates are ROADMAP Queue 1 item 12's: this package runs one
-process on one device.
+package's printed reason and the host batches are used: a run over a
+process group among them (a mesh, or more than one process), whose
+batches are per-rank shards.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from jpdse_tpu_torch.data.prefetch import to_device
+from jpdse_tpu_torch.parallel import distributed
 
 # per-modality stacked arrays cached on the device; everything else stays on the host
 CACHE_KEYS = ("image", "label", "instance")
@@ -179,8 +180,18 @@ class CachedValBatches:
         return len(self.batches)
 
 
+def _multi_device(mesh) -> Optional[str]:
+    """Why a run on several devices declines the cache (JAX's words,
+    ``jpdse_tpu/data/device_cache.py:257-260``), else None."""
+    if mesh is not None:
+        return "mesh sharding places batches per-shard"
+    if distributed.world() > 1:
+        return "multi-host feeds per-rank shards"
+    return None
+
+
 def maybe_val_cache(val_loader, cfg, device, cap: Optional[int] = None,
-                    max_gb: float = 1.0) -> Optional[CachedValBatches]:
+                    max_gb: float = 1.0, mesh=None) -> Optional[CachedValBatches]:
     """A CachedValBatches when the config allows it, else None (with the
     reason printed where the user asked for cache_images): the flag, the
     dataset's deterministic cached preprocessing, and the budget estimated
@@ -195,6 +206,8 @@ def maybe_val_cache(val_loader, cfg, device, cap: Optional[int] = None,
 
     if not getattr(val_loader.dataset, "_cache_enabled", False):
         return decline("requires cache_images with deterministic preprocessing")
+    if _multi_device(mesh):
+        return decline(_multi_device(mesh))
     it = iter(val_loader)
     try:
         first = next(it)
@@ -212,7 +225,7 @@ def maybe_val_cache(val_loader, cfg, device, cap: Optional[int] = None,
     return cache
 
 
-def maybe_device_cache(loader, cfg, device, max_gb: float = 2.0
+def maybe_device_cache(loader, cfg, device, max_gb: float = 2.0, mesh=None
                        ) -> Optional[DeviceDatasetCache]:
     """A DeviceDatasetCache when the config allows it, else None (with the
     reason printed where the user asked for cache_images)."""
@@ -229,6 +242,8 @@ def maybe_device_cache(loader, cfg, device, max_gb: float = 2.0
         return decline("requires cache_images with deterministic preprocessing")
     if cfg.codec.use_compressed and not hasattr(dataset, "_compressed_arrays"):
         return decline("dataset cannot memoize base-codec round trips")
+    if _multi_device(mesh):
+        return decline(_multi_device(mesh))
     n = len(dataset)
     try:
         dataset.__getitem__(0, rng=np.random.default_rng(0), meta_only=True)

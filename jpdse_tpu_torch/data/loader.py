@@ -6,7 +6,11 @@ seeded by (seed, epoch), so the batches equal the JAX package's in order
 and content. Batches are numpy; the trainer moves them to the device.
 With ``meta_only`` set the loader yields {"index", "flip", "path"} batches:
 the same seeded draws as the host path, without the pixels, for the
-device-resident cache (``data/device_cache.py``).
+device-resident cache (``data/device_cache.py``). With ``world`` > 1 (a
+multi-process run) every rank draws the same permutation, pads it by
+wrapping to a multiple of the world size and keeps its rank-strided slice,
+in JAX's order (``jpdse_tpu/data/loader.py:83-98``): disjoint shards of
+equal length, so every rank takes as many steps.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ class DataLoader:
         drop_last: bool = False,
         num_workers: int = 4,
         seed: Optional[int] = None,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -53,11 +59,19 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.seed = seed if seed is not None else 0
         self.epoch = 0
+        self.rank = rank
+        self.world = max(1, world)
         # yield {"index", "flip", "path"} batches (the device cache's replay)
         self.meta_only = False
 
-    def __len__(self) -> int:
+    def _n_local(self) -> int:
+        """The samples of this rank's shard: all of them in one process,
+        else ceil(n / world)."""
         n = len(self.dataset)
+        return -(-n // self.world) if self.world > 1 else n
+
+    def __len__(self) -> int:
+        n = self._n_local()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -69,6 +83,13 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
+        if self.world > 1:
+            # pad by wrapping before striding, so every rank runs as many steps
+            # (the gradient all-reduce waits for all of them)
+            pad = (-len(idx)) % self.world
+            if pad:
+                idx = np.concatenate([idx, idx[:pad]])
+            idx = idx[self.rank::self.world]
         batches = [list(idx[i:i + self.batch_size]) for i in range(0, len(idx), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()

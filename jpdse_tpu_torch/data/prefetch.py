@@ -46,10 +46,11 @@ def prefetch_to_device(iterable: Iterable[Dict], size: int = 2, device=None,
                        place_fn=None) -> Iterator[Dict]:
     """Yield the batches of ``iterable`` placed, with up to ``size`` placed
     ahead. ``place_fn(batch) -> batch`` overrides the default placement
-    (``_put`` on ``device``, default the current CUDA device, else the
-    CPU)."""
-    if device is None:
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    (``_put`` on ``device``, default the current CUDA device, which
+    ``parallel/distributed.py`` sets to the rank's own, else the CPU)."""
+    if device is None:  # the current CUDA device: the rank's own under a process group
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if torch.cuda.is_available() else torch.device("cpu"))
     device = torch.device(device)
     place = place_fn if place_fn is not None else (lambda b: _put(b, device))
     side = None

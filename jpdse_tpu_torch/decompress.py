@@ -6,8 +6,9 @@ checkpoint alone (no access to the original images or labels).
         --opt_file runs/x/opt.json --checkpoints_dir runs/x --save_dir out/recon
 
 ``--input`` is a ``.jpds`` file or a directory of them; every other flag is
-the config's. Runs on the card; ``main(argv, device="cpu")`` runs it on the
-CPU.
+the config's. Under a process group every rank decodes the same streams and
+rank 0 writes. Runs on the card; ``main(argv, device="cpu")`` runs it on
+the CPU.
 """
 
 from __future__ import annotations
@@ -23,14 +24,17 @@ from PIL import Image
 
 from jpdse_tpu_torch.cli import parse_config
 from jpdse_tpu_torch.config import derive_eval_config
-from jpdse_tpu_torch.platform import resolve_device
+from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.platform import init_distributed, resolve_device
 from jpdse_tpu_torch.trainer import Trainer
 from jpdse_tpu_torch.utils.misc import tensor2im
 
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> List[str]:
-    """Returns the paths of the PNGs written."""
+    """Returns the paths of the PNGs written (by rank 0)."""
+    init_distributed(device)
     device = resolve_device(device)
+    write = distributed.is_main()
     argv = sys.argv[1:] if argv is None else argv
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--input", required=True, help=".jpds file or directory")
@@ -48,16 +52,19 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> List[str]:
     )
     if not paths:
         raise SystemExit(f"no .jpds files under {own.input}")
-    os.makedirs(cfg.save_dir, exist_ok=True)
+    if write:
+        os.makedirs(cfg.save_dir, exist_ok=True)
     written = []
     for p in paths:
         with open(p, "rb") as f:
             img = trainer.decompress(f.read())
         u8 = tensor2im(img, cfg.data.normalize_mean, cfg.data.normalize_std)
         out = os.path.join(cfg.save_dir, os.path.splitext(os.path.basename(p))[0] + ".png")
-        Image.fromarray(np.asarray(u8, np.uint8)).save(out)
-        print(f"{p} -> {out}")
-        written.append(out)
+        if write:
+            Image.fromarray(np.asarray(u8, np.uint8)).save(out)
+            print(f"{p} -> {out}")
+            written.append(out)
+    distributed.barrier()
     return written
 
 

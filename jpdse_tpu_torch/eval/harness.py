@@ -53,8 +53,12 @@ def coded_stream(code: np.ndarray, contexts: np.ndarray, shapes) -> bytes:
     return b"\x00" + stream
 
 
-def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dict[str, float]:
-    """Run the evaluation; returns the metrics averaged per image."""
+def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None,
+             write: bool = True) -> Dict[str, float]:
+    """Run the evaluation; returns the metrics averaged per image. Without
+    ``write`` (a rank other than 0 of a process group, which evaluates the
+    same unsharded set) the codes are coded and counted but no file is
+    written."""
     check_ported(cfg)
     try:
         need_label, need_inst, need_base = side_requirements(cfg)
@@ -63,7 +67,7 @@ def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dic
     get_codes = not cfg.do_not_get_codes and cfg.has_binary_codes
     if not cfg.do_not_get_codes and not cfg.has_binary_codes:
         print("note: no binarized module in this configuration; skipping code dumps")
-    if get_codes and cfg.save_dir:
+    if get_codes and cfg.save_dir and write:
         os.makedirs(os.path.join(cfg.save_dir, "codes"), exist_ok=True)
 
     rng = np.random.default_rng(cfg.optim.seed or 0)
@@ -118,11 +122,12 @@ def evaluate(cfg: Config, trainer, loader, visualizer=None, gallery=None) -> Dic
                 t0 = time.perf_counter()
                 base = os.path.splitext(os.path.basename(batch["path"][j]))[0]
                 code_path = os.path.join(cfg.save_dir, "codes", base + "_code")
-                with open(code_path, "wb") as f:
-                    f.write(codes[j].astype(np.uint8).tobytes())
                 stream = coded_stream(codes[j], contexts, code_shapes)
-                with open(code_path + ".rc", "wb") as f:
-                    f.write(stream)
+                if write:
+                    with open(code_path, "wb") as f:
+                        f.write(codes[j].astype(np.uint8).tobytes())
+                    with open(code_path + ".rc", "wb") as f:
+                        f.write(stream)
                 totals["coded_bpp"] = totals.get("coded_bpp", 0.0) + len(stream) * 8.0 / (h * w)
                 split["coder"] += time.perf_counter() - t0
         if gallery is not None:

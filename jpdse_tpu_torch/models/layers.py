@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from jpdse_tpu_torch.config import NotPorted
 from jpdse_tpu_torch.ops.instance_norm import fused_instance_norm
+from jpdse_tpu_torch.parallel.mesh import draw_rows
 
 
 def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
@@ -235,8 +236,10 @@ class ConvTransposeNormAct(nn.Module):
 
 def dropout_mask(shape, generator: torch.Generator, device) -> torch.Tensor:
     """The kept positions of Dropout(0.5): True where a uniform draw from
-    ``generator`` is below 1/2, as ``jax.random.bernoulli`` keeps."""
-    return torch.rand(shape, generator=generator, device=device) < 0.5
+    ``generator`` is below 1/2, as ``jax.random.bernoulli`` keeps (drawn
+    for the global batch in a data-parallel step,
+    ``parallel/mesh.py::draw_rows``)."""
+    return draw_rows(shape, lambda s: torch.rand(s, generator=generator, device=device)) < 0.5
 
 
 class ResnetBlock(nn.Module):

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from jpdse_tpu_torch.models.layers import conv_nhwc
+from jpdse_tpu_torch.parallel.mesh import draw_rows
 
 
 class _SignSTE(torch.autograd.Function):
@@ -39,8 +40,10 @@ def sign_from_uniform(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def stochastic_sign_ste(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Stochastic binarization with a straight-through gradient: u drawn by
-    ``torch.rand`` in x's dtype from ``generator``."""
-    u = torch.rand(x.shape, dtype=x.dtype, device=x.device, generator=generator)
+    ``torch.rand`` in x's dtype from ``generator`` (for the global batch in
+    a data-parallel step, ``parallel/mesh.py::draw_rows``)."""
+    u = draw_rows(x.shape, lambda s: torch.rand(s, dtype=x.dtype, device=x.device,
+                                                generator=generator))
     return _SignSTE.apply(x, u)
 
 

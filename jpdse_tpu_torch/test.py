@@ -6,7 +6,9 @@ reconstruction gallery, code dumps under ``codes/``, and L1 / MSE / MS-SSIM
     python -m jpdse_tpu_torch.test --load_opt --opt_file runs/x/opt.json \\
         --checkpoints_dir runs/x --save_dir out/x --root_dir /data/cityscapes
 
-Runs on the card; ``main(argv, device="cpu")`` runs it on the CPU.
+Under a process group every rank evaluates the same unsharded set and
+rank 0 writes. Runs on the card; ``main(argv, device="cpu")`` runs it on
+the CPU.
 """
 
 from __future__ import annotations
@@ -19,13 +21,16 @@ from jpdse_tpu_torch.cli import parse_config, print_config
 from jpdse_tpu_torch.config import derive_eval_config
 from jpdse_tpu_torch.data import create_dataloader
 from jpdse_tpu_torch.eval.harness import evaluate
-from jpdse_tpu_torch.platform import resolve_device
+from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.platform import init_distributed, resolve_device
 from jpdse_tpu_torch.trainer import Trainer
 from jpdse_tpu_torch.utils.visualizer import HTMLGallery, Visualizer
 
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> dict:
+    init_distributed(device)
     device = resolve_device(device)
+    write = distributed.is_main()
     cfg = parse_config(argv, is_train=False)
     # evaluate the split asked for (--mode val), else the test split
     eval_mode = cfg.mode if cfg.mode in ("val", "test") else "test"
@@ -38,8 +43,9 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> dict:
     trainer.load()
 
     visualizer = Visualizer(cfg)
-    gallery = HTMLGallery(os.path.join(cfg.save_dir, "test_visualizations"), "visualizations")
-    avgs = evaluate(cfg, trainer, loader, visualizer, gallery)
+    gallery = (HTMLGallery(os.path.join(cfg.save_dir, "test_visualizations"), "visualizations")
+               if write else None)
+    avgs = evaluate(cfg, trainer, loader, visualizer, gallery, write=write)
 
     print("\ntest done!\n")
     msg = (
@@ -58,9 +64,10 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> dict:
     else:
         msg += ", total bpp not measured (codes skipped)"
     print(msg)
-    if cfg.save_dir:
+    if cfg.save_dir and write:
         with open(os.path.join(cfg.save_dir, "metrics.json"), "w") as f:
             json.dump(avgs, f, indent=2)
+    distributed.barrier()
     return avgs
 
 

@@ -12,8 +12,13 @@ Restore is partial, as the JAX package's: a tensor replaces the template's
 where its name exists and its shape agrees, and every other entry keeps the
 template's value. Optimizer state restores whole or not at all (a phase
 change keeps the fresh Adams, as the JAX package falls back).
-``tools/torch_port_export_params.py`` writes ``params_g.pt`` from a JAX
-(Orbax) checkpoint; the Adams' Orbax state is not imported.
+``tools/torch_port_export_params.py`` writes all three from a JAX (Orbax)
+checkpoint, the Adams' moments and counts among them, so a JAX run resumes
+here step for step (its ``trainer_meta.json`` is this format already). A
+directory that holds the reference's ``net_*.pth`` and no ``params_g.pt``
+is imported by ``convert/torch_import.py`` instead (:func:`is_reference_dir`).
+Under a process group rank 0 writes and every rank restores
+(``trainer.py``).
 """
 
 from __future__ import annotations
@@ -85,6 +90,13 @@ def merge_state(template: Mapping[str, torch.Tensor],
         else:
             out[k] = t
     return out, n
+
+
+def is_reference_dir(checkpoints_dir: str) -> bool:
+    """A reference checkpoint directory: ``net_G.pth`` and no
+    ``params_g.pt`` (``convert/torch_import.py`` imports it)."""
+    return (not os.path.exists(os.path.join(checkpoints_dir, PARAMS_FILE))
+            and os.path.exists(os.path.join(checkpoints_dir, "net_G.pth")))
 
 
 def _load_params(checkpoints_dir: str) -> Dict[str, torch.Tensor]:

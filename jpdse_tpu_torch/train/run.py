@@ -26,6 +26,17 @@ replayed; otherwise the loader's host batches are copied. With
 ``profile_dir`` the first trained epoch runs under a ``torch.profiler``
 trace written there (``utils/profiling.py``).
 
+Under a process group (``JPDSE_COORDINATOR`` / ``JPDSE_NUM_PROCESSES`` /
+``JPDSE_PROCESS_ID``, or ``torchrun``; ``parallel/distributed.py``) each
+process trains on its rank's shard with ``batch_size`` images a step, the
+gradients all-reduced (``train/step.py``); every rank validates the same
+unsharded set, so the plateau schedule decides alike everywhere; rank 0
+alone writes (``opt.json``, the logs, the gallery, the checkpoints), every
+rank restores; ``max_host_rss_gb`` acts only in a single process, as in
+JAX (``train.py:257-262``); and the run ends at a barrier.
+
+    torchrun --nproc_per_node 2 -m jpdse_tpu_torch.train [flags]
+
 Runs on the card; ``main(argv, device="cpu")`` runs it on the CPU.
 """
 
@@ -43,7 +54,8 @@ from jpdse_tpu_torch.config import derive_eval_config
 from jpdse_tpu_torch.data import create_dataloader
 from jpdse_tpu_torch.data.device_cache import maybe_device_cache, maybe_val_cache
 from jpdse_tpu_torch.data.prefetch import prefetch_to_device
-from jpdse_tpu_torch.platform import resolve_device
+from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.platform import init_distributed, resolve_device
 from jpdse_tpu_torch.trainer import Trainer
 from jpdse_tpu_torch.utils.logging import MetricsLogger
 from jpdse_tpu_torch.utils.profiling import trace
@@ -160,31 +172,35 @@ def run_epoch(trainer: Trainer, loader, cfg, epoch: int, metrics_log, log_file,
 
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:
+    init_distributed(device)
     device = resolve_device(device)
+    is_main = distributed.is_main()
     cfg = parse_config(argv, is_train=True)
     val_cfg = derive_eval_config(cfg, mode="val")
     print("\ntrain options:\n")
     print_config(cfg)
     if cfg.optim.seed is not None:
         np.random.seed(cfg.optim.seed)
-    if cfg.save_dir:
+    if cfg.save_dir and is_main:
         os.makedirs(cfg.save_dir, exist_ok=True)
         cfg.save(os.path.join(cfg.save_dir, "opt.json"))
 
     loader = create_dataloader(cfg)
     val_loader = create_dataloader(val_cfg)
     visualizer = Visualizer(cfg)
-    gallery = HTMLGallery(os.path.join(cfg.save_dir, "train_visualizations"), "visualizations")
+    gallery = (HTMLGallery(os.path.join(cfg.save_dir, "train_visualizations"), "visualizations")
+               if is_main else None)
 
     trainer = Trainer(cfg, mode="train", device=device)
     n_params = sum(p.numel() for p in trainer.gan.codec.parameters())
     print(f"# trainable params at initialization: {n_params}")
-    log_file = os.path.join(cfg.save_dir, "loss_log.txt") if cfg.save_dir else None
-    metrics_log = MetricsLogger(cfg.save_dir)
-    dev_cache = maybe_device_cache(loader, cfg, trainer.device)
+    log_file = os.path.join(cfg.save_dir, "loss_log.txt") if cfg.save_dir and is_main else None
+    metrics_log = MetricsLogger(cfg.save_dir if is_main else None)
+    dev_cache = maybe_device_cache(loader, cfg, trainer.device, mesh=trainer.mesh)
     if dev_cache is not None:
         loader.meta_only = True
-    val_batches = maybe_val_cache(val_loader, cfg, trainer.device, cap=MAX_VAL_SIZE) or val_loader
+    val_batches = maybe_val_cache(val_loader, cfg, trainer.device, cap=MAX_VAL_SIZE,
+                                  mesh=trainer.mesh) or val_loader
 
     if cfg.load_model:
         trainer.load()
@@ -206,7 +222,8 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:
             metrics_log.log(trainer.steps_taken,
                             {"avg_val_distortion": avg, "lr": trainer.current_lr}, epoch=epoch)
             if cfg.always_save or (avg < trainer.best_val_loss and cfg.save_dir):
-                dump_reconstructions(trainer, val_batches, cfg, gallery, visualizer)
+                if is_main:
+                    dump_reconstructions(trainer, val_batches, cfg, gallery, visualizer)
                 log("saving model...", log_file)
                 trainer.save(epoch, avg)
                 saved = True
@@ -216,14 +233,15 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:
             trainer.save_latest(epoch)
             saved = True
 
-        if cfg.optim.max_host_rss_gb and cfg.save_dir and \
-                host_rss_gb() > cfg.optim.max_host_rss_gb:
+        if cfg.optim.max_host_rss_gb and cfg.save_dir and distributed.world() == 1 and \
+                host_rss_gb() > cfg.optim.max_host_rss_gb:  # a per-process decision and exit
             log(f"host RSS {host_rss_gb():.1f}GB > --max_host_rss_gb "
                 f"{cfg.optim.max_host_rss_gb}; saving latest state and exiting "
                 f"{EXIT_RESTART} for a wrapper restart", log_file)
             if not saved:  # this epoch's save serves as the resume point
                 trainer.save_latest(epoch)
             raise SystemExit(EXIT_RESTART)
+    distributed.barrier()  # no rank leaves while another still writes
     return trainer
 
 

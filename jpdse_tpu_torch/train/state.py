@@ -8,7 +8,8 @@ hyperparameters (lr, betas (beta1, beta2), eps 1e-8); the lr lives in the
 param group, where ``set_lr`` changes it without rebuilding anything, as
 ``optax.inject_hyperparams`` keeps it in the optimizer state. Under
 ``optim.fast_train`` the state also holds the s2d train decode, which the
-step runs in place of the codec's decode.
+step runs in place of the codec's decode; under a process group, the data
+axis (``parallel/mesh.py``) the step reduces over.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 from torch import nn
 
 from jpdse_tpu_torch.config import Config
+from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.parallel.mesh import DataMesh
 from jpdse_tpu_torch.utils.image_pool import ImagePoolState, init_pool
 
 
@@ -37,6 +40,8 @@ class GANTrainState:
     pool: Optional[ImagePoolState] = None
     # under optim.fast_train the s2d train decode (models/fast_train.py), else None
     fast_decode: Optional[Callable] = None
+    # under a process group the data axis over it (parallel/mesh.py), else None
+    mesh: Optional[DataMesh] = None
 
 
 def make_adam(cfg: Config, params) -> torch.optim.Adam:
@@ -46,7 +51,12 @@ def make_adam(cfg: Config, params) -> torch.optim.Adam:
 
 def create_train_state(cfg: Config, codec: nn.Module, disc: nn.Module,
                        vgg: Optional[nn.Module] = None,
-                       pool_image_shape=None) -> GANTrainState:
+                       pool_image_shape=None, mesh: Optional[DataMesh] = None) -> GANTrainState:
+    """The training state; under a ``mesh`` every rank starts from rank 0's
+    parameters (broadcast)."""
+    if mesh is not None:
+        distributed.broadcast_(list(codec.state_dict().values())
+                               + list(disc.state_dict().values()))
     pool = None
     if cfg.model.pool_size > 0:
         if pool_image_shape is None:
@@ -60,7 +70,8 @@ def create_train_state(cfg: Config, codec: nn.Module, disc: nn.Module,
 
         fast_decode = make_fast_train_decode(cfg, codec)
     return GANTrainState(cfg, codec, disc, vgg, make_adam(cfg, codec.parameters()),
-                         make_adam(cfg, disc.parameters()), pool=pool, fast_decode=fast_decode)
+                         make_adam(cfg, disc.parameters()), pool=pool, fast_decode=fast_decode,
+                         mesh=mesh)
 
 
 def get_lr(state: GANTrainState) -> float:

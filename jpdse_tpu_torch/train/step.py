@@ -19,6 +19,18 @@ and ``chip_smoke.py``:
   where nothing upstream trains, records no graph through it), and its
   gradient is zeros, as ``step.py:273-277`` zeroes the trunk's.
 
+Under a process group (``state.mesh``, ``parallel/mesh.py``) the step is
+the global step of JAX's mesh, done by hand: the batch is this rank's shard
+of the global batch; the binarizers' and dropout's draws are made for the
+global batch and each rank keeps its rows; the replay pool, replicated
+state, is queried with the whole global batch of detached fakes (gathered
+from the ranks, as ``step.py:259-264`` queries it); and G's and D's
+gradients and the metrics are all-reduced as means (:func:`reduce_over_ranks`)
+before either Adam steps, so every rank steps alike. (Not
+``DistributedDataParallel``: the step already hands its gradients over
+explicitly, D runs inside both players' losses, and block remat re-runs
+forwards that DDP's hooks do not expect.)
+
 Under ``optim.fast_train`` the decode is the s2d train decode
 (``models/fast_train.py``, ``state.fast_decode``), as the JAX package swaps
 it in (:87-98). ``optim.remat`` recomputes the decode's blocks
@@ -35,6 +47,8 @@ import torch
 
 from jpdse_tpu_torch.models.layers import remat_call
 from jpdse_tpu_torch.ops.metrics import denormalize_to_uint8
+from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.parallel.mesh import drawing as mesh_draws
 from jpdse_tpu_torch.train.losses import (
     distortion_loss,
     feature_matching_loss,
@@ -77,13 +91,35 @@ def loss_and_grads(state: GANTrainState, batch: Dict[str, torch.Tensor],
     """(metrics, (G's gradients, D's gradients)) of one batch on the device:
     the metrics are 0-d fp32 tensors named as :data:`METRICS`; the
     gradients follow ``codec.parameters()`` and ``disc.parameters()``. The
-    binarizers' draws, then the pool's, come from ``generator``."""
+    binarizers' draws, then the pool's, come from ``generator``. Under
+    ``state.mesh`` they are the global step's: the means over the ranks."""
+    inputs = state.codec.prepare(batch)
+    mesh = state.mesh
+    with mesh_draws(mesh):
+        metrics, grads = _local(state, inputs, generator)
+    if mesh is not None:
+        reduce_over_ranks(metrics, grads)
+    return metrics, grads
+
+
+def reduce_over_ranks(metrics: Dict[str, torch.Tensor], grads: Grads) -> None:
+    """Replace this rank's metrics and gradients in place by their means over
+    the process group's ranks: one bucketed all-reduce, in each tensor's
+    dtype (fp32 for the port's parameters)."""
+    stacked = torch.stack([metrics[k] for k in METRICS])
+    distributed.all_reduce_mean_(list(grads[0]) + list(grads[1]) + [stacked])
+    for k, v in zip(METRICS, stacked):
+        metrics[k] = v
+
+
+def _local(state: GANTrainState, inputs: Dict, generator: torch.Generator
+           ) -> Tuple[Dict[str, torch.Tensor], Grads]:
+    """loss_and_grads on this process's batch (its rank's shard)."""
     cfg, L = state.cfg, state.cfg.loss
     codec, disc = state.codec, state.disc
     remat = cfg.optim.remat
     use_lsgan = not cfg.model.no_lsgan
     keep = L.match_raw_feat
-    inputs = codec.prepare(batch)
     real = inputs["real_image"]
     dev = real.device
     zero = torch.zeros((), device=dev)
@@ -120,9 +156,12 @@ def loss_and_grads(state: GANTrainState, batch: Dict[str, torch.Tensor],
     else:
         label_sg = None if input_label is None else input_label.detach()
         fake_concat = _d_concat(label_sg, fake.detach())
-        if state.pool is not None:
-            use_old, rid = image_pool.draw(state.pool, fake_concat.shape[0], generator)
-            fake_concat = image_pool.query(state.pool, fake_concat, use_old, rid)
+        if state.pool is not None:  # queried with the global batch (one rank: its own)
+            mesh = state.mesh
+            full = fake_concat if mesh is None else mesh.gather_rows(fake_concat)
+            use_old, rid = image_pool.draw(state.pool, full.shape[0], generator)
+            full = image_pool.query(state.pool, full, use_old, rid)
+            fake_concat = full if mesh is None else full[mesh.rows(fake_concat.shape[0])]
         with torch.enable_grad():
             l_fake = gan_loss(disc(fake_concat), False, use_lsgan)
             l_real = gan_loss(disc(_d_concat(label_sg, real)), True, use_lsgan)

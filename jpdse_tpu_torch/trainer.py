@@ -33,6 +33,14 @@ rate, as in the JAX package, comes from the standard path's codes.
 Batches are the loader's numpy dicts or dicts of tensors already on the
 device (:meth:`place`); outputs of the device path stay tensors on the
 device, and codes for the host's range coder are numpy.
+
+Under a process group (``parallel/``) the Trainer holds the data axis over
+it (``self.mesh``): ``batch_size`` is per process, a training batch is this
+rank's shard and the step all-reduces its gradients (``train/step.py``),
+every rank starts from rank 0's parameters, an evaluation batch is the same
+on every rank, and rank 0 alone writes checkpoints. ``load`` takes a
+directory of the reference's ``net_*.pth`` as well as the port's own files
+(``convert/torch_import.py``).
 """
 
 from __future__ import annotations
@@ -46,15 +54,22 @@ import torch
 
 from jpdse_tpu_torch import codec_io
 from jpdse_tpu_torch.config import Config, check_ported, check_train_ported
+from jpdse_tpu_torch.convert.torch_import import (
+    import_reference_checkpoint,
+    import_reference_discriminator,
+)
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.discriminator import build_discriminator
 from jpdse_tpu_torch.models.vgg import init_vgg19
 from jpdse_tpu_torch.ops.metrics import bernoulli_shannon_bpp
+from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.parallel.mesh import mesh_from_config, note_replicated
 from jpdse_tpu_torch.platform import resolve_device
 from jpdse_tpu_torch.data.prefetch import DEVICE_KEYS, to_device
 from jpdse_tpu_torch.serve import CodecServer
 from jpdse_tpu_torch.train import step as train_step
 from jpdse_tpu_torch.train.checkpoint import (
+    is_reference_dir,
     meta_epoch,
     restore_checkpoint,
     restore_params,
@@ -83,6 +98,12 @@ class Trainer:
         self.mode = mode
         self.device = resolve_device(device)
         self.start_epoch = 0
+        # under a process group the data axis over it (parallel/mesh.py): batch_size is
+        # per process, a training batch this rank's shard, an eval batch the same on all
+        self.mesh = mesh_from_config(cfg.parallel)
+        if self.mesh is not None:  # JAX's batch_size % local data axis (1) cannot fail here
+            print(f"multi-process mesh: dcn={self.mesh.world} x data=1 x spatial=1 (process "
+                  f"{self.mesh.rank}/{self.mesh.world}; batch_size is per process)")
         if mode == "train":
             self._init_train()
             return
@@ -111,7 +132,7 @@ class Trainer:
                 vgg = vgg.to(torch.bfloat16)
         h, w = train_image_hw(cfg)
         self.gan: GANTrainState = create_train_state(cfg, codec, disc, vgg,
-                                                     (h, w, cfg.netD_input_nc))
+                                                     (h, w, cfg.netD_input_nc), self.mesh)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         # the LocalEnhancer's global trunk trains only after niter_fix_global epochs
         # (:152-161, update_fixed_params in the reference)
@@ -169,18 +190,23 @@ class Trainer:
         passed through."""
         return {k: to_device(batch[k], self.device) for k in DEVICE_KEYS if k in batch}
 
+    def _place_eval(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """An evaluation batch: the same on every rank, so replicated."""
+        note_replicated(self.mesh, "evaluation batch")
+        return self.place(batch)
+
     # -- evaluation protocol -------------------------------------------------
     def get_img(self, batch: Dict) -> torch.Tensor:
         """Reconstruction (B, H, W, 3), float32, on the device."""
         if self.mode == "train":
             with torch.inference_mode():
                 codec = self.gan.codec
-                return codec.decode(codec.prepare(self.place(batch)))[0].float()
-        return self._server.decode(self.place(batch))
+                return codec.decode(codec.prepare(self._place_eval(batch)))[0].float()
+        return self._server.decode(self._place_eval(batch))
 
     def _shaped_codes(self, batch: Dict) -> List[torch.Tensor]:
         """One code per binarized module; raises where there is none."""
-        codes = self._server.compress_codes(self.place(batch))
+        codes = self._server.compress_codes(self._place_eval(batch))
         if not codes:
             raise ValueError("no binarized module in this configuration")
         return codes
@@ -208,7 +234,7 @@ class Trainer:
         the codes (0 without a code), computed on the device from the
         standard path's codes; one host fetch of the two scalars."""
         self._need_eval()
-        b = self.place(batch)
+        b = self._place_eval(batch)
         codec = self._std.codec
         codes = codec.get_codes_shaped(codec.prepare(b))
         num_pixels = b["image"].shape[1] * b["image"].shape[2]
@@ -234,12 +260,19 @@ class Trainer:
     def load(self):
         """Restore the weights from ``checkpoints_dir`` (else ``save_dir``);
         in training the whole state, from ``save_dir/latest`` when that is
-        the same directory's newer save."""
+        the same directory's newer save. A directory that holds the
+        reference's ``net_*.pth`` and no ``params_g.pt`` is imported
+        (``convert/torch_import.py``): the codec's networks, in training D's
+        too where ``net_D.pth`` is there, with fresh Adams from epoch 0."""
         ckpt_dir = self.cfg.checkpoints_dir or self.cfg.save_dir
         if self.mode == "train":
             self._load_train(ckpt_dir)
             return
-        merged, _meta = restore_params(ckpt_dir, self.state)
+        if is_reference_dir(ckpt_dir):
+            merged = import_reference_checkpoint(ckpt_dir, self.cfg, self.state)
+            print(f"imported the reference checkpoint (net_*.pth) in {ckpt_dir}")
+        else:
+            merged, _meta = restore_params(ckpt_dir, self.state)
         self._std.codec.load_state_dict(merged)
         # the fast path is rebuilt on the loaded weights
         self._fast_built = False
@@ -279,7 +312,7 @@ class Trainer:
 
     def get_eval_loss(self, batch: Dict) -> float:
         self._need_train()
-        return float(train_step.eval_loss(self.gan, self.place(batch)))
+        return float(train_step.eval_loss(self.gan, self._place_eval(batch)))
 
     def scheduler_step(self, val_loss: float):
         if self.sched is not None:
@@ -291,22 +324,37 @@ class Trainer:
         return extra
 
     def save(self, epoch: int, val_loss: float):
-        """The best-val checkpoint in ``save_dir``."""
+        """The best-val checkpoint in ``save_dir`` (rank 0 writes; every rank
+        waits for it)."""
         self._need_train()
         self.gan.best_val_loss = float(np.float32(val_loss))
-        save_checkpoint(self.cfg.save_dir, self.gan, epoch, self._meta())
+        if distributed.is_main():
+            save_checkpoint(self.cfg.save_dir, self.gan, epoch, self._meta())
+        distributed.barrier()
         print(f"\ncheckpoint saved to {self.cfg.save_dir}\n")
 
     def save_latest(self, epoch: int):
         """The exact current state in ``save_dir/latest``: a resume point
-        beside the best-val checkpoint, which model selection reads."""
+        beside the best-val checkpoint, which model selection reads (rank 0
+        writes)."""
         self._need_train()
         latest = os.path.join(self.cfg.save_dir, "latest")
-        save_checkpoint(latest, self.gan, epoch, self._meta(latest=True))
+        if distributed.is_main():
+            save_checkpoint(latest, self.gan, epoch, self._meta(latest=True))
+        distributed.barrier()
         print(f"\nlatest-state checkpoint saved to {latest}\n")
 
     def _load_train(self, ckpt_dir: str):
         cfg = self.cfg
+        if is_reference_dir(ckpt_dir):
+            gan = self.gan
+            gan.codec.load_state_dict(import_reference_checkpoint(
+                ckpt_dir, cfg, gan.codec.state_dict()))
+            gan.disc.load_state_dict(import_reference_discriminator(
+                ckpt_dir, cfg, gan.disc.state_dict()))
+            print(f"imported the reference checkpoint (net_*.pth) in {ckpt_dir}; fresh "
+                  "optimizer state, starting from epoch 1")
+            return
         if cfg.save_dir and os.path.abspath(ckpt_dir) == os.path.abspath(cfg.save_dir):
             latest = os.path.join(ckpt_dir, "latest")
             if meta_epoch(latest) > meta_epoch(ckpt_dir):

@@ -26,7 +26,9 @@ def init_pool(pool_size: int, image_shape: Tuple[int, ...], device) -> ImagePool
 
 def draw(state: ImagePoolState, batch: int, generator: torch.Generator):
     """Per image: whether a full pool returns a stored image (u > 0.5) and
-    which slot it swaps."""
+    which slot it swaps. In a data-parallel step ``batch`` is the global
+    batch's, which every rank queries the replicated pool with
+    (``train/step.py``)."""
     dev = state.images.device
     use_old = torch.rand((batch,), generator=generator, device=dev) > 0.5
     rid = torch.randint(0, max(1, state.images.shape[0]), (batch,), generator=generator,

@@ -13,6 +13,7 @@ from PIL import features
 from jpdse_tpu.codecs import bridge as jax_bridge
 from jpdse_tpu_torch import native
 from jpdse_tpu_torch.codecs import bridge
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 MEAN, STD = (0.5, 0.5, 0.5), (1.0, 0.5, 0.25)
 

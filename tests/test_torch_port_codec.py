@@ -25,6 +25,7 @@ from jpdse_tpu_torch.convert import from_jax_params, to_jax_params
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
 from jpdse_tpu_torch.serve import CodecServer
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 H, W = 64, 128
 ATOL = 2e-4

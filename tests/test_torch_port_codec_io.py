@@ -13,6 +13,7 @@ from jpdse_tpu import codec_io as jax_io
 from jpdse_tpu import native as jax_native
 from jpdse_tpu_torch import codec_io, native
 from jpdse_tpu_torch.ops import build
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 
 def _codes(case: str):

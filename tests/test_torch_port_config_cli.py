@@ -34,6 +34,7 @@ from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
 from jpdse_tpu_torch.ops.s2d import instance_norm_s2d
 from test_torch_port_codec import _jax_params
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 OPT_FILES = sorted(

@@ -9,6 +9,8 @@ there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -520,3 +522,95 @@ def test_device_cache_batches_on_card_equal_host(cuda, tmp_path):
             for k in ("image", "label", "instance"):
                 assert placed[k].is_cuda
                 assert torch.equal(placed[k].cpu(), torch.from_numpy(hb[k])), k
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """A process group of one rank on NCCL over the card (the data-parallel
+    path's collectives), torn down after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.parallel import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize("cuda", f"localhost:{port}", 1, 0)
+    try:
+        yield distributed
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_world1_all_reduce_is_bit_equal_to_its_input(nccl_world1, dtype):
+    """The mean all-reduce over flat buckets (several of them: tensors of
+    mixed sizes past one bucket's bytes) leaves every tensor of one rank
+    bit-equal, on the card."""
+    import torch.distributed as dist
+
+    assert dist.get_backend() == "nccl" and nccl_world1.world() == 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(1024, 1024, 3, 3), (7,), (64, 3, 7, 7), (4096, 2048), ()]
+    xs = [torch.randn(s, generator=gen, device="cuda", dtype=dtype) for s in shapes]
+    want = [x.clone() for x in xs]
+    nccl_world1.all_reduce_mean_(xs, bucket_bytes=8 * 2**20)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(xs, want))
+    got = nccl_world1.all_gather_rows(want[3])
+    assert torch.equal(got, want[3])
+
+
+def test_world1_train_step_equals_the_single_process_step(nccl_world1, monkeypatch):
+    """The tiny flagship's phase-2 step in the kernel configuration (K3
+    forward and backward) through the data-parallel path of one NCCL rank
+    against the same state without its mesh, on the card in fp32 with TF32
+    off and the deterministic sign: the same K3 launches, and metrics and
+    gradients within 1e-4 of each tensor's max-abs (two runs on the card
+    differ by cuDNN's atomics)."""
+    from jpdse_tpu_torch.models.discriminator import build_discriminator
+    from jpdse_tpu_torch.ops import quantizers
+    from jpdse_tpu_torch.parallel.mesh import mesh_from_config
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.train.state import create_train_state
+
+    monkeypatch.setattr(quantizers, "stochastic_sign_ste",
+                        lambda x, gen: quantizers.deterministic_sign_ste(x))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = flagship_config(tiny=True, kernels=True)
+    cfg.model.compute_dtype, cfg.model.fast_inference = "float32", False
+    cfg.loss.no_vgg_loss = True
+    mesh = mesh_from_config(cfg.parallel)
+    assert mesh is not None and mesh.world == 1
+    rng = np.random.default_rng(5)
+    batch = {"label": torch.from_numpy(rng.integers(0, 35, (2, 64, 128)).astype(np.float32)),
+             "instance": torch.from_numpy(rng.integers(0, 6, (2, 64, 128)).astype(np.int32)),
+             "image": torch.from_numpy(rng.uniform(-1, 1, (2, 64, 128, 3)).astype(np.float32))}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    outs, k3, names = [], [], None
+    for m in (None, mesh):
+        codec = SemanticCodec(cfg, device="cuda", seed=7)
+        disc = build_discriminator(cfg, "cuda", torch.Generator(device="cuda").manual_seed(3))
+        state = create_train_state(cfg, codec, disc, None, (64, 128, cfg.netD_input_nc), m)
+        names = [[n for n, _ in net.named_parameters()] for net in (codec, disc)]
+        before = (instance_norm.fused_instance_norm.launches,
+                  instance_norm.fused_instance_norm_bwd.launches)
+        outs.append(step.loss_and_grads(state, batch, torch.Generator(device="cuda")))
+        torch.cuda.synchronize()
+        k3.append((instance_norm.fused_instance_norm.launches - before[0],
+                   instance_norm.fused_instance_norm_bwd.launches - before[1]))
+    assert k3[0] == k3[1] and k3[0][1] > 0
+    (m0, g0), (m1, g1) = outs
+    for k in step.METRICS:
+        assert abs(m1[k].item() - m0[k].item()) <= 1e-4 * max(abs(m0[k].item()), 1e-30), k
+    normed_bias = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9])\..*bias$")
+    for net_names, a_list, b_list in zip(names, g0, g1):
+        top = max(a.abs().max().item() for a in a_list)
+        for n, a, b in zip(net_names, a_list, b_list):
+            if normed_bias.search(n):  # 0 to rounding on both sides
+                assert max(a.abs().max().item(), b.abs().max().item()) <= 1e-5 * top, n
+            else:
+                assert (a - b).abs().max().item() <= 1e-4 * a.abs().max().item(), n

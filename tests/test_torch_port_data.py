@@ -29,6 +29,7 @@ from jpdse_tpu_torch import cli, config, data
 from jpdse_tpu_torch.data import stats, transforms
 from jpdse_tpu_torch.data.folder import is_image_file, make_dataset
 from jpdse_tpu_torch.utils import colormap, misc, visualizer
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 REAL_IMAGES = sorted((REPO / "artifacts/flagship_r3/eval_phase3/test_visualizations/images/image")

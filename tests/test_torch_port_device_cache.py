@@ -28,6 +28,7 @@ from jpdse_tpu_torch.config import derive_eval_config
 from jpdse_tpu_torch.data import device_cache as dc
 from jpdse_tpu_torch.data.prefetch import prefetch_to_device
 from test_torch_port_data import _ade20k, _cityscapes
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 KEYS = ("image", "label", "instance")
 

@@ -43,6 +43,7 @@ from jpdse_tpu_torch.eval.harness import evaluate
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.train.checkpoint import PARAMS_FILE, save_params
 from jpdse_tpu_torch.trainer import Trainer
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 H, W = 64, 128

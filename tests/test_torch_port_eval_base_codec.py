@@ -39,6 +39,7 @@ from jpdse_tpu_torch.data import create_dataloader
 from jpdse_tpu_torch.train.checkpoint import save_params
 from jpdse_tpu_torch.trainer import Trainer
 from test_torch_port_eval import DISTORTION, H, N_IMAGES, W, _write_tree
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 BASE = {"jpg": "50", "heif": "30"}
 SIDE_RATES = ("sem_side_bpp", "base_codec_bpp", "total_bpp")

@@ -42,6 +42,7 @@ from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
 from jpdse_tpu_torch.ops import s2d
 from test_torch_port_codec import _jax_params
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 H, W, B = 32, 64, 2
 FWD = {"atol": 2e-5, "rtol": 1e-4}

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from jpdse_tpu_torch.ops import realign
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 SMEM_LIMIT = 227 * 1024  # shared memory a block may use on Hopper
 

@@ -45,6 +45,7 @@ from jpdse_tpu_torch.convert import from_jax_params
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.serve import CodecServer
 from test_torch_port_codec import _jax_params, _jax_presign, assert_codes_match
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 H, W = 512, 1024
 ATOL = 2e-4

@@ -18,6 +18,7 @@ from jpdse_tpu_torch.ops import build
 from jpdse_tpu_torch.serve import CodecServer
 from jpdse_tpu_torch.train import run
 from jpdse_tpu_torch.trainer import Trainer
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -39,7 +40,8 @@ assert {"jpdse_tpu_torch." + m for m in (
     "utils.image_pool", "utils.logging", "ops.semantics", "models.codec", "models.generator",
     "models.fast_codec", "models.fast_trunk", "serve", "codecs", "codecs.bridge",
     "train.warmstart", "models.fast_train", "data.device_cache", "data.prefetch",
-    "utils.profiling")
+    "utils.profiling", "parallel", "parallel.distributed", "parallel.mesh", "convert",
+    "convert.torch_import", "convert.torch_ref", "platform")
     } <= set(names), names
 from jpdse_tpu_torch import native
 from jpdse_tpu_torch.codecs import bridge
@@ -58,6 +60,17 @@ assert {"idmap_encode", "idmap_decode", "heif_available", "heif_encode",
         "heif_decode"} <= set(dir(native))
 assert {"encode_bytes", "decode_bytes", "compress_for_model", "normalize_decoded",
         "available_codecs", "CodecUnavailable"} <= set(dir(bridge))
+from jpdse_tpu_torch.convert import torch_import, torch_ref
+from jpdse_tpu_torch.parallel import distributed, mesh
+assert {"from_jax_params", "to_jax_params", "deconv_groups"} <= set(dir(
+    importlib.import_module("jpdse_tpu_torch.convert")))
+assert {"convert_global_generator", "convert_encoder", "convert_multiscale_discriminator",
+        "import_reference_checkpoint"} <= set(dir(torch_import))
+assert {"RefGlobalGenerator", "RefEncoder", "RefLearnedCodec", "reference_weights_init",
+        "phase2_generator_input"} <= set(dir(torch_ref))
+assert {"initialize", "rank", "world", "is_main", "barrier", "all_reduce_mean_"} <= set(
+    dir(distributed))
+assert {"DataMesh", "mesh_from_config", "warn_replicated_once", "draw_rows"} <= set(dir(mesh))
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]

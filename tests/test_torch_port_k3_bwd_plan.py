@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from jpdse_tpu_torch.ops import instance_norm
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 # (batch, rows, channels, channels a word, bytes a channel)
 FLAGSHIP = [(1, 512 * 1024, 64), (1, 256 * 512, 128), (1, 128 * 256, 256),

@@ -34,6 +34,7 @@ from jpdse_tpu.ops.pallas.head_conv import head_conv_s2d_pallas
 from jpdse_tpu.ops.pallas.realign import s2d_pad3_pallas, s2d_realign_pad3_pallas
 from jpdse_tpu_torch.ops import build, head_conv, instance_norm, realign
 from jpdse_tpu_torch.ops import s2d as ts2d
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 
 def _x(shape, seed=0):

@@ -20,6 +20,7 @@ from jpdse_tpu_torch.models import layers as tl
 from jpdse_tpu_torch.ops import s2d as ts2d
 from jpdse_tpu_torch.ops import semantics as tsem
 from jpdse_tpu_torch.ops.quantizers import Binarizer
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 ATOL = 1e-5
 

@@ -35,6 +35,7 @@ from jpdse_tpu_torch.models.generator import LocalEnhancer
 from jpdse_tpu_torch.serve import CodecServer
 from jpdse_tpu_torch.utils.misc import tensor2im
 from test_torch_port_codec import _jax_params
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 H, W = 64, 128
 ATOL = 2e-4

@@ -19,6 +19,7 @@ from PIL import Image
 
 from jpdse_tpu.ops import metrics as jm
 from jpdse_tpu_torch.ops import metrics as pm
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 GALLERY = REPO / "artifacts/flagship_r3/eval_phase3/test_visualizations/images"

@@ -33,6 +33,7 @@ from jpdse_tpu_torch.models.fast_codec import FastCodec
 from jpdse_tpu_torch.models.generator import Encoder
 from jpdse_tpu_torch.ops.quantizers import Binarizer
 from test_torch_port_train_step import jax_config, recipe_weights, run_steps
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 ATOL = 1e-5
 

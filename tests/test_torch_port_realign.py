@@ -10,6 +10,7 @@ import torch
 
 from jpdse_tpu.ops.pallas.realign import s2d_realign_pad3_pallas
 from jpdse_tpu_torch.ops import realign
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 # (hs, ws, C): odd ws and C not a multiple of 8 take the kernel's
 # element-wise path; hs >= 6 leaves room for extra_rows=4

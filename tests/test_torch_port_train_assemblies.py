@@ -23,6 +23,7 @@ from jpdse_tpu_torch.convert import from_jax_params
 from jpdse_tpu_torch.train import step
 from jpdse_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from test_torch_port_train_step import port_state, recipe_weights, run_steps
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("recipe", ["zero_sem", "use_netE_output", "g_binarized"])

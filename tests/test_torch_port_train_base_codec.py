@@ -13,6 +13,7 @@ worker than that file's)."""
 import pytest
 
 from test_torch_port_train_step import run_steps
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["default", "fused_instance_norm"])

@@ -24,6 +24,7 @@ from jpdse_tpu_torch.data import create_dataloader
 from jpdse_tpu_torch.ops import instance_norm
 from jpdse_tpu_torch.train import run
 from jpdse_tpu_torch.trainer import Trainer
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 H, W = 64, 128
 TINY = ["--ngf", "8", "--nef", "8", "--ne4lf", "8", "--ndf", "8", "--n_downsample_global", "2",

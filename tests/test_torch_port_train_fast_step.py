@@ -9,6 +9,7 @@ sign: the fast decode's own import of it in the JAX package too."""
 
 import jpdse_tpu.models.fast_train as jft
 from test_torch_port_train_step import run_steps
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 
 def test_two_fast_train_steps_match_jax(monkeypatch):

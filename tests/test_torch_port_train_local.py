@@ -47,6 +47,7 @@ from test_torch_port_train_step import (
     port_state,
     recipe_weights,
 )
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

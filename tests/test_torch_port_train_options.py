@@ -36,6 +36,7 @@ from jpdse_tpu_torch.train.losses import vgg_loss
 from test_torch_port_codec import _jax_params
 from test_torch_port_fast_train import GRAD_ATOL, GRAD_RTOL, _leaves
 from test_torch_port_train_e2e import _quiet, train_argv, write_tree
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 H, W, B = 32, 64, 2
 

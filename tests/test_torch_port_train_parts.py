@@ -36,6 +36,7 @@ from jpdse_tpu_torch.train import losses, step
 from jpdse_tpu_torch.train.schedule import ReduceLROnPlateau
 from jpdse_tpu_torch.train.state import GANTrainState, make_adam
 from jpdse_tpu_torch.utils import image_pool
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 COMBOS = [(True, False), (False, True), (False, False)]  # (relu, residual)
 

@@ -67,6 +67,7 @@ from jpdse_tpu_torch.ops import quantizers
 from jpdse_tpu_torch.train import step
 from jpdse_tpu_torch.train.state import create_train_state
 from test_torch_port_codec import _jax_params
+from test_torch_port_threads import port_test_threads  # noqa: F401
 
 H, W, B = 64, 128, 2
 RTOL = 1e-4
