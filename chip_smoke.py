@@ -22,7 +22,10 @@ Phases, each printing a line as it ends:
      bit-equal to the eager call); K4's dense-A mode against torch.matmul;
      the hires recipe's shapes among them: K1 at (1, 512, 1024, 128) and as
      the producer of its 2048x1024 head, K3 and its backward at (1, 1024,
-     2048, 32), K4 on that head with N = 128;
+     2048, 32), K4 on that head with N = 128; K3's partial-statistics form
+     (the spatial axis: stats, apply, backward sums, backward dx) at two
+     ranks' halves of every norm shape against its plain versions and the
+     one-launch plain form of the whole, timed at (1, 256, 1024, 64) bf16;
   4. the flagship codec at full width (Cityscapes 1024x512, random weights
      from --seed), fp32 with TF32 off: the default s2d fast path, the fast
      path in the kernel configuration (K1, K2, K4) and the standard path
@@ -164,7 +167,21 @@ Phases, each printing a line as it ends:
      Trainer.load, one request served through .jpds bytes on the default
      and the kernel configuration's standard path, fp32 with TF32 off:
      codes equal to the reference's, images within 1e-3 of its decode;
- 13. summary: the card, a JSON line of per-kernel numbers, the total
+ 13. the spatial axis: two ranks of one process each on the card at
+     spatial_axis 2 (gloo), spawned: (a) the phase-2 recipe at full width
+     (batch 2, each rank 256 rows of both images) in the default and the
+     kernel configuration, two steps each, each from the single-process
+     path's parameters and Adams and on its code bits (PinnedSigns), held
+     against one process's step by phase 7 (a)'s rule and within 1e-9 in
+     float64, the ranks' uniforms gathered bit-equal to one process's, the
+     parameters bit-equal across ranks after each step, K3's partial form
+     90 / 90 / 45 / 45 a rank a step in the kernel configuration with every
+     launch against its plain version, and the group's all-reduces counted;
+     (b) test.main of one synthetic 2048x1024 triplet read 'fixed' to
+     1024x512 in the kernel configuration, fp32 with TF32 off, sharded
+     against one process: the code files bit-equal, the rates equal, the
+     reconstruction within 1e-3;
+ 14. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -215,7 +232,16 @@ KERNELS = {  # wrapper -> (its module under jpdse_tpu_torch/ops and csrc/, the T
     "fused_instance_norm": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:125"),
     "fused_instance_norm_bwd": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:100"),
     "head_conv_s2d": ("head_conv", "jpdse_tpu/ops/pallas/head_conv.py:90"),
+    # K3's partial-statistics form (the spatial axis): JAX's K3 under a mesh
+    "instance_norm_stats": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:125"),
+    "instance_norm_apply": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:125"),
+    "instance_norm_bwd_sums": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:100"),
+    "instance_norm_bwd_dx": ("instance_norm", "jpdse_tpu/ops/pallas/instance_norm.py:100"),
 }
+K3_PARTIAL = ("instance_norm_stats", "instance_norm_apply", "instance_norm_bwd_sums",
+              "instance_norm_bwd_dx")
+# the flagship's largest norm slab halved over H, one rank's rows at spatial 2
+PARTIAL_SHAPE = (1, 256, 1024, 64)
 
 
 def log(msg: str) -> None:
@@ -753,6 +779,167 @@ def k3_bwd_graph(k3, x, g, stats) -> None:
         "eager call")
 
 
+def _halves(x: torch.Tensor) -> list:
+    """Two ranks' rows of a slab at spatial 2."""
+    h = x.shape[1] // 2
+    return [x[:, :h].contiguous(), x[:, h:].contiguous()]
+
+
+def phase_k3_partial(card: str, gen) -> list:
+    """K3's partial-statistics form (the spatial axis): each of its four
+    kernels at two ranks' halves of every serving and training norm shape
+    (a bare norm, ReLU, residual), against its plain version on the same
+    inputs (stats: the mean and M2 within 1e-5 relative, the count exact;
+    apply and dx: fp32 within 1e-5 of the output's max-abs, bf16 within 1
+    ulp beyond that; sums, fp32 in both: 1e-5 of their max-abs), the halves together
+    against the one-launch plain form of the whole slab, every rank's
+    merged statistics bit-equal, deterministic; then each timed at
+    PARTIAL_SHAPE in bf16 beside its plain version and its bound. One
+    PyTorch call computes the stats launch's function, ``torch.var_mean``
+    over (H, W) (the mean and the biased variance, M2 over the count; its
+    outputs in x's dtype): its library_ms. None computes apply, sums or dx,
+    which read statistics merged across ranks: library_ms null."""
+    from jpdse_tpu_torch.ops import instance_norm as k3
+
+    worst = dict.fromkeys(K3_PARTIAL, 0.0)
+    count = float
+    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES:
+        base = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
+        g32 = torch.randn(shape, device="cuda", generator=gen)
+        res32 = torch.randn(shape, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = base.to(dtype), g32.to(dtype)
+            parts, gparts = _halves(x), _halves(g)
+            stats = torch.stack([k3.instance_norm_stats(p) for p in parts])
+            for p_, st in zip(parts, stats):
+                want = k3.instance_norm_stats_plain(p_)
+                if not torch.equal(st[..., 0], want[..., 0]):
+                    raise AssertionError(f"K3 stats {shape}: counts differ")
+                err = max(((st[..., i] - want[..., i]).abs()
+                           / want[..., i].abs().clamp_min(1.0)).max().item() for i in (1, 2))
+                worst["instance_norm_stats"] = max(worst["instance_norm_stats"], err)
+                if not err <= 1e-5:
+                    raise AssertionError(f"K3 stats {shape} {dt(dtype)}: {err:.2e} relative")
+            for relu, has_res in NORM_COMBOS:
+                res = res32.to(dtype) if has_res else None
+                rparts = _halves(res) if has_res else [None, None]
+                ys, mss = [], []
+                for p_, r_ in zip(parts, rparts):
+                    y, ms = k3.instance_norm_apply(p_, r_, stats, relu)
+                    again, _ = k3.instance_norm_apply(p_, r_, stats, relu)
+                    want, _ = k3.instance_norm_apply_plain(p_, r_, stats, relu)
+                    if not torch.equal(y, again):
+                        raise AssertionError(f"K3 apply {shape}: not deterministic")
+                    _note_held(worst, "instance_norm_apply", y, want, dtype)
+                    ys.append(y)
+                    mss.append(ms)
+                if not torch.equal(mss[0], mss[1]):
+                    raise AssertionError(f"K3 apply {shape}: the ranks' statistics differ")
+                whole = k3.fused_instance_norm_plain(x, res, relu)
+                _held(f"K3 partial forward {shape} {dt(dtype)} relu={relu} residual={has_res}",
+                      torch.cat(ys, 1), whole, dtype)
+                if has_res:
+                    continue
+                sums = []
+                for p_, gp in zip(parts, gparts):
+                    got = k3.instance_norm_bwd_sums(p_, gp, mss[0], relu)
+                    want = k3.instance_norm_bwd_sums_plain(p_, gp, mss[0], relu)
+                    worst["instance_norm_bwd_sums"] = max(worst["instance_norm_bwd_sums"],
+                                                          _site_err(got, want))
+                    sums.append(got)
+                sums = torch.stack(sums)
+                n = count(shape[1] * shape[2])
+                dxs = []
+                for p_, gp in zip(parts, gparts):
+                    dx = k3.instance_norm_bwd_dx(p_, gp, mss[0], sums, n, relu)
+                    want = k3.instance_norm_bwd_dx_plain(p_, gp, mss[0], sums, n, relu)
+                    _note_held(worst, "instance_norm_bwd_dx", dx, want, dtype)
+                    dxs.append(dx)
+                _held(f"K3 partial backward {shape} {dt(dtype)} relu={relu}", torch.cat(dxs, 1),
+                      k3.fused_instance_norm_bwd_plain(x, g, relu, stats=mss[0]), dtype)
+        torch.cuda.synchronize()
+    for name, err in worst.items():
+        if not err <= K3_SITE_TOL:
+            raise AssertionError(f"{name}: {err:.2e} of its output's max-abs from its plain "
+                                 f"version (tolerance {K3_SITE_TOL})")
+    log(f"[kernels] K3 partial form at two ranks' halves of {len(NORM_SHAPES + TRAIN_NORM_SHAPES)} "
+        f"shapes, fp32 and bf16: worst against the plain versions on the same inputs "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {K3_SITE_TOL})")
+
+    # timing at one rank's rows of the largest slab, bf16
+    x = (torch.randn(PARTIAL_SHAPE, device="cuda", generator=gen) * 3 + 1).to(torch.bfloat16)
+    g = torch.randn(PARTIAL_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
+    st = k3.instance_norm_stats(x)
+    stats = torch.stack([st, st])
+    _, ms = k3.instance_norm_apply(x, None, stats, True)
+    sums = torch.stack([k3.instance_norm_bwd_sums(x, g, ms, True)] * 2)
+    n = count(2 * PARTIAL_SHAPE[1] * PARTIAL_SHAPE[2])
+    runs = {
+        "instance_norm_stats": (lambda: k3.instance_norm_stats(x),
+                                lambda: k3.instance_norm_stats_plain(x), bytes_ms(x),
+                                lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
+        "instance_norm_apply": (lambda: k3.instance_norm_apply(x, None, stats, True),
+                                lambda: k3.instance_norm_apply_plain(x, None, stats, True),
+                                bytes_ms(x, x), None),
+        "instance_norm_bwd_sums": (lambda: k3.instance_norm_bwd_sums(x, g, ms, True),
+                                   lambda: k3.instance_norm_bwd_sums_plain(x, g, ms, True),
+                                   bytes_ms(x, g), None),
+        "instance_norm_bwd_dx": (lambda: k3.instance_norm_bwd_dx(x, g, ms, sums, n, True),
+                                 lambda: k3.instance_norm_bwd_dx_plain(x, g, ms, sums, n, True),
+                                 bytes_ms(x, g, x), None),
+    }
+    entries = []
+    for name, (kern, plain, bound, library) in runs.items():
+        k = cuda_ms(kern)
+        k_dev = device_ms(kern)
+        p = cuda_ms(plain)
+        lib = None if library is None else cuda_ms(library)
+        log(f"[kernels] {name} {PARTIAL_SHAPE} bf16 relu: kernel {k:.4f} ms (on the device "
+            f"{k_dev:.4f} ms, {bound / k_dev:.0%} of its bound), plain {p:.4f} ms, bound "
+            f"{bound * 1e3:.1f} us (bytes); "
+            + ("no PyTorch call computes it" if lib is None else
+               f"torch.var_mean over (H, W) {lib:.4f} ms (on the device "
+               f"{device_ms(library):.4f} ms)") + f" ({card})")
+        e = kernel_entry(name, worst[name], k, p, bound, "bytes", lib)
+        e["device_ms"] = k_dev
+        entries.append(e)
+    fwd = sum(e["ms"] for e in entries[:2])
+    bwd = sum(e["ms"] for e in entries[2:])
+    log(f"[kernels] K3 partial form at {PARTIAL_SHAPE} bf16: forward (stats + apply) "
+        f"{fwd * 1e3:.1f} us against a bound of {bytes_ms(x, x, x) * 1e3:.1f} us, backward "
+        f"(sums + dx) {bwd * 1e3:.1f} us against {bytes_ms(x, g, x, g, x) * 1e3:.1f} us ({card})")
+    return entries
+
+
+def _note_held(worst: dict, name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> None:
+    """An fp32 output's difference against its max-abs (at least 1 for the
+    apply's) into ``worst``; a bf16 output within one ulp beyond 1e-5."""
+    if dtype == torch.float32:
+        floor = 1.0 if name == "instance_norm_apply" else 0.0
+        worst[name] = max(worst[name], _site_err(got, want, floor))
+    elif not bf16_excess_ulps(got, want) <= 1.0:
+        raise AssertionError(f"{name} at {tuple(got.shape)} bf16: more than 1 ulp beyond 1e-5 "
+                             "from its plain version")
+
+
+def _site_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """The largest difference against the output's max-abs (at least ``floor``)."""
+    scale = max(want.float().abs().max().item(), floor, 1e-30)
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def _held(what: str, got: torch.Tensor, want: torch.Tensor, dtype) -> None:
+    """fp32 within 1e-5 of the plain form's max-abs (at least 1), bf16 within
+    one ulp beyond 1e-5."""
+    if dtype == torch.float32:
+        err = _site_err(got, want, 1.0)
+        if not err <= 1e-5:
+            raise AssertionError(f"{what}: {err:.2e} from the one-launch plain form")
+    elif not bf16_excess_ulps(got, want) <= 1.0:
+        raise AssertionError(f"{what}: more than 1 bf16 ulp beyond 1e-5 from the plain form")
+
+
+
 def phase_k4(card: str, gen) -> dict:
     """K4 at both heads as the kernel configuration hands them over (netG:
     156 s2d channels, padded by the producer to 160 with zeros and zero
@@ -1153,15 +1340,15 @@ _SPLIT = re.compile(r"host clock: load ([\d.]+), device ([\d.]+), coder ([\d.]+)
                     r"metrics ([\d.]+), gallery ([\d.]+)")
 
 
-def write_cityscapes(root: Path, seed: int, split: str = "val") -> None:
-    """EVAL_IMAGES Cityscapes triplets of ``split`` at 2048x1024 from
+def write_cityscapes(root: Path, seed: int, split: str = "val", n: int = EVAL_IMAGES) -> None:
+    """``n`` (EVAL_IMAGES) Cityscapes triplets of ``split`` at 2048x1024 from
     ``seed``: a smooth random photo with noise, block labels of 34 classes
     and 16-bit instance ids (class * 1000 + k), written as PNGs with PIL,
     the port's image I/O."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    for i in range(EVAL_IMAGES):
+    for i in range(n):
         city = ("frankfurt", "lindau")[i % 2]
         name = f"{city}_{i:06d}_000019"
         img_dir, gt_dir = root / "leftImg8bit" / split / city, root / "gtFine" / split / city
@@ -3814,6 +4001,351 @@ def phase12(seed: int, card: str) -> tuple:
     return serve, train
 
 
+# -- phase 13: the spatial axis ------------------------------------------------------
+SPATIAL_K3 = {"instance_norm_stats": 90, "instance_norm_apply": 90,
+              "instance_norm_bwd_sums": 45, "instance_norm_bwd_dx": 45}  # a rank, a step
+SPATIAL_EVAL_IMAGES = 1
+
+
+class K3PartialCheck:
+    """While active, every launch of K3's partial form is also run through
+    its plain version on the same inputs: the count exact, the mean and M2
+    within K3_SITE_TOL relative, the apply's output within K3_SITE_TOL of
+    its max-abs (at least 1), the sums and dx within K3_SITE_TOL of their
+    max-abs. The wrappers are swapped in the module, whose launch counters
+    then land on the stand-ins; they are carried back on exit."""
+
+    def __init__(self):
+        from jpdse_tpu_torch.ops import instance_norm as k3
+
+        self.k3, self.worst, self.calls = k3, dict.fromkeys(K3_PARTIAL, 0.0), 0
+
+    def _note(self, name: str, err: float, what) -> None:
+        self.worst[name] = max(self.worst[name], err)
+        self.calls += 1
+        if not err <= K3_SITE_TOL:
+            raise AssertionError(f"{name} at {what}: {err:.2e} from its plain version "
+                                 f"(tolerance {K3_SITE_TOL})")
+
+    def __enter__(self):
+        k3 = self.k3
+        self.orig = {name: getattr(k3, name) for name in K3_PARTIAL}
+        o = self.orig
+
+        def stats(x):
+            got = o["instance_norm_stats"](x)
+            with torch.no_grad():
+                want = k3.instance_norm_stats_plain(x)
+            if not torch.equal(got[..., 0], want[..., 0]):
+                raise AssertionError(f"instance_norm_stats at {tuple(x.shape)}: counts differ")
+            self._note("instance_norm_stats", max(
+                ((got[..., i] - want[..., i]).abs() / want[..., i].abs().clamp_min(1.0)).max().item()
+                for i in (1, 2)), tuple(x.shape))
+            return got
+
+        def apply(x, residual, parts, relu=False, eps=1e-5):
+            y, ms = o["instance_norm_apply"](x, residual, parts, relu, eps)
+            with torch.no_grad():
+                want, _ = k3.instance_norm_apply_plain(x, residual, parts, relu, eps)
+            self._note("instance_norm_apply", _site_err(y, want, 1.0), tuple(x.shape))
+            return y, ms
+
+        def sums(x, g, ms, relu=False):
+            got = o["instance_norm_bwd_sums"](x, g, ms, relu)
+            with torch.no_grad():
+                want = k3.instance_norm_bwd_sums_plain(x, g, ms, relu)
+            self._note("instance_norm_bwd_sums", _site_err(got, want), tuple(x.shape))
+            return got
+
+        def dx(x, g, ms, parts, count, relu=False):
+            got = o["instance_norm_bwd_dx"](x, g, ms, parts, count, relu)
+            with torch.no_grad():
+                want = k3.instance_norm_bwd_dx_plain(x, g, ms, parts, count, relu)
+            self._note("instance_norm_bwd_dx", _site_err(got, want), tuple(x.shape))
+            return got
+
+        for name, fn in zip(K3_PARTIAL, (stats, apply, sums, dx)):
+            fn.launches = o[name].launches
+            setattr(k3, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            fn.launches = getattr(self.k3, name).launches
+            setattr(self.k3, name, fn)
+
+    def summary(self) -> str:
+        return (f"{self.calls} launches each held against its plain version on the same inputs, "
+                "worst " + ", ".join(f"{k} {v:.2e}" for k, v in self.worst.items())
+                + f" (tolerance {K3_SITE_TOL})")
+
+
+def _same_on_every_rank(tag: str, tensors: list) -> None:
+    """Rank 0's tensors broadcast to every rank, each held bit for bit
+    against the rank's own (a rank that differs raises)."""
+    from jpdse_tpu_torch.parallel import distributed
+
+    theirs = [t.detach().clone() for t in tensors]
+    distributed.broadcast_(theirs)
+    if not all(torch.equal(a, b) for a, b in zip(theirs, tensors)):
+        raise AssertionError(f"{tag}: rank {distributed.rank()}'s parameters differ from rank 0's")
+
+
+def spatial_eval_argv(run: Path, out: Path, opt: str) -> list:
+    return ["--load_opt", "--opt_file", str(run / opt), "--checkpoints_dir", str(run),
+            "--save_dir", str(out), "--mode", "val"]
+
+
+def spatial_eval_image(argv: list) -> np.ndarray:
+    """The reconstruction of the split's first batch by a test-mode Trainer
+    on the run's weights (the standard path, as test.main takes it)."""
+    from jpdse_tpu_torch.cli import parse_config
+    from jpdse_tpu_torch.config import derive_eval_config
+    from jpdse_tpu_torch.data import create_dataloader
+    from jpdse_tpu_torch.trainer import Trainer
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg = derive_eval_config(parse_config(argv, is_train=False), mode="val")
+        trainer = Trainer(cfg, mode="test", device="cuda")
+        trainer.load()
+        batch = next(iter(create_dataloader(cfg)))
+        return trainer.get_img(batch).cpu().numpy()
+
+
+def spatial_eval(argv: list, tag: str) -> tuple:
+    """test.main with every kernel count set to 0 just before it and read
+    just after, in fp32 with TF32 off, then the first image's
+    reconstruction: (metrics, counts, image)."""
+    from jpdse_tpu_torch import test
+
+    with tf32_off():
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            metrics = test.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        image = spatial_eval_image(argv)
+    for line in text.getvalue().splitlines():
+        if line.startswith(("test set avg", "multi-process mesh", "fast_inference")):
+            log(f"[spatial] (b) {tag}: {line}")
+    return metrics, counts, image
+
+
+def _phase13_rank(rank: int, port: int, seed: int, work: str) -> None:
+    """One of two ranks at spatial_axis 2 on the one card (gloo). (a) For
+    the default and then the kernel configuration, two steps, each from the
+    single-process path's parameters and Adams (the twin, stepped on rank 0
+    on the whole batch; its gradients broadcast, so both ranks' twins step
+    alike): rank 0 records the twin's pre-signs and uniforms, every rank
+    steps its 256 rows of both images on those code bits (PinnedSigns), the
+    same in float64, rank 0 holds the sharded step against the twin's by
+    phase 7 (a)'s rule with two controls and the float64 arbiter, and the
+    ranks' uniforms, gathered, against the twin's bit for bit; in the
+    kernel configuration every partial-form launch is held against its
+    plain version (K3PartialCheck); after each step the ranks' parameters
+    are bit-identical. (b) test.main sharded, then the first image's
+    reconstruction."""
+    os.environ["LOCAL_RANK"] = "0"
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.ops.build import build_all
+    from jpdse_tpu_torch.parallel import distributed, spatial
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.trainer import Trainer
+
+    build_all()  # loads the kernels the parent built
+    distributed.initialize("cuda", f"localhost:{port}", 2, rank, backend="gloo")
+    result = {"train": {}}
+    for kernels in (False, True):
+        label = "kernel configuration" if kernels else "default configuration"
+        t0 = time.perf_counter()
+        cfg = flagship_train_config(kernels, seed)
+        cfg.parallel.spatial_axis = 2
+        dp = Trainer(cfg, mode="train", device="cuda:0")
+        twin = Trainer(flagship_train_config(kernels, seed), mode="train", device="cuda:0")
+        twin.mesh = twin.gan.mesh = None  # the same weights, stepped as one process
+        if dp.mesh is None or dp.mesh.spatial != 2 or dist.get_backend() != "gloo":
+            raise AssertionError(f"rank {rank}: no gloo mesh of spatial 2: {dp.mesh}")
+        batch = train_batch(dp.cfg, seed)
+        shard = dp.mesh.shard(batch["image"].shape[1])
+
+        def mine(t):  # this rank's H rows of a whole tensor (an image's, or a code's)
+            return t[:, dp.mesh.h_rows(t.shape[1])]
+
+        h_rows = dp.mesh.h_rows(batch["image"].shape[1])
+        log(f"[spatial] (a) rank {rank}, {label}: trainers built in "
+            f"{time.perf_counter() - t0:.1f} s; this rank's rows {h_rows.start}-{h_rows.stop} of "
+            f"{batch['image'].shape[1]}")
+        for k in range(2):
+            tag = f"phase-2 recipe, spatial 2, {label}, step {k + 1}"
+            for a, b in ((twin.gan.codec, dp.gan.codec), (twin.gan.disc, dp.gan.disc),
+                         (twin.gan.opt_g, dp.gan.opt_g), (twin.gan.opt_d, dp.gan.opt_d)):
+                b.load_state_dict(a.state_dict())
+            dp.gan.steps_taken = twin.gan.steps_taken
+            dp.gan.lambda_distortion_weight = twin.gan.lambda_distortion_weight
+            out, pre, out64 = {}, {}, {}
+            with tf32_off():
+                with torch.no_grad():  # the twin's pre-signs' shapes, then rank 0's values
+                    ref = twin.gan.codec.get_presign(twin.gan.codec.prepare(twin.place(batch)))
+                if rank == 0:
+                    gen = torch.Generator(device="cuda").manual_seed(seed + k)
+                    with PinnedSigns() as rec:
+                        out["single process"], _ = counted_step(twin.gan, twin.place(batch), gen)
+                    ref, single_draws = rec.calls, rec.draws
+                distributed.broadcast_(ref)
+                gen = torch.Generator(device="cuda").manual_seed(seed + k)
+                check = K3PartialCheck() if kernels else contextlib.nullcontext()
+                t1 = time.perf_counter()
+                spatial.traffic.update(calls=0, bytes=0)
+                with PinnedSigns([mine(r) for r in ref]) as rec, check:
+                    out["2 spatial ranks"], counts = counted_step(dp.gan, dp.place(batch), gen)
+                dt_s = time.perf_counter() - t1
+                traffic = dict(spatial.traffic)
+                want = SPATIAL_K3 if kernels else {}
+                if {n: counts[n] for n in K3_PARTIAL} != {n: want.get(n, 0) for n in K3_PARTIAL} \
+                        or counts["fused_instance_norm"] or counts["fused_instance_norm_bwd"]:
+                    raise AssertionError(f"rank {rank}, {tag}: launches {counts}")
+                result["train"][f"spatial 2, {label}, step {k + 1}"] = counts
+                log(f"[spatial] (a) rank {rank}, {tag}: loss_and_grads of its rows {dt_s:.2f} s "
+                    f"(fp32, TF32 off, halo exchanges and the gradient all-reduce over gloo "
+                    f"included); {traffic['calls']} all-reduces over the spatial group "
+                    f"({traffic['bytes'] / 2**20:.1f} MiB) besides the gradients'; launches "
+                    f"{ {n: v for n, v in counts.items() if v} }"
+                    + (f"; {check.summary()}" if kernels else ""))
+                pre["2 spatial ranks"] = [spatial.gather_rows(x, shard) for x in rec.calls]
+                draws = [spatial.gather_rows(u, shard) for u in rec.draws]
+                ref64 = [r.double() for r in ref]
+                if rank == 0:
+                    out64["single process"], ref64 = f64_step(twin, batch, seed + k)
+                distributed.broadcast_(ref64)
+                out64["2 spatial ranks"], _ = f64_step(dp, batch, seed + k,
+                                                       [mine(r) for r in ref64])
+                if rank == 0:
+                    if not all(torch.equal(a, b) for a, b in zip(draws, single_draws)):
+                        raise AssertionError(f"{tag}: the ranks' uniforms are not the global "
+                                             "draws' rows")
+                    for i, b in enumerate(perturbed(batch, seed)):
+                        gen = torch.Generator(device="cuda").manual_seed(seed + k)
+                        with PinnedSigns(ref) as rec:
+                            out[f"control {i + 1}"], _ = counted_step(twin.gan, twin.place(b), gen)
+                        pre[f"control {i + 1}"] = rec.calls
+                    pinned_bits(tag, ref, pre)
+                    hold_step(tag, out, None, (twin.gan.codec, twin.gan.disc), seed + k,
+                              "single process", "2 spatial ranks", out64)
+                    log(f"[spatial] (a) {tag}: the ranks' {sum(u.numel() for u in draws)} "
+                        "binarizer uniforms, gathered, bit-equal to one process's")
+            # the twin's gradients from rank 0, so both ranks' twins step alike
+            g_twin = out["single process"][1] if rank == 0 else (
+                [torch.zeros_like(p) for p in twin.gan.codec.parameters()],
+                [torch.zeros_like(p) for p in twin.gan.disc.parameters()])
+            distributed.broadcast_(list(g_twin[0]) + list(g_twin[1]))
+            step.apply(twin.gan, g_twin)
+            step.apply(dp.gan, out["2 spatial ranks"][1])
+            _same_on_every_rank(tag, list(dp.gan.codec.parameters())
+                                + list(dp.gan.disc.parameters()))
+            log(f"[spatial] (a) rank {rank}, {tag}: parameters after the step bit-equal to rank "
+                "0's")
+            del out, out64
+        del dp, twin
+        torch.cuda.empty_cache()
+    run = Path(work) / "eval"
+    metrics, counts, image = spatial_eval(
+        spatial_eval_argv(run, Path(work) / f"rank{rank}", "opt.json"), f"rank {rank}")
+    result["eval"] = {"metrics": metrics, "counts": counts}
+    if rank == 0:
+        np.save(os.path.join(work, "rank0_image.npy"), image)
+    torch.save(result, os.path.join(work, f"rank{rank}.pt"))
+    distributed.barrier()
+    dist.destroy_process_group()
+
+
+def phase13(seed: int, card: str) -> tuple:
+    """Phase 13, the spatial axis: two ranks of one process each at
+    spatial_axis 2 on the card (gloo), spawned. (a) the phase-2 recipe at
+    full width in the default and the kernel configuration (see
+    _phase13_rank); (b) test.main of one synthetic 2048x1024 triplet read
+    'fixed' to 1024x512 in the kernel configuration, fp32 with TF32 off,
+    sharded, against the same run in one process here: the .rc bytes
+    equal, the rates equal, the first image's reconstruction within
+    FP32_ATOL. Returns (eval counts, train counts)."""
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="jpdse_spatial_") as work:
+        run = Path(work) / "eval"
+        root = run / "cityscapes"
+        write_cityscapes(root, seed + 13, n=SPATIAL_EVAL_IMAGES)
+        cfg = flagship_config(kernels=True)
+        cfg.model.compute_dtype, cfg.model.fast_inference = "float32", False
+        mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+        for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
+            pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
+            pp.aspect_ratio = aspect
+        cfg.data.dataset, cfg.data.root_dir = "cityscapes", str(root)
+        cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+        cfg.data.num_workers, cfg.optim.seed = 1, seed
+        cfg.save(str(run / "opt1.json"))
+        cfg.parallel.spatial_axis = 2
+        cfg.save(str(run / "opt.json"))
+        save_params(str(run), SemanticCodec(flagship_config(kernels=True), device="cuda",
+                                            seed=seed + 13).state_dict())
+        ctx = torch.multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=_phase13_rank, args=(r, port, seed, work)) for r in range(2)]
+        for p in procs:
+            p.start()
+        # meanwhile the same evaluation in one process
+        one_metrics, one_counts, one_image = spatial_eval(
+            spatial_eval_argv(run, Path(work) / "single", "opt1.json"), "one process")
+        for p in procs:
+            p.join(timeout=900)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if codes != [0, 0]:
+            raise AssertionError(f"phase 13: the two ranks exited with {codes}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        image = np.load(os.path.join(work, "rank0_image.npy"))
+        rc_one = {p.name: p.read_bytes() for p in (Path(work) / "single" / "codes").glob("*")}
+        rc_sharded = {p.name: p.read_bytes() for p in (Path(work) / "rank0" / "codes").glob("*")}
+        if not rc_one or rc_sharded != rc_one:
+            raise AssertionError(f"(b) the sharded evaluation's code files differ from one "
+                                 f"process's: {sorted(rc_sharded)} vs {sorted(rc_one)}")
+        if (Path(work) / "rank1" / "codes").exists() and any((Path(work) / "rank1" / "codes").iterdir()):
+            raise AssertionError("(b) rank 1 wrote code files")
+        for r in ranks:
+            m = r["eval"]["metrics"]
+            for k in ("actual_bpp", "coded_bpp", "total_bpp", "n_images"):
+                if m[k] != one_metrics[k]:
+                    raise AssertionError(f"(b) {k}: {m[k]} sharded, {one_metrics[k]} one process")
+        err = float(np.abs(image - one_image).max())
+        if not err <= FP32_ATOL:
+            raise AssertionError(f"(b) the sharded reconstruction is {err:.2e} from one process's")
+        m = ranks[0]["eval"]["metrics"]
+        want_counts = {k: v * SPATIAL_EVAL_IMAGES for k, v in
+                       {"instance_norm_stats": 65, "instance_norm_apply": 65}.items()}
+        got_counts = {k: v for k, v in ranks[0]["eval"]["counts"].items() if v}
+        if got_counts != want_counts:
+            raise AssertionError(f"(b) the sharded test.main launched {got_counts}, want "
+                                 f"{want_counts}")
+        log(f"[spatial] (b) test.main of {SPATIAL_EVAL_IMAGES} 2048x1024 triplet(s) read 'fixed' "
+            f"to 1024x512, kernel configuration, fp32, TF32 off, spatial 2 against one process: "
+            f"{len(rc_one)} code files bit-equal ({sum(map(len, rc_one.values()))} bytes), coded "
+            f"{m['coded_bpp']:.6f} bpp on both, PSNR {m['PSNR']:.4f} / {one_metrics['PSNR']:.4f} "
+            f"dB, reconstruction within {err:.2e} (tolerance {FP32_ATOL}); launches a rank "
+            f"{got_counts}, one process { {k: v for k, v in one_counts.items() if v} } ({card})")
+        train = {f"{k}, rank {r}": v for r, res in enumerate(ranks)
+                 for k, v in res["train"].items()}
+        evals = {f"spatial eval, rank {r}": res["eval"]["counts"] for r, res in enumerate(ranks)}
+        evals["spatial eval, one process"] = one_counts
+    log(f"[spatial] spatial-axis phase {time.perf_counter() - t0:.1f} s with the spawn ({card})")
+    return evals, train
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3847,7 +4379,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     entries = [phase_k1(card, gen), phase_k2(card, gen), phase_k3(card, gen),
-               phase_k3_bwd(card, gen), phase_k4(card, gen)]
+               phase_k3_bwd(card, gen), phase_k4(card, gen)] + phase_k3_partial(card, gen)
 
     cfg = flagship_config()
     kcfg = flagship_config(kernels=True)
@@ -3895,14 +4427,20 @@ def main() -> int:
     serve12, train12 = phase12(args.seed, card)
     launches.update(serve12)
     train_launches.update(train12)
+    torch.cuda.empty_cache()
+    eval13, train13 = phase13(args.seed, card)
+    eval_launches.update(eval13)
+    launches.update(eval13)
+    train_launches.update(train13)
     launches.update(train_launches)
     for e in entries:
         name = e["name"]
         in_eval = sum(eval_launches[label][name] for label in eval_launches)
         in_train = sum(train_launches[label][name] for label in train_launches)
-        if name != "fused_instance_norm_bwd" and in_eval == 0:
+        if name not in ("fused_instance_norm_bwd", "instance_norm_bwd_sums",
+                        "instance_norm_bwd_dx") and in_eval == 0:
             raise AssertionError(f"{name} was not launched in the eval phase")
-        if name.startswith("fused_instance_norm") and in_train == 0:
+        if (name.startswith("fused_instance_norm") or name in K3_PARTIAL) and in_train == 0:
             raise AssertionError(f"{name} was not launched in the training phase")
         by_path = {label: counts[name] for label, counts in launches.items()}
         e["launches"] = sum(by_path.values())

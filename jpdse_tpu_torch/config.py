@@ -337,7 +337,8 @@ class CodecConfig:
 class ParallelConfig:
     """Device mesh. One port process drives one device, so under a process
     group ``data_axis`` is -1 or 1 per process and the data axis spans the
-    processes (``parallel/mesh.py``); ``spatial_axis > 1`` is not ported."""
+    processes; ``spatial_axis`` S groups S consecutive processes, which
+    shard H (``parallel/mesh.py``)."""
 
     data_axis: int = -1
     spatial_axis: int = 1
@@ -619,16 +620,57 @@ def check_ported(cfg: Config) -> None:
     check_parallel(cfg)
 
 
-SPATIAL_NOT_PORTED = ("parallel.spatial_axis > 1 (H-sharded convolutions with halo exchange) is "
-                      "ROADMAP Queue 1 item 12's remainder (the spatial axis)")
+SPATIAL_NOT_PORTED = ("under parallel.spatial_axis > 1 (H-sharded activations) is ROADMAP "
+                      "Queue 1 item 13 (the spatial axis beyond the standard path)")
 
 
 def check_parallel(cfg: Config) -> None:
-    """Raise :class:`NotPorted` for the spatial axis. The data axis runs over
-    a process group (``parallel/mesh.py::mesh_from_config``, which raises
-    for a request the group cannot meet)."""
+    """Raise :class:`NotPorted` for what the spatial axis does not run yet:
+    the fast path (``fast_inference``; the evaluation entry points take
+    the standard path instead, ``Trainer``), ``optim.fast_train`` and the
+    LocalEnhancer. The data and spatial axes run over a process group
+    (``parallel/mesh.py::mesh_from_config``, which raises for a request the
+    group cannot meet)."""
+    if cfg.parallel.spatial_axis <= 1:
+        return
+    if cfg.model.netG == "local":
+        raise NotPorted(f"the LocalEnhancer (netG local) {SPATIAL_NOT_PORTED}")
+    if cfg.optim.fast_train:
+        raise NotPorted(f"optim.fast_train {SPATIAL_NOT_PORTED}")
+
+
+def check_fast_parallel(cfg: Config) -> None:
+    """The fast path (``FastCodec``, the s2d trunks) under the spatial axis
+    raises :class:`NotPorted`."""
     if cfg.parallel.spatial_axis > 1:
-        raise NotPorted(SPATIAL_NOT_PORTED)
+        raise NotPorted(f"the fast path (fast_inference, FastCodec) {SPATIAL_NOT_PORTED}")
+
+
+def spatial_row_multiple(cfg: Config) -> int:
+    """What an image's H must be a multiple of, over S, for every layer of
+    the sharded standard path to split evenly: 2 to the deepest stride-2
+    stack (netG's, the encoders', VGG's four pools where the VGG loss is
+    on), times ``codec.sem_downsample``. The discriminator's layers take
+    any height."""
+    m = cfg.model
+    downs = [m.n_downsample_global]
+    if cfg.use_netE:
+        downs.append(m.n_downsample_E)
+    if cfg.use_netE4label:
+        downs.append(m.n_downsample_E4label)
+    if cfg.is_train and not cfg.loss.no_vgg_loss:
+        downs.append(4)
+    return 2 ** max(downs) * max(1, cfg.codec.sem_downsample)
+
+
+def check_spatial_rows(cfg: Config, h: int, size: int) -> None:
+    """Raise :class:`NotPorted` for an H that ``size`` divides but whose
+    deeper layers would not split evenly (``spatial_row_multiple``)."""
+    k = spatial_row_multiple(cfg)
+    if h % (size * k):
+        raise NotPorted(f"an H of {h} rows over spatial={size}, not a multiple of {size * k} "
+                        f"(uneven shards in the generator, encoders or VGG), "
+                        f"{SPATIAL_NOT_PORTED}")
 
 
 def check_train_ported(cfg: Config) -> None:
@@ -637,8 +679,8 @@ def check_train_ported(cfg: Config) -> None:
     option of the JAX package runs: ``optim.fast_train`` (refused with the
     failed gate for an ineligible model, ``models/fast_train.py``),
     ``model.use_dropout``, ``optim.vgg_bf16``, ``profile_dir``, the
-    device cache and the data axis over a process group
-    (``parallel/mesh.py``); the spatial axis raises :class:`NotPorted`
+    device cache and the data and spatial axes over a process group
+    (``parallel/mesh.py``), the spatial axis on the standard path
     (:func:`check_parallel`)."""
     check_ported(cfg)
     granularity = cfg.optim.remat_granularity

@@ -64,6 +64,26 @@
 // holds 11 of a block's 63 iterations. On an H100 the L2 kept no measurable
 // part of the second read (reverse order, evict-last and evict-first hints
 // all measured alike); see PERF.md.
+//
+// The partial-statistics form (the spatial axis, parallel/spatial.py): a
+// slab is one rank's rows of a global slab held by S ranks, so the
+// statistics must be merged across ranks between the kernel's phases. The
+// same work in four launches, the host gathering across the group between
+// them (ops/instance_norm.py::FusedInstanceNorm):
+//   forward: instance_norm_stats_kernel (cooperative: the forward's phase 1
+//     without its shared-memory cache, a grid barrier, then one warp per
+//     (b, c) merging the chunks in a fixed order into this rank's
+//     (count, mean, M2)); the host gathers the S ranks' triples;
+//     instance_norm_apply_kernel (an ordinary launch of one block per chunk
+//     of rows: each thread merges the S triples of its channels in rank
+//     order, so every rank holds the same bits, then normalizes its rows,
+//     ReLU, the fp32 residual, one cast; x is read a second time);
+//   backward: instance_norm_bwd_sums_kernel (cooperative: the fp32 sums of
+//     g' and g' * xhat per (b, c), sums, not means); the host gathers them;
+//     instance_norm_bwd_dx_kernel (each thread adds the S ranks' sums in
+//     rank order, divides by the global count, computes dx).
+// Bound: bytes. Forward, two reads of x and one write of y; backward, two
+// reads each of x and g and one write of dx.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -696,6 +716,484 @@ Plan make_plan(long long hw, int batch, int c, int v, int blocks, int chunk_cap,
   return p;
 }
 
+
+// -- the partial-statistics form -----------------------------------------------
+
+// Phases 1-2 of the forward, without its cache: this rank's (count, mean,
+// M2) per (b, c) into out[(b c + ch) 3 ...].
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+instance_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
+                           float* __restrict__ out, Plan p) {
+  using W = Vec<T, V>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* red_n = reinterpret_cast<float*>(smem);
+  float* red_mean = red_n + kThreads;
+  float* red_m2 = red_mean + kThreads * V;
+
+  const int tid = threadIdx.x;
+  const int lane_p = tid / p.tile, gl = tid % p.tile;
+  const int items = p.batch * p.tiles * p.chunks;
+  const W* xv = reinterpret_cast<const W*>(x);
+
+  for (int q = blockIdx.x; q < items; q += gridDim.x) {
+    const Item w = item(p, q);
+    const int g = w.g0 + gl;
+    const bool active = lane_p < p.pix && g < p.groups;
+    const long long base = static_cast<long long>(w.b) * p.hw * p.groups + g;
+    float n = 0.f, mean[V], m2[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) mean[v] = m2[v] = 0.f;
+    for (int k0 = 0; k0 < w.iters; k0 += kBatch) {
+      W buf[kBatch];
+      int nb = 0;
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
+        if (active && k0 + kk < w.iters && r < w.r1) {
+          buf[kk] = xv[base + r * p.groups];
+          ++nb;
+        }
+      }
+      if (nb == 0) continue;
+      const float nbf = static_cast<float>(nb), inv = 1.f / nbf;
+      const float n_new = n + nbf, f = nbf / n_new;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float s = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kBatch; ++kk) if (kk < nb) s += to_f(buf[kk].v[v]);
+        const float mb = s * inv;
+        float q2 = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kBatch; ++kk) {
+          if (kk < nb) {
+            const float d = to_f(buf[kk].v[v]) - mb;
+            q2 += d * d;
+          }
+        }
+        const float delta = mb - mean[v];
+        mean[v] += delta * f;
+        m2[v] += q2 + delta * delta * n * f;
+      }
+      n = n_new;
+    }
+    red_n[tid] = n;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      red_mean[tid * V + v] = mean[v];
+      red_m2[tid * V + v] = m2[v];
+    }
+    __syncthreads();
+    for (int s = 1; s < p.pix; s *= 2) {
+      if (lane_p % (2 * s) == 0 && lane_p + s < p.pix) {
+        const int o = tid + s * p.tile;
+        const float na = red_n[tid], nb = red_n[o];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const Moments m = merge({na, red_mean[tid * V + v], red_m2[tid * V + v]},
+                                  {nb, red_mean[o * V + v], red_m2[o * V + v]});
+          red_mean[tid * V + v] = m.mean;
+          red_m2[tid * V + v] = m.m2;
+        }
+        red_n[tid] = na + nb;
+      }
+      __syncthreads();
+    }
+    if (lane_p == 0 && g < p.groups) {
+      const int chunk = q % p.chunks;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float* o = partial + ((static_cast<long long>(w.b) * p.chunks + chunk) * p.c +
+                              g * V + v) * 3;
+        o[0] = red_n[tid];
+        o[1] = red_mean[tid * V + v];
+        o[2] = red_m2[tid * V + v];
+      }
+    }
+    __syncthreads();
+  }
+
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  grid.sync();
+
+  const int lane = tid % 32;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads + tid) / 32;
+       i < static_cast<long long>(p.batch) * p.c; i += warps) {
+    const long long b = i / p.c, ch = i % p.c;
+    Moments t{0.f, 0.f, 0.f};
+    for (int k = lane; k < p.chunks; k += 32) {
+      const float* q = partial + ((b * p.chunks + k) * p.c + ch) * 3;
+      t = merge(t, Moments{q[0], q[1], q[2]});
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const Moments o{__shfl_down_sync(0xffffffffu, t.n, off),
+                      __shfl_down_sync(0xffffffffu, t.mean, off),
+                      __shfl_down_sync(0xffffffffu, t.m2, off)};
+      t = merge(t, o);
+    }
+    if (lane == 0) {
+      out[3 * i] = t.n;
+      out[3 * i + 1] = t.mean;
+      out[3 * i + 2] = t.m2;
+    }
+  }
+}
+
+// The apply and dx launches' partition (ops/instance_norm.py::apply_plan):
+// one block per chunk of kApplyIters loop iterations of one (b, channel
+// tile) slab, blocks in (b, tile, chunk) order.
+constexpr int kApplyIters = 8;
+
+struct ApplyPlan {
+  long long hw, rows_per_chunk;
+  int batch, c, chunks, groups, tile, tiles, pix, parts;
+};
+
+ApplyPlan make_apply_plan(long long hw, int batch, int c, int v, int parts, long long* grid) {
+  ApplyPlan p{};
+  p.hw = hw;
+  p.batch = batch;
+  p.c = c;
+  p.parts = parts;
+  p.groups = c / v;
+  p.tile = p.groups < kThreads ? p.groups : kThreads;
+  p.tiles = (p.groups + p.tile - 1) / p.tile;
+  p.pix = kThreads / p.tile;
+  p.rows_per_chunk = static_cast<long long>(p.pix) * kApplyIters;
+  p.chunks = static_cast<int>((hw + p.rows_per_chunk - 1) / p.rows_per_chunk);
+  *grid = static_cast<long long>(batch) * p.tiles * p.chunks;
+  return p;
+}
+
+// parts: the S ranks' (count, mean, M2), (S, batch, c, 3), merged in rank
+// order; ms: (batch, c, 2) mean and rstd, written by the first chunk's
+// blocks for the backward.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_apply_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__ y,
+                           const float* __restrict__ parts, float* __restrict__ ms, ApplyPlan p,
+                           int relu, float eps) {
+  using W = Vec<T, V>;
+  const int tid = threadIdx.x;
+  const int lane_p = tid / p.tile, gl = tid % p.tile;
+  const long long q = blockIdx.x;
+  const int chunk = static_cast<int>(q % p.chunks);
+  const long long slab = q / p.chunks;
+  const int b = static_cast<int>(slab / p.tiles), tile = static_cast<int>(slab % p.tiles);
+  const int g = tile * p.tile + gl;
+  if (lane_p >= p.pix || g >= p.groups) return;
+  float mean[V], rstd[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    Moments t{0.f, 0.f, 0.f};
+    for (int s = 0; s < p.parts; ++s) {
+      const float* o = parts + ((static_cast<long long>(s) * p.batch + b) * p.c + g * V + v) * 3;
+      t = merge(t, Moments{o[0], o[1], o[2]});
+    }
+    mean[v] = t.mean;
+    rstd[v] = 1.0f / sqrtf(t.m2 / t.n + eps);
+    if (chunk == 0 && lane_p == 0) {
+      float* m = ms + 2 * (static_cast<long long>(b) * p.c + g * V + v);
+      m[0] = mean[v];
+      m[1] = rstd[v];
+    }
+  }
+  const W* xv = reinterpret_cast<const W*>(x);
+  const W* rv = reinterpret_cast<const W*>(res);
+  W* yv = reinterpret_cast<W*>(y);
+  const long long base = static_cast<long long>(b) * p.hw * p.groups + g;
+  const long long r0 = chunk * p.rows_per_chunk;
+  const long long r1 = min(r0 + p.rows_per_chunk, p.hw);
+#pragma unroll 4
+  for (int k = 0; k < kApplyIters; ++k) {
+    const long long r = r0 + lane_p + static_cast<long long>(k) * p.pix;
+    if (r >= r1) break;
+    const W xw = xv[base + r * p.groups];
+    W rw;
+    if (res != nullptr) rw = rv[base + r * p.groups];
+    float f[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float t = (to_f(xw.v[v]) - mean[v]) * rstd[v];
+      if (relu) t = fmaxf(t, 0.f);
+      if (res != nullptr) t += to_f(rw.v[v]);
+      f[v] = t;
+    }
+    W o;
+    pack(o, f);
+    yv[base + r * p.groups] = o;
+  }
+}
+
+// This rank's fp32 sums of g' and g' * xhat per (b, c) into out[(b c + ch) 2
+// ...] (sums, not means: the host adds the ranks' before dividing).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+instance_norm_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                              const float* __restrict__ ms, float* __restrict__ partial,
+                              float* __restrict__ out, Plan p, int relu) {
+  using W = Vec<T, V>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* red_g = reinterpret_cast<float*>(smem);
+  float* red_gx = red_g + kThreads * V;
+
+  const int tid = threadIdx.x;
+  const int lane_p = tid / p.tile, gl = tid % p.tile;
+  const int items = p.batch * p.tiles * p.chunks;
+  const W* xv = reinterpret_cast<const W*>(x);
+  const W* gv = reinterpret_cast<const W*>(g);
+
+  for (int q = blockIdx.x; q < items; q += gridDim.x) {
+    const Item w = item(p, q);
+    const int gi = w.g0 + gl;
+    const bool active = lane_p < p.pix && gi < p.groups;
+    const long long base = static_cast<long long>(w.b) * p.hw * p.groups + gi;
+    float sg[V], sgx[V], mean[V], rstd[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      sg[v] = sgx[v] = mean[v] = rstd[v] = 0.f;
+      if (active) {
+        const float* st = ms + 2 * (static_cast<long long>(w.b) * p.c + gi * V + v);
+        mean[v] = st[0];
+        rstd[v] = st[1];
+      }
+    }
+    for (int k0 = 0; k0 < w.iters; k0 += kBatch) {
+      W xb[kBatch], gb[kBatch];
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
+        if (active && k0 + kk < w.iters && r < w.r1) {
+          xb[kk] = xv[base + r * p.groups];
+          gb[kk] = gv[base + r * p.groups];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
+        if (active && k0 + kk < w.iters && r < w.r1) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const float xh = (to_f(xb[kk].v[v]) - mean[v]) * rstd[v];
+            float gg = to_f(gb[kk].v[v]);
+            if (relu && !(xh > 0.f)) gg = 0.f;
+            sg[v] += gg;
+            sgx[v] += gg * xh;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      red_g[tid * V + v] = sg[v];
+      red_gx[tid * V + v] = sgx[v];
+    }
+    __syncthreads();
+    for (int s = 1; s < p.pix; s *= 2) {
+      if (lane_p % (2 * s) == 0 && lane_p + s < p.pix) {
+        const int o = tid + s * p.tile;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          red_g[tid * V + v] += red_g[o * V + v];
+          red_gx[tid * V + v] += red_gx[o * V + v];
+        }
+      }
+      __syncthreads();
+    }
+    if (lane_p == 0 && gi < p.groups) {
+      const int chunk = q % p.chunks;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float* o = partial + ((static_cast<long long>(w.b) * p.chunks + chunk) * p.c +
+                              gi * V + v) * 2;
+        o[0] = red_g[tid * V + v];
+        o[1] = red_gx[tid * V + v];
+      }
+    }
+    __syncthreads();
+  }
+
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  grid.sync();
+
+  const int lane = tid % 32;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads + tid) / 32;
+       i < static_cast<long long>(p.batch) * p.c; i += warps) {
+    const long long b = i / p.c, ch = i % p.c;
+    float a = 0.f, ax = 0.f;
+    for (int k = lane; k < p.chunks; k += 32) {
+      const float* q = partial + ((b * p.chunks + k) * p.c + ch) * 2;
+      a += q[0];
+      ax += q[1];
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, off);
+      ax += __shfl_down_sync(0xffffffffu, ax, off);
+    }
+    if (lane == 0) {
+      out[2 * i] = a;
+      out[2 * i + 1] = ax;
+    }
+  }
+}
+
+// parts: the S ranks' sums (S, batch, c, 2), added in rank order and divided
+// by the global count; dx = rstd (g' - mean(g') - xhat mean(g' xhat)).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const float* __restrict__ ms, const float* __restrict__ parts,
+                            T* __restrict__ dx, ApplyPlan p, int relu, float count) {
+  using W = Vec<T, V>;
+  const int tid = threadIdx.x;
+  const int lane_p = tid / p.tile, gl = tid % p.tile;
+  const long long q = blockIdx.x;
+  const int chunk = static_cast<int>(q % p.chunks);
+  const long long slab = q / p.chunks;
+  const int b = static_cast<int>(slab / p.tiles), tile = static_cast<int>(slab % p.tiles);
+  const int gi = tile * p.tile + gl;
+  if (lane_p >= p.pix || gi >= p.groups) return;
+  const float inv = 1.0f / count;
+  float mean[V], rstd[V], gm[V], gx[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const long long i = static_cast<long long>(b) * p.c + gi * V + v;
+    mean[v] = ms[2 * i];
+    rstd[v] = ms[2 * i + 1];
+    float a = 0.f, ax = 0.f;
+    for (int s = 0; s < p.parts; ++s) {
+      const float* o = parts + (static_cast<long long>(s) * p.batch * p.c + i) * 2;
+      a += o[0];
+      ax += o[1];
+    }
+    gm[v] = a * inv;
+    gx[v] = ax * inv;
+  }
+  const W* xv = reinterpret_cast<const W*>(x);
+  const W* gv = reinterpret_cast<const W*>(g);
+  W* dv = reinterpret_cast<W*>(dx);
+  const long long base = static_cast<long long>(b) * p.hw * p.groups + gi;
+  const long long r0 = chunk * p.rows_per_chunk;
+  const long long r1 = min(r0 + p.rows_per_chunk, p.hw);
+#pragma unroll 4
+  for (int k = 0; k < kApplyIters; ++k) {
+    const long long r = r0 + lane_p + static_cast<long long>(k) * p.pix;
+    if (r >= r1) break;
+    const W xw = xv[base + r * p.groups], gw = gv[base + r * p.groups];
+    float d[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float xh = (to_f(xw.v[v]) - mean[v]) * rstd[v];
+      float gg = to_f(gw.v[v]);
+      if (relu && !(xh > 0.f)) gg = 0.f;
+      d[v] = rstd[v] * (gg - gm[v] - xh * gx[v]);
+    }
+    W o;
+    pack(o, d);
+    dv[base + r * p.groups] = o;
+  }
+}
+
+// The most blocks of a cooperative kernel resident at once on the current
+// device at ``smem`` bytes of dynamic shared memory a block, asked once per
+// device and kernel.
+template <const void* (*Kernel)()>
+int coop_blocks(int smem, int* blocks) {
+  static int known[kMaxDevices] = {};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (dev < kMaxDevices && known[dev] > 0) {
+    *blocks = known[dev];
+    return 0;
+  }
+  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess) rc = cudaFuncSetAttribute(Kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel(), kThreads, smem);
+  }
+  *blocks = per_sm * sms;
+  if (rc == cudaSuccess && dev < kMaxDevices) known[dev] = *blocks;
+  return static_cast<int>(rc);
+}
+
+template <typename T, int V>
+const void* stats_kernel() { return reinterpret_cast<const void*>(instance_norm_stats_kernel<T, V>); }
+template <typename T, int V>
+const void* sums_kernel() { return reinterpret_cast<const void*>(instance_norm_bwd_sums_kernel<T, V>); }
+
+template <typename T, int V>
+int run_stats(const void* x, float* partial, float* out, long long hw, int batch, int c,
+              int chunk_cap, cudaStream_t s) {
+  const int smem = kThreads * (1 + 2 * V) * static_cast<int>(sizeof(float));
+  int blocks = 0;
+  const int rc = coop_blocks<stats_kernel<T, V>>(smem, &blocks);
+  if (rc != 0) return rc;
+  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  int grid = 0;
+  Plan p = make_plan(hw, batch, c, V, blocks, chunk_cap, &grid);
+  const T* xt = static_cast<const T*>(x);
+  void* args[] = {&xt, &partial, &out, &p};
+  return static_cast<int>(cudaLaunchCooperativeKernel(stats_kernel<T, V>(), dim3(grid),
+                                                      dim3(kThreads), args,
+                                                      static_cast<size_t>(smem), s));
+}
+
+template <typename T, int V>
+int run_sums(const void* x, const void* g, const float* ms, float* partial, float* out,
+             long long hw, int batch, int c, int chunk_cap, int relu, cudaStream_t s) {
+  const int smem = kThreads * 2 * V * static_cast<int>(sizeof(float));
+  int blocks = 0;
+  const int rc = coop_blocks<sums_kernel<T, V>>(smem, &blocks);
+  if (rc != 0) return rc;
+  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  int grid = 0;
+  Plan p = make_plan(hw, batch, c, V, blocks, chunk_cap, &grid);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(g);
+  void* args[] = {&xt, &gt, &ms, &partial, &out, &p, &relu};
+  return static_cast<int>(cudaLaunchCooperativeKernel(sums_kernel<T, V>(), dim3(grid),
+                                                      dim3(kThreads), args,
+                                                      static_cast<size_t>(smem), s));
+}
+
+template <typename T, int V>
+int run_apply(const void* x, const void* res, void* y, const float* parts, float* ms,
+              long long hw, int batch, int c, int n_parts, int relu, float eps, cudaStream_t s) {
+  long long grid = 0;
+  const ApplyPlan p = make_apply_plan(hw, batch, c, V, n_parts, &grid);
+  if (grid < 1 || grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  instance_norm_apply_kernel<T, V><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<T*>(y), parts, ms, p,
+      relu, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int run_dx(const void* x, const void* g, const float* ms, const float* parts, void* dx,
+           long long hw, int batch, int c, int n_parts, int relu, float count, cudaStream_t s) {
+  long long grid = 0;
+  const ApplyPlan p = make_apply_plan(hw, batch, c, V, n_parts, &grid);
+  if (grid < 1 || grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  instance_norm_bwd_dx_kernel<T, V><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), ms, parts, static_cast<T*>(dx), p, relu,
+      count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One of the four templates at the operand's type and word width.
+#define K3_DISPATCH(fn, ...)                                                   \
+  (elt_size == 2 ? (vec ? fn<bf16, 8>(__VA_ARGS__) : fn<bf16, 1>(__VA_ARGS__)) \
+                 : (vec ? fn<float, 4>(__VA_ARGS__) : fn<float, 1>(__VA_ARGS__)))
+
+bool bad_operands(long long hw, int batch, int c, int vec, int elt_size) {
+  const int v = vec ? 16 / (elt_size > 0 ? elt_size : 1) : 1;
+  return batch < 1 || hw < 1 || c < 1 || c % v || (elt_size != 2 && elt_size != 4);
+}
+
 }  // namespace
 
 // x, res (nullable), y: (batch, hw, c) contiguous, of one type (elt_size 2:
@@ -767,4 +1265,70 @@ extern "C" int instance_norm_bwd_launch(const void* x, const void* g, const void
   }
   return vec ? run_bwd<float, 4>(x, g, st, dx, pt, mt, p, grid, relu, s)
              : run_bwd<float, 1>(x, g, st, dx, pt, mt, p, grid, relu, s);
+}
+
+// The partial-statistics form's launchers (see the header). x, res
+// (nullable), y, g, dx: (batch, hw, c) contiguous, of one type (elt_size 2:
+// bf16, 4: fp32), 16-byte aligned when vec is 1; every workspace fp32,
+// allocated by the caller. Each returns a cudaError_t: 0 when the launch
+// was accepted.
+
+// out: (batch, c, 3) this rank's count, mean and M2; partial: batch *
+// chunk_cap * c * 3.
+extern "C" int instance_norm_stats_launch(const void* x, void* partial, void* out, long long hw,
+                                          int batch, int c, int chunk_cap, int vec, int elt_size,
+                                          void* stream) {
+  if (bad_operands(hw, batch, c, vec, elt_size) || chunk_cap < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(partial);
+  float* ot = static_cast<float*>(out);
+  return K3_DISPATCH(run_stats, x, pt, ot, hw, batch, c, chunk_cap, s);
+}
+
+// parts: (n_parts, batch, c, 3) the ranks' count, mean and M2 in rank order;
+// ms: (batch, c, 2) the merged mean and rstd, for the backward.
+extern "C" int instance_norm_apply_launch(const void* x, const void* res, void* y,
+                                          const void* parts, void* ms, long long hw, int batch,
+                                          int c, int n_parts, int relu, int vec, int elt_size,
+                                          float eps, void* stream) {
+  if (bad_operands(hw, batch, c, vec, elt_size) || n_parts < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pt = static_cast<const float*>(parts);
+  float* mt = static_cast<float*>(ms);
+  return K3_DISPATCH(run_apply, x, res, y, pt, mt, hw, batch, c, n_parts, relu, eps, s);
+}
+
+// ms: the forward's (batch, c, 2) mean and rstd; out: (batch, c, 2) this
+// rank's sums of g' and g' * xhat; partial: batch * chunk_cap * c * 2.
+extern "C" int instance_norm_bwd_sums_launch(const void* x, const void* g, const void* ms,
+                                             void* partial, void* out, long long hw, int batch,
+                                             int c, int chunk_cap, int relu, int vec, int elt_size,
+                                             void* stream) {
+  if (bad_operands(hw, batch, c, vec, elt_size) || chunk_cap < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* mt = static_cast<const float*>(ms);
+  float* pt = static_cast<float*>(partial);
+  float* ot = static_cast<float*>(out);
+  return K3_DISPATCH(run_sums, x, g, mt, pt, ot, hw, batch, c, chunk_cap, relu, s);
+}
+
+// parts: (n_parts, batch, c, 2) the ranks' sums in rank order; count: the
+// global slab's pixels.
+extern "C" int instance_norm_bwd_dx_launch(const void* x, const void* g, const void* ms,
+                                           const void* parts, void* dx, long long hw, int batch,
+                                           int c, int n_parts, int relu, int vec, int elt_size,
+                                           float count, void* stream) {
+  if (bad_operands(hw, batch, c, vec, elt_size) || n_parts < 1 || !(count > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* mt = static_cast<const float*>(ms);
+  const float* pt = static_cast<const float*>(parts);
+  return K3_DISPATCH(run_dx, x, g, mt, pt, dx, hw, batch, c, n_parts, relu, count, s);
 }

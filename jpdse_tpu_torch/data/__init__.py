@@ -1,6 +1,7 @@
 """Dataset registry and loader factory, the port of
 ``jpdse_tpu/data/__init__.py`` (shuffle and drop_last only in training;
-under a process group the training loader feeds this rank's shard, and the
+under a process group the training loader feeds this rank's shard, strided
+by data index, so a spatial group's ranks load the same batches, and the
 eval loaders stay unsharded, so every rank sees the same metric stream)."""
 
 from jpdse_tpu_torch.config import Config
@@ -29,7 +30,9 @@ def find_dataset_using_name(name: str):
 def create_dataloader(cfg: Config) -> DataLoader:
     dataset = find_dataset_using_name(cfg.data.dataset)(cfg)
     print(f"dataset [{type(dataset).__name__}] of size {len(dataset)} was created")
-    rank, world = (distributed.rank(), distributed.world()) if cfg.is_train else (0, 1)
+    # a spatial group of S consecutive ranks shares its batch: stride by data index
+    s = max(1, cfg.parallel.spatial_axis) if distributed.active() else 1
+    rank, world = (distributed.rank() // s, distributed.world() // s) if cfg.is_train else (0, 1)
     return DataLoader(
         dataset,
         batch_size=cfg.data.batch_size,

@@ -8,6 +8,12 @@ prediction]; ``MultiscaleDiscriminator`` runs ``num_D`` of them over an
 the Flax ones (``scale1.layer0.conv.weight`` is Flax's
 ``scale1/layer0/conv/kernel``). The norms are the plain InstanceNorm, as in
 the JAX package: K3 serves the generator's sites only.
+
+Under the spatial axis (``parallel/spatial.py``) a layer's input is this
+rank's rows, and its kw-4, pad-2 convs give ``hg / 2 + 1`` rows (stride 2)
+or ``hg + 1`` (stride 1): rows that do not split evenly, each owned by one
+rank. Every feature is marked with its global height, which the losses
+count by (``train/losses.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from torch import nn
 
 from jpdse_tpu_torch.models.layers import Conv, avg_pool_3s2, build, leaky_relu, norm_fn
+from jpdse_tpu_torch.parallel import spatial
 
 
 class NLayerDiscriminator(nn.Module):
@@ -39,14 +46,21 @@ class NLayerDiscriminator(nn.Module):
         self.pred = Conv(widths[n_layers], 1, kw, 1, padw)
 
     def forward(self, x) -> List[torch.Tensor]:
+        sharded = spatial.current() is not None
+
+        def keep(out, conv_out):  # the conv's global height, kept on its activation
+            return spatial.mark(out, spatial.global_h(conv_out)) if sharded else out
+
         feats = []
-        h = leaky_relu(self.layer0(x))
+        h = self.layer0(x)
+        h = keep(leaky_relu(h), h)
         feats.append(h)
         for n in range(1, self.n_layers + 1):
-            h = leaky_relu(self.norm(getattr(self, f"layer{n}")(h)))
+            c = getattr(self, f"layer{n}")(h)
+            h = keep(leaky_relu(self.norm(c)), c)
             feats.append(h)
-        h = self.pred(h)
-        feats.append(torch.sigmoid(h) if self.use_sigmoid else h)
+        c = self.pred(h)
+        feats.append(keep(torch.sigmoid(c), c) if self.use_sigmoid else c)
         return feats
 
 

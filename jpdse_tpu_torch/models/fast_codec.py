@@ -19,7 +19,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from jpdse_tpu_torch.config import Config, check_ported
+from jpdse_tpu_torch.config import Config, check_fast_parallel, check_ported
 from jpdse_tpu_torch.models.codec import _concat, assemble, compute_dtype, prepare_inputs
 from jpdse_tpu_torch.models.fast_trunk import _FastLocalG, _FastTrunk, _sub
 from jpdse_tpu_torch.platform import resolve_device
@@ -35,6 +35,7 @@ class FastCodec:
     def __init__(self, cfg: Config, state: Dict[str, torch.Tensor], device="cuda", dtype=None):
         cfg.validate()
         check_ported(cfg)
+        check_fast_parallel(cfg)
         m = cfg.model
         if m.sem_masking or m.netE_groups != 1 or m.inst_wise_pool or m.norm != "instance":
             raise ValueError("FastCodec runs ungrouped instance-norm configurations without "

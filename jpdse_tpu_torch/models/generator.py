@@ -21,6 +21,7 @@ from jpdse_tpu_torch.models.layers import (
     ResnetBlock,
     avg_pool_3s2,
     instance_wise_avg_pool,
+    padded_conv,
     reflect_pad,
     remat_call,
 )
@@ -100,7 +101,7 @@ class GlobalGenerator(nn.Module):
         return h
 
     def _back(self, h):
-        return torch.tanh(self.tail(reflect_pad(self.ups(h), 3)))
+        return torch.tanh(padded_conv(self.tail, self.ups(h), 3))
 
     def decode_from_code(self, code, deterministic: bool = True, generator=None):
         """Resume the trunk after the binarizer."""
@@ -233,7 +234,7 @@ class Encoder(nn.Module):
     def decode_from_code(self, h):
         for blk in self.up:
             h = blk(h)
-        return torch.tanh(self.tail(reflect_pad(h, 3)))
+        return torch.tanh(padded_conv(self.tail, h, 3))
 
     def forward(self, x, deterministic: bool = True, generator=None, inst=None):
         out = self.decode_from_code(self.encode(x, deterministic, generator))

@@ -15,6 +15,13 @@ batch norm raises ``NotPorted``. Convolutions take ``groups`` as Flax's
 backward instead of keeping its activations, the twin of the JAX package's
 block-granular ``nn.remat`` (``jpdse_tpu/models/generator.py:58-68``); it
 acts only where autograd records the call.
+
+Under the spatial axis (``parallel/spatial.py``'s ``sharding``) an
+activation is this rank's rows of H, and the convolutions (a reflect or
+replicate pad with its conv through :func:`padded_conv`), the transposed
+conv, both norms, the pools and the instance-wise pool compute this rank's
+output rows, exchanging halos and reducing statistics over the group.
+Outside it every function runs as on one device.
 """
 
 from __future__ import annotations
@@ -29,13 +36,26 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from jpdse_tpu_torch.config import NotPorted
-from jpdse_tpu_torch.ops.instance_norm import fused_instance_norm
+from jpdse_tpu_torch.ops.instance_norm import fused_instance_norm, instance_norm_stats_plain, \
+    merge_parts
+from jpdse_tpu_torch.parallel import spatial
 from jpdse_tpu_torch.parallel.mesh import draw_rows
+from jpdse_tpu_torch.parallel.spatial import reflect_index
+
+
+def _one(v) -> int:
+    """A conv's stride or padding, equal on H and W, as one int."""
+    return v[0] if isinstance(v, (tuple, list)) else v
 
 
 def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
-    """F.conv2d on an NHWC tensor with an OIHW weight; returns NHWC."""
+    """F.conv2d on an NHWC tensor with an OIHW weight; returns NHWC. Under
+    the spatial axis, this rank's output rows (a 1x1 conv needs no other
+    rank's)."""
     b = None if b is None else b.to(x.dtype)
+    if spatial.current() is not None and not (w.shape[2] == 1 and _one(stride) == 1
+                                              and _one(padding) == 0):
+        return spatial.conv2d(x, w.to(x.dtype), b, _one(stride), _one(padding), "zero", groups)
     y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, stride, padding, groups=groups)
     return y.permute(0, 2, 3, 1)
 
@@ -43,17 +63,14 @@ def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
 def conv_transpose_nhwc(x, w, b=None, groups: int = 1):
     """ConvTranspose2d(k3, s2, p1, output_padding=1) on NHWC with the
     (in, out/groups, kh, kw) weight; equals Flax's input-dilated correlation
-    with the flipped kernel."""
+    with the flipped kernel. Under the spatial axis, this rank's output
+    rows."""
     b = None if b is None else b.to(x.dtype)
+    if spatial.current() is not None:
+        return spatial.conv_transpose2d(x, w.to(x.dtype), b, groups)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, 2, 1, output_padding=1,
                            groups=groups)
     return y.permute(0, 2, 3, 1)
-
-
-def reflect_index(n: int, before: int, after: int, device) -> torch.Tensor:
-    """Source indices of a reflection pad (edge not repeated) of length n."""
-    i = torch.arange(-before, n + after, device=device).abs()
-    return torch.where(i > n - 1, 2 * (n - 1) - i, i)
 
 
 def reflect_pad_hw(x, top: int, bottom: int, left: int, right: int):
@@ -79,9 +96,15 @@ def replicate_pad(x, pad: int):
 
 def instance_norm(x, eps: float = 1e-5):
     """InstanceNorm2d(affine=False): fp32 statistics (float64 for a float64
-    input) over (H, W), biased variance."""
+    input) over (H, W), biased variance. Under the spatial axis each rank's
+    (count, mean, M2) per (b, c), gathered and merged in rank order."""
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-    var, mean = torch.var_mean(x32, dim=(1, 2), keepdim=True, unbiased=False)
+    if spatial.current() is not None:
+        _, mean, m2 = merge_parts(spatial.gather(instance_norm_stats_plain(x)))
+        n = spatial.global_h(x) * x.shape[2]
+        mean, var = mean[:, None, None, :], (m2 / n)[:, None, None, :]
+    else:
+        var, mean = torch.var_mean(x32, dim=(1, 2), keepdim=True, unbiased=False)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -102,18 +125,22 @@ def instance_wise_avg_pool(feats, inst, num_segments: int):
     """Every pixel's features replaced by the mean features of its instance
     (``layers.py:323-349``): ids clipped to [0, num_segments - 1], segment
     sums and counts in fp32 by ``index_add_``, one cast to feats' dtype.
-    feats (B, H, W, C); inst (B, H, W) or (B, H, W, 1) integer ids."""
+    feats (B, H, W, C); inst (B, H, W) or (B, H, W, 1) integer ids. Under
+    the spatial axis the sums and counts are summed over the group."""
     if inst.ndim == 4:
         inst = inst[..., 0]
     b, h, w, c = feats.shape
     acc = torch.promote_types(feats.dtype, torch.float32)
     ids = inst.reshape(b, h * w).long().clamp(0, num_segments - 1)
     flat = feats.reshape(b, h * w, c).to(acc)
-    out = []
-    for f, i in zip(flat, ids):
-        sums = f.new_zeros((num_segments, c)).index_add_(0, i, f)
-        counts = f.new_zeros(num_segments).index_add_(0, i, f.new_ones(h * w))
-        out.append((sums / counts.clamp_min(1.0)[:, None]).index_select(0, i))
+    sums = torch.stack([f.new_zeros((num_segments, c)).index_add_(0, i, f)
+                        for f, i in zip(flat, ids)])
+    counts = torch.stack([f.new_zeros(num_segments).index_add_(0, i, f.new_ones(h * w))
+                          for f, i in zip(flat, ids)])
+    if spatial.current() is not None:
+        sums, counts = spatial.sum_over(sums), spatial.sum_over(counts)
+    means = sums / counts.clamp_min(1.0)[..., None]
+    out = [m.index_select(0, i) for m, i in zip(means, ids)]
     return torch.stack(out).reshape(b, h, w, c).to(feats.dtype)
 
 
@@ -140,11 +167,44 @@ def _pool_counts(h: int, w: int, device: torch.device, dtype: torch.dtype) -> to
         return torch.from_numpy(_pool_valid_counts(h, w)).to(device, dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _pool_count_rows(hg: int, w: int, lo: int, hi: int, device: torch.device,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Rows [lo, hi) of the count table of an (hg, w) grid: a rank's rows
+    count only at the global edges."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_pool_valid_counts(hg, w)[lo:hi].copy()).to(device, dtype)
+
+
+def _window_sums(x, padding):
+    """3x3 / stride-2 window sums of an NHWC tensor, NHWC. On the card the
+    pool takes x in the NCHW layout: there F.avg_pool2d's backward of a
+    channels-last input is wrong (PyTorch 2.11, cu128: 0.79 of the
+    gradient's max-abs against the CPU's in float64; its forward is
+    right). The CPU's kernel is right in either layout and keeps the
+    channels-last view: there the copy would add a pass and move the fp32
+    rounding, which the data-parallel step's fp32 parity at the tiny
+    config sits on the edge of (CHANGES.md)."""
+    x = x.permute(0, 3, 1, 2)
+    if x.is_cuda:
+        x = x.contiguous()
+    return F.avg_pool2d(x, 3, 2, padding, divisor_override=1).permute(0, 2, 3, 1)
+
+
 def avg_pool_3s2(x):
     """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) of an NHWC
     tensor: the window sums over the valid-element counts, as the JAX
-    package computes it."""
-    sums = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1, divisor_override=1).permute(0, 2, 3, 1)
+    package computes it. Under the spatial axis this rank's output rows,
+    marked with their global height."""
+    shard = spatial.current()
+    if shard is not None:
+        hg = spatial.global_h(x)
+        rows, hout, n = spatial.window_rows(x, hg, 3, 2, 1, "zero")
+        sums = _window_sums(rows, (0, 1))[:, :n]
+        lo, hi = shard.owned(hout)
+        counts = _pool_count_rows(hg, x.shape[2], lo, hi, x.device, x.dtype)
+        return spatial.mark(sums / counts[None, :, :, None], hout)
+    sums = _window_sums(x, 1)
     return sums / _pool_counts(x.shape[1], x.shape[2], x.device, x.dtype)[None, :, :, None]
 
 
@@ -158,9 +218,30 @@ def remat_call(remat: bool, fn, *args):
 
 def _fused_norm(x, relu: bool = False, residual=None):
     """InstanceNorm [+ReLU] [+residual] as one call to kernel K3
-    (ops/instance_norm.py)."""
+    (ops/instance_norm.py), in its partial-statistics form under the
+    spatial axis: the group's statistics gathered in rank order, over the
+    global slab's count."""
+    shard, part = spatial.current(), {}
+    if shard is not None:
+        part = dict(gather=functools.partial(spatial.gather_, shard=shard),
+                    count=float(spatial.global_h(x, shard) * x.shape[2]))
     return fused_instance_norm(
-        x.contiguous(), None if residual is None else residual.contiguous(), relu=relu)
+        x.contiguous(), None if residual is None else residual.contiguous(), relu=relu, **part)
+
+
+PADS = {"reflect": reflect_pad, "replicate": replicate_pad}
+
+
+def padded_conv(conv: "Conv", x, pad: int, mode: str = "reflect"):
+    """``conv`` (a :class:`Conv` without padding of its own) of ``x`` padded
+    by ``pad`` rows and columns of ``mode`` ('reflect' or 'replicate');
+    under the spatial axis the H pad is the halo exchange, padded at the
+    global edges only."""
+    if spatial.current() is not None:
+        c = conv.conv
+        return spatial.conv2d(x, c.weight.to(x.dtype), None if c.bias is None
+                              else c.bias.to(x.dtype), _one(c.stride), pad, mode, c.groups)
+    return conv(PADS[mode](x, pad))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -204,11 +285,10 @@ class ConvNormAct(nn.Module):
         return remat_call(self.remat, self._forward, x)
 
     def _forward(self, x):
-        if self.reflect:
-            x = reflect_pad(x, self.reflect)
+        h = padded_conv(self.conv, x, self.reflect) if self.reflect else self.conv(x)
         if self.fused:
-            return _fused_norm(self.conv(x), relu=True)
-        return torch.relu(self.norm(self.conv(x)))
+            return _fused_norm(h, relu=True)
+        return torch.relu(self.norm(h))
 
 
 class ConvTransposeNormAct(nn.Module):
@@ -259,10 +339,9 @@ class ResnetBlock(nn.Module):
         super().__init__()
         self.remat, self.norm, self.use_dropout = remat, norm_fn(norm), use_dropout
         self.fused = fused and norm == "instance"
-        pads = {"reflect": reflect_pad, "replicate": replicate_pad, "zero": None}
-        if padding_type not in pads:
+        if padding_type not in ("reflect", "replicate", "zero"):
             raise NotImplementedError(f"padding [{padding_type}]")
-        self.pad = pads[padding_type]
+        self.pad = None if padding_type == "zero" else padding_type
         p = 1 if self.pad is None else 0
         self.conv1 = Conv(dim, dim, 3, padding=p)
         self.conv2 = Conv(dim, dim, 3, padding=p)
@@ -275,19 +354,19 @@ class ResnetBlock(nn.Module):
             mask = dropout_mask(x.shape, generator, x.device)  # conv1 keeps x's shape
         return remat_call(self.remat, self._forward, x, mask)
 
-    def _padded(self, x):
-        return x if self.pad is None else self.pad(x, 1)
+    def _conv(self, conv, x):
+        return conv(x) if self.pad is None else padded_conv(conv, x, 1, self.pad)
 
     def _forward(self, x, mask=None):
         if self.fused:
-            h = _fused_norm(self.conv1(self._padded(x)), relu=True)
+            h = _fused_norm(self._conv(self.conv1, x), relu=True)
         else:
-            h = torch.relu(self.norm(self.conv1(self._padded(x))))
+            h = torch.relu(self.norm(self._conv(self.conv1, x)))
         if mask is not None:
             h = torch.where(mask, h * 2.0, torch.zeros_like(h))
         if self.fused:
-            return _fused_norm(self.conv2(self._padded(h)), residual=x)
-        return x + self.norm(self.conv2(self._padded(h)))
+            return _fused_norm(self._conv(self.conv2, h), residual=x)
+        return x + self.norm(self._conv(self.conv2, h))
 
 
 def build(make, device, generator: Optional[torch.Generator]) -> nn.Module:

@@ -34,7 +34,8 @@ def conv_names() -> List[str]:
 
 class Vgg19Features(nn.Module):
     """3x3 same-padded convs with ReLU, 2x2 max pools between stages; returns
-    the five relu{k}_1 activations."""
+    the five relu{k}_1 activations. Under the spatial axis each conv takes
+    its one-row halos (``models/layers.py::conv_nhwc``)."""
 
     def __init__(self):
         super().__init__()
@@ -52,6 +53,8 @@ class Vgg19Features(nn.Module):
         outs = []
         for name in conv_names():
             if name.endswith("_1") and name != "conv1_1":
+                # under the spatial axis a rank's rows start on an even global row
+                # (an H that S times 16 divides), so its 2x2 windows are its own
                 x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
             conv = getattr(self, name)
             x = torch.relu(conv_nhwc(x, conv.weight, conv.bias, 1, 1))

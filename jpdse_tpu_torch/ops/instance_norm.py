@@ -37,6 +37,7 @@ THREADS = 512  # csrc/instance_norm.cu kThreads
 MAX_CHUNKS = 1024  # bounds the partials' workspace; the launcher keeps to it
 SMEM_OPTIN = 232448  # shared memory a block may opt in to on an H100 (227 KiB)
 RING = 3  # csrc/instance_norm.cu kRing: the backward's cp.async ring, in slots
+APPLY_ITERS = 8  # csrc/instance_norm.cu kApplyIters: loop iterations of an apply / dx block
 
 
 def _acc(x: torch.Tensor) -> torch.dtype:
@@ -260,20 +261,241 @@ def fused_instance_norm_bwd(x: torch.Tensor, g: torch.Tensor, stats: Optional[to
 fused_instance_norm_bwd.launches = 0
 
 
+
+# -- the partial-statistics form (the spatial axis) ------------------------------------
+def apply_plan(b: int, hw: int, c: int, vec: int):
+    """(grid, chunks, rows_per_chunk) of the apply and dx launches, the
+    mirror of ``make_apply_plan``: one block per chunk of ``APPLY_ITERS``
+    loop iterations of each (batch element, channel tile) slab."""
+    _, _, tiles, pix = _tiling(c, vec)
+    rows = pix * APPLY_ITERS
+    chunks = -(-hw // rows)
+    return b * tiles * chunks, chunks, rows
+
+
+def apply_items(b: int, hw: int, c: int, vec: int):
+    """Each block's (batch element, first and end channel, first and end
+    row) in the apply and dx launches, by block index."""
+    groups, tile, tiles, _ = _tiling(c, vec)
+    grid, chunks, rows = apply_plan(b, hw, c, vec)
+    out = []
+    for q in range(grid):
+        slab, chunk = divmod(q, chunks)
+        bi, t = divmod(slab, tiles)
+        g0, g1 = t * tile, min((t + 1) * tile, groups)
+        out.append((bi, g0 * vec, g1 * vec, chunk * rows, min((chunk + 1) * rows, hw)))
+    return out
+
+
+def instance_norm_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """This rank's (count, mean, M2) per (b, c) of an NHWC slab, (B, C, 3)
+    in the plain versions' type: M2 the sum of squares about the mean."""
+    acc = _acc(x)
+    x32 = x.to(acc)
+    n = x.shape[1] * x.shape[2]
+    mean = x32.sum(dim=(1, 2)) / max(n, 1)
+    m2 = ((x32 - mean[:, None, None, :]) ** 2).sum(dim=(1, 2))
+    return torch.stack([torch.full_like(mean, n), mean, m2], dim=-1)
+
+
+def merge_parts(parts: torch.Tensor):
+    """(count, mean, M2), each (B, C), of the ranks' (S, B, C, 3) merged by
+    Chan's formula in rank order, as the apply kernel merges them."""
+    n = mean = m2 = torch.zeros_like(parts[0, ..., 0])
+    for part in parts:
+        nb, mb, m2b = part.unbind(-1)
+        nt = n + nb
+        wb = torch.where(nt > 0, nb / torch.where(nt > 0, nt, 1.0), 0.0)
+        delta = mb - mean
+        mean = mean + delta * wb
+        m2 = m2 + m2b + delta * delta * n * wb
+        n = nt
+    return n, mean, m2
+
+
+def instance_norm_apply_plain(x: torch.Tensor, residual: Optional[torch.Tensor],
+                              parts: torch.Tensor, relu: bool = False, eps: float = 1e-5):
+    """(y, (B, C, 2) mean and rstd): the ranks' statistics ``parts`` merged
+    in rank order, x normalized [+ReLU] [+residual in fp32], one cast."""
+    acc = _acc(x)
+    n, mean, m2 = merge_parts(parts.to(acc))
+    rstd = torch.rsqrt(m2 / n + eps)
+    y = (x.to(acc) - mean[:, None, None, :]) * rstd[:, None, None, :]
+    if relu:
+        y = torch.relu(y)
+    if residual is not None:
+        y = y + residual.to(acc)
+    return y.to(x.dtype), torch.stack([mean, rstd], dim=-1)
+
+
+def _xhat_g(x, g, ms, relu):
+    acc = _acc(x)
+    mean, rstd = (ms[..., i].to(acc)[:, None, None, :] for i in (0, 1))
+    xhat = (x.to(acc) - mean) * rstd
+    g32 = g.to(acc)
+    if relu:
+        g32 = torch.where(xhat > 0, g32, torch.zeros((), dtype=acc))
+    return xhat, g32, rstd
+
+
+def instance_norm_bwd_sums_plain(x: torch.Tensor, g: torch.Tensor, ms: torch.Tensor,
+                                 relu: bool = False) -> torch.Tensor:
+    """This rank's sums of g' and g' * xhat per (b, c), (B, C, 2), from the
+    forward's mean and rstd ``ms``."""
+    xhat, g32, _ = _xhat_g(x, g, ms, relu)
+    return torch.stack([g32.sum(dim=(1, 2)), (g32 * xhat).sum(dim=(1, 2))], dim=-1)
+
+
+def instance_norm_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ms: torch.Tensor,
+                               parts: torch.Tensor, count: float,
+                               relu: bool = False) -> torch.Tensor:
+    """dx from the ranks' sums ``parts`` (S, B, C, 2), added in rank order
+    and divided by the global slab's ``count``."""
+    xhat, g32, rstd = _xhat_g(x, g, ms, relu)
+    total = parts[0].to(g32.dtype)
+    for part in parts[1:]:
+        total = total + part.to(g32.dtype)
+    gm, gx = (total[..., i][:, None, None, :] / count for i in (0, 1))
+    return (rstd * (g32 - gm - xhat * gx)).to(x.dtype)
+
+
+@functools.cache
+def _partial_launcher(symbol: str, signature: str):
+    return build.c_function("instance_norm", symbol, signature)
+
+
+def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
+    """This rank's (count, mean, M2) per (b, c), (B, C, 3): the stats launch
+    on the card (fp32), the plain version on the CPU.
+    ``instance_norm_stats.launches`` counts kernel launches."""
+    _check_shapes(x, None, "")
+    if x.device.type == "cpu":
+        return instance_norm_stats_plain(x)
+    build.check_operand("instance_norm_stats", x)
+    b, h, w, c = x.shape
+    vec = _aligned_vec(c, x)
+    cap = max_chunks(h * w, c, vec)
+    partial = x.new_empty(b * cap * c * 3, dtype=torch.float32)
+    out = x.new_empty((b, c, 3), dtype=torch.float32)
+    build.launch("instance_norm_stats", _partial_launcher(
+        "instance_norm_stats_launch", "ppplii" "iii"), x, x.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), h * w, b, c, cap, int(vec > 1), x.element_size())
+    instance_norm_stats.launches += 1
+    return out
+
+
+instance_norm_stats.launches = 0
+
+
+def instance_norm_apply(x: torch.Tensor, residual: Optional[torch.Tensor], parts: torch.Tensor,
+                        relu: bool = False, eps: float = 1e-5):
+    """(y, (B, C, 2) mean and rstd) from the ranks' statistics ``parts``
+    (S, B, C, 3): the apply launch on the card, the plain version on the
+    CPU. ``instance_norm_apply.launches`` counts kernel launches."""
+    _check_shapes(x, residual, "residual")
+    if x.device.type == "cpu":
+        return instance_norm_apply_plain(x, residual, parts, relu, eps)
+    build.check_operand("instance_norm_apply", x)
+    if residual is not None:
+        build.check_operand("instance_norm_apply", residual, (x.dtype,))
+    build.check_operand("instance_norm_apply", parts, (torch.float32,))
+    b, h, w, c = x.shape
+    if parts.shape[1:] != (b, c, 3):
+        raise ValueError(f"instance_norm_apply: statistics of shape (S, {b}, {c}, 3) expected")
+    y = x.new_empty(x.shape)
+    ms = x.new_empty((b, c, 2), dtype=torch.float32)
+    vec = _aligned_vec(c, x, y, *([] if residual is None else [residual]))
+    build.launch("instance_norm_apply", _partial_launcher(
+        "instance_norm_apply_launch", "ppppplii" "iiiif"), x, x.data_ptr(),
+        0 if residual is None else residual.data_ptr(), y.data_ptr(), parts.data_ptr(),
+        ms.data_ptr(), h * w, b, c, parts.shape[0], int(relu), int(vec > 1), x.element_size(),
+        eps)
+    instance_norm_apply.launches += 1
+    return y, ms
+
+
+instance_norm_apply.launches = 0
+
+
+def instance_norm_bwd_sums(x: torch.Tensor, g: torch.Tensor, ms: torch.Tensor,
+                           relu: bool = False) -> torch.Tensor:
+    """This rank's sums of g' and g' * xhat per (b, c), (B, C, 2): the sums
+    launch on the card, the plain version on the CPU.
+    ``instance_norm_bwd_sums.launches`` counts kernel launches."""
+    _check_shapes(x, g, "g")
+    if x.device.type == "cpu":
+        return instance_norm_bwd_sums_plain(x, g, ms, relu)
+    build.check_operand("instance_norm_bwd_sums", x)
+    build.check_operand("instance_norm_bwd_sums", g, (x.dtype,))
+    build.check_operand("instance_norm_bwd_sums", ms, (torch.float32,))
+    b, h, w, c = x.shape
+    vec = _aligned_vec(c, x, g)
+    cap = max_chunks(h * w, c, vec)
+    partial = x.new_empty(b * cap * c * 2, dtype=torch.float32)
+    out = x.new_empty((b, c, 2), dtype=torch.float32)
+    build.launch("instance_norm_bwd_sums", _partial_launcher(
+        "instance_norm_bwd_sums_launch", "pppppl" "iiiiii"), x, x.data_ptr(), g.data_ptr(),
+        ms.data_ptr(), partial.data_ptr(), out.data_ptr(), h * w, b, c, cap, int(relu),
+        int(vec > 1), x.element_size())
+    instance_norm_bwd_sums.launches += 1
+    return out
+
+
+instance_norm_bwd_sums.launches = 0
+
+
+def instance_norm_bwd_dx(x: torch.Tensor, g: torch.Tensor, ms: torch.Tensor,
+                         parts: torch.Tensor, count: float, relu: bool = False) -> torch.Tensor:
+    """dx from the ranks' sums ``parts`` (S, B, C, 2) and the global slab's
+    ``count``: the dx launch on the card, the plain version on the CPU.
+    ``instance_norm_bwd_dx.launches`` counts kernel launches."""
+    _check_shapes(x, g, "g")
+    if x.device.type == "cpu":
+        return instance_norm_bwd_dx_plain(x, g, ms, parts, count, relu)
+    build.check_operand("instance_norm_bwd_dx", x)
+    build.check_operand("instance_norm_bwd_dx", g, (x.dtype,))
+    for t in (ms, parts):
+        build.check_operand("instance_norm_bwd_dx", t, (torch.float32,))
+    b, h, w, c = x.shape
+    dx = x.new_empty(x.shape)
+    vec = _aligned_vec(c, x, g, dx)
+    build.launch("instance_norm_bwd_dx", _partial_launcher(
+        "instance_norm_bwd_dx_launch", "pppppl" "iiiiiif"), x, x.data_ptr(), g.data_ptr(),
+        ms.data_ptr(), parts.data_ptr(), dx.data_ptr(), h * w, b, c, parts.shape[0], int(relu),
+        int(vec > 1), x.element_size(), float(count))
+    instance_norm_bwd_dx.launches += 1
+    return dx
+
+
+instance_norm_bwd_dx.launches = 0
+
+
+def _partial_forward(x, residual, relu, eps, gather):
+    """(y, mean and rstd) of this rank's rows: stats, the ranks' statistics
+    gathered in rank order, apply."""
+    return instance_norm_apply(x, residual, gather(instance_norm_stats(x)), relu, eps)
+
+
 class FusedInstanceNorm(torch.autograd.Function):
     """K3 under autograd, the twin of JAX's ``_fused_in`` custom VJP: the
     forward keeps x and the statistics, the backward launches
     :func:`fused_instance_norm_bwd` for x and hands the output's gradient
     to the residual. ``grad_copies`` counts the output gradients that came
-    in strided and were copied before the launch."""
+    in strided and were copied before the launch. Given ``gather`` and
+    ``count`` (see :func:`fused_instance_norm`), both directions take the
+    partial-statistics form."""
 
     grad_copies = 0
 
     @staticmethod
-    def forward(ctx, x, residual, relu: bool, eps: float):
-        y, stats = _forward(x, residual, relu, eps)
+    def forward(ctx, x, residual, relu: bool, eps: float, gather=None, count=None):
+        if gather is None:
+            y, stats = _forward(x, residual, relu, eps)
+        else:
+            y, stats = _partial_forward(x, residual, relu, eps, gather)
         ctx.save_for_backward(x, stats)
         ctx.relu, ctx.eps, ctx.has_res = relu, eps, residual is not None
+        ctx.gather, ctx.count = gather, count
         return y
 
     @staticmethod
@@ -284,23 +506,35 @@ class FusedInstanceNorm(torch.autograd.Function):
             if not g.is_contiguous():
                 FusedInstanceNorm.grad_copies += 1
                 g = g.contiguous()
-            dx = fused_instance_norm_bwd(x, g, stats, ctx.relu, ctx.eps)
+            if ctx.gather is None:
+                dx = fused_instance_norm_bwd(x, g, stats, ctx.relu, ctx.eps)
+            else:
+                parts = ctx.gather(instance_norm_bwd_sums(x, g, stats, ctx.relu))
+                dx = instance_norm_bwd_dx(x, g, stats, parts, ctx.count, ctx.relu)
         if ctx.has_res and ctx.needs_input_grad[1]:
             dres = g
-        return dx, dres, None, None
+        return dx, dres, None, None, None, None
 
 
 def fused_instance_norm(x: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                        relu: bool = False, eps: float = 1e-5) -> torch.Tensor:
+                        relu: bool = False, eps: float = 1e-5, gather=None,
+                        count: Optional[float] = None) -> torch.Tensor:
     """InstanceNorm(x) [+ReLU] [+residual] of an NHWC tensor (B, H, W, C),
     in x's dtype. A CUDA tensor runs the kernel (or raises); a CPU tensor
     takes the plain version. Differentiable: where autograd needs a
-    gradient the call is :class:`FusedInstanceNorm`.
-    ``fused_instance_norm.launches`` counts kernel launches."""
+    gradient the call is :class:`FusedInstanceNorm`. Given ``gather``, x
+    is some rows of a slab of ``count`` elements per (b, c), and the call
+    takes the partial-statistics form: ``gather`` maps this caller's
+    (B, C, k) statistics to every part's (S, B, C, k), stacked in one fixed
+    order (under the spatial axis, the group's ranks in rank order).
+    ``fused_instance_norm.launches`` counts launches of the one-launch
+    form."""
     _check_shapes(x, residual, "residual")
     if torch.is_grad_enabled() and (
             x.requires_grad or (residual is not None and residual.requires_grad)):
-        return FusedInstanceNorm.apply(x, residual, relu, eps)
+        return FusedInstanceNorm.apply(x, residual, relu, eps, gather, count)
+    if gather is not None:
+        return _partial_forward(x, residual, relu, eps, gather)[0]
     return _forward(x, residual, relu, eps)[0]
 
 

@@ -9,6 +9,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from jpdse_tpu_torch.parallel import spatial
+
 
 def one_hot_label(label: torch.Tensor, num_channels: int, dtype=torch.float32) -> torch.Tensor:
     """(B, H, W) or (B, H, W, 1) integer (or integer-valued float) label map ->
@@ -21,16 +23,26 @@ def one_hot_label(label: torch.Tensor, num_channels: int, dtype=torch.float32) -
 
 def instance_edges(inst: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """Instance-id map -> (B, H, W, 1) boundary map in {0, 1}: both pixels
-    on either side of an id change are marked."""
+    on either side of an id change are marked. Under the spatial axis the H
+    differences take one row of the neighbours' ids on each side (a repeat
+    of the edge row at the global edges, which marks nothing)."""
     if inst.ndim == 3:
         inst = inst[..., None]
     edge = torch.zeros(inst.shape, dtype=torch.bool, device=inst.device)
     diff_w = inst[:, :, 1:] != inst[:, :, :-1]
-    diff_h = inst[:, 1:] != inst[:, :-1]
     edge[:, :, 1:] |= diff_w
     edge[:, :, :-1] |= diff_w
-    edge[:, 1:] |= diff_h
-    edge[:, :-1] |= diff_h
+    shard = spatial.current()
+    if shard is not None:
+        hg = spatial.global_h(inst)
+        b = shard.bounds(hg)
+        ext = spatial.take_rows(inst, hg, lambda s: range(b[s] - 1, b[s + 1] + 1), "replicate")
+        diff_h = ext[:, 1:] != ext[:, :-1]
+        edge |= diff_h[:, 1:] | diff_h[:, :-1]
+    else:
+        diff_h = inst[:, 1:] != inst[:, :-1]
+        edge[:, 1:] |= diff_h
+        edge[:, :-1] |= diff_h
     return edge.to(dtype)
 
 

@@ -22,7 +22,10 @@ each trained alone would do so without a word.
 The collectives the training step needs (``train/step.py``) are here too:
 a mean all-reduce over flat buckets, a broadcast, and an all-gather of a
 batch's rows written as an all-reduce, so that gloo runs it on CUDA
-tensors as well.
+tensors as well. Under the spatial axis (``parallel/mesh.py``) the world
+splits into groups of consecutive ranks (:func:`new_groups`): an all-reduce
+and the row gather take a group, and the halo exchanges of
+``parallel/spatial.py`` are all-reduces over one.
 """
 
 from __future__ import annotations
@@ -151,11 +154,20 @@ def _buckets(tensors: Sequence[torch.Tensor], bucket_bytes: int) -> List[List[to
     return out
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
-    """Replace each tensor by its mean over the ranks, in its own dtype,
-    through flat buckets: one all-reduce (a sum) per bucket, then a division
-    by the world size. Every rank ends with the same bytes."""
-    n = world()
+def new_groups(members: Sequence[Sequence[int]]) -> list:
+    """One process group per list of ranks, made in the same order on every
+    rank (``dist.new_group`` must be called by all of them for each group);
+    returns them in that order."""
+    return [dist.new_group(list(m)) for m in members]
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES,
+                     divisor: Optional[int] = None) -> None:
+    """Replace each tensor by its sum over the ranks divided by ``divisor``
+    (default the world size: the mean), in its own dtype, through flat
+    buckets: one all-reduce (a sum) per bucket, then the division. Every
+    rank ends with the same bytes."""
+    n = world() if divisor is None else divisor
     for bucket in _buckets([t for t in tensors if t.numel()], bucket_bytes):
         flat = torch.cat([t.reshape(-1) for t in bucket])
         dist.all_reduce(flat)
@@ -174,12 +186,17 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0,
             t.copy_(piece.view_as(t))
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group=None, index: Optional[int] = None,
+                    size: Optional[int] = None) -> torch.Tensor:
     """The ranks' ``x`` (equal shapes) concatenated along dim 0 in rank
-    order, on every rank: each rank writes its rows into zeros and one
-    all-reduce sums them, which adds only zeros to each value."""
-    n, b = world(), x.shape[0]
+    order, on every rank of ``group`` (default the world), of which this
+    rank is member ``index`` of ``size``: each rank writes its rows into
+    zeros and one all-reduce sums them, which adds only zeros to each
+    value."""
+    n = world() if size is None else size
+    i = rank() if index is None else index
+    b = x.shape[0]
     full = torch.zeros((n * b,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    full[rank() * b:(rank() + 1) * b] = x
-    dist.all_reduce(full)
+    full[i * b:(i + 1) * b] = x
+    dist.all_reduce(full, group=group)
     return full

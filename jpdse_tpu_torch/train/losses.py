@@ -1,6 +1,12 @@
 """GAN, feature-matching, perceptual and distortion losses, the port of
 ``jpdse_tpu/train/losses.py``: pure functions reducing in fp32. A target the
 JAX package wraps in ``stop_gradient`` is detached here.
+
+Each loss is a sum of global means. Under the spatial axis
+(``parallel/spatial.py``) a mean is this rank's share, its sum over its own
+rows over the whole tensor's count (``spatial.mean``): the group's shares
+add up to the loss, and the step sums them with the gradients
+(``train/step.py``).
 """
 
 from __future__ import annotations
@@ -9,15 +15,18 @@ from typing import Callable, List
 
 import torch
 
+from jpdse_tpu_torch.parallel.spatial import global_h, mark, mean as global_mean
+
 VGG_SLICE_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
 
 
 def _single_gan_loss(pred: torch.Tensor, target: float, use_lsgan: bool) -> torch.Tensor:
     p = pred.float()
+    hg = global_h(pred)
     if use_lsgan:
-        return ((p - target) ** 2).mean()
+        return global_mean(mark((p - target) ** 2, hg))
     p = p.clamp(1e-7, 1.0 - 1e-7)
-    return -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p)).mean()
+    return -global_mean(mark(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p), hg))
 
 
 def gan_loss(preds: List[List[torch.Tensor]], target_is_real: bool,
@@ -39,7 +48,8 @@ def feature_matching_loss(pred_fake: List[List[torch.Tensor]],
     d_w = 1.0 / num_D
     for pf, pr in zip(pred_fake, pred_real):
         for f, r in zip(pf[:-1], pr[:-1]):
-            loss = loss + d_w * (f.float() - r.detach().float()).abs().mean()
+            loss = loss + d_w * global_mean(mark((f.float() - r.detach().float()).abs(),
+                                                 global_h(f)))
     return loss
 
 
@@ -52,7 +62,7 @@ def vgg_loss(vgg_apply: Callable, fake: torch.Tensor, real: torch.Tensor) -> tor
         r_feats = vgg_apply(real.detach())
     loss = 0.0
     for w, f, r in zip(VGG_SLICE_WEIGHTS, f_feats, r_feats):
-        loss = loss + w * (f.float() - r.float()).abs().mean()
+        loss = loss + w * global_mean((f.float() - r.float()).abs())
     return loss
 
 
@@ -75,7 +85,7 @@ def vgg_loss_chunked(vgg_apply: Callable, fake: torch.Tensor, real: torch.Tensor
 def distortion_loss(fake: torch.Tensor, real: torch.Tensor, kind: str = "l1") -> torch.Tensor:
     d = fake.float() - real.float()
     if kind == "l1":
-        return d.abs().mean()
+        return global_mean(d.abs())
     if kind == "mse":
-        return (d * d).mean()
+        return global_mean(d * d)
     raise ValueError(f"unknown distortion loss {kind}")

@@ -115,6 +115,8 @@ def dump_reconstructions(trainer: Trainer, val_loader, cfg, gallery, visualizer)
             break
         n_dumped += batch["image"].shape[0]
         recon = trainer.get_img(batch).cpu().numpy()
+        if gallery is None:  # a rank other than 0
+            continue
         for j in range(recon.shape[0]):
             visuals = {}
             if not cfg.model.no_label:
@@ -222,7 +224,8 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Trainer:
             metrics_log.log(trainer.steps_taken,
                             {"avg_val_distortion": avg, "lr": trainer.current_lr}, epoch=epoch)
             if cfg.always_save or (avg < trainer.best_val_loss and cfg.save_dir):
-                if is_main:
+                # under the spatial axis every rank decodes its rows; rank 0 writes
+                if is_main or trainer.mesh.spatial > 1:
                     dump_reconstructions(trainer, val_batches, cfg, gallery, visualizer)
                 log("saving model...", log_file)
                 trainer.save(epoch, avg)

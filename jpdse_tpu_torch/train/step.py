@@ -31,6 +31,15 @@ before either Adam steps, so every rank steps alike. (Not
 explicitly, D runs inside both players' losses, and block remat re-runs
 forwards that DDP's hooks do not expect.)
 
+Under the spatial axis (``state.mesh.spatial`` S > 1, ``parallel/mesh.py``)
+the S ranks of a spatial group step the same batch, each on its rows of H
+(:func:`shard_batch`): the layers exchange halos and reduce their
+statistics over the group (``parallel/spatial.py``), each loss is the
+rank's share of its global mean (``train/losses.py``), and a parameter's
+gradient (each rank's part of it) is summed over the group and averaged
+over the data axis, as are the metrics, in one all-reduce over the world
+divided by the number of groups. Every rank then steps alike.
+
 Under ``optim.fast_train`` the decode is the s2d train decode
 (``models/fast_train.py``, ``state.fast_decode``), as the JAX package swaps
 it in (:87-98). ``optim.remat`` recomputes the decode's blocks
@@ -45,10 +54,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from jpdse_tpu_torch.config import check_spatial_rows
 from jpdse_tpu_torch.models.layers import remat_call
 from jpdse_tpu_torch.ops.metrics import denormalize_to_uint8
-from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.parallel import distributed, spatial
 from jpdse_tpu_torch.parallel.mesh import drawing as mesh_draws
+from jpdse_tpu_torch.parallel.spatial import SpatialShard
 from jpdse_tpu_torch.train.losses import (
     distortion_loss,
     feature_matching_loss,
@@ -86,28 +97,49 @@ def _grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.T
     return out
 
 
+def shard_batch(mesh, cfg, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[Dict[str, torch.Tensor], Optional[SpatialShard]]:
+    """(this rank's rows of the batch, its spatial shard), or the batch as
+    it is and None without a spatial axis or for an H that S does not
+    divide (every rank of the group then computes all of it). An H that
+    the layers cannot split evenly raises (``config.check_spatial_rows``)."""
+    if mesh is None or mesh.spatial == 1:
+        return batch, None
+    h = batch["image"].shape[1]
+    shard = mesh.shard(h, "image")
+    if shard is None:
+        return batch, None
+    check_spatial_rows(cfg, h, mesh.spatial)
+    return {k: shard.rows(v) if v.ndim >= 3 else v for k, v in batch.items()}, shard
+
+
 def loss_and_grads(state: GANTrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Tuple[Dict[str, torch.Tensor], Grads]:
     """(metrics, (G's gradients, D's gradients)) of one batch on the device:
     the metrics are 0-d fp32 tensors named as :data:`METRICS`; the
     gradients follow ``codec.parameters()`` and ``disc.parameters()``. The
     binarizers' draws, then the pool's, come from ``generator``. Under
-    ``state.mesh`` they are the global step's: the means over the ranks."""
-    inputs = state.codec.prepare(batch)
+    ``state.mesh`` they are the global step's: the sums over each spatial
+    group's ranks, averaged over the groups."""
     mesh = state.mesh
-    with mesh_draws(mesh):
+    batch, shard = shard_batch(mesh, state.cfg, batch)
+    with mesh_draws(mesh), spatial.sharding(shard):
+        inputs = state.codec.prepare(batch)
         metrics, grads = _local(state, inputs, generator)
     if mesh is not None:
-        reduce_over_ranks(metrics, grads)
-    return metrics, grads
+        reduce_over_ranks(metrics, grads, None if shard is None else mesh.n_data)
+    return {k: v.float() for k, v in metrics.items()}, grads
 
 
-def reduce_over_ranks(metrics: Dict[str, torch.Tensor], grads: Grads) -> None:
-    """Replace this rank's metrics and gradients in place by their means over
-    the process group's ranks: one bucketed all-reduce, in each tensor's
-    dtype (fp32 for the port's parameters)."""
+def reduce_over_ranks(metrics: Dict[str, torch.Tensor], grads: Grads,
+                      divisor: Optional[int] = None) -> None:
+    """Replace this rank's metrics and gradients in place by their sums over
+    the process group's ranks divided by ``divisor`` (default the world
+    size: the means; the number of spatial groups under a spatial shard):
+    one bucketed all-reduce, in each tensor's dtype (fp32 for the port's
+    parameters)."""
     stacked = torch.stack([metrics[k] for k in METRICS])
-    distributed.all_reduce_mean_(list(grads[0]) + list(grads[1]) + [stacked])
+    distributed.all_reduce_mean_(list(grads[0]) + list(grads[1]) + [stacked], divisor=divisor)
     for k, v in zip(METRICS, stacked):
         metrics[k] = v
 
@@ -170,7 +202,8 @@ def _local(state: GANTrainState, inputs: Dict, generator: torch.Generator
 
     metrics = {"G_GAN": l_g_gan, "G_GAN_Feat": l_feat, "G_VGG": l_vgg, "G_Distortion": l_dist,
                "D_real": l_real, "D_fake": l_fake, "loss_G": loss_g, "loss_D": loss_d}
-    return {k: torch.as_tensor(v, device=dev).detach().float() for k, v in metrics.items()}, \
+    acc = torch.promote_types(real.dtype, torch.float32)  # fp32 once reduced over the ranks
+    return {k: torch.as_tensor(v, device=dev).detach().to(acc) for k, v in metrics.items()}, \
         (grads_g, grads_d)
 
 
@@ -209,11 +242,15 @@ def raw_side_inputs(side_batch: Dict[str, torch.Tensor], dtype=None) -> Dict:
 def eval_loss(state: GANTrainState, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """get_eval_loss: the deterministic reconstruction and the real image,
     both denormalized and quantized as uint8 images are, and the distortion
-    between them (a 0-d tensor on the device)."""
+    between them (a 0-d tensor on the device); under the spatial axis the
+    group's shares summed."""
     cfg, codec = state.cfg, state.codec
-    inputs = codec.prepare(batch)
-    fake, _ = codec.decode(inputs)
-    mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
-    return distortion_loss(denormalize_to_uint8(fake, mean, std),
-                           denormalize_to_uint8(inputs["real_image"], mean, std),
-                           cfg.loss.distortion_loss_fn)
+    batch, shard = shard_batch(state.mesh, cfg, batch)
+    with spatial.sharding(shard):
+        inputs = codec.prepare(batch)
+        fake, _ = codec.decode(inputs)
+        mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
+        loss = distortion_loss(denormalize_to_uint8(fake, mean, std),
+                               denormalize_to_uint8(inputs["real_image"], mean, std),
+                               cfg.loss.distortion_loss_fn)
+    return loss if shard is None else spatial.sum_over(loss, shard)

@@ -38,8 +38,14 @@ Under a process group (``parallel/``) the Trainer holds the data axis over
 it (``self.mesh``): ``batch_size`` is per process, a training batch is this
 rank's shard and the step all-reduces its gradients (``train/step.py``),
 every rank starts from rank 0's parameters, an evaluation batch is the same
-on every rank, and rank 0 alone writes checkpoints. ``load`` takes a
-directory of the reference's ``net_*.pth`` as well as the port's own files
+on every rank, and rank 0 alone writes checkpoints. Under the spatial axis
+(``parallel.spatial_axis`` S > 1) each group of S ranks shares a batch
+(``batch_size`` is per group) and holds its rows of H, in training and in
+evaluation, where the decode and the codes run sharded and every rank
+gathers the image and the codes (rank 0 writes); evaluation takes the
+standard path, and the stream methods (``compress``, ``decompress``) raise
+``NotPorted`` there (ROADMAP Queue 1 item 13). ``load`` takes a directory
+of the reference's ``net_*.pth`` as well as the port's own files
 (``convert/torch_import.py``).
 """
 
@@ -53,7 +59,8 @@ import numpy as np
 import torch
 
 from jpdse_tpu_torch import codec_io
-from jpdse_tpu_torch.config import Config, check_ported, check_train_ported
+from jpdse_tpu_torch.config import Config, NotPorted, SPATIAL_NOT_PORTED, check_ported, \
+    check_train_ported
 from jpdse_tpu_torch.convert.torch_import import (
     import_reference_checkpoint,
     import_reference_discriminator,
@@ -62,7 +69,7 @@ from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.discriminator import build_discriminator
 from jpdse_tpu_torch.models.vgg import init_vgg19
 from jpdse_tpu_torch.ops.metrics import bernoulli_shannon_bpp
-from jpdse_tpu_torch.parallel import distributed
+from jpdse_tpu_torch.parallel import distributed, spatial
 from jpdse_tpu_torch.parallel.mesh import mesh_from_config, note_replicated
 from jpdse_tpu_torch.platform import resolve_device
 from jpdse_tpu_torch.data.prefetch import DEVICE_KEYS, to_device
@@ -102,8 +109,10 @@ class Trainer:
         # per process, a training batch this rank's shard, an eval batch the same on all
         self.mesh = mesh_from_config(cfg.parallel)
         if self.mesh is not None:  # JAX's batch_size % local data axis (1) cannot fail here
-            print(f"multi-process mesh: dcn={self.mesh.world} x data=1 x spatial=1 (process "
-                  f"{self.mesh.rank}/{self.mesh.world}; batch_size is per process)")
+            per = "process" if self.mesh.spatial == 1 else "spatial group"
+            print(f"multi-process mesh: dcn={self.mesh.n_data} x data=1 x "
+                  f"spatial={self.mesh.spatial} (process {self.mesh.rank}/{self.mesh.world}; "
+                  f"batch_size is per {per})")
         if mode == "train":
             self._init_train()
             return
@@ -131,6 +140,8 @@ class Trainer:
                 # computes in bf16, the slice L1s reduce in fp32 (losses.vgg_loss)
                 vgg = vgg.to(torch.bfloat16)
         h, w = train_image_hw(cfg)
+        if self.mesh is not None and self.mesh.spatial > 1 and h % self.mesh.spatial == 0:
+            h //= self.mesh.spatial  # the replay pool holds this rank's rows
         self.gan: GANTrainState = create_train_state(cfg, codec, disc, vgg,
                                                      (h, w, cfg.netD_input_nc), self.mesh)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
@@ -171,6 +182,10 @@ class Trainer:
         self._fast_built = True
         if not self.cfg.model.fast_inference:
             return None
+        if self._spatial():
+            print("fast_inference: the fast path does not run under spatial_axis > 1 (ROADMAP "
+                  "Queue 1 item 13); using the standard path")
+            return None
         try:
             self._fast_server = CodecServer(self.cfg, self.state, device=self.device)
             print("fast inference path enabled (space-to-depth codec)")
@@ -195,18 +210,38 @@ class Trainer:
         note_replicated(self.mesh, "evaluation batch")
         return self.place(batch)
 
+    def _spatial(self) -> bool:
+        return self.mesh is not None and self.mesh.spatial > 1
+
+    def _sharded(self, fn, batch: Dict):
+        """``fn(b)`` of an evaluation batch: under the spatial axis of this
+        rank's rows of it, sharded, and each output (a tensor or a list of
+        them) gathered whole on every rank."""
+        b, shard = train_step.shard_batch(self.mesh, self.cfg, self._place_eval(batch))
+        with spatial.sharding(shard):
+            out = fn(b)
+        if shard is None:
+            return out
+        if isinstance(out, torch.Tensor):
+            return spatial.gather_rows(out, shard)
+        return [spatial.gather_rows(t, shard) for t in out]
+
     # -- evaluation protocol -------------------------------------------------
     def get_img(self, batch: Dict) -> torch.Tensor:
         """Reconstruction (B, H, W, 3), float32, on the device."""
         if self.mode == "train":
-            with torch.inference_mode():
-                codec = self.gan.codec
-                return codec.decode(codec.prepare(self._place_eval(batch)))[0].float()
-        return self._server.decode(self._place_eval(batch))
+            codec = self.gan.codec
+
+            @torch.inference_mode()
+            def decode(b):
+                return codec.decode(codec.prepare(b))[0].float()
+
+            return self._sharded(decode, batch)
+        return self._sharded(self._server.decode, batch)
 
     def _shaped_codes(self, batch: Dict) -> List[torch.Tensor]:
         """One code per binarized module; raises where there is none."""
-        codes = self._server.compress_codes(self._place_eval(batch))
+        codes = self._sharded(self._server.compress_codes, batch)
         if not codes:
             raise ValueError("no binarized module in this configuration")
         return codes
@@ -236,7 +271,7 @@ class Trainer:
         self._need_eval()
         b = self._place_eval(batch)
         codec = self._std.codec
-        codes = codec.get_codes_shaped(codec.prepare(b))
+        codes = self._sharded(lambda x: codec.get_codes_shaped(codec.prepare(x)), b)
         num_pixels = b["image"].shape[1] * b["image"].shape[2]
         shannon = torch.zeros((), device=self.device)
         actual = torch.zeros((), device=self.device)
@@ -250,12 +285,19 @@ class Trainer:
     def compress(self, batch: Dict) -> List[bytes]:
         """One ``.jpds`` stream per image of the batch, with the side info
         the configuration needs (``CodecServer.compress``)."""
+        self._no_stream_under_spatial()
         return self._server.compress(batch)
 
     def decompress(self, data: bytes) -> np.ndarray:
         """One ``.jpds`` stream -> its image (H, W, 3), float32, from the
         stream and the weights alone."""
+        self._no_stream_under_spatial()
         return self._server.decompress(data)
+
+    def _no_stream_under_spatial(self):
+        if self._spatial():
+            raise NotPorted(f"the .jpds stream methods (compress, decompress) "
+                            f"{SPATIAL_NOT_PORTED}")
 
     def load(self):
         """Restore the weights from ``checkpoints_dir`` (else ``save_dir``);
