@@ -180,8 +180,32 @@ Phases, each printing a line as it ends:
      (b) test.main of one synthetic 2048x1024 triplet read 'fixed' to
      1024x512 in the kernel configuration, fp32 with TF32 off, sharded
      against one process: the code files bit-equal, the rates equal, the
-     reconstruction within 1e-3;
- 14. summary: the card, a JSON line of per-kernel numbers, the total
+     reconstruction within 1e-3; between (a) and (b) the ranks also run
+     phase 14 (c);
+ 14. the batch norm (model.norm 'batch'; no kernel: JAX's is XLA code, and
+     K3 stays off at its sites): (a) the norm on the card against the same
+     call on the CPU, both in float64, at every norm shape of the phase-2
+     step (G's and D's, batch 2 at 1024x512): the output, the gradients of
+     x, scale and bias and the updated running statistics within 1e-9 of
+     their max-abs; the quantizers (S2HVQ, S2HVQV2, rounded_identity) the
+     same way; (b) the phase-2 recipe with the batch norm at full width and
+     depth (fp32, block remat, random weights from --seed): one
+     loss_and_grads with TF32 off in which each of G's norms advances its
+     statistics once and D's twice, the buffers within 1e-5 of the
+     momentum rule applied in float64 to each forward's batch statistics;
+     the same step without remat leaves the statistics equal;
+     --train-steps steps timed against the instance-norm recipe's (median
+     host-clock step after the first, max_memory_allocated); the kernel
+     configuration launches nothing; (c) in phase 13's two gloo ranks, at
+     data_axis 2 and at spatial_axis 2, one float64 loss_and_grads against
+     one process's on the global batch, every gradient and statistic
+     within 1e-9, the statistics bit-equal across ranks; (d) (b)'s state
+     saved, then test.main of one synthetic 2048x1024 triplet read 'fixed'
+     to 1024x512 (the fast path asked for falls back to the standard
+     path): its code files equal an in-process Trainer's codes,
+     Trainer.compress then decompress within 1e-3 of get_img, and a decode
+     on the batch's statistics differs from it;
+ 15. summary: the card, a JSON line of per-kernel numbers, the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -1537,9 +1561,10 @@ GRAD_TOL = 1e-3  # a gradient tensor's relative L2 difference, unless fp32 condi
 # and 1.75e-03), with room both ways
 GRAD_CEIL = {"G": 2e-2, "D": 5e-3}
 K3_SITE_TOL = 1e-5  # K3 at a site of the step against its plain version, of the output's max-abs
-# biases that an InstanceNorm follows have a gradient of 0 in exact arithmetic
-# (a LocalEnhancer's c7, d1 and up among them)
-NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9]|c7|d1)\..*bias$")
+# biases that a norm follows have a gradient of 0 in exact arithmetic (a
+# LocalEnhancer's c7, d1 and up among them); a batch norm's own bias trains
+NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9]|c7|d1)\."
+                         r"(?!.*BatchNorm_0).*bias$")
 
 
 def flagship_train_config(kernels: bool, seed: int, phase=2):
@@ -4143,8 +4168,8 @@ def _phase13_rank(rank: int, port: int, seed: int, work: str) -> None:
     ranks' uniforms, gathered, against the twin's bit for bit; in the
     kernel configuration every partial-form launch is held against its
     plain version (K3PartialCheck); after each step the ranks' parameters
-    are bit-identical. (b) test.main sharded, then the first image's
-    reconstruction."""
+    are bit-identical. Then phase 14 (c) (_phase14_ranks). (b) test.main
+    sharded, then the first image's reconstruction."""
     os.environ["LOCAL_RANK"] = "0"
     import torch.distributed as dist
 
@@ -4248,6 +4273,7 @@ def _phase13_rank(rank: int, port: int, seed: int, work: str) -> None:
             del out, out64
         del dp, twin
         torch.cuda.empty_cache()
+    _phase14_ranks(rank, seed)
     run = Path(work) / "eval"
     metrics, counts, image = spatial_eval(
         spatial_eval_argv(run, Path(work) / f"rank{rank}", "opt.json"), f"rank {rank}")
@@ -4346,6 +4372,423 @@ def phase13(seed: int, card: str) -> tuple:
     return evals, train
 
 
+# -- phase 14: the batch norm ---------------------------------------------------------
+BN_TOL = 1e-9  # float64: the card against the CPU, two ranks against one process
+# fp32 running statistics after a step against the momentum rule applied in
+# float64 to each forward's batch statistics (the step sums in fp32)
+BN_STAT_TOL = 1e-5
+BN_EVAL_IMAGES = 1
+
+
+def batch_norm_config(kernels: bool, seed: int, remat: bool = True):
+    """The flagship's phase-2 recipe (flagship_train_config) with model.norm
+    'batch' at every norm site of G, the encoders and D; ``remat`` False
+    keeps every activation."""
+    cfg = flagship_train_config(kernels, seed)
+    cfg.model.norm, cfg.optim.remat = "batch", remat
+    cfg.validate()
+    return cfg
+
+
+class StatsRecorder:
+    """While active, a forward hook on every batch norm of ``nets`` (a dict
+    of name -> module) records the input shapes it sees and, for each
+    forward that advances the running statistics (UPDATE, not a remat
+    recompute), applies the momentum rule in float64 to that input's batch
+    statistics and counts the forward: what the buffers must hold after
+    the step."""
+
+    def __init__(self, nets: dict):
+        from jpdse_tpu_torch.models import layers
+
+        self.layers = layers
+        self.norms = {f"{net}:{name}": m for net, root in nets.items()
+                      for name, m in root.named_modules() if isinstance(m, layers.BatchNorm)}
+
+    def __enter__(self):
+        L = self.layers
+        self.expected = {n: (m.mean.double().clone(), m.var.double().clone())
+                         for n, m in self.norms.items()}
+        self.counts = {n: 0 for n in self.norms}
+        self.shapes = set()
+
+        def hook(name):
+            def fn(module, args, out):
+                x = args[0]
+                self.shapes.add((name.split(":")[0], tuple(x.shape)))
+                ctx = L.norm_state()
+                if ctx.mode == L.UPDATE and not ctx.replay:
+                    with torch.no_grad():
+                        mean, var = L.batch_stats(x.detach().double())
+                    m0, v0 = self.expected[name]
+                    self.expected[name] = (L.MOMENTUM * m0 + (1 - L.MOMENTUM) * mean,
+                                           L.MOMENTUM * v0 + (1 - L.MOMENTUM) * var)
+                    self.counts[name] += 1
+            return fn
+
+        self.handles = [m.register_forward_hook(hook(n)) for n, m in self.norms.items()]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def check(self, tag: str, per_step: dict) -> float:
+        """Each norm advanced ``per_step[net]`` times, its buffers within
+        BN_STAT_TOL of the rule's values (of each tensor's max-abs); returns
+        the largest such error."""
+        worst = 0.0
+        for n, m in self.norms.items():
+            want = per_step[n.split(":")[0]]
+            if self.counts[n] != want:
+                raise AssertionError(f"{tag}: {n} advanced {self.counts[n]} times, want {want}")
+            for got, exp in zip((m.mean, m.var), self.expected[n]):
+                err = ((got.double() - exp).abs().max() / exp.abs().max()).item()
+                worst = max(worst, err)
+                if not err <= BN_STAT_TOL:
+                    raise AssertionError(f"{tag}: {n} is {err:.2e} from the momentum rule")
+        return worst
+
+
+def stats_of(*modules) -> list:
+    """Every batch norm's running statistics of ``modules``, in order."""
+    from jpdse_tpu_torch.convert import is_stat
+
+    return [v for m in modules for k, v in m.state_dict().items() if is_stat(k)]
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / max(b.norm().item(), 1e-300)).item()
+
+
+def phase14_layer(shapes: list, seed: int, card: str) -> None:
+    """(a) The batch norm on the card against the same call on the CPU, both
+    in float64, at every norm shape of the phase-2 step (G's and D's, as
+    StatsRecorder saw them): the output, the gradients of x, scale and bias
+    and the running statistics after an UPDATE forward, each within BN_TOL
+    of its max-abs; then the quantizers' forward and gradients likewise."""
+    from jpdse_tpu_torch.models import layers
+    from jpdse_tpu_torch.ops import quantizers as q
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 14)
+    worst = 0.0
+    for net, shape in shapes:
+        c = shape[-1]
+        x = torch.from_numpy(rng.normal(size=shape) * 2.0 + 0.5)
+        cot = torch.from_numpy(rng.normal(size=shape))
+        state = {"BatchNorm_0.scale": torch.from_numpy(1 + 0.02 * rng.normal(size=c)),
+                 "BatchNorm_0.bias": torch.from_numpy(0.1 * rng.normal(size=c)),
+                 "BatchNorm_0.mean": torch.from_numpy(0.1 * rng.normal(size=c)),
+                 "BatchNorm_0.var": torch.from_numpy(rng.uniform(0.5, 1.5, c))}
+        outs = []
+        for dev in ("cpu", "cuda"):
+            norm = layers.Norm("batch", c).double().to(dev)
+            norm.load_state_dict(state)
+            xi = x.to(dev).detach().requires_grad_(True)
+            with layers.norm_mode(layers.UPDATE):
+                y = norm(xi)
+            y.backward(cot.to(dev))
+            bn = norm.BatchNorm_0
+            outs.append([t.detach().cpu() for t in (y, xi.grad, bn.scale.grad, bn.bias.grad,
+                                                    bn.mean, bn.var)])
+            del norm, xi, y
+        for name, a, b in zip(("y", "dx", "dscale", "dbias", "mean", "var"), outs[1], outs[0]):
+            err = ((a - b).abs().max() / b.abs().max()).item()
+            worst = max(worst, err)
+            if not err <= BN_TOL:
+                raise AssertionError(f"(a) {net} {shape}: {name} on the card {err:.2e} from the CPU")
+        del x, cot, outs
+    log(f"[batch norm] (a) the batch norm on the card against the CPU in float64 at the "
+        f"{len(shapes)} norm shapes of the phase-2 step ({', '.join(f'{n} {s}' for n, s in shapes)}):"
+        f" output, dx, dscale, dbias and the updated statistics within {worst:.2e} of their "
+        f"max-abs (tolerance {BN_TOL}); {time.perf_counter() - t0:.1f} s")
+    worst = 0.0
+    for cls, (n_c, size, sigma) in ((q.S2HVQ, (64, 8, 10.0)), (q.S2HVQV2, (64, 8, 10.0))):
+        x = torch.from_numpy(rng.normal(size=(4096, 16 * size)))
+        cot = torch.from_numpy(rng.normal(size=(4096, 16, n_c)))
+        outs = []
+        for dev in ("cpu", "cuda"):
+            m = cls(n_c, size, sigma, generator=torch.Generator().manual_seed(seed)).double()
+            m = m.to(dev)
+            xi = x.to(dev).detach().requires_grad_(True)
+            soft = m.encode(xi, 16, True)
+            soft.backward(cot.to(dev))
+            hard = m.encode(xi.detach(), 16, False)
+            r = q.rounded_identity(xi * 3.0)
+            grads = [p.grad for _, p in m.named_parameters() if p.grad is not None]
+            outs.append([t.detach().cpu() for t in [soft, xi.grad, hard, m.decode(hard), r,
+                                                    q.S2HVQ.get_cross_entropy(
+                                                        q.S2HVQ.get_pmf(soft), q.S2HVQ.get_pmf(
+                                                            hard))] + grads])
+        for a, b in zip(outs[1], outs[0]):
+            err = ((a - b).abs().max() / max(b.abs().max().item(), 1e-300)).item()
+            worst = max(worst, err)
+            if not err <= BN_TOL:
+                raise AssertionError(f"(a) {cls.__name__} on the card {err:.2e} from the CPU")
+    log(f"[batch norm] (a) S2HVQ and S2HVQV2 (64 centers of 8, 4096 x 16 codes) and "
+        f"rounded_identity on the card against the CPU in float64: soft and hard codes, "
+        f"decode, cross-entropy, x's and the parameters' gradients within {worst:.2e} ({card})")
+
+
+def phase14_train(seed: int, steps: int, card: str, run: Path) -> dict:
+    """(b) The phase-2 recipe with model.norm 'batch' at full width and
+    depth (batch 2 at 1024x512, fp32, block remat, random weights from
+    --seed): one loss_and_grads with TF32 off under StatsRecorder (each of
+    G's norms advanced once, D's twice, the buffers as the momentum rule
+    says), the same step without remat (statistics equal), then (a)'s
+    check at the shapes the recorder saw; ``steps`` Trainer.steps with
+    PyTorch's default precision against as many of the instance-norm
+    recipe (median host-clock step after the first, peak memory); one step
+    in the kernel configuration, which launches no K3; the state saved in
+    ``run`` for (d). Returns the launch counts."""
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = batch_norm_config(False, seed)
+    cfg.save_dir = str(run)
+    bn = Trainer(cfg, mode="train", device="cuda")
+    batch = train_batch(cfg, seed + 14)
+    placed = bn.place(batch)
+    flat = Trainer(batch_norm_config(False, seed, remat=False), mode="train", device="cuda")
+    for a, b in ((bn.gan.codec, flat.gan.codec), (bn.gan.disc, flat.gan.disc)):
+        b.load_state_dict(a.state_dict())
+    before = [t.clone() for t in stats_of(bn.gan.codec, bn.gan.disc)]
+    launches = {}
+    with tf32_off():
+        rec = StatsRecorder({"G": bn.gan.codec, "D": bn.gan.disc})
+        with SignRecorder() as signs, rec:
+            (metrics, _), launches["batch norm, block remat"] = counted_step(
+                bn.gan, placed, torch.Generator(device="cuda").manual_seed(seed))
+        if not all(torch.isfinite(v).item() for v in metrics.values()):
+            raise AssertionError(f"(b) losses {metrics}")
+        rule = rec.check("(b) block remat", {"G": 1, "D": 2})
+        torch.cuda.reset_peak_memory_stats()
+        with SignRecorder(signs.calls):
+            (_, _), launches["batch norm, no remat"] = counted_step(
+                flat.gan, flat.place(batch), torch.Generator(device="cuda").manual_seed(seed))
+        peak_flat = torch.cuda.max_memory_allocated() / 2**30
+    after = stats_of(bn.gan.codec, bn.gan.disc)
+    remat_err = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(after, stats_of(flat.gan.codec, flat.gan.disc)))
+    if not remat_err <= 1e-6:
+        raise AssertionError(f"(b) statistics with remat {remat_err:.2e} from those without")
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    if moved != len(after):
+        raise AssertionError(f"(b) {len(after) - moved} of {len(after)} statistics did not move")
+    log(f"[batch norm] (b) phase-2 recipe, norm batch, full width, one loss_and_grads (fp32, "
+        f"TF32 off): losses finite; {len(after)} statistics ({len(rec.norms)} norms: each of "
+        f"G's advanced once, D's twice) all moved, within {rule:.2e} of the momentum rule on each "
+        f"forward's batch statistics in float64; the same step without remat (peak "
+        f"{peak_flat:.2f} GiB) leaves them within {remat_err:.2e} ({card})")
+    del flat
+    torch.cuda.empty_cache()
+    phase14_layer(sorted(rec.shapes), seed, card)
+    del rec  # it holds the norms
+
+    batches = [train_batch(cfg, seed + 140 + i) for i in range(steps)]
+    medians = {}
+    for label in ("batch norm", "instance norm"):  # one trainer on the card at a time
+        if label == "instance norm":
+            bn.save(0, 1.0)  # (d) evaluates it
+            del bn
+            torch.cuda.empty_cache()
+        trainer = bn if label == "batch norm" else Trainer(
+            flagship_train_config(False, seed), mode="train", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for b in batches:
+            t1 = time.perf_counter()
+            m = trainer.step(b)  # ends in the metrics' host fetch
+            times.append((time.perf_counter() - t1) * 1e3)
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"(b) {label}: losses {m}")
+        medians[label] = float(np.median(times[1:] if steps > 1 else times))
+        log(f"[batch norm] (b) phase-2 recipe, {label}: steps (ms) "
+            f"{', '.join(f'{t:.1f}' for t in times)}; median after the first "
+            f"{medians[label]:.1f} ms host clock; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; convolutions in TF32 ({card})")
+        del trainer
+    log(f"[batch norm] (b) batch-norm step / instance-norm step: "
+        f"{medians['batch norm'] / medians['instance norm']:.3f} ({card})")
+    torch.cuda.empty_cache()
+    kt = Trainer(batch_norm_config(True, seed), mode="train", device="cuda")
+    if any(getattr(m, "fused", False) for m in kt.gan.codec.modules()):
+        raise AssertionError("(b) a batch-norm site of the kernel configuration is fused")
+    with SignRecorder():
+        _, launches["batch norm, kernel configuration"] = counted_step(
+            kt.gan, kt.place(batch), torch.Generator(device="cuda").manual_seed(seed))
+    if any(launches["batch norm, kernel configuration"].values()):
+        raise AssertionError(f"(b) the kernel configuration launched "
+                             f"{launches['batch norm, kernel configuration']}")
+    log("[batch norm] (b) the kernel configuration with norm batch: no K3 site (JAX's rule: "
+        "fused and norm == 'instance'), 0 launches of any kernel in a step")
+    del kt
+    torch.cuda.empty_cache()
+    log(f"[batch norm] (b) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase14_eval(seed: int, card: str, run: Path) -> dict:
+    """(d) Evaluation of (b)'s saved state, fp32 with TF32 off, the fast path
+    asked for (the batch norm falls back to the standard path): test.main
+    of BN_EVAL_IMAGES synthetic 2048x1024 triplet(s) read 'fixed' to
+    1024x512, its code files equal to an in-process Trainer's codes of the
+    same batch; Trainer.compress then decompress of each image within
+    FP32_ATOL of get_img; a decode with the batch's statistics differs from
+    it (eval reads the running averages). Returns test.main's counts."""
+    from jpdse_tpu_torch import test
+    from jpdse_tpu_torch.cli import parse_config
+    from jpdse_tpu_torch.config import derive_eval_config
+    from jpdse_tpu_torch.data import create_dataloader
+    from jpdse_tpu_torch.models import layers
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    root, out = run / "cityscapes", run / "eval"
+    write_cityscapes(root, seed + 14, n=BN_EVAL_IMAGES)
+    cfg = batch_norm_config(False, seed)
+    mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+    for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
+        pp.preprocess_mode, pp.load_size, pp.crop_size, pp.aspect_ratio = mode, load, crop, aspect
+    cfg.data.dataset, cfg.data.root_dir, cfg.data.num_workers = "cityscapes", str(root), 1
+    cfg.model.fast_inference = True
+    cfg.save(str(run / "opt.json"))
+    argv = ["--load_opt", "--opt_file", str(run / "opt.json"), "--checkpoints_dir", str(run),
+            "--save_dir", str(out), "--mode", "val"]
+    with tf32_off():
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            metrics = test.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if "fast_inference unavailable" not in text.getvalue():
+            raise AssertionError("(d) test.main did not fall back to the standard path")
+        with contextlib.redirect_stdout(io.StringIO()):
+            ecfg = derive_eval_config(parse_config(argv, is_train=False), mode="val")
+            trainer = Trainer(ecfg, mode="test", device="cuda")
+            trainer.load()
+        batch = next(iter(create_dataloader(ecfg)))
+        codes = trainer.get_code(batch)
+        for j, p in enumerate(batch["path"]):
+            name = os.path.splitext(os.path.basename(p))[0]
+            if (out / "codes" / f"{name}_code").read_bytes() != codes[j].astype(np.uint8).tobytes():
+                raise AssertionError(f"(d) {name}: test.main's code file differs from the "
+                                     "in-process codes")
+        img = trainer.get_img(batch)
+        streams = trainer.compress(batch)
+        err = max(float(np.abs(trainer.decompress(s) - img[j].cpu().numpy()).max())
+                  for j, s in enumerate(streams))
+        if not err <= FP32_ATOL:
+            raise AssertionError(f"(d) a decompressed image is {err:.2e} from get_img")
+        codec = trainer._std.codec
+        with torch.no_grad(), layers.norm_mode(layers.BATCH):
+            train_img = codec._decode(codec.prepare(trainer.place(batch)), True, None)[0]
+        diff = float((train_img.float() - img).abs().max())
+        if not diff > 1e-2:
+            raise AssertionError(f"(d) a decode with the batch's statistics is {diff:.2e} from "
+                                 "the eval decode: eval does not read the running averages")
+    log(f"[batch norm] (d) (b)'s state saved and evaluated: test.main of {BN_EVAL_IMAGES} "
+        f"2048x1024 triplet(s) read 'fixed' to 1024x512 (the fast path falls back to the standard "
+        f"path), coded {metrics.get('coded_bpp', float('nan')):.6f} bpp, PSNR "
+        f"{metrics['PSNR']:.4f} dB; its code files equal the in-process codes; "
+        f"{len(streams)} .jpds stream(s) of {sum(map(len, streams))} bytes decompress within "
+        f"{err:.2e} of get_img (tolerance {FP32_ATOL}); a decode with the batch's statistics "
+        f"differs by {diff:.3f}; {time.perf_counter() - t0:.1f} s ({card})")
+    return {"batch norm eval": counts}
+
+
+def _f64_bn_step(gan, placed: dict, seed: int, ref=None) -> tuple:
+    """One loss_and_grads of a float64 copy of ``gan`` on ``ref``'s code
+    bits: (G's and D's gradients, the running statistics after it, the
+    pre-signs)."""
+    from jpdse_tpu_torch.train import step
+
+    s64 = float64_state(gan)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with PinnedSigns(ref) as rec:
+        _, grads = step.loss_and_grads(s64, dict(placed, image=placed["image"].double()), gen)
+    torch.cuda.synchronize()
+    return grads, stats_of(s64.codec, s64.disc), rec.calls
+
+
+def _phase14_ranks(rank: int, seed: int) -> None:
+    """(c) of phase 14, in phase 13's two ranks: the batch-norm recipe at
+    full width, one float64 loss_and_grads at data_axis 2 (each rank one
+    image of the global batch of 2) and at spatial_axis 2 (each rank 256
+    rows of both), on one process's code bits, against that process's
+    float64 step on the global batch (rank 0): every gradient and running
+    statistic within BN_TOL in relative L2 (a bias a norm follows within
+    BN_TOL absolute), the statistics bit-equal across ranks."""
+    from jpdse_tpu_torch.parallel import distributed
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    twin = Trainer(batch_norm_config(False, seed), mode="train", device="cuda:0")
+    twin.mesh = twin.gan.mesh = None
+    batch = train_batch(twin.cfg, seed + 14)
+    with torch.no_grad():
+        ref = [r.double() for r in twin.gan.codec.get_presign(
+            twin.gan.codec.prepare(twin.place(batch)))]
+    if rank == 0:
+        want_g, want_s, ref = _f64_bn_step(twin.gan, twin.place(batch), seed)
+    distributed.broadcast_(ref)
+    worst, out = 0.0, {}
+    for axis in ("data", "spatial"):
+        cfg = batch_norm_config(False, seed)
+        cfg.parallel.spatial_axis = 2 if axis == "spatial" else 1
+        dp = Trainer(cfg, mode="train", device="cuda:0")
+        if dp.mesh is None or dp.mesh.world != 2 or dp.mesh.spatial != cfg.parallel.spatial_axis:
+            raise AssertionError(f"(c) rank {rank}: not a mesh of 2 on the {axis} axis: {dp.mesh}")
+        if axis == "data":
+            rows = {k: v[rank:rank + 1] for k, v in batch.items()}
+            mine = [r[rank:rank + 1] for r in ref]
+        else:
+            rows = batch
+            mine = [r[:, dp.mesh.h_rows(r.shape[1])] for r in ref]
+        t1 = time.perf_counter()
+        grads, stats, _ = _f64_bn_step(dp.gan, dp.place(rows), seed, mine)
+        _same_on_every_rank(f"(c) {axis} axis, running statistics", stats)
+        if rank == 0:
+            names = [[n for n, _ in m.named_parameters()] for m in (dp.gan.codec, dp.gan.disc)]
+            for net, got, want in zip(names, grads, want_g):
+                for n, a, b in zip(net, got, want):
+                    err = (a - b).abs().max().item() if NORMED_BIAS.search(n) else _rel(a, b)
+                    worst = max(worst, err)
+                    if not err <= BN_TOL:
+                        raise AssertionError(f"(c) {axis} axis: {n}'s gradient {err:.2e} from "
+                                             "one process's")
+            for a, b in zip(stats, want_s):
+                worst = max(worst, _rel(a, b))
+                if not _rel(a, b) <= BN_TOL:
+                    raise AssertionError(f"(c) {axis} axis: a running statistic "
+                                         f"{_rel(a, b):.2e} from one process's")
+        out[axis] = time.perf_counter() - t1
+        del dp, grads, stats
+        torch.cuda.empty_cache()
+    if rank == 0:
+        log(f"[batch norm] (c) two gloo ranks on the card, batch-norm recipe at full width, "
+            f"float64, against one process on the global batch: data_axis 2 "
+            f"({out['data']:.1f} s) and spatial_axis 2 ({out['spatial']:.1f} s), every gradient "
+            f"and running statistic within {worst:.2e} (tolerance {BN_TOL}), the statistics "
+            f"bit-equal across the ranks; {time.perf_counter() - t0:.1f} s in the ranks")
+    del twin
+    torch.cuda.empty_cache()
+
+
+def phase14(seed: int, steps: int, card: str) -> tuple:
+    """Phase 14, the batch norm ((c) runs in phase 13's ranks). Returns
+    (eval counts, train counts)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="jpdse_bn_") as work:
+        train = phase14_train(seed, steps, card, Path(work))
+        evals = phase14_eval(seed, card, Path(work))
+    log(f"[batch norm] batch-norm phase {time.perf_counter() - t0:.1f} s ({card})")
+    return evals, train
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4432,6 +4875,11 @@ def main() -> int:
     eval_launches.update(eval13)
     launches.update(eval13)
     train_launches.update(train13)
+    torch.cuda.empty_cache()
+    eval14, train14 = phase14(args.seed, args.train_steps, card)
+    eval_launches.update(eval14)
+    launches.update(eval14)
+    train_launches.update(train14)
     launches.update(train_launches)
     for e in entries:
         name = e["name"]

@@ -605,15 +605,12 @@ def check_ported(cfg: Config) -> None:
     (learned, raw, no-label, no-feat, sem_masking, use_netE_output,
     zero_*), with the encoders or the generator binarized or neither, over
     grouped or ungrouped encoders with or without instance-wise pooling,
-    instance or identity norms, with or without a base codec's decoded
-    image and reduced-rate semantics."""
+    instance, identity or batch norms, with or without a base codec's
+    decoded image and reduced-rate semantics."""
     m = cfg.model
     if m.netG not in ("global", "local"):
         raise ValueError(f"unknown netG {m.netG!r}")
-    if m.norm == "batch":
-        raise NotPorted("the batch norm (running statistics through the step, checkpoints "
-                        "and eval) is ROADMAP Queue 1 item 10's remainder")
-    if m.norm not in ("instance", "identity"):
+    if m.norm not in ("instance", "identity", "batch"):
         raise NotImplementedError(f"norm [{m.norm}] not found")
     if m.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
@@ -674,9 +671,9 @@ def check_spatial_rows(cfg: Config, h: int, size: int) -> None:
 
 
 def check_train_ported(cfg: Config) -> None:
-    """:func:`check_ported` (the batch norm raises :class:`NotPorted`
-    there), and the training step's own settings. Every other training
-    option of the JAX package runs: ``optim.fast_train`` (refused with the
+    """:func:`check_ported` and the training step's own settings. Every
+    training option of the JAX package runs: the batch norm,
+    ``optim.fast_train`` (refused with the
     failed gate for an ineligible model, ``models/fast_train.py``),
     ``model.use_dropout``, ``optim.vgg_bf16``, ``profile_dir``, the
     device cache and the data and spatial axes over a process group

@@ -21,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.generator import Encoder, GlobalGenerator, LocalEnhancer
-from jpdse_tpu_torch.models.layers import build
+from jpdse_tpu_torch.models.layers import RUNNING, UPDATE, build, norm_mode, replayable
 from jpdse_tpu_torch.ops.semantics import degrade_ids, prepare_semantics, sem_mask
 from jpdse_tpu_torch.platform import resolve_device
 from jpdse_tpu_torch.train.step import raw_side_inputs
@@ -88,7 +88,8 @@ def assemble(cfg: Config, input_label, feat):
 def checkpoint_decode(decode, inputs, generator, deterministic):
     """``decode(inputs, deterministic, generator)`` recomputed whole in the
     backward (``optim.remat_granularity`` 'decode'); the recompute replays
-    the generator's draws from the same state."""
+    the generator's draws from the same state, in the first call's norm
+    mode without the running update (``layers.replayable``)."""
     state = None if generator is None else generator.get_state()
     keys = [k for k in _DECODE_TENSORS if inputs.get(k) is not None]
 
@@ -97,7 +98,7 @@ def checkpoint_decode(decode, inputs, generator, deterministic):
             generator.set_state(state)
         return decode(dict(inputs, **dict(zip(keys, tensors))), deterministic, generator)
 
-    return checkpoint(run, *[inputs[k] for k in keys], use_reentrant=False)
+    return checkpoint(replayable(run), *[inputs[k] for k in keys], use_reentrant=False)
 
 
 class SemanticCodec(nn.Module):
@@ -209,12 +210,14 @@ class SemanticCodec(nn.Module):
         features), as the JAX package's ``decode`` returns them; under
         ``use_netE_output`` the image is netE's output and netG is not run.
         In training (``deterministic`` False) the binarizers draw from
-        ``generator``. ``train`` selects the norms' training mode in JAX,
-        which instance norms do not read; it is kept for the signature."""
-        del train
-        if self.remat_decode and torch.is_grad_enabled():
-            return checkpoint_decode(self._decode, inputs, generator, deterministic)
-        return self._decode(inputs, deterministic, generator)
+        ``generator``. ``train`` is JAX's ``train`` of a ``mutable`` decode:
+        a batch norm normalizes by the batch's statistics and advances its
+        running averages (``layers.UPDATE``); without it, by the running
+        averages (every evaluation and serving read)."""
+        with norm_mode(UPDATE if train else RUNNING):
+            if self.remat_decode and torch.is_grad_enabled():
+                return checkpoint_decode(self._decode, inputs, generator, deterministic)
+            return self._decode(inputs, deterministic, generator)
 
     def _decode(self, inputs, deterministic, generator):
         concat, input_label, raw_feat = self._generator_input(inputs, deterministic, generator)

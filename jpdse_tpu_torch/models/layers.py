@@ -8,13 +8,24 @@ view, which on an NHWC-contiguous tensor is the channels-last layout cuDNN
 takes without a copy. Weights are cast to the activation's dtype at the call,
 as Flax's ``dtype=`` does.
 
-``norm`` is 'instance' or 'identity' (``Norm``, ``layers.py:41-62``); the
-batch norm raises ``NotPorted``. Convolutions take ``groups`` as Flax's
+``norm`` is 'instance', 'identity' or 'batch' (:class:`Norm`,
+``layers.py:51-70``). The batch norm is Flax's ``nn.BatchNorm(momentum=0.9,
+epsilon=1e-5)`` (:class:`BatchNorm`): its scale and bias are parameters,
+its running mean and variance buffers, and which statistics it reads is the
+norm mode of :func:`norm_mode`, set by the caller (the codec's ``decode``,
+the discriminator's ``mode``) and never by ``nn.Module.train()``: the
+running averages (``RUNNING``, evaluation and serving, the default), the
+batch's (``BATCH``: G's reads of D) or the batch's with the running update
+(``UPDATE``: G's decode and D's own loss in the training step). Inside a
+training step of a process group (:func:`norm_context` ``world``) the batch
+statistics are the global batch's. Convolutions take ``groups`` as Flax's
 ``feature_group_count``. ``remat`` on a block (``ConvNormAct``,
 ``ConvTransposeNormAct``, ``ResnetBlock``) recomputes its forward in the
 backward instead of keeping its activations, the twin of the JAX package's
 block-granular ``nn.remat`` (``jpdse_tpu/models/generator.py:58-68``); it
-acts only where autograd records the call.
+acts only where autograd records the call, and the recompute runs in the
+norm mode of the first forward without the running update, which that
+forward made (:func:`replayable`): JAX's remat updates once.
 
 Under the spatial axis (``parallel/spatial.py``'s ``sharding``) an
 activation is this rank's rows of H, and the convolutions (a reflect or
@@ -26,6 +37,8 @@ Outside it every function runs as on one device.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 from typing import Optional
 
@@ -35,10 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from jpdse_tpu_torch.config import NotPorted
 from jpdse_tpu_torch.ops.instance_norm import fused_instance_norm, instance_norm_stats_plain, \
     merge_parts
-from jpdse_tpu_torch.parallel import spatial
+from jpdse_tpu_torch.parallel import distributed, spatial
 from jpdse_tpu_torch.parallel.mesh import draw_rows
 from jpdse_tpu_torch.parallel.spatial import reflect_index
 
@@ -108,17 +120,145 @@ def instance_norm(x, eps: float = 1e-5):
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def norm_fn(kind: str):
-    """The norm of ``Norm(kind)`` as a function of the activation:
-    InstanceNorm or the identity; the batch norm raises ``NotPorted``."""
-    if kind == "instance":
-        return instance_norm
-    if kind == "identity":
-        return lambda x: x
-    if kind == "batch":
-        raise NotPorted("the batch norm (running statistics through the step, checkpoints "
-                        "and eval) is ROADMAP Queue 1 item 10's remainder")
-    raise NotImplementedError(f"norm [{kind}] not found")
+# -- the norms' modes -----------------------------------------------------------------
+RUNNING, BATCH, UPDATE = "running", "batch", "update"
+MOMENTUM, BN_EPS = 0.9, 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class NormContext:
+    """What a batch norm reads: ``mode`` (:data:`RUNNING`, :data:`BATCH` or
+    :data:`UPDATE`); ``world``, batch statistics summed over the process
+    group (a training step under a mesh); ``replay``, a remat recompute,
+    which reads the batch but leaves the running averages as the first
+    forward left them."""
+
+    mode: str = RUNNING
+    world: bool = False
+    replay: bool = False
+
+
+_NORM = NormContext()
+
+
+@contextlib.contextmanager
+def norm_context(**changes):
+    """While active, the norm context with ``changes`` (fields of
+    :class:`NormContext`)."""
+    global _NORM
+    saved, _NORM = _NORM, dataclasses.replace(_NORM, **changes)
+    try:
+        yield
+    finally:
+        _NORM = saved
+
+
+def norm_state() -> NormContext:
+    """The active norm context."""
+    return _NORM
+
+
+def norm_mode(mode: str):
+    """:func:`norm_context` with the batch norm's ``mode``."""
+    if mode not in (RUNNING, BATCH, UPDATE):
+        raise ValueError(f"unknown norm mode {mode!r}")
+    return norm_context(mode=mode)
+
+
+def replayable(fn):
+    """``fn`` for ``torch.utils.checkpoint``: its first call runs in the
+    current norm context and records it; a recompute in the backward runs
+    in that context (whatever the backward's is) with ``replay`` set, so
+    the running averages advance once per forward, as under JAX's remat."""
+    first = []
+
+    def run(*args):
+        if not first:
+            first.append(_NORM)
+            return fn(*args)
+        with norm_context(**dict(dataclasses.asdict(first[0]), replay=True)):
+            return fn(*args)
+
+    return run
+
+
+def batch_stats(x, world: bool = False):
+    """(mean, var) per channel of an NHWC tensor over (N, H, W), as Flax's
+    ``_compute_stats`` with its fast variance: in at least fp32 (float64
+    for a float64 input), ``var = max(E[x^2] - E[x]^2, 0)``, biased. With
+    ``world`` the sums and the count are summed over the process group
+    (each rank's own rows: the spatial axis's uneven rows count as they
+    fall), one differentiable all-reduce whose backward sums the
+    gradients, as GSPMD's mean over the sharded batch does."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    s1, s2 = x32.sum(dim=(0, 1, 2)), (x32 * x32).sum(dim=(0, 1, 2))
+    n = float(x.shape[0] * x.shape[1] * x.shape[2])
+    if world:
+        c = s1.shape[0]
+        parts = distributed.sum_over_world(torch.cat([s1, s2, s1.new_full((1,), n)]))
+        s1, s2, n = parts[:c], parts[c:2 * c], parts[2 * c]
+    mean = s1 / n
+    return mean, torch.clamp_min(s2 / n - mean * mean, 0.0)
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over the last axis: ``scale`` and ``bias``
+    parameters (Flax's ``params``), ``mean`` and ``var`` buffers (its
+    ``batch_stats``), read by the norm mode. :data:`UPDATE` moves them
+    ``mean <- 0.9 mean + 0.1 batch_mean`` and ``var`` likewise with the
+    biased batch variance (not ``nn.BatchNorm2d``'s unbiased one). The
+    output is Flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` in the statistics' type, one cast to x's dtype."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_running_stats(self):
+        with torch.no_grad():
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x):
+        ctx = _NORM
+        if ctx.mode == RUNNING:
+            mean, var = self.mean, self.var
+            acc = torch.promote_types(x.dtype, mean.dtype)
+            mean, var = mean.to(acc), var.to(acc)
+        else:
+            mean, var = batch_stats(x, ctx.world)
+            if ctx.mode == UPDATE and not ctx.replay:
+                with torch.no_grad():
+                    for buf, new in ((self.mean, mean), (self.var, var)):
+                        buf.copy_(MOMENTUM * buf + (1 - MOMENTUM) * new.to(buf.dtype))
+        acc = mean.dtype
+        mul = torch.rsqrt(var + BN_EPS) * self.scale.to(acc)
+        return ((x.to(acc) - mean) * mul + self.bias.to(acc)).to(x.dtype)
+
+
+class Norm(nn.Module):
+    """``Norm(kind)`` (``layers.py:51-70``) over ``features`` channels: the
+    InstanceNorm or the identity, stateless, or the batch norm, held as
+    ``BatchNorm_0`` as Flax names it (so ``.../norm/BatchNorm_0/scale`` is
+    ``...norm.BatchNorm_0.scale``)."""
+
+    def __init__(self, kind: str, features: int):
+        super().__init__()
+        if kind not in ("instance", "identity", "batch"):
+            raise NotImplementedError(f"norm [{kind}] not found")
+        self.kind = kind
+        if kind == "batch":
+            self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x):
+        if self.kind == "instance":
+            return instance_norm(x)
+        if self.kind == "batch":
+            return self.BatchNorm_0(x)
+        return x
 
 
 def instance_wise_avg_pool(feats, inst, num_segments: int):
@@ -210,9 +350,10 @@ def avg_pool_3s2(x):
 
 def remat_call(remat: bool, fn, *args):
     """``fn(*args)``, recomputed in the backward when ``remat`` is set and
-    autograd records the call."""
+    autograd records the call (in the first call's norm mode, without the
+    running update: :func:`replayable`)."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(replayable(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -245,11 +386,15 @@ def padded_conv(conv: "Conv", x, pad: int, mode: str = "reflect"):
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """weights_init of the reference: conv kernels normal(0, 0.02), biases 0."""
+    """weights_init of the reference: conv kernels normal(0, 0.02), biases 0,
+    batch-norm scales normal(1, 0.02) (``batchnorm_gamma_init``,
+    ``layers.py:27-31``)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
+            elif name.endswith("BatchNorm_0.scale"):
+                p.normal_(1.0, 0.02, generator=generator)
             else:
                 p.normal_(0.0, 0.02, generator=generator)
     return module
@@ -277,9 +422,10 @@ class ConvNormAct(nn.Module):
                  padding: int = 0, reflect: int = 0, fused: bool = False, remat: bool = False,
                  groups: int = 1, norm: str = "instance"):
         super().__init__()
-        self.reflect, self.remat, self.norm = reflect, remat, norm_fn(norm)
+        self.reflect, self.remat = reflect, remat
         self.fused = fused and norm == "instance"
         self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding, groups=groups)
+        self.norm = Norm(norm, out_ch)
 
     def forward(self, x):
         return remat_call(self.remat, self._forward, x)
@@ -299,9 +445,10 @@ class ConvTransposeNormAct(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, fused: bool = False, remat: bool = False,
                  groups: int = 1, norm: str = "instance"):
         super().__init__()
-        self.remat, self.norm = remat, norm_fn(norm)
+        self.remat = remat
         self.fused = fused and norm == "instance"
         self.deconv = nn.ConvTranspose2d(in_ch, out_ch, 3, 2, 1, output_padding=1, groups=groups)
+        self.norm = Norm(norm, out_ch)
 
     def forward(self, x):
         return remat_call(self.remat, self._forward, x)
@@ -337,14 +484,16 @@ class ResnetBlock(nn.Module):
                  padding_type: str = "reflect", norm: str = "instance",
                  use_dropout: bool = False):
         super().__init__()
-        self.remat, self.norm, self.use_dropout = remat, norm_fn(norm), use_dropout
+        self.remat, self.use_dropout = remat, use_dropout
         self.fused = fused and norm == "instance"
         if padding_type not in ("reflect", "replicate", "zero"):
             raise NotImplementedError(f"padding [{padding_type}]")
         self.pad = None if padding_type == "zero" else padding_type
         p = 1 if self.pad is None else 0
         self.conv1 = Conv(dim, dim, 3, padding=p)
+        self.norm1 = Norm(norm, dim)
         self.conv2 = Conv(dim, dim, 3, padding=p)
+        self.norm2 = Norm(norm, dim)
 
     def forward(self, x, deterministic: bool = True, generator=None):
         mask = None
@@ -361,20 +510,24 @@ class ResnetBlock(nn.Module):
         if self.fused:
             h = _fused_norm(self._conv(self.conv1, x), relu=True)
         else:
-            h = torch.relu(self.norm(self._conv(self.conv1, x)))
+            h = torch.relu(self.norm1(self._conv(self.conv1, x)))
         if mask is not None:
             h = torch.where(mask, h * 2.0, torch.zeros_like(h))
         if self.fused:
             return _fused_norm(self._conv(self.conv2, h), residual=x)
-        return x + self.norm(self._conv(self.conv2, h))
+        return x + self.norm2(self._conv(self.conv2, h))
 
 
 def build(make, device, generator: Optional[torch.Generator]) -> nn.Module:
     """Construct ``make()`` without initialising on the host, then fill its
-    weights on ``device`` from ``generator`` (zeros if None)."""
+    weights on ``device`` from ``generator`` (zeros if None); batch-norm
+    running statistics start at mean 0, variance 1."""
     with torch.device("meta"):
         module = make()
     module = module.to_empty(device=device)
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.reset_running_stats()
     if generator is None:
         with torch.no_grad():
             for p in module.parameters():

@@ -20,9 +20,10 @@ initialization fails, a failed initialization raises: N processes that
 each trained alone would do so without a word.
 
 The collectives the training step needs (``train/step.py``) are here too:
-a mean all-reduce over flat buckets, a broadcast, and an all-gather of a
+a mean all-reduce over flat buckets, a broadcast, an all-gather of a
 batch's rows written as an all-reduce, so that gloo runs it on CUDA
-tensors as well. Under the spatial axis (``parallel/mesh.py``) the world
+tensors as well, and the sum over the whole group that the batch norm's
+statistics take (``models/layers.py::batch_stats``). Under the spatial axis (``parallel/mesh.py``) the world
 splits into groups of consecutive ranks (:func:`new_groups`): an all-reduce
 and the row gather take a group, and the halo exchanges of
 ``parallel/spatial.py`` are all-reduces over one.
@@ -159,6 +160,32 @@ def new_groups(members: Sequence[Sequence[int]]) -> list:
     rank (``dist.new_group`` must be called by all of them for each group);
     returns them in that order."""
     return [dist.new_group(list(m)) for m in members]
+
+
+class _WorldSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g
+
+
+def sum_over_world(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over the whole default group, on every
+    rank, differentiable: the backward sums the ranks' gradients, as each
+    rank uses the sum for its own rows (``parallel/spatial.py``'s
+    ``sum_over`` over one spatial group)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _WorldSum.apply(x)
+    out = x.clone()
+    dist.all_reduce(out)
+    return out
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES,

@@ -2,7 +2,9 @@
 own files, written with ``torch.save``:
 
 * ``params_g.pt``, the codec's state dict (what evaluation loads);
-* ``params_d.pt``, the discriminator's;
+* ``params_d.pt``, the discriminator's; under ``model.norm`` 'batch' each
+  holds its batch norms' running statistics as buffers (the JAX package's
+  ``mstate_g`` / ``mstate_d``), restored and counted with the parameters;
 * ``opt.pt``, both Adams' state dicts and the counters (steps taken, the
   annealed distortion weight, the best validation loss) and the pool;
 * ``trainer_meta.json``, the host-side sidecar (epoch, best validation

@@ -40,6 +40,17 @@ gradient (each rank's part of it) is summed over the group and averaged
 over the data axis, as are the metrics, in one all-reduce over the world
 divided by the number of groups. Every rank then steps alike.
 
+Under ``model.norm`` 'batch' the running statistics move as JAX's step
+moves ``mstate_g`` / ``mstate_d`` (:76-298; ``models/layers.py``'s norm
+modes): G's decode advances G's once per site (``decode(train=True)``);
+G's reads of D normalize by the batch's statistics and leave D's as they
+are (``BATCH``), as JAX discards that mutation (:135-168; the reference's
+torch advanced D on them too, :139-141); D's loss advances D's on the
+(pool-replayed) fake and then on the real pair (``UPDATE``, :212-234).
+Under a process group those statistics are the global batch's: summed
+over the whole group (``norm_context(world=True)``). :func:`eval_loss`
+reads the running averages.
+
 Under ``optim.fast_train`` the decode is the s2d train decode
 (``models/fast_train.py``, ``state.fast_decode``), as the JAX package swaps
 it in (:87-98). ``optim.remat`` recomputes the decode's blocks
@@ -55,7 +66,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from jpdse_tpu_torch.config import check_spatial_rows
-from jpdse_tpu_torch.models.layers import remat_call
+from jpdse_tpu_torch.models.layers import BATCH, UPDATE, norm_context, remat_call
 from jpdse_tpu_torch.ops.metrics import denormalize_to_uint8
 from jpdse_tpu_torch.parallel import distributed, spatial
 from jpdse_tpu_torch.parallel.mesh import drawing as mesh_draws
@@ -123,7 +134,8 @@ def loss_and_grads(state: GANTrainState, batch: Dict[str, torch.Tensor],
     group's ranks, averaged over the groups."""
     mesh = state.mesh
     batch, shard = shard_batch(mesh, state.cfg, batch)
-    with mesh_draws(mesh), spatial.sharding(shard):
+    world = mesh is not None and mesh.world > 1
+    with mesh_draws(mesh), spatial.sharding(shard), norm_context(world=world):
         inputs = state.codec.prepare(batch)
         metrics, grads = _local(state, inputs, generator)
     if mesh is not None:
@@ -163,12 +175,12 @@ def _local(state: GANTrainState, inputs: Dict, generator: torch.Generator
                                              generator=generator)
         l_g_gan = l_feat = l_vgg = l_dist = zero
         if not (L.no_g_gan_loss and L.no_gan_feat_loss):
-            pred_fake = remat_call(remat, disc, _d_concat(input_label, fake), keep)
+            pred_fake = remat_call(remat, disc, _d_concat(input_label, fake), keep, BATCH)
             if not L.no_g_gan_loss:
                 l_g_gan = gan_loss(pred_fake, True, use_lsgan)
             if not L.no_gan_feat_loss:
                 with torch.no_grad():  # targets only: detached in the loss
-                    pred_real = disc(_d_concat(input_label, real), keep)
+                    pred_real = disc(_d_concat(input_label, real), keep, BATCH)
                 l_feat = feature_matching_loss(pred_fake, pred_real, cfg.model.num_D)
         if not L.no_vgg_loss and state.vgg is not None:
             vgg = state.vgg
@@ -195,8 +207,8 @@ def _local(state: GANTrainState, inputs: Dict, generator: torch.Generator
             full = image_pool.query(state.pool, full, use_old, rid)
             fake_concat = full if mesh is None else full[mesh.rows(fake_concat.shape[0])]
         with torch.enable_grad():
-            l_fake = gan_loss(disc(fake_concat), False, use_lsgan)
-            l_real = gan_loss(disc(_d_concat(label_sg, real)), True, use_lsgan)
+            l_fake = gan_loss(disc(fake_concat, False, UPDATE), False, use_lsgan)
+            l_real = gan_loss(disc(_d_concat(label_sg, real), False, UPDATE), True, use_lsgan)
             loss_d = 0.5 * (l_fake + l_real)
             grads_d = _grads(loss_d, d_params)
 

@@ -14,7 +14,10 @@ fresh one at the new resolution). The result is a params-only checkpoint
 --checkpoints_dir DST`` merges by name and shape
 (``train/checkpoint.py::merge_state``). The local model takes ngf = the
 source's ngf / 2^n_local_enhancers (a trained ``--ngf 64`` global starts
-a ``--netG local --ngf 32`` model).
+a ``--netG local --ngf 32`` model). Under ``model.norm`` 'batch' the
+batch norms' running statistics stay behind, as the JAX tool carries the
+params collection alone (no ``mstate_g``): the enhancer's statistics start
+fresh (mean 0, variance 1), its scales and biases warm.
 
     python -m jpdse_tpu_torch.train.warmstart --src RUN --dst INIT
 """
@@ -28,19 +31,23 @@ from typing import List, Optional
 
 import torch
 
+from jpdse_tpu_torch.convert import is_stat
 from jpdse_tpu_torch.train.checkpoint import META_FILE, PARAMS_FILE, save_params
 
 
 def renest(params: dict) -> dict:
     """A GlobalGenerator codec's state dict re-nested for a LocalEnhancer:
     ``netG.X`` -> ``netG.global.X`` (``netG.tail.*`` dropped), every other
-    network's entries unchanged."""
+    network's entries unchanged; the batch norms' running statistics
+    dropped (the JAX tool's params-only checkpoint)."""
     if any(k.startswith("netG.global.") for k in params):
         raise ValueError("the source is already a LocalEnhancer checkpoint")
     if not any(k.startswith("netG.") for k in params):
         raise ValueError("the source has no netG")
     out = {}
     for k, v in params.items():
+        if is_stat(k):
+            continue
         if k.startswith("netG."):
             if k.startswith("netG.tail."):
                 continue

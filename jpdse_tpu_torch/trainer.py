@@ -26,7 +26,12 @@ once, so its trunk runs in bf16.
 The fast path is chosen by ``cfg.model.fast_inference`` as the JAX
 package's ``Trainer._fast`` chooses it (:188-228): built once, on the loaded
 weights, with a printed fallback to the standard path for a configuration
-the fast codec rejects with ``ValueError`` / ``KeyError``. That is a choice
+the fast codec rejects with ``ValueError`` / ``KeyError`` (a batch norm
+among them). Every evaluation and serving read of a batch-norm model takes
+the running averages, as JAX's ``_mg()`` call sites do (the codec's
+default norm mode, ``models/layers.py``); in training the frozen global
+trunk of ``niter_fix_global`` still advances its statistics, as JAX's
+``mutable`` decode does. That is a choice
 by configuration only: a kernel that fails to build or launch raises. The
 rate, as in the JAX package, comes from the standard path's codes.
 

@@ -184,10 +184,10 @@ def _grouped(c):
 
 
 # the configurations that raised naming item 10 before the LocalEnhancer
-# family was ported load and build now; only the batch norm still raises
+# family and the batch norm were ported load and build now
 NOT_PORTED = {
     "local netG": (lambda c: setattr(c.model, "netG", "local"), None),
-    "batch norm": (lambda c: setattr(c.model, "norm", "batch"), "item 10"),
+    "batch norm": (lambda c: setattr(c.model, "norm", "batch"), None),
     "grouped netE": (_grouped, None),
 }
 
@@ -202,6 +202,9 @@ def test_configs_of_later_slices_raise_naming_their_item(name):
         codec = SemanticCodec(cfg, device="cpu")
         assert type(codec.netG).__name__ == ("LocalEnhancer" if name == "local netG"
                                              else "GlobalGenerator")
+        # a batch norm's scale, bias and running statistics at every norm site
+        assert any(k.endswith("BatchNorm_0.var") for k in codec.state_dict()) == \
+            (name == "batch norm")
         return
     with pytest.raises(config.NotPorted, match=f"ROADMAP Queue 1 {item}"):
         config.check_ported(cfg)
@@ -286,24 +289,20 @@ def test_item_6_configs_build_train_and_decode(name):
     assert image.shape == (2, H, W, 3) and torch.isfinite(image).all()
 
 
-# the tracked recipes that the port does not train yet: none since the
-# LocalEnhancer family (the high-resolution series) was ported
-REFUSED = set()
-
-
 def test_every_flagship_opt_json_the_port_runs_is_checked():
     """All 29 tracked recipes pass check_train_ported, the base-codec ones
-    and the high-resolution LocalEnhancer series among them."""
-    assert REFUSED <= set(OPT_FILES) and len(OPT_FILES) == 29
+    and the high-resolution LocalEnhancer series among them, and so does
+    each with ``model.norm`` 'batch' (no tracked recipe sets it; the port
+    refuses none since the batch norm was ported)."""
+    assert len(OPT_FILES) == 29
     assert {f"artifacts/flagship_r3_hires/{p}/opt.json" for p in ("phaseA", "phaseB")} \
         <= set(OPT_FILES)
     for path in OPT_FILES:
         cfg = config.Config.load(str(REPO / path))
-        if path in REFUSED:
-            with pytest.raises(config.NotPorted, match="item 10"):
-                config.check_train_ported(cfg)
-        else:
-            config.check_train_ported(cfg)
+        assert cfg.model.norm != "batch"
+        config.check_train_ported(cfg)
+        cfg.model.norm = "batch"
+        config.check_train_ported(cfg)
 
 
 # -- the fast path's fields -------------------------------------------------

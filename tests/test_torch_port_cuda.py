@@ -764,3 +764,61 @@ def test_discriminator_pyramid_gradient_on_card_matches_cpu(cuda, dtype, monkeyp
             grads.append(torch.autograd.grad(sum((t * p).sum() for t, p in zip(outs, proj)),
                                              xi)[0].cpu())
         assert (grads[1] - grads[0]).abs().max() <= tol * grads[0].abs().max()
+
+
+def test_batch_norm_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One GAN step of the tiny flagship with ``model.norm`` 'batch' (block
+    remat, VGG), float64, deterministic binarization, on the card against
+    the same step on the CPU from the same weights: the running statistics
+    after the step within 1e-9 in relative L2, the metrics (handed over in
+    fp32) within 2 of their ulps, every gradient within 1e-6 in relative L2
+    (a bias a norm follows within 1e-9 absolute). The losses reduce in fp32
+    in both packages (``train/losses.py``), so a float64 step's gradients
+    carry one fp32 rounding of each loss's mean, which the card and the CPU
+    round apart (about 2^-24 relative, the same with the instance norm);
+    the forward, and with it the statistics, is float64 throughout."""
+    from jpdse_tpu_torch.models.discriminator import build_discriminator
+    from jpdse_tpu_torch.models.vgg import init_vgg19
+    from jpdse_tpu_torch.ops import quantizers
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.train.state import create_train_state
+
+    monkeypatch.setattr(quantizers, "stochastic_sign_ste",
+                        lambda x, gen: quantizers.deterministic_sign_ste(x))
+    cfg = flagship_config(tiny=True)
+    cfg.model.compute_dtype, cfg.model.fast_inference, cfg.model.ndf = "float32", False, 8
+    cfg.model.norm, cfg.optim.remat = "batch", True
+    rng = np.random.default_rng(8)
+    batch = {"label": torch.from_numpy(rng.integers(0, 35, (2, 64, 128)).astype(np.float32)),
+             "instance": torch.from_numpy(rng.integers(0, 1000, (2, 64, 128)).astype(np.int32)),
+             "image": torch.from_numpy(rng.normal(size=(2, 64, 128, 3)))}
+    out = []
+    for dev in ("cpu", cuda):
+        codec = SemanticCodec(cfg, device="cpu", seed=12).double()
+        codec.dtype = torch.float64
+        disc = build_discriminator(cfg, "cpu", torch.Generator().manual_seed(3)).double()
+        vgg = init_vgg19("cpu", torch.Generator().manual_seed(0)).double()
+        state = create_train_state(cfg, codec.to(dev), disc.to(dev), vgg.to(dev))
+        metrics, grads = step.loss_and_grads(
+            state, {k: v.to(dev) for k, v in batch.items()}, torch.Generator(device=dev))
+        named = [dict(zip([n for n, _ in m.named_parameters()], (g.cpu() for g in gs)))
+                 for m, gs in zip((codec, disc), grads)]
+        stats = {f"{i}.{k}": v.cpu() for i, m in enumerate((codec, disc))
+                 for k, v in m.state_dict().items() if k.endswith(("BatchNorm_0.mean",
+                                                                   "BatchNorm_0.var"))}
+        out.append(({k: v.item() for k, v in metrics.items()}, named, stats))
+    (want_m, want_g, want_s), (got_m, got_g, got_s) = out
+    for k in step.METRICS:
+        np.testing.assert_allclose(got_m[k], want_m[k], rtol=2 * 2.0**-23, atol=0, err_msg=k)
+    normed_bias = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9])\."
+                             r"(?!.*BatchNorm_0).*bias$")
+    for g_net, w_net in zip(got_g, want_g):
+        for n, w in w_net.items():
+            if normed_bias.search(n):
+                assert (g_net[n] - w).abs().max().item() <= 1e-9, n
+            else:
+                err = (g_net[n] - w).norm().item() / w.norm().item()
+                assert err <= 1e-6, f"{n}: {err:.2e}"
+    assert want_s and got_s.keys() == want_s.keys()
+    for k, w in want_s.items():
+        assert (got_s[k] - w).norm().item() <= 1e-9 * w.norm().item(), k

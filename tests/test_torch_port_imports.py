@@ -71,6 +71,16 @@ assert {"RefGlobalGenerator", "RefEncoder", "RefLearnedCodec", "reference_weight
 assert {"initialize", "rank", "world", "is_main", "barrier", "all_reduce_mean_"} <= set(
     dir(distributed))
 assert {"DataMesh", "mesh_from_config", "warn_replicated_once", "draw_rows"} <= set(dir(mesh))
+# the batch norm's modules and the quantizers (ROADMAP Queue 1 items 10 and 7)
+from jpdse_tpu_torch.models import layers
+from jpdse_tpu_torch.ops import quantizers
+assert {"Norm", "BatchNorm", "batch_stats", "norm_mode", "norm_context", "replayable", "RUNNING",
+        "BATCH", "UPDATE"} <= set(dir(layers))
+assert "sum_over_world" in dir(distributed)
+assert {"to_jax_mstate", "is_stat"} <= set(dir(importlib.import_module("jpdse_tpu_torch.convert")))
+assert {"rounded_identity", "DifferentiableSign", "S2HVQ", "S2HVQV2", "Binarizer"} <= set(
+    dir(quantizers))
+assert {"jpdse_tpu_torch.models.layers", "jpdse_tpu_torch.ops.quantizers"} <= set(names)
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]

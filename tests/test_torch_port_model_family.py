@@ -10,8 +10,8 @@ its decode, its codes and decode_from_codes (which raises as JAX's does),
 and one GAN step in the default and the ``fused_instance_norm``
 configuration against ``make_train_step``. Tolerances: modules 1e-5
 absolute, the codec's images 2e-4 (``test_torch_port_codec.py``), the step
-``test_torch_port_train_step.py``'s. The batch norm raises ``NotPorted``
-naming item 10."""
+``test_torch_port_train_step.py``'s. The batch norm builds (its parity with
+JAX is ``test_torch_port_batch_norm.py``'s)."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +24,7 @@ from jpdse_tpu.models import layers as jlayers
 from jpdse_tpu.models.codec import SemanticCodec as JaxCodec
 from jpdse_tpu.models.codec import prepare_inputs as jax_prepare_inputs
 from jpdse_tpu.ops.quantizers import Binarizer as JaxBinarizer
-from jpdse_tpu_torch.config import Config, NotPorted, check_ported, flagship_config
+from jpdse_tpu_torch.config import Config, check_ported, flagship_config
 from jpdse_tpu_torch.convert import deconv_groups, from_jax_params, to_jax_params
 from jpdse_tpu_torch.models import layers
 from jpdse_tpu_torch.models.codec import SemanticCodec
@@ -235,11 +235,26 @@ def test_grouped_pooled_codec_train_step_matches_jax(fused, monkeypatch):
 
 
 def test_batch_norm_raises_naming_item_10():
+    """The batch norm, which raised naming item 10 before it was ported,
+    passes the gate and builds: a block holds its norm as Flax names it,
+    D its ``norm{n}``, and the norm mode chooses the statistics (the layer
+    against Flax's is ``test_torch_port_batch_norm.py``'s)."""
     cfg = flagship_config(tiny=True)
     cfg.model.norm = "batch"
-    with pytest.raises(NotPorted, match="ROADMAP Queue 1 item 10"):
-        check_ported(cfg)
-    for make in (lambda: layers.ConvNormAct(3, 4, 3, norm="batch"),
-                 lambda: NLayerDiscriminator(4, 8, 3, norm="batch")):
-        with pytest.raises(NotPorted, match="ROADMAP Queue 1 item 10"):
-            make()
+    check_ported(cfg)
+    block = layers.ConvNormAct(3, 4, 3, norm="batch")
+    disc = NLayerDiscriminator(4, 8, 3, norm="batch")
+    assert {"norm.BatchNorm_0.scale", "norm.BatchNorm_0.bias", "norm.BatchNorm_0.mean",
+            "norm.BatchNorm_0.var"} <= set(block.state_dict())
+    assert {f"norm{n}.BatchNorm_0.var" for n in (1, 2, 3)} <= set(disc.state_dict())
+    x = torch.randn(2, 8, 8, 3)
+    with torch.no_grad():
+        outs = {}
+        for mode in (layers.RUNNING, layers.BATCH, layers.UPDATE):
+            with layers.norm_mode(mode):
+                outs[mode] = block(x)
+    assert torch.equal(outs[layers.BATCH], outs[layers.UPDATE])
+    assert not torch.equal(outs[layers.RUNNING], outs[layers.BATCH])
+    assert not torch.equal(block.norm.BatchNorm_0.mean, torch.zeros(4))  # UPDATE moved it
+    with pytest.raises(ValueError, match="norm mode"):
+        layers.norm_mode("train")

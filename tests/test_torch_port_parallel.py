@@ -64,7 +64,9 @@ B, H, W = 2, 64, 128  # the global batch: one image a rank
 CASES = ("fp32", "float64", "pool_dropout")
 RTOL = 1e-4
 F64_TOL = 1e-9
-NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9]|c7|d1)\..*bias$")
+# (a batch norm's own bias is not one: BatchNorm_0.bias trains)
+NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9]|c7|d1)\."
+                         r"(?!.*BatchNorm_0).*bias$")
 
 
 # -- the recipe ----------------------------------------------------------------------

@@ -19,7 +19,7 @@ from PIL import Image
 
 from jpdse_tpu_torch import test as test_entry
 from jpdse_tpu_torch.cli import parse_config
-from jpdse_tpu_torch.config import NotPorted, derive_eval_config, flagship_config
+from jpdse_tpu_torch.config import derive_eval_config, flagship_config
 from jpdse_tpu_torch.data import create_dataloader
 from jpdse_tpu_torch.ops import instance_norm
 from jpdse_tpu_torch.train import run
@@ -170,7 +170,7 @@ def test_max_host_rss_gb_exits_75_with_latest_and_resumes_exactly(tmp_path, monk
 
 def test_unported_training_options_raise_naming_their_item(tmp_path):
     """The options items 7, 9 and 11 ported train, one step each on the
-    CPU; the batch norm still raises, naming item 10."""
+    CPU, and so does the batch norm (item 10's remainder)."""
     cases = {"optim.fast_train": True, "model.use_dropout": True,
              "profile_dir": str(tmp_path / "trace"), "optim.vgg_bf16": True}
     rng = np.random.default_rng(1)
@@ -188,9 +188,22 @@ def test_unported_training_options_raise_naming_their_item(tmp_path):
         metrics = trainer.step(batch)
         assert all(np.isfinite(v) for v in metrics.values()), field
         assert trainer.steps_taken == 1
+    # the batch norm trains and evaluates now (it raised naming item 10 before);
+    # the fast train decode refuses it with JAX's gate
     cfg = flagship_config(tiny=True)
+    cfg.data.preprocess.preprocess_mode, cfg.data.preprocess.crop_size = "fixed", W
+    cfg.model.compute_dtype, cfg.loss.no_vgg_loss = "float32", True
     cfg.model.norm = "batch"
-    with pytest.raises(NotPorted, match="item 10"):
+    trainer = Trainer(copy.deepcopy(cfg), mode="train", device="cpu")
+    stats = {k: v.clone() for k, v in trainer.gan.disc.state_dict().items()
+             if k.endswith("BatchNorm_0.mean")}
+    assert stats and all(np.isfinite(v) for v in trainer.step(batch).values())
+    now = trainer.gan.disc.state_dict()
+    assert all(not torch.equal(v, now[k]) for k, v in stats.items())
+    assert np.isfinite(trainer.get_eval_loss(batch))
+    assert trainer.get_img(batch).shape == (1, H, W, 3)
+    cfg.optim.fast_train = True
+    with pytest.raises(ValueError, match="only instance norm"):
         Trainer(cfg, mode="train", device="cpu")
     # model.niter_fix_global trains now; on a global netG it is ignored, as in JAX
     cfg = flagship_config(tiny=True)

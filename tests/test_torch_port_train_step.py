@@ -258,10 +258,12 @@ def _flat(tree):
             for k, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-# biases that an InstanceNorm follows: the generator's and encoders' blocks
-# (a LocalEnhancer's c7, d1 and up among them), the discriminator's
-# normalized layers (Flax key paths)
-NORMED_BIAS = re.compile(r"\['(head|down\d+|up\d*|res\d+|layer[1-9]|c7|d1)'\].*\['bias'\]$")
+# biases that a norm follows (an InstanceNorm or a batch norm, which removes a
+# per-channel constant too): the generator's and encoders' blocks (a
+# LocalEnhancer's c7, d1 and up among them), the discriminator's normalized
+# layers (Flax key paths); not a batch norm's own bias
+NORMED_BIAS = re.compile(
+    r"\['(head|down\d+|up\d*|res\d+|layer[1-9]|c7|d1)'\](?!.*BatchNorm_0).*\['bias'\]$")
 
 
 def _named(module, grads):

@@ -11,7 +11,10 @@ reads the generator's weights.
 ``jpdse_tpu_torch/train/checkpoint.py`` reads:
 
 * ``D/params_g.pt``, the codec's state dict;
-* ``D/params_d.pt``, the discriminator's;
+* ``D/params_d.pt``, the discriminator's; under ``model.norm`` 'batch'
+  each carries its batch norms' running statistics, the run's
+  ``mstate_g`` / ``mstate_d`` (``jpdse_tpu/train/checkpoint.py:75-78``), as
+  buffers beside the parameters;
 * ``D/opt.pt``: both Adams (optax's ``mu`` / ``nu`` / ``count`` as
   ``torch.optim.Adam``'s ``exp_avg`` / ``exp_avg_sq`` / ``step``, in the
   port's layout and parameter order, the lr from optax's injected
@@ -97,8 +100,10 @@ def export(checkpoints_dir: str, opt_file: str = None) -> list:
     trainer = Trainer(cfg, mode="train")
     state, _ = restore_checkpoint(checkpoints_dir, trainer.state, restore_opt=True)
     groups = deconv_groups(cfg)
-    paths = [save_params(checkpoints_dir, from_jax_params(state.params_g, groups)),
-             save_params(checkpoints_dir, from_jax_params(state.params_d), PARAMS_D_FILE)]
+    paths = [save_params(checkpoints_dir,
+                         from_jax_params(state.params_g, groups, state.mstate_g)),
+             save_params(checkpoints_dir, from_jax_params(state.params_d, None, state.mstate_d),
+                         PARAMS_D_FILE)]
 
     from jpdse_tpu_torch.models.codec import SemanticCodec
     from jpdse_tpu_torch.models.discriminator import build_discriminator
