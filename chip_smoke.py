@@ -181,7 +181,7 @@ Phases, each printing a line as it ends:
      1024x512 in the kernel configuration, fp32 with TF32 off, sharded
      against one process: the code files bit-equal, the rates equal, the
      reconstruction within 1e-3; between (a) and (b) the ranks also run
-     phase 14 (c);
+     phase 14 (c), and after (b) phase 15;
  14. the batch norm (model.norm 'batch'; no kernel: JAX's is XLA code, and
      K3 stays off at its sites): (a) the norm on the card against the same
      call on the CPU, both in float64, at every norm shape of the phase-2
@@ -205,7 +205,34 @@ Phases, each printing a line as it ends:
      path): its code files equal an in-process Trainer's codes,
      Trainer.compress then decompress within 1e-3 of get_img, and a decode
      on the batch's statistics differs from it;
- 15. summary: the card, a JSON line of per-kernel numbers, the total
+ 15. the spatial axis beyond the standard path, in phase 13's two ranks
+     after its (b) (their one-process references in the parent meanwhile):
+     (a) the flagship's default fast path (the 'auto' switches, whose
+     K1, K2 and K4 are off on a rank's rows) on phase 13's triplet, bf16
+     and fp32 with TF32 off: test.main, then Trainer.get_code, compress,
+     decompress and get_img at spatial 2 against one process: the rates
+     equal; in fp32 the code files equal, the codes equal except where the
+     standard path's pre-sign is within 1e-5 of 0, the streams
+     byte-identical where the codes are, the images within 1e-3; in bf16
+     (where a bit that rounding moves across 0 changes what the random
+     weights decode) within twice what one process's own bf16 rounding
+     sets, its bf16 run against its fp32 run: each differing code bit's
+     pre-sign and the images' relative L2; no K1, K2 or K4 launch in a
+     rank's test.main; (b) the phase-2 recipe
+     through the fast train decode at full width, batch 2, one float64
+     loss_and_grads of each rank's 256 rows against one process's on its
+     code bits, every gradient within 1e-9, no kernel launched; (c) the
+     hires recipe at 2048x1024, batch 1, each rank 512 rows, in the kernel
+     configuration: one fp32 step with the trunk frozen and one unfrozen
+     (TF32 off), K3's partial form 45 / 45 / 9 / 9 and 72 / 72 / 36 / 36 a
+     rank-step, every launch against its plain version (the
+     (1, 512, 2048, 32) fp32 slabs among them), then unfrozen in float64
+     against one process within 1e-9; then test.main of one 2048x1024
+     triplet of the hires recipe through the sharded fast path, fp32: the
+     rates equal (no code: its streams are side info), the reconstruction
+     and the decompressed stream within 1e-3;
+ 16. summary: the card, a JSON line of per-kernel numbers (the partial
+     kernels also timed at (1, 512, 2048, 32) fp32, "hires"), the total
      seconds, and a last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -266,6 +293,8 @@ K3_PARTIAL = ("instance_norm_stats", "instance_norm_apply", "instance_norm_bwd_s
               "instance_norm_bwd_dx")
 # the flagship's largest norm slab halved over H, one rank's rows at spatial 2
 PARTIAL_SHAPE = (1, 256, 1024, 64)
+# ... and the hires recipe's (its enhancer's c7 and up at 2048x1024)
+HIRES_PARTIAL_SHAPE = (1, 512, 2048, 32)
 
 
 def log(msg: str) -> None:
@@ -338,12 +367,17 @@ def device_ms(fn, iters: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total / e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count) / 1e3
+    for _ in range(3):  # the profiler now and then records no kernel: try again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.count) / 1e3
+        if total > 0:
+            return total
+    log("[kernels] the profiler recorded no device time in 3 tries: CUDA events instead")
+    return cuda_ms(fn, iters)
 
 
 def host_ms(fn, iters: int = 50) -> float:
@@ -827,7 +861,7 @@ def phase_k3_partial(card: str, gen) -> list:
 
     worst = dict.fromkeys(K3_PARTIAL, 0.0)
     count = float
-    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES:
+    for shape in NORM_SHAPES + TRAIN_NORM_SHAPES + HIRES_NORM_SHAPES:
         base = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
         g32 = torch.randn(shape, device="cuda", generator=gen)
         res32 = torch.randn(shape, device="cuda", generator=gen)
@@ -886,7 +920,8 @@ def phase_k3_partial(card: str, gen) -> list:
         if not err <= K3_SITE_TOL:
             raise AssertionError(f"{name}: {err:.2e} of its output's max-abs from its plain "
                                  f"version (tolerance {K3_SITE_TOL})")
-    log(f"[kernels] K3 partial form at two ranks' halves of {len(NORM_SHAPES + TRAIN_NORM_SHAPES)} "
+    log(f"[kernels] K3 partial form at two ranks' halves of "
+        f"{len(NORM_SHAPES + TRAIN_NORM_SHAPES + HIRES_NORM_SHAPES)} "
         f"shapes, fp32 and bf16: worst against the plain versions on the same inputs "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {K3_SITE_TOL})")
 
@@ -932,7 +967,60 @@ def phase_k3_partial(card: str, gen) -> list:
     log(f"[kernels] K3 partial form at {PARTIAL_SHAPE} bf16: forward (stats + apply) "
         f"{fwd * 1e3:.1f} us against a bound of {bytes_ms(x, x, x) * 1e3:.1f} us, backward "
         f"(sums + dx) {bwd * 1e3:.1f} us against {bytes_ms(x, g, x, g, x) * 1e3:.1f} us ({card})")
+    for e, hires in zip(entries, phase_k3_partial_hires(card, gen)):
+        e["hires"] = hires
     return entries
+
+
+def phase_k3_partial_hires(card: str, gen) -> list:
+    """The four partial kernels timed at HIRES_PARTIAL_SHAPE in fp32, one
+    rank's rows of the hires recipe's full-resolution slab at spatial 2
+    (its enhancer's c7 and up: ReLU; its res blocks' second norm takes a
+    residual, timed for the apply too): each beside its plain version, its
+    bound and, for the stats, torch.var_mean over (H, W). Returns one dict
+    per kernel, in K3_PARTIAL's order."""
+    from jpdse_tpu_torch.ops import instance_norm as k3
+
+    shape = HIRES_PARTIAL_SHAPE
+    x = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
+    g = torch.randn(shape, device="cuda", generator=gen)
+    res = torch.randn(shape, device="cuda", generator=gen)
+    stats = torch.stack([k3.instance_norm_stats(x)] * 2)
+    _, ms = k3.instance_norm_apply(x, None, stats, True)
+    sums = torch.stack([k3.instance_norm_bwd_sums(x, g, ms, True)] * 2)
+    n = float(2 * shape[1] * shape[2])
+    runs = {
+        "instance_norm_stats": (lambda: k3.instance_norm_stats(x),
+                                lambda: k3.instance_norm_stats_plain(x), bytes_ms(x),
+                                lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
+        "instance_norm_apply": (lambda: k3.instance_norm_apply(x, None, stats, True),
+                                lambda: k3.instance_norm_apply_plain(x, None, stats, True),
+                                bytes_ms(x, x), None),
+        "instance_norm_apply residual": (
+            lambda: k3.instance_norm_apply(x, res, stats, False),
+            lambda: k3.instance_norm_apply_plain(x, res, stats, False), bytes_ms(x, res, x),
+            None),
+        "instance_norm_bwd_sums": (lambda: k3.instance_norm_bwd_sums(x, g, ms, True),
+                                   lambda: k3.instance_norm_bwd_sums_plain(x, g, ms, True),
+                                   bytes_ms(x, g), None),
+        "instance_norm_bwd_dx": (lambda: k3.instance_norm_bwd_dx(x, g, ms, sums, n, True),
+                                 lambda: k3.instance_norm_bwd_dx_plain(x, g, ms, sums, n, True),
+                                 bytes_ms(x, g, x), None),
+    }
+    out = {}
+    for name, (kern, plain, bound, library) in runs.items():
+        k, k_dev, p = cuda_ms(kern), device_ms(kern), cuda_ms(plain)
+        lib = None if library is None else cuda_ms(library)
+        out[name] = {"shape": list(shape), "dtype": "fp32", "ms": k, "device_ms": k_dev,
+                     "plain_ms": p, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
+        log(f"[kernels] {name} {shape} fp32 (the hires recipe's rows at spatial 2): kernel "
+            f"{k:.4f} ms (on the device {k_dev:.4f} ms, {bound / k_dev:.0%} of its bound), plain "
+            f"{p:.4f} ms, bound {bound * 1e3:.1f} us (bytes); "
+            + ("no PyTorch call computes it" if lib is None else
+               f"torch.var_mean over (H, W) {lib:.4f} ms (on the device "
+               f"{device_ms(library):.4f} ms)") + f" ({card})")
+    out["instance_norm_apply"]["residual"] = out.pop("instance_norm_apply residual")
+    return [out[name] for name in K3_PARTIAL]
 
 
 def _note_held(worst: dict, name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> None:
@@ -4280,6 +4368,7 @@ def _phase13_rank(rank: int, port: int, seed: int, work: str) -> None:
     result["eval"] = {"metrics": metrics, "counts": counts}
     if rank == 0:
         np.save(os.path.join(work, "rank0_image.npy"), image)
+    result["phase15"] = _phase15_ranks(rank, seed, work)
     torch.save(result, os.path.join(work, f"rank{rank}.pt"))
     distributed.barrier()
     dist.destroy_process_group()
@@ -4317,6 +4406,7 @@ def phase13(seed: int, card: str) -> tuple:
         cfg.save(str(run / "opt.json"))
         save_params(str(run), SemanticCodec(flagship_config(kernels=True), device="cuda",
                                             seed=seed + 13).state_dict())
+        phase15_setup(Path(work), seed)
         ctx = torch.multiprocessing.get_context("spawn")
         port = free_port()
         procs = [ctx.Process(target=_phase13_rank, args=(r, port, seed, work)) for r in range(2)]
@@ -4325,6 +4415,7 @@ def phase13(seed: int, card: str) -> tuple:
         # meanwhile the same evaluation in one process
         one_metrics, one_counts, one_image = spatial_eval(
             spatial_eval_argv(run, Path(work) / "single", "opt1.json"), "one process")
+        one15 = phase15_one_process(Path(work))
         for p in procs:
             p.join(timeout=900)
         codes = [p.exitcode for p in procs]
@@ -4368,6 +4459,11 @@ def phase13(seed: int, card: str) -> tuple:
                  for k, v in res["train"].items()}
         evals = {f"spatial eval, rank {r}": res["eval"]["counts"] for r, res in enumerate(ranks)}
         evals["spatial eval, one process"] = one_counts
+        rank_evals15 = {k: v for res in ranks for k, v in res["phase15"][0].items()}
+        evals.update(rank_evals15)
+        evals.update(phase15_check(Path(work), one15, rank_evals15, card))
+        for res in ranks:
+            train.update(res["phase15"][1])
     log(f"[spatial] spatial-axis phase {time.perf_counter() - t0:.1f} s with the spawn ({card})")
     return evals, train
 
@@ -4787,6 +4883,345 @@ def phase14(seed: int, steps: int, card: str) -> tuple:
         evals = phase14_eval(seed, card, Path(work))
     log(f"[batch norm] batch-norm phase {time.perf_counter() - t0:.1f} s ({card})")
     return evals, train
+
+
+# -- phase 15: the spatial axis beyond the standard path ----------------------------------
+SPATIAL_F64_TOL = 1e-9  # float64: two ranks against one process
+# a rank-step of the hires recipe in the kernel configuration at spatial 2: K3's
+# partial form at the generator's norm sites, as K3_HIRES_FROZEN counts them
+# (the enhancer's stacks recomputed by their block remat; the backward where
+# autograd reaches: the enhancer's 9 with the trunk frozen, all 36 unfrozen)
+SPATIAL_K3_HIRES = {
+    "frozen": dict(zip(K3_PARTIAL, (27 + 2 * 9, 27 + 2 * 9, 9, 9))),
+    "unfrozen": dict(zip(K3_PARTIAL, (72, 72, 36, 36))),
+}
+FAST_DTYPES = ("bfloat16", "float32")
+KERNELS_OFF_ON_A_SHARD = ("s2d_realign_pad3", "s2d_pad3", "head_conv_s2d")
+
+
+def phase15_setup(work: Path, seed: int) -> None:
+    """The runs phase 15 evaluates: the flagship's default serving
+    configuration (the fast path, 'auto' switches) on phase 13's split in
+    bf16 and fp32, and the hires recipe's serving configuration (fp32) on
+    one 2048x1024 triplet read at 2048x1024, each with an opt file for one
+    process and one for spatial_axis 2, random weights from the seed."""
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    for name, root, hires in (("fast", work / "eval" / "cityscapes", False),
+                              ("hires", work / "hires" / "cityscapes", True)):
+        run = work / name
+        run.mkdir(parents=True, exist_ok=True)
+        if hires:
+            write_cityscapes(root, seed + 15, n=SPATIAL_EVAL_IMAGES)
+        for dtype in (("float32",) if hires else FAST_DTYPES):
+            cfg = hires_configs()[0] if hires else flagship_config()
+            cfg.model.compute_dtype, cfg.model.fast_inference = dtype, True
+            mode, load, crop, aspect = HIRES_PREPROCESS if hires else FLAGSHIP_PREPROCESS
+            for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
+                pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
+                pp.aspect_ratio = aspect
+            cfg.data.dataset, cfg.data.root_dir = "cityscapes", str(root)
+            cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+            cfg.data.num_workers, cfg.optim.seed = 1, seed
+            for size in (2, 1):
+                cfg.parallel.spatial_axis = size
+                cfg.save(str(run / f"opt_{dtype}_{size}.json"))
+        save_params(str(run), SemanticCodec(cfg, device="cuda", seed=seed + 15,
+                                            dtype=torch.float32).state_dict())
+
+
+def spatial_fast_eval(run: Path, opt: str, out: Path, presign: bool = False) -> tuple:
+    """test.main of the split through the fast path, every kernel count set
+    to 0 just before it and read just after, then a test-mode Trainer on the
+    same weights: the first batch's codes (``get_code``), its ``.jpds``
+    streams (``compress``), the first stream decompressed, the
+    reconstruction (``get_img``) and, with ``presign``, the standard path's
+    pre-signs of the codes. fp32 with TF32 off. Returns (results, counts)."""
+    from jpdse_tpu_torch import test
+    from jpdse_tpu_torch.cli import parse_config
+    from jpdse_tpu_torch.config import derive_eval_config
+    from jpdse_tpu_torch.data import create_dataloader
+    from jpdse_tpu_torch.trainer import Trainer
+
+    argv = spatial_eval_argv(run, out, opt)
+    fp32 = "float32" in opt
+    with tf32_off() if fp32 else contextlib.nullcontext():
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            metrics = test.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text2:
+            cfg = derive_eval_config(parse_config(argv, is_train=False), mode="val")
+            trainer = Trainer(cfg, mode="test", device="cuda")
+            trainer.load()
+            batch = next(iter(create_dataloader(cfg)))
+            res = {"metrics": metrics, "text": text.getvalue() + text2.getvalue(),
+                   "recon": trainer.get_img(batch).cpu().numpy()}
+            if cfg.has_binary_codes:
+                res["codes"] = trainer.get_code(batch)
+            res["streams"] = trainer.compress(batch)
+            res["decompressed"] = trainer.decompress(res["streams"][0])
+            if presign and cfg.has_binary_codes:
+                codec = trainer._std.codec
+                with torch.no_grad():
+                    pre = codec.get_presign(codec.prepare(trainer.place(batch)))
+                res["presign"] = torch.cat([p.float().reshape(p.shape[0], -1) for p in pre],
+                                           1).cpu().numpy()
+    codes_dir = out / "codes"
+    res["code_files"] = ({p.name: p.read_bytes() for p in sorted(codes_dir.iterdir())}
+                         if codes_dir.exists() else {})
+    return res, counts
+
+
+def _phase15_fast_train(rank: int, seed: int) -> float:
+    """(b) The phase-2 recipe through the fast train decode at full width,
+    batch 2: one float64 loss_and_grads of each rank's 256 rows of both
+    images against one process's on the whole batch (rank 0), on that
+    run's code bits. Returns the worst relative L2 (rank 0)."""
+    from jpdse_tpu_torch.parallel import distributed
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfgs = [flagship_train_config(False, seed) for _ in range(2)]
+    for cfg, size in zip(cfgs, (2, 1)):
+        cfg.optim.fast_train, cfg.parallel.spatial_axis = True, size
+    dp = Trainer(cfgs[0], mode="train", device="cuda:0")
+    if dp.gan.fast_decode is None or dp.mesh is None or dp.mesh.spatial != 2:
+        raise AssertionError(f"(b) rank {rank}: no fast train decode on a spatial mesh")
+    batch = train_batch(dp.cfg, seed + 15)
+    with torch.no_grad():  # the pre-signs' shapes, then rank 0's values
+        ref = [r.double() for r in dp.gan.codec.get_presign(dp.gan.codec.prepare(
+            dp.place(batch)))]
+    worst = 0.0
+    # every rank builds the twin: a Trainer under a process group broadcasts its weights
+    twin = Trainer(cfgs[1], mode="train", device="cuda:0")
+    twin.mesh = twin.gan.mesh = None
+    if rank == 0:
+        want, ref = f64_step(twin, batch, seed)
+    del twin
+    torch.cuda.empty_cache()
+    distributed.broadcast_(ref)
+    reset_counts()
+    got, _ = f64_step(dp, batch, seed, [r[:, dp.mesh.h_rows(r.shape[1])] for r in ref])
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"(b) rank {rank}: the fast train step launched {counts}")
+    if rank == 0:
+        worst = _hold_f64("(b) fast train", dp.gan, got, want)
+        log(f"[spatial paths] (b) phase-2 recipe through the fast train decode, full width, "
+            f"batch 2, float64, two gloo ranks (256 rows each) against one process on its code "
+            f"bits: every gradient within {worst:.2e} (tolerance {SPATIAL_F64_TOL}); no kernel "
+            f"launched; {time.perf_counter() - t0:.1f} s in the ranks")
+    del dp, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _hold_f64(tag: str, gan, got: tuple, want: tuple) -> float:
+    """G's and D's float64 gradients against one process's: each within
+    SPATIAL_F64_TOL in relative L2 (a bias a norm follows, absolute).
+    Returns the worst."""
+    worst = 0.0
+    names = [[n for n, _ in m.named_parameters()] for m in (gan.codec, gan.disc)]
+    for net, a_s, b_s in zip(names, got, want):
+        for n, a, b in zip(net, a_s, b_s):
+            err = (a - b).abs().max().item() if NORMED_BIAS.search(n) else _rel(a, b)
+            worst = max(worst, err)
+            if not err <= SPATIAL_F64_TOL:
+                raise AssertionError(f"{tag}: {n}'s gradient {err:.2e} from one process's")
+    return worst
+
+
+def _phase15_hires(rank: int, seed: int) -> dict:
+    """(c) The hires recipe's LocalEnhancer at 2048x1024, batch 1, each rank
+    512 rows, in the kernel configuration: one fp32 loss_and_grads with the
+    trunk frozen and one unfrozen (TF32 off), K3's partial form counted a
+    rank-step and every launch held against its plain version
+    (K3PartialCheck); then unfrozen in float64 (K3 has no float64 form: its
+    sites run the plain InstanceNorm) against one process (rank 0) within
+    1e-9. Returns the counts."""
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = flagship_train_config(True, seed, "hiresA")
+    cfg.parallel.spatial_axis = 2
+    dp = Trainer(cfg, mode="train", device="cuda:0")
+    batch = train_batch(dp.cfg, seed + 16)
+    trunk = dp.gan.codec.netG.global_trunk
+    out = {}
+    for state in ("frozen", "unfrozen"):
+        trunk.requires_grad_(state == "unfrozen")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        check = K3PartialCheck()
+        t1 = time.perf_counter()
+        with tf32_off(), check:
+            (metrics, _), counts = counted_step(dp.gan, dp.place(batch), gen)
+        if {n: counts[n] for n in K3_PARTIAL} != SPATIAL_K3_HIRES[state] or \
+                counts["fused_instance_norm"] or counts["fused_instance_norm_bwd"]:
+            raise AssertionError(f"(c) rank {rank}, trunk {state}: launches {counts}")
+        if not all(np.isfinite(v.item()) for v in metrics.values()):
+            raise AssertionError(f"(c) rank {rank}, trunk {state}: metrics {metrics}")
+        out[f"spatial paths: hires, spatial 2, trunk {state}, rank {rank}"] = counts
+        log(f"[spatial paths] (c) rank {rank}, hires recipe, kernel configuration, trunk "
+            f"{state}, fp32 (TF32 off): loss_and_grads of its 512 rows "
+            f"{time.perf_counter() - t1:.2f} s; K3 partial a rank-step "
+            f"{ {n: counts[n] for n in K3_PARTIAL} }; {check.summary()}")
+    torch.cuda.empty_cache()
+    want = None
+    # every rank builds the twin: a Trainer under a process group broadcasts its weights
+    twin = Trainer(flagship_train_config(True, seed, "hiresA"), mode="train", device="cuda:0")
+    twin.mesh = twin.gan.mesh = None
+    if rank == 0:
+        twin.gan.codec.netG.global_trunk.requires_grad_(True)
+        torch.cuda.reset_peak_memory_stats()
+        want, _ = f64_step(twin, batch, seed)
+        peak_one = torch.cuda.max_memory_allocated() / 2**30
+    del twin
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got, _ = f64_step(dp, batch, seed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        worst = _hold_f64("(c) hires", dp.gan, got, want)
+        log(f"[spatial paths] (c) hires recipe, trunk unfrozen, float64, two gloo ranks (512 "
+            f"rows each) against one process: every gradient within {worst:.2e} (tolerance "
+            f"{SPATIAL_F64_TOL}); peak memory one process {peak_one:.2f} GiB, a rank "
+            f"{peak:.2f} GiB (allocated by this process, the other rank's beside it); "
+            f"{time.perf_counter() - t0:.1f} s in the ranks")
+    del dp, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase15_ranks(rank: int, seed: int, work: str) -> dict:
+    """Phase 15 in phase 13's two ranks: (a) the flagship's default fast
+    path at spatial 2 in bf16 and fp32 (spatial_fast_eval, its results
+    saved for the parent); (b) _phase15_fast_train; (c) _phase15_hires,
+    then the hires recipe's test.main through the sharded fast path. Returns
+    (eval counts, train counts)."""
+    from jpdse_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    evals, train = {}, {}
+    for dtype in FAST_DTYPES:
+        res, counts = spatial_fast_eval(Path(work) / "fast", f"opt_{dtype}_2.json",
+                                        Path(work) / f"fast_{dtype}_rank{rank}")
+        evals[f"spatial paths: flagship fast path {dtype}, spatial 2, rank {rank}"] = counts
+        torch.save(res, os.path.join(work, f"fast_{dtype}_rank{rank}.pt"))
+    distributed.barrier()
+    _phase15_fast_train(rank, seed)
+    train.update(_phase15_hires(rank, seed))
+    res, counts = spatial_fast_eval(Path(work) / "hires", "opt_float32_2.json",
+                                    Path(work) / f"hires_rank{rank}")
+    evals[f"spatial paths: hires fast path float32, spatial 2, rank {rank}"] = counts
+    torch.save(res, os.path.join(work, f"hires_rank{rank}.pt"))
+    log(f"[spatial paths] rank {rank}: phase 15 in the ranks {time.perf_counter() - t0:.1f} s")
+    return evals, train
+
+
+def phase15_one_process(work: Path) -> dict:
+    """The one-process references of phase 15 (a) and (c)'s test.main, run
+    in the parent while the ranks train. Returns {tag: (results, counts)}."""
+    out = {}
+    for dtype in FAST_DTYPES:
+        out[f"fast {dtype}"] = spatial_fast_eval(work / "fast", f"opt_{dtype}_1.json",
+                                                 work / f"fast_{dtype}_one",
+                                                 presign=dtype == "float32")
+    out["hires float32"] = spatial_fast_eval(work / "hires", "opt_float32_1.json",
+                                             work / "hires_one")
+    return out
+
+
+def _code_flips(got: np.ndarray, want: np.ndarray, presign: np.ndarray) -> tuple:
+    """(code bits that differ, the largest |pre-sign| among them)."""
+    flipped = got != want
+    return int(flipped.sum()), float(np.abs(presign[flipped]).max()) if flipped.any() else 0.0
+
+
+def _rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase15_check(work: Path, one: dict, rank_evals: dict, card: str) -> dict:
+    """Phase 15's sharded runs against one process's. fp32 ((a)'s flagship
+    and (c)'s hires recipe): the rates and test.main's code files equal,
+    the codes equal except where the pre-sign (the standard path's, fp32)
+    is within 1e-5 of 0, the streams byte-identical where the codes are,
+    the reconstruction and the decompressed stream within FP32_ATOL. bf16
+    ((a)): a bit that bf16 rounding moves across 0 changes what the random
+    weights decode, so the run is held against one process's bf16 run
+    under the bound that one process's own bf16 rounding sets, its
+    distance from its fp32 run (the control): every differing code bit at
+    a pre-sign within twice the control's largest, the images within
+    twice the control's relative L2, the raw rate equal, the streams
+    byte-identical where the codes are. K1, K2 and K4 launch nowhere in
+    the ranks' test.main (``rank_evals``: its counts). Returns the
+    one-process eval counts."""
+    off = {tag: {k: v for k, v in c.items() if k in KERNELS_OFF_ON_A_SHARD and v}
+           for tag, c in rank_evals.items()}
+    if any(off.values()):
+        raise AssertionError(f"K1, K2 or K4 launched on a shard: {off}")
+    images = ("recon", "decompressed")
+    ref32 = one["fast float32"][0]
+    control_bf16 = one["fast bfloat16"][0]
+    ctrl_flips, ctrl_top = _code_flips(control_bf16["codes"], ref32["codes"], ref32["presign"])
+    ctrl_rel = {k: _rel_l2(control_bf16[k], ref32[k]) for k in images}
+    counts = {}
+    for tag in [f"fast {d}" for d in FAST_DTYPES] + ["hires float32"]:
+        want, c_one = one[tag]
+        counts[f"spatial paths: {tag}, one process"] = c_one
+        stem = tag.replace(" ", "_") if tag.startswith("fast") else "hires"
+        fp32 = tag.endswith("float32")
+        lines = []
+        for r in range(2):
+            got = torch.load(work / f"{stem}_rank{r}.pt", weights_only=False)
+            if "fast inference path enabled" not in got["text"] or "using the standard path" \
+                    in got["text"]:
+                raise AssertionError(f"{tag}, rank {r}: the fast path was not taken")
+            m, w = got["metrics"], want["metrics"]
+            # the coded rate follows the code bits
+            rates = [k for k in ("actual_bpp", "sem_side_bpp", "base_codec_bpp", "n_images")
+                     + (("coded_bpp", "total_bpp") if fp32 else ()) if m.get(k) is not None]
+            if any(m[k] != w[k] for k in rates):
+                raise AssertionError(f"{tag}, rank {r}: rates {m} against {w}")
+            if fp32 and r == 0 and got["code_files"] != want["code_files"]:
+                raise AssertionError(f"{tag}: the sharded code files differ from one process's")
+            flips, top = 0, 0.0
+            if "codes" in want:
+                flips, top = _code_flips(got["codes"], want["codes"], ref32["presign"])
+            if not top <= (1e-5 if fp32 else 2 * ctrl_top):
+                raise AssertionError(f"{tag}, rank {r}: a code bit differs at |pre-sign| "
+                                     f"{top:.2e}")
+            if flips == 0 and got["streams"] != want["streams"]:
+                raise AssertionError(f"{tag}, rank {r}: equal codes, different streams")
+            err = {k: float(np.abs(got[k] - want[k]).max()) for k in images}
+            rel = {k: _rel_l2(got[k], want[k]) for k in images}
+            if fp32 and not max(err.values()) <= FP32_ATOL:
+                raise AssertionError(f"{tag}, rank {r}: images {err} from one process's")
+            if not fp32 and not all(rel[k] <= 2 * ctrl_rel[k] for k in images):
+                raise AssertionError(f"{tag}, rank {r}: images {rel} (relative L2) from one "
+                                     f"process's, its bf16 run {ctrl_rel} from its fp32 run")
+            same = "byte-identical" if got["streams"] == want["streams"] else "differ"
+            lines.append(f"rank {r}: coded {m.get('coded_bpp')} bpp, {flips} code bits differ "
+                         f"(largest |pre-sign| {top:.2e}), streams {same}, reconstruction and "
+                         f"decompressed stream {err['recon']:.2e} and {err['decompressed']:.2e} "
+                         f"from one process's (relative L2 {rel['recon']:.2e}, "
+                         f"{rel['decompressed']:.2e})")
+        if not fp32:
+            lines.append(f"the control, one process's bf16 run against its fp32 run: "
+                         f"{ctrl_flips} code bits differ (largest |pre-sign| {ctrl_top:.2e}), "
+                         f"images {ctrl_rel['recon']:.2e} and {ctrl_rel['decompressed']:.2e} "
+                         f"apart (relative L2)")
+        log(f"[spatial paths] {'(a)' if tag.startswith('fast') else '(c)'} test.main, "
+            f"Trainer.get_code, compress, decompress and get_img through the fast path, {tag}, "
+            f"spatial 2 against one process: coded {want['metrics'].get('coded_bpp')} bpp, "
+            f"total {want['metrics'].get('total_bpp')} bpp; " + "; ".join(lines)
+            + f"; launches one process { {k: v for k, v in c_one.items() if v} }, a rank none "
+            f"({card})")
+    return counts
 
 
 def main() -> int:

@@ -614,43 +614,44 @@ def check_ported(cfg: Config) -> None:
         raise NotImplementedError(f"norm [{m.norm}] not found")
     if m.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
-    check_parallel(cfg)
 
 
 SPATIAL_NOT_PORTED = ("under parallel.spatial_axis > 1 (H-sharded activations) is ROADMAP "
-                      "Queue 1 item 13 (the spatial axis beyond the standard path)")
+                      "Queue 1 item 13 (the spatial axis's uneven heights)")
 
 
-def check_parallel(cfg: Config) -> None:
-    """Raise :class:`NotPorted` for what the spatial axis does not run yet:
-    the fast path (``fast_inference``; the evaluation entry points take
-    the standard path instead, ``Trainer``), ``optim.fast_train`` and the
-    LocalEnhancer. The data and spatial axes run over a process group
-    (``parallel/mesh.py::mesh_from_config``, which raises for a request the
-    group cannot meet)."""
-    if cfg.parallel.spatial_axis <= 1:
-        return
-    if cfg.model.netG == "local":
-        raise NotPorted(f"the LocalEnhancer (netG local) {SPATIAL_NOT_PORTED}")
-    if cfg.optim.fast_train:
-        raise NotPorted(f"optim.fast_train {SPATIAL_NOT_PORTED}")
+def check_fast_shard(fp: FastPathConfig, size: int) -> None:
+    """The fast path on a rank's rows of a spatial group of ``size`` runs
+    the compositions JAX's ``_FastTrunk(..., sharded=True)`` picks
+    (``fast_trunk.py:113-120``, ``:245-253``, ``:353-370``): a switch of
+    ``fp`` that forces kernel K1, K2 or K4 (``head_pallas`` '1' or 'force',
+    ``fused_realign`` or ``front_realign`` 'pallas') raises ``ValueError``
+    there, as the kernels take a whole tensor (JAX calls a forced K1 under
+    a mesh unsupported)."""
+    forced = [f"head_pallas={fp.head_pallas!r}"] if fp.head_pallas != "0" else []
+    forced += [f"{name}='pallas'" for name in ("fused_realign", "front_realign")
+               if getattr(fp, name) == "pallas"]
+    if size > 1 and forced:
+        raise ValueError(f"the fast path's kernels K1, K2 and K4 take a whole tensor, not a "
+                         f"rank's rows under parallel.spatial_axis {size}: {', '.join(forced)} "
+                         f"forces one; leave the switches at their defaults, whose "
+                         f"compositions run there")
 
 
 def check_fast_parallel(cfg: Config) -> None:
-    """The fast path (``FastCodec``, the s2d trunks) under the spatial axis
-    raises :class:`NotPorted`."""
-    if cfg.parallel.spatial_axis > 1:
-        raise NotPorted(f"the fast path (fast_inference, FastCodec) {SPATIAL_NOT_PORTED}")
+    """:func:`check_fast_shard` of the configuration's resolved switches."""
+    check_fast_shard(cfg.model.fast.resolved(), cfg.parallel.spatial_axis)
 
 
 def spatial_row_multiple(cfg: Config) -> int:
     """What an image's H must be a multiple of, over S, for every layer of
-    the sharded standard path to split evenly: 2 to the deepest stride-2
-    stack (netG's, the encoders', VGG's four pools where the VGG loss is
-    on), times ``codec.sem_downsample``. The discriminator's layers take
-    any height."""
+    the sharded paths to split evenly: 2 to the deepest stride-2 stack
+    (netG's, the encoders', VGG's four pools where the VGG loss is on),
+    times ``codec.sem_downsample``. A LocalEnhancer's global trunk runs on
+    the input pooled ``n_local_enhancers`` times, so its stack counts them
+    too. The discriminator's layers take any height."""
     m = cfg.model
-    downs = [m.n_downsample_global]
+    downs = [m.n_downsample_global + (m.n_local_enhancers if m.netG == "local" else 0)]
     if cfg.use_netE:
         downs.append(m.n_downsample_E)
     if cfg.use_netE4label:
@@ -677,8 +678,9 @@ def check_train_ported(cfg: Config) -> None:
     failed gate for an ineligible model, ``models/fast_train.py``),
     ``model.use_dropout``, ``optim.vgg_bf16``, ``profile_dir``, the
     device cache and the data and spatial axes over a process group
-    (``parallel/mesh.py``), the spatial axis on the standard path
-    (:func:`check_parallel`)."""
+    (``parallel/mesh.py``), fast train and the LocalEnhancer on the spatial
+    axis too; an H that the sharded layers cannot split evenly raises
+    where a batch is sharded (:func:`check_spatial_rows`)."""
     check_ported(cfg)
     granularity = cfg.optim.remat_granularity
     if granularity not in ("block", "decode"):

@@ -11,7 +11,13 @@ applied) are resolved once, at construction, and passed to every trunk.
 the instance norm are refused, as the JAX package refuses them; the
 standard path serves them. The ablations (``zero_*``, ``use_netE_output``) are applied
 as ``SemanticCodec`` applies them. ``fast.s2d_e2e`` is carried as data: the
-trunk inputs are assembled in the fine domain either way."""
+trunk inputs are assembled in the fine domain either way.
+
+Under the spatial axis (``parallel/spatial.py``'s ``sharding``) the three
+methods take this rank's rows of the batch (of the codes, for
+``decode_from_codes``) and return this rank's rows, as JAX's
+``FastCodec(..., sharded=True)`` under a mesh; the trunks then run their
+sharded stages (``models/fast_trunk.py``)."""
 
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from jpdse_tpu_torch.config import Config, check_fast_parallel, check_ported
+from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.codec import _concat, assemble, compute_dtype, prepare_inputs
 from jpdse_tpu_torch.models.fast_trunk import _FastLocalG, _FastTrunk, _sub
 from jpdse_tpu_torch.platform import resolve_device
@@ -35,7 +41,6 @@ class FastCodec:
     def __init__(self, cfg: Config, state: Dict[str, torch.Tensor], device="cuda", dtype=None):
         cfg.validate()
         check_ported(cfg)
-        check_fast_parallel(cfg)
         m = cfg.model
         if m.sem_masking or m.netE_groups != 1 or m.inst_wise_pool or m.norm != "instance":
             raise ValueError("FastCodec runs ungrouped instance-norm configurations without "

@@ -10,6 +10,17 @@ the direct s2d conv (the JAX package's ``fast.tail_split=False`` form: its
 tap split exists to fill the TPU's 128 output lanes). The back stage
 re-aligns the s2d grid, by default with kernel K1 (ops/realign.py).
 
+Under the spatial axis (``parallel/spatial.py``'s ``sharding``) each
+stage computes this rank's rows, as JAX's ``_FastTrunk(..., sharded=True)``
+under a mesh: the s2d convolutions on rows that carry their halos
+(``spatial.halo_rows``: the fine rows the head reads, reflected at the
+global edges only; one zero row above down 0 and below the last upsample;
+the re-alignment's fine rows, reflected likewise), the normal-domain
+convolutions, transposed convolutions and norms through their sharded
+forms, the s2d InstanceNorm over the group's sums. Kernels K1, K2 and K4,
+which take a whole tensor, are off there: 'auto' takes the compositions
+and a switch that forces one raises (``config.check_fast_shard``).
+
 The kernel switches of ``config.FastPathConfig`` pick the front:
 ``head_pallas`` runs a wide head (s2d input of >= 64 channels, or every
 head with 'force') as kernel K4 (ops/head_conv.py) fed by K1 with extra
@@ -36,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from jpdse_tpu_torch.config import FastPathConfig
+from jpdse_tpu_torch.config import FastPathConfig, check_fast_shard
 from jpdse_tpu_torch.models.layers import (
     avg_pool_3s2,
     conv_transpose_nhwc,
@@ -61,6 +72,7 @@ from jpdse_tpu_torch.ops.s2d import (
     space_to_depth,
     weights_fold_w,
 )
+from jpdse_tpu_torch.parallel import spatial
 
 
 def _pad_hw(h: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
@@ -174,10 +186,24 @@ class _FastTrunk:
         return w
 
     # -- stages -----------------------------------------------------------
+    def _shard(self) -> Optional[spatial.SpatialShard]:
+        """The active spatial shard, or None on one process; raises for a
+        switch that forces K1, K2 or K4 on a rank's rows."""
+        shard = spatial.current()
+        if shard is not None:
+            check_fast_shard(self.fp, shard.size)
+        return shard
+
     def front(self, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """Fine input -> normal-domain tensor after down0 (H/2, W/2, C1)."""
         x = x.to(self.dtype)
-        if self.head_fold == "pallas":
+        shard = self._shard()
+        if shard is not None:
+            # the fine rows [2 lo - 3, 2 hi + 3) of the s2d rows [lo, hi) the head gives
+            xp = space_to_depth(spatial.pad_w(spatial.halo_rows(x, 3, 3, "reflect"), 3,
+                                              "reflect"))
+            h = conv_valid(xp, w["head_w"], w["head_b"])
+        elif self.head_fold == "pallas":
             h = self._front_head_pallas(w, x)
         else:
             if self.fp.front_realign in ("auto", "pallas"):
@@ -186,7 +212,11 @@ class _FastTrunk:
                 xp = space_to_depth(reflect_pad(x, 3))
             h = conv_valid(xp, w["head_w"], w["head_b"])
         h = torch.relu(instance_norm_s2d(h, use_shift=self.fp.norm_shift))
-        h = conv_valid(_pad_hw(h, 1, 0, 1, 0), w["down0_w"], w["down0_b"])
+        if shard is not None:
+            h = spatial.halo_rows(h, 1, 0)  # the zero row above global row 0
+            h = conv_valid(_pad_hw(h, 0, 0, 1, 0), w["down0_w"], w["down0_b"])
+        else:
+            h = conv_valid(_pad_hw(h, 1, 0, 1, 0), w["down0_w"], w["down0_b"])
         return torch.relu(instance_norm(h))
 
     def _front_head_pallas(self, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -202,18 +232,29 @@ class _FastTrunk:
         return head_conv_s2d(xp, w["head_w"], kp, ho=ho) + w["head_b"]
 
     def mid_down(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+        shard = self._shard()
         for i in range(1, self.n_down):
-            h = conv_valid(_pad_hw(h, 1, 1, 1, 1), w[f"down{i}_w"], w[f"down{i}_b"], stride=2)
+            if shard is not None:
+                h = spatial.conv2d(h, w[f"down{i}_w"].to(h.dtype), w[f"down{i}_b"].to(h.dtype),
+                                   2, 1, "zero")
+            else:
+                h = conv_valid(_pad_hw(h, 1, 1, 1, 1), w[f"down{i}_w"], w[f"down{i}_b"],
+                               stride=2)
             h = torch.relu(instance_norm(h))
         return h
 
     def apply_binarizer(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         return torch.sign(torch.tanh(conv_valid(h, w["bin_w"])))
 
+    def _conv3_reflect(self, h: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
+        if self._shard() is not None:
+            return spatial.conv2d(h, wk.to(h.dtype), bk.to(h.dtype), 1, 1, "reflect")
+        return conv_valid(reflect_pad(h, 1), wk, bk)
+
     def res_block(self, w: Dict[str, torch.Tensor], h: torch.Tensor, i: int) -> torch.Tensor:
-        r = conv_valid(reflect_pad(h, 1), w[f"res{i}_w1"], w[f"res{i}_b1"])
+        r = self._conv3_reflect(h, w[f"res{i}_w1"], w[f"res{i}_b1"])
         r = torch.relu(instance_norm(r))
-        r = conv_valid(reflect_pad(r, 1), w[f"res{i}_w2"], w[f"res{i}_b2"])
+        r = self._conv3_reflect(r, w[f"res{i}_w2"], w[f"res{i}_b2"])
         return h + instance_norm(r)
 
     def res_blocks(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
@@ -233,14 +274,24 @@ class _FastTrunk:
         as the JAX package's ``_FastTrunk._realign`` picks (:341-375):
         'auto' / 'pallas' kernel K1, else the composition (JAX's '1' /
         'xla' slice form computes the same tensor bit for bit, so the port
-        runs the composition for it too)."""
+        runs the composition for it too). Under the spatial axis the
+        composition on this rank's fine rows and their reflected halos:
+        the s2d rows [lo, hi + 3) of the padded tensor."""
+        if self._shard() is not None:
+            fine = spatial.halo_rows(depth_to_space(y), 3, 3, "reflect",
+                                     hg=2 * spatial.global_h(y))
+            return space_to_depth(spatial.pad_w(fine, 3, "reflect"))
         if self.fp.fused_realign in ("auto", "pallas"):
             return s2d_realign_pad3(y.contiguous(), extra_rows, channels)
         return s2d_realign_pad3_plain(y, extra_rows, channels)
 
     def back(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         """Normal-domain (H/2, W/2, C) -> fine output with tanh."""
-        y = conv_valid(_pad_hw(h, 0, 1, 0, 1), w["uplast_w"], w["uplast_b"])
+        if self._shard() is not None:
+            h = spatial.halo_rows(h, 0, 1)  # the zero row below the global bottom
+            y = conv_valid(_pad_hw(h, 0, 0, 0, 1), w["uplast_w"], w["uplast_b"])
+        else:
+            y = conv_valid(_pad_hw(h, 0, 1, 0, 1), w["uplast_w"], w["uplast_b"])
         y = torch.relu(instance_norm_s2d(y, use_shift=self.fp.norm_shift))
         yp = self._realign(y)
         return depth_to_space(torch.tanh(conv_valid(yp, w["tail_w"], w["tail_b"])))

@@ -22,7 +22,6 @@ from jpdse_tpu_torch.models.layers import (
     avg_pool_3s2,
     instance_wise_avg_pool,
     padded_conv,
-    reflect_pad,
     remat_call,
 )
 from jpdse_tpu_torch.ops.quantizers import Binarizer
@@ -148,7 +147,7 @@ class LocalUpsample(nn.Module):
             x = blk(x)
         x = self.up(x)
         if self.tail is not None:
-            x = torch.tanh(self.tail(reflect_pad(x, 3)))
+            x = torch.tanh(padded_conv(self.tail, x, 3))
         return x
 
 

@@ -60,16 +60,23 @@ def _one(v) -> int:
     return v[0] if isinstance(v, (tuple, list)) else v
 
 
+def conv_rows(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
+    """F.conv2d on an NHWC tensor with an OIHW weight, on the rows it is
+    given (no halo exchange, also under the spatial axis); returns NHWC."""
+    b = None if b is None else b.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, stride, padding, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
 def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
     """F.conv2d on an NHWC tensor with an OIHW weight; returns NHWC. Under
     the spatial axis, this rank's output rows (a 1x1 conv needs no other
     rank's)."""
-    b = None if b is None else b.to(x.dtype)
     if spatial.current() is not None and not (w.shape[2] == 1 and _one(stride) == 1
                                               and _one(padding) == 0):
-        return spatial.conv2d(x, w.to(x.dtype), b, _one(stride), _one(padding), "zero", groups)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, stride, padding, groups=groups)
-    return y.permute(0, 2, 3, 1)
+        return spatial.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                              _one(stride), _one(padding), "zero", groups)
+    return conv_rows(x, w, b, stride, padding, groups)
 
 
 def conv_transpose_nhwc(x, w, b=None, groups: int = 1):

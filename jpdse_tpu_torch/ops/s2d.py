@@ -19,7 +19,8 @@ import os
 import numpy as np
 import torch
 
-from jpdse_tpu_torch.models.layers import conv_nhwc
+from jpdse_tpu_torch.models.layers import conv_rows
+from jpdse_tpu_torch.parallel import spatial
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -182,17 +183,30 @@ def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, use_shift=None) -> tor
     ``JPDSE_NORM_SHIFT``): subtract each fine channel's value at the first
     position before the moments. The variance is unchanged in exact
     arithmetic, and the one-pass form loses fewer fp32 bits where
-    |mean|/std is large."""
+    |mean|/std is large.
+
+    Under the spatial axis ``x`` is this rank's rows: the one-pass sums are
+    summed over the group, the count is the whole tensor's, and the shift is
+    the value at the global first position, which the rank owning global
+    row 0 hands to the others (the same one-pass formula as one process,
+    its sums in another order)."""
     b, h, w, c4 = x.shape
     c = c4 // 4
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-    n = h * w * 4
+    shard = spatial.current()
+    n = (h if shard is None else spatial.global_h(x, shard)) * w * 4
     if use_shift is None:
         use_shift = os.environ.get("JPDSE_NORM_SHIFT", "0") == "1"
     shift = x32[:, :1, :1, :c] if use_shift else None  # (b, 1, 1, c)
+    if use_shift and shard is not None:
+        # a zero kept in the graph on the other ranks, so every rank's backward all-reduces
+        first = shard.owned(spatial.global_h(x, shard))[0] == 0
+        shift = spatial.sum_over(shift * (1.0 if first else 0.0), shard)
     d = x32 - shift.repeat(1, 1, 1, 4) if use_shift else x32
     s1 = d.sum(dim=(1, 2)).view(b, 4, c).sum(dim=1)
     s2 = (d * d).sum(dim=(1, 2)).view(b, 4, c).sum(dim=1)
+    if shard is not None:
+        s1, s2 = spatial.sum_over(torch.stack([s1, s2]), shard).unbind(0)
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
     if use_shift:
@@ -202,5 +216,7 @@ def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, use_shift=None) -> tor
     return ((x32 - mean4) * rstd4).to(x.dtype)
 
 
-# VALID conv of an NHWC tensor with an OIHW weight, bias fused
-conv_valid = conv_nhwc
+# VALID conv of an NHWC tensor with an OIHW weight, bias fused, on the rows
+# given: under the spatial axis the s2d stages fetch their halos themselves
+# (models/fast_trunk.py)
+conv_valid = conv_rows

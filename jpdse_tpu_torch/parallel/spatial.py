@@ -27,8 +27,10 @@ gradients backward.
 
 A tensor's global height is its local height times ``S`` unless it
 carries another (:func:`mark`): the generator's and encoders' activations
-split evenly, the discriminator's are marked. Nothing here is active
-outside :func:`sharding`, so the single-process path runs as it did.
+split evenly, the discriminator's are marked. The fast path's s2d stages
+take their halos by :func:`halo_rows` and convolve the rows they are
+given. Nothing here is active outside :func:`sharding`, so the
+single-process path runs as it did.
 """
 
 from __future__ import annotations
@@ -363,6 +365,20 @@ def window_rows(x: torch.Tensor, hg: int, k: int, stride: int, pad: int, mode: s
 
     rows = take_rows(x, hg, want, mode, shard)
     return _at_least(rows, k), hout, b[shard.index + 1] - b[shard.index]
+
+
+def halo_rows(x: torch.Tensor, before: int, after: int, mode: str = "zero",
+              hg: Optional[int] = None) -> torch.Tensor:
+    """This rank's rows [lo - before, hi + after) of the H-sharded tensor
+    whose rows [lo, hi) it holds in ``x`` (global height ``hg``, default
+    :func:`global_h`), padded by ``mode`` beyond the global edges only: the
+    halos of the fast path's s2d stages (``models/fast_trunk.py``), whose
+    own convolutions then run on the rows given. Differentiable in ``x``
+    (the backward is :func:`take_rows`')."""
+    shard = _ACTIVE
+    hg = global_h(x, shard) if hg is None else hg
+    b = bounds(hg, shard.size)
+    return take_rows(x, hg, lambda s: range(b[s] - before, b[s + 1] + after), mode, shard)
 
 
 def reflect_index(n: int, before: int, after: int, device) -> torch.Tensor:

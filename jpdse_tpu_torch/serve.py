@@ -100,13 +100,15 @@ class CodecServer:
             return self.fast.decode_from_codes(codes, side).float()
         return self.codec.decode_from_codes(codes, self.codec.side_inputs(side)).float()
 
-    def compress(self, batch: Dict) -> List[bytes]:
+    def compress(self, batch: Dict, codes: Optional[Sequence] = None) -> List[bytes]:
         """One ``.jpds`` stream per image of the batch: the codes, and the
         side info the configuration needs, with the base codec's streams
         (``base_codec_streams``, ``base_codec_ext``) as the data pipeline
-        gives them. The streams of several images are packed on a thread
-        pool (the coders release the GIL), as ``Trainer.compress`` packs
-        them."""
+        gives them. ``codes``: the batch's codes as :meth:`compress_codes`
+        gives them, where the caller has computed them (the spatial axis
+        gathers them from the ranks' rows, ``trainer.py``). The streams of
+        several images are packed on a thread pool (the coders release the
+        GIL), as ``Trainer.compress`` packs them."""
         need_label, need_inst, need_base = codec_io.side_requirements(self.cfg)
         if not self.cfg.has_binary_codes and not (need_label or need_base):
             raise ValueError("nothing to pack: no binarized module and no side info in this "
@@ -115,9 +117,11 @@ class CodecServer:
             raise ValueError("use_compressed batch lacks base_codec_streams — load data "
                              "through the framework loader (data/paired.py)")
         t0 = time.perf_counter()
-        codes = []
-        if self.cfg.has_binary_codes:
-            codes = [c.cpu().numpy() for c in self.compress_codes(batch)]
+        if not self.cfg.has_binary_codes:
+            codes = []
+        else:
+            codes = [torch.as_tensor(c).cpu().numpy() for c in
+                     (self.compress_codes(batch) if codes is None else codes)]
         t1 = time.perf_counter()
         hw = tuple(int(s) for s in np.shape(batch["image"])[1:3])
         b = int(np.shape(batch["image"])[0])

@@ -46,10 +46,12 @@ every rank starts from rank 0's parameters, an evaluation batch is the same
 on every rank, and rank 0 alone writes checkpoints. Under the spatial axis
 (``parallel.spatial_axis`` S > 1) each group of S ranks shares a batch
 (``batch_size`` is per group) and holds its rows of H, in training and in
-evaluation, where the decode and the codes run sharded and every rank
-gathers the image and the codes (rank 0 writes); evaluation takes the
-standard path, and the stream methods (``compress``, ``decompress``) raise
-``NotPorted`` there (ROADMAP Queue 1 item 13). ``load`` takes a directory
+evaluation, where the decode and the codes run sharded, on the fast path
+(its sharded stages, ``models/fast_trunk.py``) or the standard path, and
+every rank gathers the image and the codes (rank 0 writes). ``compress``
+packs the gathered codes, so every rank returns one process's streams;
+``decompress`` decodes the stream's codes whole on every rank, unsharded,
+as JAX's decodes them unplaced (:464-477). ``load`` takes a directory
 of the reference's ``net_*.pth`` as well as the port's own files
 (``convert/torch_import.py``).
 """
@@ -64,7 +66,7 @@ import numpy as np
 import torch
 
 from jpdse_tpu_torch import codec_io
-from jpdse_tpu_torch.config import Config, NotPorted, SPATIAL_NOT_PORTED, check_ported, \
+from jpdse_tpu_torch.config import Config, check_fast_parallel, check_ported, \
     check_train_ported
 from jpdse_tpu_torch.convert.torch_import import (
     import_reference_checkpoint,
@@ -187,10 +189,8 @@ class Trainer:
         self._fast_built = True
         if not self.cfg.model.fast_inference:
             return None
-        if self._spatial():
-            print("fast_inference: the fast path does not run under spatial_axis > 1 (ROADMAP "
-                  "Queue 1 item 13); using the standard path")
-            return None
+        # a switch that forces K1, K2 or K4 under the spatial axis raises, not falls back
+        check_fast_parallel(self.cfg)
         try:
             self._fast_server = CodecServer(self.cfg, self.state, device=self.device)
             print("fast inference path enabled (space-to-depth codec)")
@@ -289,20 +289,19 @@ class Trainer:
 
     def compress(self, batch: Dict) -> List[bytes]:
         """One ``.jpds`` stream per image of the batch, with the side info
-        the configuration needs (``CodecServer.compress``)."""
-        self._no_stream_under_spatial()
-        return self._server.compress(batch)
+        the configuration needs (``CodecServer.compress``); under the
+        spatial axis of the codes computed on the ranks' rows and gathered,
+        the same bytes on every rank."""
+        server = self._server
+        if not (self._spatial() and self.cfg.has_binary_codes):
+            return server.compress(batch)
+        return server.compress(batch, self._sharded(server.compress_codes, batch))
 
     def decompress(self, data: bytes) -> np.ndarray:
         """One ``.jpds`` stream -> its image (H, W, 3), float32, from the
-        stream and the weights alone."""
-        self._no_stream_under_spatial()
+        stream and the weights alone; under the spatial axis every rank
+        decodes the whole image, as one process does."""
         return self._server.decompress(data)
-
-    def _no_stream_under_spatial(self):
-        if self._spatial():
-            raise NotPorted(f"the .jpds stream methods (compress, decompress) "
-                            f"{SPATIAL_NOT_PORTED}")
 
     def load(self):
         """Restore the weights from ``checkpoints_dir`` (else ``save_dir``);

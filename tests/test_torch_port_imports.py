@@ -81,6 +81,12 @@ assert {"to_jax_mstate", "is_stat"} <= set(dir(importlib.import_module("jpdse_tp
 assert {"rounded_identity", "DifferentiableSign", "S2HVQ", "S2HVQV2", "Binarizer"} <= set(
     dir(quantizers))
 assert {"jpdse_tpu_torch.models.layers", "jpdse_tpu_torch.ops.quantizers"} <= set(names)
+# the spatial axis beyond the standard path (ROADMAP Queue 1 item 13)
+from jpdse_tpu_torch.parallel import spatial
+assert {"halo_rows", "take_rows", "pad_w", "gather_rows", "sum_over"} <= set(dir(spatial))
+assert {"check_fast_shard", "check_fast_parallel", "spatial_row_multiple",
+        "check_spatial_rows"} <= set(dir(importlib.import_module("jpdse_tpu_torch.config")))
+assert "conv_rows" in dir(layers)
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]

@@ -381,24 +381,28 @@ def _cfg(**parallel) -> Config:
 
 
 def test_spatial_axis_is_not_ported():
-    """The spatial axis runs the standard path (``test_torch_port_spatial.py``);
-    what it does not run yet raises naming ROADMAP Queue 1 item 13: the
-    fast path, fast train and the LocalEnhancer. In one process it asks
-    for the processes it needs, as the data axis does."""
+    """The spatial axis runs the standard path, the fast path, fast train
+    and the LocalEnhancer (``test_torch_port_spatial.py``,
+    ``test_torch_port_spatial_paths.py``); what it does not run yet raises
+    naming ROADMAP Queue 1 item 13: an H that S divides but the deeper
+    layers do not split evenly. In one process it asks for the processes it
+    needs, as the data axis does."""
+    from jpdse_tpu_torch.config import check_spatial_rows
     from jpdse_tpu_torch.models.fast_codec import FastCodec
 
     cfg = _cfg(spatial_axis=2)
     check_train_ported(cfg)  # the standard path
     for field, value in (("optim.fast_train", True), ("model.netG", "local")):
-        bad = _cfg(spatial_axis=2)
+        ok = _cfg(spatial_axis=2)
         obj, name = field.split(".")
-        setattr(getattr(bad, obj), name, value)
+        setattr(getattr(ok, obj), name, value)
         if value == "local":
-            bad.model.no_generator_binarization = True
-        with pytest.raises(NotPorted, match="Queue 1 item 13"):
-            check_train_ported(bad)
-    with pytest.raises(NotPorted, match="the fast path .*Queue 1 item 13"):
-        FastCodec(cfg, {}, device="cpu")
+            ok.model.no_generator_binarization = True
+        check_train_ported(ok)
+    FastCodec(cfg, SemanticCodec(cfg, device="cpu", seed=0).state_dict(), device="cpu")
+    with pytest.raises(NotPorted, match="not a multiple of 32 .*Queue 1 item 13 \\(the "
+                                        "spatial axis's uneven heights\\)"):
+        check_spatial_rows(cfg, 40, 2)
     with pytest.raises(ValueError, match="requests a 1x2 \\(data x spatial\\) mesh.*run 2 processes"):
         mesh_mod.mesh_from_config(cfg.parallel)
 

@@ -23,7 +23,8 @@ One spawn of four gloo processes runs, in turn:
    default configuration, take one step of the plain phase-2 recipe at
    JAX's weights (which the parent holds against JAX's
    ``make_sharded_train_step`` on a 1 x 2 mesh of the virtual CPU devices)
-   and run ``test.main``; ranks 2-3 step the kernel configuration and run
+   and run ``test.main`` on the standard path; ranks 2-3 step the kernel
+   configuration and run
    ``train.run.main``.
 
 The parent meanwhile takes the same steps in one process on the whole
@@ -444,7 +445,7 @@ def rank_main(rank: int, ports: list, work: str) -> None:
         result["jax weights"] = run_steps(cfg, "fp32", spec["jax_batch"], mesh, 1,
                                           spec["jax_states"])
         with redirect_stdout(io.StringIO()) as text:
-            result["test.main"] = _test_main(spec, local)
+            result["test.main"] = _test_main(spec, local, "0")
         result["test.main text"] = text.getvalue()
     else:
         for case in CASES:
@@ -487,8 +488,8 @@ TINY = ["--ngf", "8", "--nef", "8", "--ne4lf", "8", "--ndf", "8", "--n_downsampl
 
 
 def _test_main(spec: dict, tag, fast: str = "1") -> dict:
-    """``test.main`` of the run; the ranks ask for the fast path, which the
-    spatial axis declines."""
+    """``test.main`` of the run, on the fast path (``fast`` '1') or the
+    standard path ('0')."""
     from jpdse_tpu_torch import test as port_test
 
     out = Path(spec["eval_dir"]) / f"out_{tag}"
@@ -728,8 +729,9 @@ def test_the_sharded_step_matches_jax_sharded_step(ranks):
 
 
 def test_sharded_test_main_writes_one_process_codes_and_metrics(ranks):
-    """``test.main`` under two spatial ranks: the fast path declined for the
-    standard path; on every rank the rates equal one process's (the
+    """``test.main`` under two spatial ranks on the standard path (the fast
+    path's: ``test_torch_port_spatial_paths.py``); on every rank the rates
+    equal one process's (the
     Shannon estimate within 1e-6) and the distortions within 1e-3 relative
     (``test_torch_port_eval.py``'s rule: a reconstruction that differs by
     rounding can move a pixel's uint8 level); rank 0's ``_code`` and
@@ -750,7 +752,7 @@ def test_sharded_test_main_writes_one_process_codes_and_metrics(ranks):
         else:
             assert not got["codes"]
         text = ranks["ranks"][r]["test.main text"]
-        assert "using the standard path" in text and "multi-process mesh: dcn=1 x data=1 x " \
+        assert "fast inference path" not in text and "multi-process mesh: dcn=1 x data=1 x " \
                "spatial=2" in text
 
 
