@@ -25,7 +25,10 @@ Phases, each printing a line as it ends:
      2048, 32), K4 on that head with N = 128; K3's partial-statistics form
      (the spatial axis: stats, apply, backward sums, backward dx) at two
      ranks' halves of every norm shape against its plain versions and the
-     one-launch plain form of the whole, timed at (1, 256, 1024, 64) bf16;
+     one-launch plain form of the whole, timed at (1, 256, 1024, 64) bf16,
+     and on the spatial axis's uneven and empty rank slabs (each slab's
+     four launches against their plain versions, an empty slab's launches
+     included; timed on a rank's 21 of 43 rows and on an empty slab);
   4. the flagship codec at full width (Cityscapes 1024x512, random weights
      from --seed), fp32 with TF32 off: the default s2d fast path, the fast
      path in the kernel configuration (K1, K2, K4) and the standard path
@@ -223,17 +226,37 @@ Phases, each printing a line as it ends:
      loss_and_grads of each rank's 256 rows against one process's on its
      code bits, every gradient within 1e-9, no kernel launched; (c) the
      hires recipe at 2048x1024, batch 1, each rank 512 rows, in the kernel
-     configuration: one fp32 step with the trunk frozen and one unfrozen
-     (TF32 off), K3's partial form 45 / 45 / 9 / 9 and 72 / 72 / 36 / 36 a
-     rank-step, every launch against its plain version (the
+     configuration: one fp32 step with the trunk frozen (TF32 off; the
+     unfrozen one is phase 16 (a)'s, at 2048x1376), K3's partial form 45 /
+     45 / 9 / 9 a rank-step, every launch against its plain version (the
      (1, 512, 2048, 32) fp32 slabs among them), then unfrozen in float64
      against one process within 1e-9; then test.main of one 2048x1024
      triplet of the hires recipe through the sharded fast path, fp32: the
      rates equal (no code: its streams are side info), the reconstruction
      and the decompressed stream within 1e-3;
- 16. summary: the card, a JSON line of per-kernel numbers (the partial
-     kernels also timed at (1, 512, 2048, 32) fp32, "hires"), the total
-     seconds, and a last line {"ok": true, "device": {...}}.
+ 16. the spatial axis at uneven heights, on a synthetic 2048x1365 photo
+     read 'none' (CLIC's rule) to 2048x1376: (a) in phase 13's two ranks
+     after phase 15, the hires recipe at 2048x1376, batch 1, kernel
+     configuration, trunk unfrozen (its global trunk's fourth down 43
+     rows, 21 / 22 a rank): one fp32 step (TF32 off) with K3's partial
+     form 72 / 72 / 36 / 36 a rank-step and every launch against its plain
+     version on the same uneven slab, its metrics within 1e-4 of one
+     process's, one float64 step against one process within 1e-9 with
+     both peaks of memory, then its test.main through the sharded fast
+     path against one process's: rates equal, streams byte-identical,
+     images within 1e-4; (b) a spawn of its own, four gloo ranks at
+     spatial_axis 4 on the one card: the flagship's test.main (with
+     Trainer.get_code, compress, decompress and get_img) on the default
+     fast path and on the kernel configuration's standard path, fp32, TF32
+     off, against one process: code files and streams byte-identical where
+     no code bit differs, a bit allowed to differ only at a pre-sign within
+     1e-5 of 0, the reconstruction within 1e-4 (on one process's code bits
+     where a bit differs, EvalSigns); the standard path's K3 partial 65 /
+     65 a rank;
+ 17. summary: the card, a JSON line of per-kernel numbers (the partial
+     kernels also timed at (1, 512, 2048, 32) fp32, "hires", and on a
+     rank's uneven and empty slabs, "uneven"), the total seconds, and a
+     last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line.
 Without CUDA it exits non-zero before doing anything. Imports no JAX.
@@ -564,7 +587,10 @@ def bf16_excess_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     x - mean or norm + residual cancels, the output is far smaller than the
     terms, and a last-digit difference of the fp32 statistics is many of its
     own ulps (measured: 37 and 216 ulps at (1, 512, 1024, 64)); beyond that
-    difference, the one cast may round differently by one ulp."""
+    difference, the one cast may round differently by one ulp. 0 for an
+    empty slab's."""
+    if want.numel() == 0:
+        return 0.0 if got.shape == want.shape else float("inf")
     g, w = got.float(), want.float()
     mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
@@ -655,16 +681,21 @@ def phase_k3(card: str, gen) -> dict:
 
 def one_kernel(what: str, fn) -> dict:
     """The device kernels of one call of fn() by the profiler; raises unless
-    it is one."""
+    it is one. A profile that recorded none is taken again, up to three
+    times, as device_ms does: the profiler now and then drops a launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        if kernels:
+            break
     if sum(kernels.values()) != 1:
         raise AssertionError(f"{what} ran {sum(kernels.values())} device kernels in one call, "
                              "want 1")
@@ -969,7 +1000,159 @@ def phase_k3_partial(card: str, gen) -> list:
         f"(sums + dx) {bwd * 1e3:.1f} us against {bytes_ms(x, g, x, g, x) * 1e3:.1f} us ({card})")
     for e, hires in zip(entries, phase_k3_partial_hires(card, gen)):
         e["hires"] = hires
+    for e, uneven in zip(entries, phase_k3_partial_uneven(card, gen)):
+        e["uneven"] = uneven
     return entries
+
+
+# the spatial axis's uneven splits of a norm slab on phase 16's paths: (slab, ranks).
+# The hires recipe at 2048x1376 runs its global trunk on 1024x688, whose fourth down
+# has 43 rows (21 / 22 over two ranks); the flagship at 1376 rows over four ranks has
+# 86 at its fourth down (21 / 22 / 21 / 22); a slab of 3 rows over four leaves rank 0
+# none; a small odd slab takes the one-word path (vec 1)
+UNEVEN_SPLITS = [((1, 43, 64, 1024), 2), ((1, 86, 128, 512), 4), ((1, 3, 64, 1024), 4),
+                 ((2, 7, 12, 6), 3)]
+# timed: one rank's 21 rows of the hires trunk's 43 (fp32), and a rank's empty slab
+UNEVEN_TIMED = ((1, 21, 64, 1024), (1, 0, 64, 1024))
+
+
+def _uneven(x: torch.Tensor, size: int) -> list:
+    """The ``size`` ranks' rows of a slab as the spatial axis splits them."""
+    from jpdse_tpu_torch.parallel.spatial import bounds
+
+    b = bounds(x.shape[1], size)
+    return [x[:, b[s]:b[s + 1]].contiguous() for s in range(size)]
+
+
+def phase_k3_partial_uneven(card: str, gen) -> list:
+    """K3's partial kernels on the spatial axis's uneven and empty rank
+    slabs (UNEVEN_SPLITS), fp32 and bf16, ReLU with and without a
+    residual: each rank's stats, apply, sums and dx launch (an empty slab's
+    too: one launch each) against its plain version on the same slab (the
+    tolerances of :func:`phase_k3_partial`); an empty slab's stats and sums
+    exactly 0; the stats merged in rank order to the same mean and rstd
+    bits on every rank; the ranks together against the one-launch plain
+    form of the whole. Then each timed in fp32 at UNEVEN_TIMED, beside its
+    plain version and its bound (an empty slab's bound is 0 bytes).
+    Returns one dict per kernel, in K3_PARTIAL's order."""
+    from jpdse_tpu_torch.ops import instance_norm as k3
+
+    worst = dict.fromkeys(K3_PARTIAL, 0.0)
+    before = {n: getattr(k3, n).launches for n in K3_PARTIAL}
+    want_launches = dict.fromkeys(K3_PARTIAL, 0)
+    for shape, size in UNEVEN_SPLITS:
+        base = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
+        g32 = torch.randn(shape, device="cuda", generator=gen)
+        res32 = torch.randn(shape, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = base.to(dtype), g32.to(dtype)
+            parts, gparts = _uneven(x, size), _uneven(g, size)
+            stats = []
+            for p_ in parts:
+                st = k3.instance_norm_stats(p_)
+                want = k3.instance_norm_stats_plain(p_)
+                if not torch.equal(st[..., 0], want[..., 0]) or (
+                        p_.shape[1] == 0 and not torch.equal(st, torch.zeros_like(st))):
+                    raise AssertionError(f"K3 stats {tuple(p_.shape)}: counts differ")
+                err = max(((st[..., i] - want[..., i]).abs()
+                           / want[..., i].abs().clamp_min(1.0)).max().item() for i in (1, 2))
+                worst["instance_norm_stats"] = max(worst["instance_norm_stats"], err)
+                stats.append(st)
+            stats = torch.stack(stats)
+            want_launches["instance_norm_stats"] += size
+            for has_res in (False, True):
+                res = res32.to(dtype) if has_res else None
+                rparts = _uneven(res, size) if has_res else [None] * size
+                ys, mss = [], []
+                for p_, r_ in zip(parts, rparts):
+                    y, ms = k3.instance_norm_apply(p_, r_, stats, True)
+                    want, _ = k3.instance_norm_apply_plain(p_, r_, stats, True)
+                    if y.shape != p_.shape:
+                        raise AssertionError(f"K3 apply {tuple(p_.shape)}: shape {y.shape}")
+                    _note_held(worst, "instance_norm_apply", y, want, dtype)
+                    ys.append(y)
+                    mss.append(ms)
+                want_launches["instance_norm_apply"] += size
+                if not all(torch.equal(m, mss[0]) for m in mss):
+                    raise AssertionError(f"K3 apply {shape} over {size}: the ranks merged apart")
+                _held(f"K3 partial forward {shape} over {size} ranks {dt(dtype)} residual="
+                      f"{has_res}", torch.cat(ys, 1), k3.fused_instance_norm_plain(x, res, True),
+                      dtype)
+            sums = []
+            for p_, gp in zip(parts, gparts):
+                got = k3.instance_norm_bwd_sums(p_, gp, mss[0], True)
+                want = k3.instance_norm_bwd_sums_plain(p_, gp, mss[0], True)
+                if p_.shape[1] == 0 and not torch.equal(got, torch.zeros_like(got)):
+                    raise AssertionError(f"K3 sums of an empty slab: {got.abs().max().item()}")
+                worst["instance_norm_bwd_sums"] = max(worst["instance_norm_bwd_sums"],
+                                                      _site_err(got, want))
+                sums.append(got)
+            sums = torch.stack(sums)
+            n = float(shape[1] * shape[2])
+            dxs = []
+            for p_, gp in zip(parts, gparts):
+                dx = k3.instance_norm_bwd_dx(p_, gp, mss[0], sums, n, True)
+                _note_held(worst, "instance_norm_bwd_dx", dx,
+                           k3.instance_norm_bwd_dx_plain(p_, gp, mss[0], sums, n, True), dtype)
+                dxs.append(dx)
+            want_launches["instance_norm_bwd_sums"] += size
+            want_launches["instance_norm_bwd_dx"] += size
+            _held(f"K3 partial backward {shape} over {size} ranks {dt(dtype)}", torch.cat(dxs, 1),
+                  k3.fused_instance_norm_bwd_plain(x, g, True, stats=mss[0]), dtype)
+        torch.cuda.synchronize()
+    got_launches = {n: getattr(k3, n).launches - before[n] for n in K3_PARTIAL}
+    if got_launches != want_launches:
+        raise AssertionError(f"K3 partial on uneven slabs launched {got_launches}, want "
+                             f"{want_launches} (an empty slab launches too)")
+    for name, err in worst.items():
+        if not err <= K3_SITE_TOL:
+            raise AssertionError(f"{name} on uneven slabs: {err:.2e} from its plain version "
+                                 f"(tolerance {K3_SITE_TOL})")
+    from jpdse_tpu_torch.parallel.spatial import bounds
+
+    splits = "; ".join(
+        f"{tuple(sh)} over {n}: rows {'/'.join(str(b[i + 1] - b[i]) for i in range(n))}"
+        for sh, n in UNEVEN_SPLITS for b in [bounds(sh[1], n)])
+    log(f"[kernels] K3 partial form on uneven rank slabs ({splits}), fp32 and bf16, ReLU with "
+        f"and without a residual: every launch made, an empty slab's included "
+        f"({sum(want_launches.values())}); worst against the plain versions "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {K3_SITE_TOL})")
+
+    out = {name: {} for name in K3_PARTIAL}
+    for shape in UNEVEN_TIMED:
+        x = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
+        g = torch.randn(shape, device="cuda", generator=gen)
+        rows = 43  # the slab the rows are of
+        stats = torch.stack([k3.instance_norm_stats(torch.randn(
+            (1, rows - shape[1]) + shape[2:], device="cuda", generator=gen)),
+            k3.instance_norm_stats(x)])
+        _, ms = k3.instance_norm_apply(x, None, stats, True)
+        sums = torch.stack([k3.instance_norm_bwd_sums(x, g, ms, True)] * 2)
+        n = float(rows * shape[2])
+        runs = {
+            "instance_norm_stats": (lambda: k3.instance_norm_stats(x),
+                                    lambda: k3.instance_norm_stats_plain(x), bytes_ms(x)),
+            "instance_norm_apply": (lambda: k3.instance_norm_apply(x, None, stats, True),
+                                    lambda: k3.instance_norm_apply_plain(x, None, stats, True),
+                                    bytes_ms(x, x)),
+            "instance_norm_bwd_sums": (lambda: k3.instance_norm_bwd_sums(x, g, ms, True),
+                                       lambda: k3.instance_norm_bwd_sums_plain(x, g, ms, True),
+                                       bytes_ms(x, g)),
+            "instance_norm_bwd_dx": (
+                lambda: k3.instance_norm_bwd_dx(x, g, ms, sums, n, True),
+                lambda: k3.instance_norm_bwd_dx_plain(x, g, ms, sums, n, True),
+                bytes_ms(x, g, x)),
+        }
+        tag = "empty" if shape[1] == 0 else f"{shape[1]} of {rows} rows"
+        for name, (kern, plain, bound) in runs.items():
+            k, k_dev, p = cuda_ms(kern), device_ms(kern), cuda_ms(plain)
+            out[name][tag] = {"shape": list(shape), "dtype": "fp32", "ms": k, "device_ms": k_dev,
+                              "plain_ms": p, "bound_ms": bound, "bound_by": "bytes"}
+            log(f"[kernels] {name} {shape} fp32 (a rank's slab, {tag}): kernel {k:.4f} ms (on "
+                f"the device {k_dev:.4f} ms"
+                + (f", {bound / k_dev:.0%} of its bound" if bound else ", no bytes to move")
+                + f"), plain {p:.4f} ms, bound {bound * 1e3:.1f} us (bytes) ({card})")
+    return [out[name] for name in K3_PARTIAL]
 
 
 def phase_k3_partial_hires(card: str, gen) -> list:
@@ -1035,7 +1218,10 @@ def _note_held(worst: dict, name: str, got: torch.Tensor, want: torch.Tensor, dt
 
 
 def _site_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
-    """The largest difference against the output's max-abs (at least ``floor``)."""
+    """The largest difference against the output's max-abs (at least
+    ``floor``); 0 for an empty slab's."""
+    if want.numel() == 0:
+        return 0.0 if got.shape == want.shape else float("inf")
     scale = max(want.float().abs().max().item(), floor, 1e-30)
     return (got.float() - want.float()).abs().max().item() / scale
 
@@ -1452,8 +1638,9 @@ _SPLIT = re.compile(r"host clock: load ([\d.]+), device ([\d.]+), coder ([\d.]+)
                     r"metrics ([\d.]+), gallery ([\d.]+)")
 
 
-def write_cityscapes(root: Path, seed: int, split: str = "val", n: int = EVAL_IMAGES) -> None:
-    """``n`` (EVAL_IMAGES) Cityscapes triplets of ``split`` at 2048x1024 from
+def write_cityscapes(root: Path, seed: int, split: str = "val", n: int = EVAL_IMAGES,
+                     h: int = 1024) -> None:
+    """``n`` (EVAL_IMAGES) Cityscapes triplets of ``split`` at 2048x``h`` from
     ``seed``: a smooth random photo with noise, block labels of 34 classes
     and 16-bit instance ids (class * 1000 + k), written as PNGs with PIL,
     the port's image I/O."""
@@ -1466,7 +1653,7 @@ def write_cityscapes(root: Path, seed: int, split: str = "val", n: int = EVAL_IM
         img_dir, gt_dir = root / "leftImg8bit" / split / city, root / "gtFine" / split / city
         img_dir.mkdir(parents=True, exist_ok=True)
         gt_dir.mkdir(parents=True, exist_ok=True)
-        photo, label, inst = synthetic_scene(rng, 1024, 2048)
+        photo, label, inst = synthetic_scene(rng, h, 2048)
         Image.fromarray(photo).save(img_dir / f"{name}_leftImg8bit.png")
         Image.fromarray(label.astype(np.uint8)).save(gt_dir / f"{name}_gtFine_labelIds.png")
         Image.fromarray(inst).save(gt_dir / f"{name}_gtFine_instanceIds.png")
@@ -1481,10 +1668,11 @@ def synthetic_scene(rng, h: int, w: int):
     small = Image.fromarray(rng.integers(0, 256, (32, 64, 3), dtype=np.uint8))
     photo = np.asarray(small.resize((w, h), Image.BICUBIC)).astype(np.int16)
     photo = np.clip(photo + rng.integers(-8, 9, photo.shape), 0, 255).astype(np.uint8)
-    blocks = rng.integers(0, 34, (h // 32, w // 32))
+    blocks = rng.integers(0, 34, (-(-h // 32), -(-w // 32)))
     inst = blocks * 1000 + rng.integers(0, 8, blocks.shape)
     full = np.ones((32, 32), np.int32)
-    return photo, np.kron(blocks, full).astype(np.int32), np.kron(inst, full).astype(np.int32)
+    return (photo, np.kron(blocks, full)[:h, :w].astype(np.int32),
+            np.kron(inst, full)[:h, :w].astype(np.int32))
 
 
 def run_entry(label: str, name: str, fn, want: dict, per: int = EVAL_IMAGES, tag: str = "[eval]",
@@ -3158,15 +3346,16 @@ class SignRecorder:
 
     def __init__(self, ref=None):
         from jpdse_tpu_torch.ops import quantizers
+        from jpdse_tpu_torch.parallel import spatial
 
-        self.q, self.calls, self.ref = quantizers, [], ref
+        self.q, self.calls, self.ref, self.spatial = quantizers, [], ref, spatial
 
     def __enter__(self):
         self.saved = self.q.stochastic_sign_ste
 
         def sign(x, generator):
             k = len(self.calls)
-            self.calls.append(x.detach())
+            self.calls.append(self.spatial.like(x.detach(), x))  # its height kept
             y = self.q.deterministic_sign_ste(x)
             if self.ref is None:
                 return y
@@ -3178,6 +3367,39 @@ class SignRecorder:
 
     def __exit__(self, *exc):
         self.q.stochastic_sign_ste = self.saved
+
+
+class EvalSigns:
+    """While active, the deterministic sign (every binarizer of an
+    evaluation's standard path) keeps each call's pre-sign, in call order;
+    given ``ref``, one process's pre-signs in that order, each call takes
+    ref's code bits (this rank's rows of them under a spatial shard): two
+    runs then decode the same codes, and differ by their arithmetic alone."""
+
+    def __init__(self, ref=None):
+        from jpdse_tpu_torch.ops import quantizers
+
+        self.q, self.calls, self.ref = quantizers, [], ref
+
+    def __enter__(self):
+        from jpdse_tpu_torch.parallel import spatial
+
+        self.saved = own = self.q.deterministic_sign_ste
+
+        def sign(x):
+            k = len(self.calls)
+            self.calls.append(spatial.like(x.detach(), x))
+            if self.ref is None:
+                return own(x)
+            bits = torch.sign(self.ref[k]).to(x.device, x.dtype)
+            shard = spatial.current()
+            return spatial.like(bits if shard is None else shard.rows(bits), x)
+
+        self.q.deterministic_sign_ste = sign
+        return self
+
+    def __exit__(self, *exc):
+        self.q.deterministic_sign_ste = self.saved
 
 
 def float64_state(gan):
@@ -3442,8 +3664,8 @@ def phase11_dropout(seed: int, card: str) -> dict:
         trainer = Trainer(cfg, mode="train", device="cuda")
         shares = []
 
-        def recorded(shape, generator, device):
-            mask = draw(shape, generator, device)
+        def recorded(shape, generator, device, hg=None):
+            mask = draw(shape, generator, device, hg)
             shares.append(mask.float().mean().item())
             return mask
 
@@ -3720,6 +3942,7 @@ class PinnedSigns(SignRecorder):
     alone, not by a bit that rounding moved across 0)."""
 
     def __enter__(self):
+        from jpdse_tpu_torch.parallel import spatial
         from jpdse_tpu_torch.parallel.mesh import draw_rows
 
         super().__enter__()
@@ -3727,7 +3950,8 @@ class PinnedSigns(SignRecorder):
 
         def sign(x, generator):
             self.draws.append(draw_rows(x.shape, lambda shape: torch.rand(
-                shape, dtype=x.dtype, device=x.device, generator=generator)))
+                shape, dtype=x.dtype, device=x.device, generator=generator),
+                spatial.global_h(x)))
             return pinned(x, generator)
 
         self.q.stochastic_sign_ste = sign
@@ -4209,9 +4433,10 @@ def spatial_eval_argv(run: Path, out: Path, opt: str) -> list:
             "--save_dir", str(out), "--mode", "val"]
 
 
-def spatial_eval_image(argv: list) -> np.ndarray:
+def spatial_eval_image(argv: list, signs=None) -> np.ndarray:
     """The reconstruction of the split's first batch by a test-mode Trainer
-    on the run's weights (the standard path, as test.main takes it)."""
+    on the run's weights (the path test.main takes), its binarizers'
+    signs through ``signs`` where given."""
     from jpdse_tpu_torch.cli import parse_config
     from jpdse_tpu_torch.config import derive_eval_config
     from jpdse_tpu_torch.data import create_dataloader
@@ -4222,7 +4447,8 @@ def spatial_eval_image(argv: list) -> np.ndarray:
         trainer = Trainer(cfg, mode="test", device="cuda")
         trainer.load()
         batch = next(iter(create_dataloader(cfg)))
-        return trainer.get_img(batch).cpu().numpy()
+        with signs or contextlib.nullcontext():
+            return trainer.get_img(batch).cpu().numpy()
 
 
 def spatial_eval(argv: list, tag: str) -> tuple:
@@ -4369,6 +4595,7 @@ def _phase13_rank(rank: int, port: int, seed: int, work: str) -> None:
     if rank == 0:
         np.save(os.path.join(work, "rank0_image.npy"), image)
     result["phase15"] = _phase15_ranks(rank, seed, work)
+    result["phase16"] = _phase16_ranks(rank, seed, work)
     torch.save(result, os.path.join(work, f"rank{rank}.pt"))
     distributed.barrier()
     dist.destroy_process_group()
@@ -4407,6 +4634,7 @@ def phase13(seed: int, card: str) -> tuple:
         save_params(str(run), SemanticCodec(flagship_config(kernels=True), device="cuda",
                                             seed=seed + 13).state_dict())
         phase15_setup(Path(work), seed)
+        phase16_setup(Path(work), seed)
         ctx = torch.multiprocessing.get_context("spawn")
         port = free_port()
         procs = [ctx.Process(target=_phase13_rank, args=(r, port, seed, work)) for r in range(2)]
@@ -4416,6 +4644,8 @@ def phase13(seed: int, card: str) -> tuple:
         one_metrics, one_counts, one_image = spatial_eval(
             spatial_eval_argv(run, Path(work) / "single", "opt1.json"), "one process")
         one15 = phase15_one_process(Path(work))
+        one16 = spatial_fast_eval(Path(work) / "uneven_hires", "opt_float32_fast_1.json",
+                                  Path(work) / "uneven_hires_one")
         for p in procs:
             p.join(timeout=900)
         codes = [p.exitcode for p in procs]
@@ -4462,8 +4692,13 @@ def phase13(seed: int, card: str) -> tuple:
         rank_evals15 = {k: v for res in ranks for k, v in res["phase15"][0].items()}
         evals.update(rank_evals15)
         evals.update(phase15_check(Path(work), one15, rank_evals15, card))
+        rank_evals16 = {k: v for res in ranks for k, v in res["phase16"][0].items()}
+        evals.update(rank_evals16)
+        evals.update(phase16_check_hires(Path(work), one16, rank_evals16, card))
         for res in ranks:
             train.update(res["phase15"][1])
+            train.update(res["phase16"][1])
+        evals.update(phase16_flagship(seed, Path(work), card))
     log(f"[spatial] spatial-axis phase {time.perf_counter() - t0:.1f} s with the spawn ({card})")
     return evals, train
 
@@ -5038,9 +5273,10 @@ def _hold_f64(tag: str, gan, got: tuple, want: tuple) -> float:
 def _phase15_hires(rank: int, seed: int) -> dict:
     """(c) The hires recipe's LocalEnhancer at 2048x1024, batch 1, each rank
     512 rows, in the kernel configuration: one fp32 loss_and_grads with the
-    trunk frozen and one unfrozen (TF32 off), K3's partial form counted a
-    rank-step and every launch held against its plain version
-    (K3PartialCheck); then unfrozen in float64 (K3 has no float64 form: its
+    trunk frozen (TF32 off; phase 16 (a) takes the unfrozen one, at
+    2048x1376), K3's partial form counted a rank-step and every launch held
+    against its plain version (K3PartialCheck); then unfrozen in float64
+    (K3 has no float64 form: its
     sites run the plain InstanceNorm) against one process (rank 0) within
     1e-9. Returns the counts."""
     from jpdse_tpu_torch.trainer import Trainer
@@ -5051,24 +5287,22 @@ def _phase15_hires(rank: int, seed: int) -> dict:
     dp = Trainer(cfg, mode="train", device="cuda:0")
     batch = train_batch(dp.cfg, seed + 16)
     trunk = dp.gan.codec.netG.global_trunk
-    out = {}
-    for state in ("frozen", "unfrozen"):
-        trunk.requires_grad_(state == "unfrozen")
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        check = K3PartialCheck()
-        t1 = time.perf_counter()
-        with tf32_off(), check:
-            (metrics, _), counts = counted_step(dp.gan, dp.place(batch), gen)
-        if {n: counts[n] for n in K3_PARTIAL} != SPATIAL_K3_HIRES[state] or \
-                counts["fused_instance_norm"] or counts["fused_instance_norm_bwd"]:
-            raise AssertionError(f"(c) rank {rank}, trunk {state}: launches {counts}")
-        if not all(np.isfinite(v.item()) for v in metrics.values()):
-            raise AssertionError(f"(c) rank {rank}, trunk {state}: metrics {metrics}")
-        out[f"spatial paths: hires, spatial 2, trunk {state}, rank {rank}"] = counts
-        log(f"[spatial paths] (c) rank {rank}, hires recipe, kernel configuration, trunk "
-            f"{state}, fp32 (TF32 off): loss_and_grads of its 512 rows "
-            f"{time.perf_counter() - t1:.2f} s; K3 partial a rank-step "
-            f"{ {n: counts[n] for n in K3_PARTIAL} }; {check.summary()}")
+    trunk.requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    check = K3PartialCheck()
+    t1 = time.perf_counter()
+    with tf32_off(), check:
+        (metrics, _), counts = counted_step(dp.gan, dp.place(batch), gen)
+    if {n: counts[n] for n in K3_PARTIAL} != SPATIAL_K3_HIRES["frozen"] or \
+            counts["fused_instance_norm"] or counts["fused_instance_norm_bwd"]:
+        raise AssertionError(f"(c) rank {rank}, trunk frozen: launches {counts}")
+    if not all(np.isfinite(v.item()) for v in metrics.values()):
+        raise AssertionError(f"(c) rank {rank}, trunk frozen: metrics {metrics}")
+    out = {f"spatial paths: hires, spatial 2, trunk frozen, rank {rank}": counts}
+    log(f"[spatial paths] (c) rank {rank}, hires recipe, kernel configuration, trunk frozen, "
+        f"fp32 (TF32 off): loss_and_grads of its 512 rows {time.perf_counter() - t1:.2f} s; "
+        f"K3 partial a rank-step { {n: counts[n] for n in K3_PARTIAL} }; {check.summary()}")
+    trunk.requires_grad_(True)  # the float64 step below is the unfrozen one
     torch.cuda.empty_cache()
     want = None
     # every rank builds the twin: a Trainer under a process group broadcasts its weights
@@ -5224,6 +5458,296 @@ def phase15_check(work: Path, one: dict, rank_evals: dict, card: str) -> dict:
     return counts
 
 
+# -- phase 16: the spatial axis at uneven heights ---------------------------------------
+# CLIC's preprocessing ('none') rounds H to a multiple of 32: a 2048x1365 photo is read
+# at 2048x1376 (32 x 43), whose deeper layers split unevenly over the ranks
+UNEVEN_PHOTO_H = 1365
+UNEVEN_H, UNEVEN_W = 1376, 2048
+UNEVEN_RECON_TOL = 1e-4  # the sharded reconstruction against one process's, fp32, TF32 off
+# K3's partial form a rank-step of the hires recipe unfrozen (as SPATIAL_K3_HIRES), and a
+# rank's test.main of one image on the flagship's kernel-configuration standard path
+UNEVEN_K3_TEST = {"instance_norm_stats": 65, "instance_norm_apply": 65}
+UNEVEN_PATHS = ("fast", "kernel_standard")
+
+
+def uneven_preprocess(cfg) -> None:
+    """Every split read 'none' (CLIC's rule: H and W rounded to 32)."""
+    for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
+        pp.preprocess_mode, pp.load_size, pp.crop_size = "none", UNEVEN_W, UNEVEN_W
+    cfg.validate()
+
+
+def hires_uneven_config(seed: int, size: int):
+    """The hires recipe's phase A in the kernel configuration, its batch of
+    one 2048x1376 image ('fixed' at that aspect, so the trainer's batch and
+    pool have its shape), at spatial ``size``."""
+    cfg = flagship_train_config(True, seed, "hiresA")
+    cfg.data.preprocess.aspect_ratio = UNEVEN_W / UNEVEN_H
+    cfg.parallel.spatial_axis = size
+    cfg.validate()
+    return cfg
+
+
+def phase16_setup(work: Path, seed: int) -> None:
+    """The runs phase 16 evaluates, each on one synthetic 2048x1365
+    triplet read 'none' to 2048x1376, random weights from the seed, an opt
+    file for one process and one for the spatial group: (a) the hires
+    recipe's serving configuration (fp32, the fast path) at spatial 2;
+    (b) the flagship's default fast path and its kernel configuration's
+    standard path (fp32) at spatial 4."""
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    for name, size in (("uneven_hires", 2), ("uneven_flagship", 4)):
+        run = work / name
+        root = run / "cityscapes"
+        write_cityscapes(root, seed + 16, n=1, h=UNEVEN_PHOTO_H)
+        paths = ({"fast": hires_configs()[0]} if name == "uneven_hires" else
+                 {"fast": flagship_config(), "kernel_standard": flagship_config(kernels=True)})
+        for path, cfg in paths.items():
+            cfg.model.compute_dtype = "float32"
+            cfg.model.fast_inference = path == "fast"
+            uneven_preprocess(cfg)
+            cfg.data.dataset, cfg.data.root_dir = "cityscapes", str(root)
+            cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+            cfg.data.num_workers, cfg.optim.seed = 1, seed
+            for s in (size, 1):
+                cfg.parallel.spatial_axis = s
+                cfg.save(str(run / f"opt_float32_{path}_{s}.json"))
+        save_params(str(run), SemanticCodec(cfg, device="cuda", seed=seed + 16,
+                                            dtype=torch.float32).state_dict())
+
+
+def _phase16_hires(rank: int, seed: int) -> dict:
+    """(a) The hires recipe at 2048x1376 (its global trunk's fourth down 43
+    rows: 21 / 22 over the two ranks), batch 1, kernel configuration, trunk
+    unfrozen: one fp32 loss_and_grads (TF32 off) of each rank's 688 rows,
+    K3's partial form counted a rank-step and every launch held against its
+    plain version on the same uneven slab (K3PartialCheck), the metrics
+    against one process's fp32 step (rank 0); then in float64 against one
+    process within SPATIAL_F64_TOL, with the peak memory of one process and
+    of a rank. Returns the counts."""
+    from jpdse_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    dp = Trainer(hires_uneven_config(seed, 2), mode="train", device="cuda:0")
+    dp.gan.codec.netG.global_trunk.requires_grad_(True)
+    batch = train_batch(dp.cfg, seed + 17)
+    if batch["image"].shape[1:3] != (UNEVEN_H, UNEVEN_W):
+        raise AssertionError(f"(a) the batch is {batch['image'].shape}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    check = K3PartialCheck()
+    t1 = time.perf_counter()
+    with tf32_off(), check:
+        (metrics, _), counts = counted_step(dp.gan, dp.place(batch), gen)
+    dt_rank = time.perf_counter() - t1
+    if {n: counts[n] for n in K3_PARTIAL} != SPATIAL_K3_HIRES["unfrozen"] or \
+            counts["fused_instance_norm"] or counts["fused_instance_norm_bwd"]:
+        raise AssertionError(f"(a) rank {rank}: launches {counts}")
+    out = {f"uneven: hires 2048x1376, spatial 2, rank {rank}": counts}
+    log(f"[uneven] (a) rank {rank}, hires recipe at 2048x1376, kernel configuration, trunk "
+        f"unfrozen, fp32 (TF32 off): loss_and_grads of its 688 rows {dt_rank:.2f} s; K3 partial "
+        f"a rank-step { {n: counts[n] for n in K3_PARTIAL} }; {check.summary()}")
+    # every rank builds the twin: a Trainer under a process group broadcasts its weights
+    twin = Trainer(hires_uneven_config(seed, 1), mode="train", device="cuda:0")
+    twin.mesh = twin.gan.mesh = None
+    twin.gan.codec.netG.global_trunk.requires_grad_(True)
+    want = peak_one = None
+    if rank == 0:
+        with tf32_off():
+            (m_one, _), _ = counted_step(twin.gan, twin.place(batch),
+                                         torch.Generator(device="cuda").manual_seed(seed))
+        rel = {k: abs(metrics[k].item() - m_one[k].item()) / max(abs(m_one[k].item()), 1e-12)
+               for k in metrics}
+        if not max(rel.values()) <= 1e-4:
+            raise AssertionError(f"(a) the sharded fp32 step's metrics {rel} from one process's")
+        log(f"[uneven] (a) fp32: the two ranks' metrics against one process's step, worst "
+            f"{max(rel.values()):.2e} relative (tolerance 1e-4)")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        want, _ = f64_step(twin, batch, seed)
+        peak_one = torch.cuda.max_memory_allocated() / 2**30
+    del twin
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got, _ = f64_step(dp, batch, seed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        worst = _hold_f64("(a) hires 2048x1376", dp.gan, got, want)
+        log(f"[uneven] (a) hires recipe at 2048x1376, trunk unfrozen, float64, two gloo ranks "
+            f"(688 rows each; 21 and 22 at the trunk's fourth down) against one process: every "
+            f"gradient within {worst:.2e} (tolerance {SPATIAL_F64_TOL}); peak memory one process "
+            f"{peak_one:.2f} GiB, a rank {peak:.2f} GiB (allocated by this process, the other "
+            f"rank's beside it); {time.perf_counter() - t0:.1f} s in the ranks")
+    del dp, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase16_ranks(rank: int, seed: int, work: str) -> tuple:
+    """Phase 16 (a) in phase 13's two ranks: _phase16_hires, then the hires
+    recipe's test.main, codes, streams and reconstruction through the
+    sharded fast path at 2048x1376 (spatial_fast_eval, saved for the
+    parent). Returns (eval counts, train counts)."""
+    t0 = time.perf_counter()
+    train = _phase16_hires(rank, seed)
+    res, counts = spatial_fast_eval(Path(work) / "uneven_hires", "opt_float32_fast_2.json",
+                                    Path(work) / f"uneven_hires_rank{rank}")
+    torch.save(res, os.path.join(work, f"uneven_hires_rank{rank}.pt"))
+    log(f"[uneven] rank {rank}: phase 16 (a) in the ranks {time.perf_counter() - t0:.1f} s")
+    return {f"uneven: hires fast path 2048x1376, spatial 2, rank {rank}": counts}, train
+
+
+def phase16_check_hires(work: Path, one: tuple, rank_evals: dict, card: str) -> dict:
+    """(a)'s sharded test.main against one process's: the rates equal, the
+    code files and the streams byte-identical, the reconstruction and the
+    decompressed stream within UNEVEN_RECON_TOL, no K1, K2 or K4 on a
+    shard. Returns the one-process counts."""
+    off = {tag: {k: v for k, v in c.items() if k in KERNELS_OFF_ON_A_SHARD and v}
+           for tag, c in rank_evals.items()}
+    if any(off.values()):
+        raise AssertionError(f"(a) K1, K2 or K4 launched on a shard: {off}")
+    want, c_one = one
+    lines = []
+    for r in range(2):
+        got = torch.load(work / f"uneven_hires_rank{r}.pt", weights_only=False)
+        if "fast inference path enabled" not in got["text"]:
+            raise AssertionError(f"(a) rank {r}: the fast path was not taken")
+        m, w = got["metrics"], want["metrics"]
+        rates = [k for k in ("actual_bpp", "coded_bpp", "total_bpp", "sem_side_bpp",
+                             "base_codec_bpp", "n_images") if w.get(k) is not None]
+        if any(m[k] != w[k] for k in rates):
+            raise AssertionError(f"(a) rank {r}: rates {m} against {w}")
+        if got["code_files"] != want["code_files"] or got["streams"] != want["streams"]:
+            raise AssertionError(f"(a) rank {r}: code files or streams differ from one process's")
+        err = {k: float(np.abs(got[k] - want[k]).max()) for k in ("recon", "decompressed")}
+        if not max(err.values()) <= UNEVEN_RECON_TOL:
+            raise AssertionError(f"(a) rank {r}: images {err} from one process's")
+        lines.append(f"rank {r}: streams byte-identical ({sum(map(len, got['streams']))} bytes), "
+                     f"reconstruction {err['recon']:.2e} and decompressed stream "
+                     f"{err['decompressed']:.2e} from one process's")
+    log(f"[uneven] (a) the hires recipe's test.main, compress and decompress through the fast "
+        f"path at 2048x1376 ('none'), fp32, spatial 2 against one process: total "
+        f"{want['metrics'].get('total_bpp')} bpp on both; " + "; ".join(lines)
+        + f" (tolerance {UNEVEN_RECON_TOL}); launches one process "
+        f"{ {k: v for k, v in c_one.items() if v} }, a rank none ({card})")
+    return {"uneven: hires fast path 2048x1376, one process": c_one}
+
+
+def _phase16_rank(rank: int, port: int, work: str) -> None:
+    """(b) One of four ranks at spatial_axis 4 on the one card (gloo): the
+    flagship's test.main of the 2048x1376 triplet, then its codes, streams,
+    decompressed stream and reconstruction (spatial_fast_eval), on its
+    default fast path and on the kernel configuration's standard path,
+    saved for the parent."""
+    os.environ["LOCAL_RANK"] = "0"
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.ops.build import build_all
+    from jpdse_tpu_torch.parallel import distributed
+
+    build_all()  # loads the kernels the parent built
+    distributed.initialize("cuda", f"localhost:{port}", 4, rank, backend="gloo")
+    run = Path(work) / "uneven_flagship"
+    ref = torch.load(os.path.join(work, "uneven_presign.pt"), weights_only=False)
+    for path in UNEVEN_PATHS:
+        opt = f"opt_float32_{path}_4.json"
+        res, counts = spatial_fast_eval(run, opt, Path(work) / f"uneven_{path}_rank{rank}")
+        if path == "kernel_standard":  # the decode on one process's code bits
+            with tf32_off():
+                res["pinned"] = spatial_eval_image(
+                    spatial_eval_argv(run, Path(work) / f"uneven_pinned_rank{rank}", opt),
+                    EvalSigns(ref))
+        torch.save(dict(res, counts=counts), os.path.join(work, f"uneven_{path}_rank{rank}.pt"))
+    distributed.barrier()
+    dist.destroy_process_group()
+
+
+def phase16_flagship(seed: int, work: Path, card: str) -> dict:
+    """(b) The flagship over four gloo ranks at spatial_axis 4 (spawned) on
+    one synthetic 2048x1365 triplet read 'none' to 2048x1376 (its fourth
+    down's 86 rows: 21 / 22 / 21 / 22), on the default fast path and on
+    the kernel configuration's standard path, fp32 with TF32 off, against
+    the same runs in one process here: test.main's code files
+    byte-identical, the rates equal, the codes equal (a bit may differ only
+    at a pre-sign within 1e-5 of 0, where the ranks' partial K3 and one
+    process's one-launch K3 and whole-tensor convolutions round apart; then
+    the files differ by it, and a moved bit decodes a different image, so
+    the decode is held on one process's code bits, EvalSigns), the streams
+    byte-identical where the codes are, the reconstruction within
+    UNEVEN_RECON_TOL; no K1, K2 or K4 on a shard; the standard path's K3
+    partial launches a rank UNEVEN_K3_TEST. Returns the eval counts."""
+    t0 = time.perf_counter()
+    run = work / "uneven_flagship"
+    # one process's standard-path pre-signs, whose code bits the ranks decode once more
+    rec = EvalSigns()
+    with tf32_off():
+        pinned_one = spatial_eval_image(spatial_eval_argv(
+            run, work / "uneven_pinned_one", "opt_float32_kernel_standard_1.json"), rec)
+    torch.save([c.cpu() for c in rec.calls], work / "uneven_presign.pt")
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_phase16_rank, args=(r, port, str(work))) for r in range(4)]
+    for p in procs:
+        p.start()
+    one = {path: spatial_fast_eval(run, f"opt_float32_{path}_1.json", work / f"uneven_{path}_one",
+                                   presign=True) for path in UNEVEN_PATHS}
+    for p in procs:
+        p.join(timeout=600)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    if codes != [0, 0, 0, 0]:
+        raise AssertionError(f"phase 16 (b): the four ranks exited with {codes}")
+    counts = {}
+    for path, (want, one_counts) in one.items():
+        counts[f"uneven: flagship {path} 2048x1376, one process"] = one_counts
+        lines = []
+        for r in range(4):
+            got = torch.load(work / f"uneven_{path}_rank{r}.pt", weights_only=False)
+            counts[f"uneven: flagship {path} 2048x1376, spatial 4, rank {r}"] = got["counts"]
+            off = {k: v for k, v in got["counts"].items() if k in KERNELS_OFF_ON_A_SHARD and v}
+            partial = {k: v for k, v in got["counts"].items() if k in K3_PARTIAL and v}
+            if off or partial != (UNEVEN_K3_TEST if path == "kernel_standard" else {}):
+                raise AssertionError(f"(b) {path}, rank {r}: launches {got['counts']}")
+            flips, top = _code_flips(got["codes"], want["codes"], want["presign"])
+            err = {k: float(np.abs(got[k] - want[k]).max()) for k in ("recon", "decompressed")}
+            if "pinned" in got:
+                err["pinned"] = float(np.abs(got["pinned"] - pinned_one).max())
+            # test.main writes on rank 0 alone
+            files = got["code_files"] == (want["code_files"] if r == 0 else {})
+            same = files and got["streams"] == want["streams"]
+            lines.append(f"rank {r}: {flips} of {want['codes'].size} code bits differ (largest "
+                         f"|pre-sign| {top:.2e}), code files and streams "
+                         f"{'byte-identical' if same else 'differ'}, reconstruction "
+                         f"{err['recon']:.2e} and decompressed stream {err['decompressed']:.2e} "
+                         f"from one process's"
+                         + (f", on one process's code bits {err['pinned']:.2e}" if "pinned" in err
+                            else ""))
+            m, w = got["metrics"], want["metrics"]
+            rates = ("actual_bpp", "n_images") + (("coded_bpp", "total_bpp") if flips == 0 else ())
+            bad = [k for k in rates if m[k] != w[k]]
+            # a moved bit decodes a different image: then the decode is held on pinned bits
+            held = err if flips == 0 else {k: v for k, v in err.items() if k == "pinned"}
+            if bad or not top <= 1e-5 or (flips == 0 and not same) or not want["code_files"] \
+                    or not held or not max(held.values()) <= UNEVEN_RECON_TOL:
+                log(f"[uneven] (b) {path}: " + "; ".join(lines))
+                raise AssertionError(f"(b) {path}, rank {r}: rates {bad} differ, or a code bit "
+                                     f"at |pre-sign| {top:.2e}, or files or streams, or images "
+                                     f"{err} (tolerance {UNEVEN_RECON_TOL})")
+        log(f"[uneven] (b) the flagship's test.main, Trainer.get_code, compress, decompress and "
+            f"get_img, {path.replace('_', ' ')} path, one 2048x1376 image ('none'), fp32, TF32 "
+            f"off, four gloo ranks at spatial 4 (86 rows at the fourth down: 21/22/21/22) "
+            f"against one process: coded {want['metrics']['coded_bpp']:.6f} bpp; "
+            + "; ".join(lines) + f" (tolerance {UNEVEN_RECON_TOL}); launches a rank "
+            f"{ {k: v for k, v in got['counts'].items() if v} }, one process "
+            f"{ {k: v for k, v in one_counts.items() if v} } ({card})")
+    log(f"[uneven] phase 16 (b) {time.perf_counter() - t0:.1f} s with the spawn ({card})")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5333,7 +5857,7 @@ def main() -> int:
 
     log(card)
     log(json.dumps({"kernels": entries}))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s ({card})")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,7 @@ round trip, train -> val/test derivation and dataset defaults, so an
 
 :meth:`Config.validate` is the JAX package's consistency check. Whether the
 port can run a configuration is a separate check, :func:`check_ported`,
-made where a codec is built: a configuration that a later slice of the port
-owns raises :class:`NotPorted`, naming its ROADMAP item.
+made where a codec is built: it refuses what neither package runs.
 """
 
 from __future__ import annotations
@@ -594,19 +593,16 @@ def apply_dataset_defaults(cfg: Config, explicitly_set: Optional[List[str]] = No
     return cfg
 
 
-class NotPorted(NotImplementedError):
-    """A configuration that a later slice of the port runs."""
-
-
 def check_ported(cfg: Config) -> None:
-    """Raise :class:`NotPorted`, naming the ROADMAP item (Queue 1) that
-    ports it, unless the port runs this configuration: a global netG or a
-    LocalEnhancer fed by any assembly of ``SemanticCodec._generator_input``
-    (learned, raw, no-label, no-feat, sem_masking, use_netE_output,
-    zero_*), with the encoders or the generator binarized or neither, over
-    grouped or ungrouped encoders with or without instance-wise pooling,
-    instance, identity or batch norms, with or without a base codec's
-    decoded image and reduced-rate semantics."""
+    """Raise for a configuration that neither package runs (an unknown
+    netG, norm or compute dtype). The port runs every configuration the
+    JAX package does: a global netG or a LocalEnhancer fed by any
+    assembly of ``SemanticCodec._generator_input`` (learned, raw,
+    no-label, no-feat, sem_masking, use_netE_output, zero_*), with the
+    encoders or the generator binarized or neither, over grouped or
+    ungrouped encoders with or without instance-wise pooling, instance,
+    identity or batch norms, with or without a base codec's decoded image
+    and reduced-rate semantics."""
     m = cfg.model
     if m.netG not in ("global", "local"):
         raise ValueError(f"unknown netG {m.netG!r}")
@@ -614,10 +610,6 @@ def check_ported(cfg: Config) -> None:
         raise NotImplementedError(f"norm [{m.norm}] not found")
     if m.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
-
-
-SPATIAL_NOT_PORTED = ("under parallel.spatial_axis > 1 (H-sharded activations) is ROADMAP "
-                      "Queue 1 item 13 (the spatial axis's uneven heights)")
 
 
 def check_fast_shard(fp: FastPathConfig, size: int) -> None:
@@ -643,34 +635,6 @@ def check_fast_parallel(cfg: Config) -> None:
     check_fast_shard(cfg.model.fast.resolved(), cfg.parallel.spatial_axis)
 
 
-def spatial_row_multiple(cfg: Config) -> int:
-    """What an image's H must be a multiple of, over S, for every layer of
-    the sharded paths to split evenly: 2 to the deepest stride-2 stack
-    (netG's, the encoders', VGG's four pools where the VGG loss is on),
-    times ``codec.sem_downsample``. A LocalEnhancer's global trunk runs on
-    the input pooled ``n_local_enhancers`` times, so its stack counts them
-    too. The discriminator's layers take any height."""
-    m = cfg.model
-    downs = [m.n_downsample_global + (m.n_local_enhancers if m.netG == "local" else 0)]
-    if cfg.use_netE:
-        downs.append(m.n_downsample_E)
-    if cfg.use_netE4label:
-        downs.append(m.n_downsample_E4label)
-    if cfg.is_train and not cfg.loss.no_vgg_loss:
-        downs.append(4)
-    return 2 ** max(downs) * max(1, cfg.codec.sem_downsample)
-
-
-def check_spatial_rows(cfg: Config, h: int, size: int) -> None:
-    """Raise :class:`NotPorted` for an H that ``size`` divides but whose
-    deeper layers would not split evenly (``spatial_row_multiple``)."""
-    k = spatial_row_multiple(cfg)
-    if h % (size * k):
-        raise NotPorted(f"an H of {h} rows over spatial={size}, not a multiple of {size * k} "
-                        f"(uneven shards in the generator, encoders or VGG), "
-                        f"{SPATIAL_NOT_PORTED}")
-
-
 def check_train_ported(cfg: Config) -> None:
     """:func:`check_ported` and the training step's own settings. Every
     training option of the JAX package runs: the batch norm,
@@ -679,8 +643,8 @@ def check_train_ported(cfg: Config) -> None:
     ``model.use_dropout``, ``optim.vgg_bf16``, ``profile_dir``, the
     device cache and the data and spatial axes over a process group
     (``parallel/mesh.py``), fast train and the LocalEnhancer on the spatial
-    axis too; an H that the sharded layers cannot split evenly raises
-    where a batch is sharded (:func:`check_spatial_rows`)."""
+    axis too, at every H that the axis divides: the deeper layers' rows
+    split as they fall, unevenly or not (``parallel/spatial.py``)."""
     check_ported(cfg)
     granularity = cfg.optim.remat_granularity
     if granularity not in ("block", "decode"):

@@ -708,9 +708,10 @@ Plan make_plan(long long hw, int batch, int c, int v, int blocks, int chunk_cap,
     const long long most = (hw + p.pix - 1) / p.pix;
     if (chunks > most) chunks = most;
     if (chunks > chunk_cap) chunks = chunk_cap;
+    if (chunks < 1) chunks = 1;  // an empty slab (hw 0): one chunk of no rows
   }
-  p.rows_per_chunk = (hw + chunks - 1) / chunks;
-  p.chunks = static_cast<int>((hw + p.rows_per_chunk - 1) / p.rows_per_chunk);
+  p.rows_per_chunk = hw > chunks ? (hw + chunks - 1) / chunks : 1;
+  p.chunks = hw > 0 ? static_cast<int>((hw + p.rows_per_chunk - 1) / p.rows_per_chunk) : 1;
   const long long items = slabs * p.chunks;
   *grid = static_cast<int>(items < blocks ? items : blocks);
   return p;
@@ -862,7 +863,8 @@ ApplyPlan make_apply_plan(long long hw, int batch, int c, int v, int parts, long
   p.tiles = (p.groups + p.tile - 1) / p.tile;
   p.pix = kThreads / p.tile;
   p.rows_per_chunk = static_cast<long long>(p.pix) * kApplyIters;
-  p.chunks = static_cast<int>((hw + p.rows_per_chunk - 1) / p.rows_per_chunk);
+  // an empty slab (hw 0) keeps one chunk: its blocks write the merged mean and rstd
+  p.chunks = hw > 0 ? static_cast<int>((hw + p.rows_per_chunk - 1) / p.rows_per_chunk) : 1;
   *grid = static_cast<long long>(batch) * p.tiles * p.chunks;
   return p;
 }
@@ -1189,9 +1191,12 @@ int run_dx(const void* x, const void* g, const float* ms, const float* parts, vo
   (elt_size == 2 ? (vec ? fn<bf16, 8>(__VA_ARGS__) : fn<bf16, 1>(__VA_ARGS__)) \
                  : (vec ? fn<float, 4>(__VA_ARGS__) : fn<float, 1>(__VA_ARGS__)))
 
+// The partial form takes a rank's slab of no rows (hw 0): its stats and sums
+// are the (0, 0, 0) and (0, 0) parts, its apply writes the merged mean and
+// rstd, its dx nothing.
 bool bad_operands(long long hw, int batch, int c, int vec, int elt_size) {
   const int v = vec ? 16 / (elt_size > 0 ? elt_size : 1) : 1;
-  return batch < 1 || hw < 1 || c < 1 || c % v || (elt_size != 2 && elt_size != 4);
+  return batch < 1 || hw < 0 || c < 1 || c % v || (elt_size != 2 && elt_size != 4);
 }
 
 }  // namespace

@@ -23,6 +23,7 @@ from jpdse_tpu_torch.config import Config, check_ported
 from jpdse_tpu_torch.models.generator import Encoder, GlobalGenerator, LocalEnhancer
 from jpdse_tpu_torch.models.layers import RUNNING, UPDATE, build, norm_mode, replayable
 from jpdse_tpu_torch.ops.semantics import degrade_ids, prepare_semantics, sem_mask
+from jpdse_tpu_torch.parallel import spatial
 from jpdse_tpu_torch.platform import resolve_device
 from jpdse_tpu_torch.train.step import raw_side_inputs
 
@@ -56,8 +57,15 @@ def prepare_inputs(cfg: Config, label, instance, image,
     if m.sem_masking:
         vis = compressed if cfg.codec.use_compressed else image
         masked = sem_mask(vis, label_tensor, m.binary_mask, m.input_nc)
-    return {"input_label": label_tensor, "real_image": image, "instance_ids": instance,
-            "masked_img": masked, "compressed_img": compressed}
+    out = {"input_label": label_tensor, "real_image": image, "instance_ids": instance,
+           "masked_img": masked, "compressed_img": compressed}
+    # every map is at the image's height
+    return {k: v if v is None else spatial.like(v, image) for k, v in out.items()}
+
+
+def cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    """``t`` in ``dtype`` (None stays None), keeping its global height."""
+    return None if t is None else spatial.like(t.to(dtype), t)
 
 
 def _concat(cfg: Config, input_label, feat):
@@ -67,7 +75,7 @@ def _concat(cfg: Config, input_label, feat):
         return input_label
     if cfg.model.sem_masking or input_label is None:
         return feat
-    return torch.cat([input_label, feat.to(input_label.dtype)], dim=-1)
+    return spatial.like(torch.cat([input_label, feat.to(input_label.dtype)], dim=-1), feat)
 
 
 def assemble(cfg: Config, input_label, feat):
@@ -76,12 +84,13 @@ def assemble(cfg: Config, input_label, feat):
     zero_ins (which zeroes the edge map, the last channel)."""
     m = cfg.model
     if feat is not None and m.zero_vis:
-        feat = torch.zeros_like(feat)
+        feat = spatial.like(torch.zeros_like(feat), feat)
     if m.zero_sem and input_label is not None:
-        input_label = torch.zeros_like(input_label)
+        input_label = spatial.like(torch.zeros_like(input_label), input_label)
     elif m.zero_ins and not m.no_instance and input_label is not None:
-        input_label = torch.cat(
-            [input_label[..., :-1], torch.zeros_like(input_label[..., -1:])], dim=-1)
+        input_label = spatial.like(torch.cat(
+            [input_label[..., :-1], torch.zeros_like(input_label[..., -1:])], dim=-1),
+            input_label)
     return _concat(cfg, input_label, feat), input_label
 
 
@@ -164,10 +173,9 @@ class SemanticCodec(nn.Module):
         return self.netE is not None and self.netE.binarizer is not None
 
     def prepare(self, batch: Dict) -> Dict[str, Optional[torch.Tensor]]:
-        comp = batch.get("compressed")
         return prepare_inputs(self.cfg, batch.get("label"), batch.get("instance"),
-                              batch["image"].to(self.dtype),
-                              None if comp is None else comp.to(self.dtype))
+                              cast(batch["image"], self.dtype),
+                              cast(batch.get("compressed"), self.dtype))
 
     def side_inputs(self, side_batch: Optional[Dict]) -> Optional[Dict]:
         """:meth:`decode_from_codes`'s side inputs from a batch of what a
@@ -235,7 +243,7 @@ class SemanticCodec(nn.Module):
             codes.append(self.netE.encode(self._vis(inputs)))
         if self.netG.binarizer is not None:
             codes.append(self.netG.encode(self._generator_input(inputs, True, None)[0]))
-        return [(c + 1.0) / 2.0 for c in codes]
+        return [spatial.like((c + 1.0) / 2.0, c) for c in codes]
 
     def get_presign(self, inputs) -> List[torch.Tensor]:
         """tanh of the binarizers' inputs, in get_codes_shaped order: where a
@@ -260,7 +268,7 @@ class SemanticCodec(nn.Module):
         m = self.cfg.model
 
         def pm1(c):
-            return (c * 2.0 - 1.0).to(self.dtype)
+            return spatial.like((c * 2.0 - 1.0).to(self.dtype), c)
 
         if self.netG.binarizer is not None:
             # the generator's bottleneck code carries everything before it

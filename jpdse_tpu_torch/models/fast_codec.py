@@ -26,8 +26,9 @@ from typing import Dict, List, Optional
 import torch
 
 from jpdse_tpu_torch.config import Config, check_ported
-from jpdse_tpu_torch.models.codec import _concat, assemble, compute_dtype, prepare_inputs
+from jpdse_tpu_torch.models.codec import _concat, assemble, cast, compute_dtype, prepare_inputs
 from jpdse_tpu_torch.models.fast_trunk import _FastLocalG, _FastTrunk, _sub
+from jpdse_tpu_torch.parallel import spatial
 from jpdse_tpu_torch.platform import resolve_device
 from jpdse_tpu_torch.train.step import raw_side_inputs
 
@@ -79,10 +80,9 @@ class FastCodec:
 
     def _inputs(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Optional[torch.Tensor]]:
         # the one-hot and edge values are exact in bf16, so build them there
-        comp = batch.get("compressed")
         return prepare_inputs(self.cfg, batch.get("label"), batch.get("instance"),
-                              batch["image"].to(self.dtype),
-                              None if comp is None else comp.to(self.dtype))
+                              cast(batch["image"], self.dtype),
+                              cast(batch.get("compressed"), self.dtype))
 
     def _vis(self, inputs):
         """The visuals: the base codec's decoded image under use_compressed,
@@ -122,7 +122,7 @@ class FastCodec:
             codes.append(self.netE.encode(self._vis(inputs)))
         if self.netG.binarize != "none":
             codes.append(self.netG.encode(assemble(self.cfg, *self._features(inputs))[0]))
-        return [(c + 1.0) / 2.0 for c in codes]
+        return [spatial.like((c + 1.0) / 2.0, c) for c in codes]
 
     @torch.inference_mode()
     def decode_from_codes(self, codes: List[torch.Tensor],
@@ -134,7 +134,7 @@ class FastCodec:
         m = self.cfg.model
 
         def pm1(c):
-            return c.to(self.dtype) * 2.0 - 1.0
+            return spatial.like(c.to(self.dtype) * 2.0 - 1.0, c)
 
         if self.netG.binarize != "none":
             return self.netG.decode_from_code(pm1(codes[0]))

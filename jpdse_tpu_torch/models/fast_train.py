@@ -45,6 +45,7 @@ from jpdse_tpu_torch.ops.s2d import (
     conv_valid,
     convT_s2_weights_to_s2d_oihw,
 )
+from jpdse_tpu_torch.parallel import spatial
 
 # the salts of the trunks' generators, the numbers the JAX package folds in
 NETE4LABEL_SALT, NETE_SALT = 101, 102
@@ -121,10 +122,10 @@ class _TrainTrunk:
     def _binarizer(self, w, h, generator, deterministic):
         """The train-mode Binarizer: 1x1 bias-free conv, tanh, the sign
         with a straight-through gradient, stochastic in training."""
-        z = torch.tanh(conv_valid(h, w["bin_w"]))
+        z = spatial.like(torch.tanh(conv_valid(h, w["bin_w"])), h)
         if deterministic or generator is None:
             return quantizers.deterministic_sign_ste(z)
-        return quantizers.stochastic_sign_ste(z, generator)
+        return spatial.like(quantizers.stochastic_sign_ste(z, generator), h)
 
     def __call__(self, w, x, generator=None, deterministic=True):
         t, remat = self.trunk, self.use_remat

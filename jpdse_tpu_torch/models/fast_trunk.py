@@ -13,9 +13,11 @@ re-aligns the s2d grid, by default with kernel K1 (ops/realign.py).
 Under the spatial axis (``parallel/spatial.py``'s ``sharding``) each
 stage computes this rank's rows, as JAX's ``_FastTrunk(..., sharded=True)``
 under a mesh: the s2d convolutions on rows that carry their halos
-(``spatial.halo_rows``: the fine rows the head reads, reflected at the
-global edges only; one zero row above down 0 and below the last upsample;
-the re-alignment's fine rows, reflected likewise), the normal-domain
+(``spatial.take_rows``: the fine rows the head reads for the rank's s2d
+rows, reflected at the global edges only; one zero row above down 0 and
+below the last upsample; the tail's fine rows, reflected likewise, taken
+for the s2d rows that cover the rank's fine output rows, which need not
+start on an even row), the normal-domain
 convolutions, transposed convolutions and norms through their sharded
 forms, the s2d InstanceNorm over the group's sums. Kernels K1, K2 and K4,
 which take a whole tensor, are off there: 'auto' takes the compositions
@@ -53,6 +55,7 @@ from jpdse_tpu_torch.models.layers import (
     conv_transpose_nhwc,
     instance_norm,
     reflect_pad,
+    relu,
 )
 from jpdse_tpu_torch.ops.head_conv import head_conv_extra_rows, head_conv_s2d, padded_channels
 from jpdse_tpu_torch.ops.realign import (
@@ -78,6 +81,15 @@ from jpdse_tpu_torch.parallel import spatial
 def _pad_hw(h: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
     """Zero pad of an NHWC tensor's H and W axes."""
     return F.pad(h, (0, 0, left, right, top, bottom))
+
+
+def _span(b, s: int, scale: int, before: int, after: int) -> range:
+    """The rows ``[scale b[s] - before, scale b[s + 1] + after)`` that rank
+    ``s`` reads for its rows ``[b[s], b[s + 1])`` of a stage, none for a rank
+    without rows (it runs the stage on zero rows)."""
+    if b[s + 1] == b[s]:
+        return range(0)
+    return range(scale * b[s] - before, scale * b[s + 1] + after)
 
 
 def _sub(state: Dict[str, torch.Tensor], prefix: str, rename=()) -> Dict[str, torch.Tensor]:
@@ -195,14 +207,21 @@ class _FastTrunk:
         return shard
 
     def front(self, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-        """Fine input -> normal-domain tensor after down0 (H/2, W/2, C1)."""
-        x = x.to(self.dtype)
+        """Fine input -> normal-domain tensor after down0 (H/2, W/2, C1).
+        Under the spatial axis this rank computes its s2d rows ``[lo, hi)``
+        of the H/2 the head gives (the split of H/2, whose fine rows
+        ``[2 lo, 2 hi)`` need not be the rank's own rows of H), from the fine
+        rows ``[2 lo - 3, 2 hi + 3)`` it takes from their owners."""
+        x = spatial.like(x.to(self.dtype), x)
         shard = self._shard()
         if shard is not None:
-            # the fine rows [2 lo - 3, 2 hi + 3) of the s2d rows [lo, hi) the head gives
-            xp = space_to_depth(spatial.pad_w(spatial.halo_rows(x, 3, 3, "reflect"), 3,
-                                              "reflect"))
-            h = conv_valid(xp, w["head_w"], w["head_b"])
+            hg = spatial.global_h(x)
+            hq, kp = hg // 2, self.head_kp
+            b = shard.bounds(hq)
+            n = b[shard.index + 1] - b[shard.index]
+            fine = spatial.take_rows(x, hg, lambda s: _span(b, s, 2, kp - 1, kp - 1), "reflect")
+            xp = space_to_depth(spatial.pad_w(spatial.at_least(fine, 2 * kp), kp - 1, "reflect"))
+            h = spatial.mark(conv_valid(xp, w["head_w"], w["head_b"])[:, :n], hq)
         elif self.head_fold == "pallas":
             h = self._front_head_pallas(w, x)
         else:
@@ -211,13 +230,15 @@ class _FastTrunk:
             else:
                 xp = space_to_depth(reflect_pad(x, 3))
             h = conv_valid(xp, w["head_w"], w["head_b"])
-        h = torch.relu(instance_norm_s2d(h, use_shift=self.fp.norm_shift))
+        h = relu(instance_norm_s2d(h, use_shift=self.fp.norm_shift))
         if shard is not None:
-            h = spatial.halo_rows(h, 1, 0)  # the zero row above global row 0
-            h = conv_valid(_pad_hw(h, 0, 0, 1, 0), w["down0_w"], w["down0_b"])
+            # one s2d row above each rank's own (zero above global row 0)
+            h = spatial.at_least(spatial.take_rows(h, hq, lambda s: _span(b, s, 1, 1, 0)), 2)
+            h = spatial.mark(conv_valid(_pad_hw(h, 0, 0, 1, 0), w["down0_w"],
+                                        w["down0_b"])[:, :n], hq)
         else:
             h = conv_valid(_pad_hw(h, 1, 0, 1, 0), w["down0_w"], w["down0_b"])
-        return torch.relu(instance_norm(h))
+        return relu(instance_norm(h))
 
     def _front_head_pallas(self, w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """The head conv as K4, with the JAX package's producer: plain
@@ -240,11 +261,11 @@ class _FastTrunk:
             else:
                 h = conv_valid(_pad_hw(h, 1, 1, 1, 1), w[f"down{i}_w"], w[f"down{i}_b"],
                                stride=2)
-            h = torch.relu(instance_norm(h))
+            h = relu(instance_norm(h))
         return h
 
     def apply_binarizer(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
-        return torch.sign(torch.tanh(conv_valid(h, w["bin_w"])))
+        return spatial.like(torch.sign(torch.tanh(conv_valid(h, w["bin_w"]))), h)
 
     def _conv3_reflect(self, h: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
         if self._shard() is not None:
@@ -253,9 +274,9 @@ class _FastTrunk:
 
     def res_block(self, w: Dict[str, torch.Tensor], h: torch.Tensor, i: int) -> torch.Tensor:
         r = self._conv3_reflect(h, w[f"res{i}_w1"], w[f"res{i}_b1"])
-        r = torch.relu(instance_norm(r))
+        r = relu(instance_norm(r))
         r = self._conv3_reflect(r, w[f"res{i}_w2"], w[f"res{i}_b2"])
-        return h + instance_norm(r)
+        return spatial.like(h + instance_norm(r), h)
 
     def res_blocks(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_res):
@@ -264,7 +285,7 @@ class _FastTrunk:
 
     def mid_up(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_mid_up):
-            h = torch.relu(instance_norm(conv_transpose_nhwc(h, w[f"up{i}_w"], w[f"up{i}_b"])))
+            h = relu(instance_norm(conv_transpose_nhwc(h, w[f"up{i}_w"], w[f"up{i}_b"])))
         return h
 
     def _realign(self, y: torch.Tensor, extra_rows: int = 0,
@@ -274,32 +295,49 @@ class _FastTrunk:
         as the JAX package's ``_FastTrunk._realign`` picks (:341-375):
         'auto' / 'pallas' kernel K1, else the composition (JAX's '1' /
         'xla' slice form computes the same tensor bit for bit, so the port
-        runs the composition for it too). Under the spatial axis the
-        composition on this rank's fine rows and their reflected halos:
-        the s2d rows [lo, hi + 3) of the padded tensor."""
-        if self._shard() is not None:
-            fine = spatial.halo_rows(depth_to_space(y), 3, 3, "reflect",
-                                     hg=2 * spatial.global_h(y))
-            return space_to_depth(spatial.pad_w(fine, 3, "reflect"))
+        runs the composition for it too); under the spatial axis,
+        :meth:`back` composes it on the rows it takes."""
         if self.fp.fused_realign in ("auto", "pallas"):
             return s2d_realign_pad3(y.contiguous(), extra_rows, channels)
         return s2d_realign_pad3_plain(y, extra_rows, channels)
 
     def back(self, w: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
-        """Normal-domain (H/2, W/2, C) -> fine output with tanh."""
-        if self._shard() is not None:
-            h = spatial.halo_rows(h, 0, 1)  # the zero row below the global bottom
-            y = conv_valid(_pad_hw(h, 0, 0, 0, 1), w["uplast_w"], w["uplast_b"])
-        else:
+        """Normal-domain (H/2, W/2, C) -> fine output with tanh. Under the
+        spatial axis the s2d rows of the last upsample are this rank's rows
+        of H/2, and the tail's are the s2d rows ``[f0 // 2, ceil(f1 / 2))``
+        that cover its fine output rows ``[f0, f1)`` of H, re-aligned from
+        the fine rows they read (taken from their owners: rank s holds the
+        fine rows ``2 [lo, hi)`` of its s2d rows), cropped to its own."""
+        shard = self._shard()
+        if shard is None:
             y = conv_valid(_pad_hw(h, 0, 1, 0, 1), w["uplast_w"], w["uplast_b"])
-        y = torch.relu(instance_norm_s2d(y, use_shift=self.fp.norm_shift))
-        yp = self._realign(y)
-        return depth_to_space(torch.tanh(conv_valid(yp, w["tail_w"], w["tail_b"])))
+            y = torch.relu(instance_norm_s2d(y, use_shift=self.fp.norm_shift))
+            yp = self._realign(y)
+            return depth_to_space(torch.tanh(conv_valid(yp, w["tail_w"], w["tail_b"])))
+        hq = spatial.global_h(h)
+        b, i = shard.bounds(hq), shard.index
+        # one row below each rank's own (zero below the global bottom)
+        h = spatial.at_least(spatial.take_rows(h, hq, lambda s: _span(b, s, 1, 0, 1)), 2)
+        y = spatial.mark(conv_valid(_pad_hw(h, 0, 0, 0, 1), w["uplast_w"],
+                                    w["uplast_b"])[:, :b[i + 1] - b[i]], hq)
+        y = relu(instance_norm_s2d(y, use_shift=self.fp.norm_shift))
+        hg, fb = 2 * hq, shard.bounds(2 * hq)
+
+        def want(s):  # the fine rows the tail's s2d rows read, reflected at the edges
+            f0, f1 = fb[s], fb[s + 1]
+            return range(2 * (f0 // 2) - 3, 2 * ((f1 + 1) // 2) + 3) if f1 > f0 else range(0)
+
+        fine = spatial.take_rows(depth_to_space(y), hg, want, "reflect",
+                                 owners=tuple(2 * v for v in b))
+        yp = space_to_depth(spatial.pad_w(spatial.at_least(fine, 8), 3, "reflect"))
+        out = depth_to_space(torch.tanh(conv_valid(yp, w["tail_w"], w["tail_b"])))
+        f0 = fb[i] - 2 * (fb[i] // 2)
+        return spatial.mark(out[:, f0:f0 + fb[i + 1] - fb[i]], hg)
 
     # -- full passes, on the trunk's own weights ----------------------------
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weights
-        h = self.front(w, x) if self.has_front else x.to(self.dtype)
+        h = self.front(w, x) if self.has_front else spatial.like(x.to(self.dtype), x)
         h = self.mid_down(w, h)
         if self.binarize in ("mid", "before_res"):
             h = self.apply_binarizer(w, h)
@@ -324,7 +362,7 @@ class _FastTrunk:
         if self.binarize == "none":
             raise ValueError("no binarizer in this trunk")
         w = self.weights
-        h = code_pm1.to(self.dtype)
+        h = spatial.like(code_pm1.to(self.dtype), code_pm1)
         if self.binarize == "before_res":
             h = self.res_blocks(w, h)
         return self.back(w, self.mid_up(w, h))
@@ -354,12 +392,12 @@ class _FastLocalG:
                     for n in range(1, n_local + 1)]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        pyramid = [x.to(self.dtype)]
+        pyramid = [spatial.like(x.to(self.dtype), x)]
         for _ in range(self.n_local):
             pyramid.append(avg_pool_3s2(pyramid[-1]))
         h = self.glob(pyramid[-1])
         for n in range(self.n_local):
             down = self.downs[n]
             d = down.front(down.weights, pyramid[self.n_local - 1 - n])
-            h = self.ups[n](d + h)
+            h = self.ups[n](spatial.like(d + h, d))
         return h

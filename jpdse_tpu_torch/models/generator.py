@@ -25,6 +25,7 @@ from jpdse_tpu_torch.models.layers import (
     remat_call,
 )
 from jpdse_tpu_torch.ops.quantizers import Binarizer
+from jpdse_tpu_torch.parallel import spatial
 
 
 def _down(ngf: int, n: int, fused: bool, remat: bool, norm: str, groups: int = 1):
@@ -100,7 +101,8 @@ class GlobalGenerator(nn.Module):
         return h
 
     def _back(self, h):
-        return torch.tanh(padded_conv(self.tail, self.ups(h), 3))
+        y = padded_conv(self.tail, self.ups(h), 3)
+        return spatial.like(torch.tanh(y), y)
 
     def decode_from_code(self, code, deterministic: bool = True, generator=None):
         """Resume the trunk after the binarizer."""
@@ -147,7 +149,8 @@ class LocalUpsample(nn.Module):
             x = blk(x)
         x = self.up(x)
         if self.tail is not None:
-            x = torch.tanh(padded_conv(self.tail, x, 3))
+            x = padded_conv(self.tail, x, 3)
+            x = spatial.like(torch.tanh(x), x)
         return x
 
 
@@ -189,7 +192,7 @@ class LocalEnhancer(nn.Module):
         for n in range(1, self.n_local + 1):
             down, up = getattr(self, f"local{n}_down"), getattr(self, f"local{n}_up")
             d = remat_call(self.remat, down, pyramid[self.n_local - n])
-            h = remat_call(self.remat, up, d + h)
+            h = remat_call(self.remat, up, spatial.like(d + h, d))
         return h
 
 
@@ -233,7 +236,8 @@ class Encoder(nn.Module):
     def decode_from_code(self, h):
         for blk in self.up:
             h = blk(h)
-        return torch.tanh(padded_conv(self.tail, h, 3))
+        y = padded_conv(self.tail, h, 3)
+        return spatial.like(torch.tanh(y), y)
 
     def forward(self, x, deterministic: bool = True, generator=None, inst=None):
         out = self.decode_from_code(self.encode(x, deterministic, generator))

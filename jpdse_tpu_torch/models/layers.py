@@ -76,7 +76,7 @@ def conv_nhwc(x, w, b=None, stride: int = 1, padding: int = 0, groups: int = 1):
                                               and _one(padding) == 0):
         return spatial.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
                               _one(stride), _one(padding), "zero", groups)
-    return conv_rows(x, w, b, stride, padding, groups)
+    return spatial.like(conv_rows(x, w, b, stride, padding, groups), x)
 
 
 def conv_transpose_nhwc(x, w, b=None, groups: int = 1):
@@ -116,15 +116,15 @@ def replicate_pad(x, pad: int):
 def instance_norm(x, eps: float = 1e-5):
     """InstanceNorm2d(affine=False): fp32 statistics (float64 for a float64
     input) over (H, W), biased variance. Under the spatial axis each rank's
-    (count, mean, M2) per (b, c), gathered and merged in rank order."""
+    (count, mean, M2) per (b, c), gathered and merged in rank order: the
+    merged count is the global slab's, a rank without rows adding none."""
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     if spatial.current() is not None:
-        _, mean, m2 = merge_parts(spatial.gather(instance_norm_stats_plain(x)))
-        n = spatial.global_h(x) * x.shape[2]
+        n, mean, m2 = merge_parts(spatial.gather(instance_norm_stats_plain(x)))
         mean, var = mean[:, None, None, :], (m2 / n)[:, None, None, :]
     else:
         var, mean = torch.var_mean(x32, dim=(1, 2), keepdim=True, unbiased=False)
-    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return spatial.like(((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype), x)
 
 
 # -- the norms' modes -----------------------------------------------------------------
@@ -243,7 +243,7 @@ class BatchNorm(nn.Module):
                         buf.copy_(MOMENTUM * buf + (1 - MOMENTUM) * new.to(buf.dtype))
         acc = mean.dtype
         mul = torch.rsqrt(var + BN_EPS) * self.scale.to(acc)
-        return ((x.to(acc) - mean) * mul + self.bias.to(acc)).to(x.dtype)
+        return spatial.like(((x.to(acc) - mean) * mul + self.bias.to(acc)).to(x.dtype), x)
 
 
 class Norm(nn.Module):
@@ -288,11 +288,16 @@ def instance_wise_avg_pool(feats, inst, num_segments: int):
         sums, counts = spatial.sum_over(sums), spatial.sum_over(counts)
     means = sums / counts.clamp_min(1.0)[..., None]
     out = [m.index_select(0, i) for m, i in zip(means, ids)]
-    return torch.stack(out).reshape(b, h, w, c).to(feats.dtype)
+    return spatial.like(torch.stack(out).reshape(b, h, w, c).to(feats.dtype), feats)
 
 
 def leaky_relu(x, negative_slope: float = 0.2):
     return F.leaky_relu(x, negative_slope)
+
+
+def relu(x):
+    """ReLU, the output keeping x's global height (``spatial.like``)."""
+    return spatial.like(torch.relu(x), x)
 
 
 @functools.lru_cache(maxsize=64)
@@ -368,13 +373,15 @@ def _fused_norm(x, relu: bool = False, residual=None):
     """InstanceNorm [+ReLU] [+residual] as one call to kernel K3
     (ops/instance_norm.py), in its partial-statistics form under the
     spatial axis: the group's statistics gathered in rank order, over the
-    global slab's count."""
+    global slab's count (the backward's divisor; the forward merges the
+    ranks' counts), on every rank, one with no rows included."""
     shard, part = spatial.current(), {}
     if shard is not None:
         part = dict(gather=functools.partial(spatial.gather_, shard=shard),
                     count=float(spatial.global_h(x, shard) * x.shape[2]))
-    return fused_instance_norm(
-        x.contiguous(), None if residual is None else residual.contiguous(), relu=relu, **part)
+    return spatial.like(fused_instance_norm(
+        x.contiguous(), None if residual is None else residual.contiguous(), relu=relu, **part),
+        x)
 
 
 PADS = {"reflect": reflect_pad, "replicate": replicate_pad}
@@ -441,7 +448,7 @@ class ConvNormAct(nn.Module):
         h = padded_conv(self.conv, x, self.reflect) if self.reflect else self.conv(x)
         if self.fused:
             return _fused_norm(h, relu=True)
-        return torch.relu(self.norm(h))
+        return relu(self.norm(h))
 
 
 class ConvTransposeNormAct(nn.Module):
@@ -465,15 +472,17 @@ class ConvTransposeNormAct(nn.Module):
         h = conv_transpose_nhwc(x, d.weight, d.bias, d.groups)
         if self.fused:
             return _fused_norm(h, relu=True)
-        return torch.relu(self.norm(h))
+        return relu(self.norm(h))
 
 
-def dropout_mask(shape, generator: torch.Generator, device) -> torch.Tensor:
+def dropout_mask(shape, generator: torch.Generator, device, hg: Optional[int] = None
+                 ) -> torch.Tensor:
     """The kept positions of Dropout(0.5): True where a uniform draw from
     ``generator`` is below 1/2, as ``jax.random.bernoulli`` keeps (drawn
-    for the global batch in a data-parallel step,
-    ``parallel/mesh.py::draw_rows``)."""
-    return draw_rows(shape, lambda s: torch.rand(s, generator=generator, device=device)) < 0.5
+    for the global batch in a data-parallel step, and at the global height
+    ``hg`` under the spatial axis, ``parallel/mesh.py::draw_rows``)."""
+    return draw_rows(shape, lambda s: torch.rand(s, generator=generator, device=device),
+                     hg) < 0.5
 
 
 class ResnetBlock(nn.Module):
@@ -507,7 +516,8 @@ class ResnetBlock(nn.Module):
         if self.use_dropout and not deterministic:
             if generator is None:
                 raise ValueError("dropout in training needs an explicit torch.Generator")
-            mask = dropout_mask(x.shape, generator, x.device)  # conv1 keeps x's shape
+            # conv1 keeps x's shape
+            mask = dropout_mask(x.shape, generator, x.device, hg=spatial.global_h(x))
         return remat_call(self.remat, self._forward, x, mask)
 
     def _conv(self, conv, x):
@@ -517,12 +527,12 @@ class ResnetBlock(nn.Module):
         if self.fused:
             h = _fused_norm(self._conv(self.conv1, x), relu=True)
         else:
-            h = torch.relu(self.norm1(self._conv(self.conv1, x)))
+            h = relu(self.norm1(self._conv(self.conv1, x)))
         if mask is not None:
-            h = torch.where(mask, h * 2.0, torch.zeros_like(h))
+            h = spatial.like(torch.where(mask, h * 2.0, torch.zeros_like(h)), x)
         if self.fused:
             return _fused_norm(self._conv(self.conv2, h), residual=x)
-        return x + self.norm2(self._conv(self.conv2, h))
+        return spatial.like(x + self.norm2(self._conv(self.conv2, h)), x)
 
 
 def build(make, device, generator: Optional[torch.Generator]) -> nn.Module:

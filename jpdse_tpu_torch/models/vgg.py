@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from jpdse_tpu_torch.models.layers import conv_nhwc
+from jpdse_tpu_torch.models.layers import conv_nhwc, relu
+from jpdse_tpu_torch.parallel import spatial
 
 # (channels, convs in the stage) per VGG19 stage
 STAGES = ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4))
@@ -35,7 +36,8 @@ def conv_names() -> List[str]:
 class Vgg19Features(nn.Module):
     """3x3 same-padded convs with ReLU, 2x2 max pools between stages; returns
     the five relu{k}_1 activations. Under the spatial axis each conv takes
-    its one-row halos (``models/layers.py::conv_nhwc``)."""
+    its one-row halos (``models/layers.py::conv_nhwc``) and each pool its
+    windows (:func:`max_pool_2s2`), at any split of the rows."""
 
     def __init__(self):
         super().__init__()
@@ -49,18 +51,27 @@ class Vgg19Features(nn.Module):
         """The five slices, computed in the trunk's own dtype (fp32 for a
         bf16 image, as the JAX package's fp32 trunk takes one; bf16 for
         every image once the weights are cast, ``optim.vgg_bf16``)."""
-        x = x.to(self.conv1_1.weight.dtype)
+        x = spatial.like(x.to(self.conv1_1.weight.dtype), x)
         outs = []
         for name in conv_names():
             if name.endswith("_1") and name != "conv1_1":
-                # under the spatial axis a rank's rows start on an even global row
-                # (an H that S times 16 divides), so its 2x2 windows are its own
-                x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+                x = max_pool_2s2(x)
             conv = getattr(self, name)
-            x = torch.relu(conv_nhwc(x, conv.weight, conv.bias, 1, 1))
+            x = relu(conv_nhwc(x, conv.weight, conv.bias, 1, 1))
             if name in SLICE_AT:
                 outs.append(x)
         return outs
+
+
+def max_pool_2s2(x):
+    """MaxPool2d(2, 2) of an NHWC tensor. Under the spatial axis this rank's
+    output rows, marked: their windows (rows 2i and 2i + 1) are fetched
+    from their owners, as a rank's rows may start on an odd global row."""
+    if spatial.current() is None:
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    rows, hout, n = spatial.window_rows(x, spatial.global_h(x), 2, 2, 0, "zero")
+    y = F.max_pool2d(rows.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    return spatial.mark(y[:, :n], hout)
 
 
 def load_vgg19_params(path: str) -> Dict[str, torch.Tensor]:

@@ -105,8 +105,8 @@ def _tiling(c: int, vec: int):
 
 def max_chunks(hw: int, c: int, vec: int) -> int:
     """The most chunks :func:`plan` cuts a slab into, on any card: the
-    partials' workspace is sized by it."""
-    return min(MAX_CHUNKS, -(-hw // _tiling(c, vec)[3]))
+    partials' workspace is sized by it (one for a slab of no rows)."""
+    return max(1, min(MAX_CHUNKS, -(-hw // _tiling(c, vec)[3])))
 
 
 def plan(b: int, hw: int, c: int, vec: int, max_blocks: int):
@@ -119,8 +119,8 @@ def plan(b: int, hw: int, c: int, vec: int, max_blocks: int):
     _, _, tiles, _ = _tiling(c, vec)
     slabs = b * tiles
     chunks = 1 if slabs >= max_blocks else min(max_blocks // slabs, max_chunks(hw, c, vec))
-    rows = -(-hw // chunks)
-    chunks = -(-hw // rows)
+    rows = max(1, -(-hw // chunks))
+    chunks = max(1, -(-hw // rows))  # a slab of no rows: one chunk of none
     return min(max_blocks, slabs * chunks), chunks, rows
 
 
@@ -269,7 +269,7 @@ def apply_plan(b: int, hw: int, c: int, vec: int):
     loop iterations of each (batch element, channel tile) slab."""
     _, _, tiles, pix = _tiling(c, vec)
     rows = pix * APPLY_ITERS
-    chunks = -(-hw // rows)
+    chunks = max(1, -(-hw // rows))  # a slab of no rows: one chunk, for the mean and rstd
     return b * tiles * chunks, chunks, rows
 
 
@@ -366,7 +366,9 @@ def _partial_launcher(symbol: str, signature: str):
 
 def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
     """This rank's (count, mean, M2) per (b, c), (B, C, 3): the stats launch
-    on the card (fp32), the plain version on the CPU.
+    on the card (fp32), the plain version on the CPU. A slab of no rows (a
+    rank that owns none of an uneven split) launches too and gives
+    (0, 0, 0); so do the apply, sums and dx launches take it.
     ``instance_norm_stats.launches`` counts kernel launches."""
     _check_shapes(x, None, "")
     if x.device.type == "cpu":

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jpdse_tpu_torch.models.layers import conv_nhwc
+from jpdse_tpu_torch.parallel import spatial
 from jpdse_tpu_torch.parallel.mesh import draw_rows
 
 
@@ -47,14 +48,15 @@ def stochastic_sign_ste(x: torch.Tensor, generator: torch.Generator) -> torch.Te
     """Stochastic binarization with a straight-through gradient: u drawn by
     ``torch.rand`` in x's dtype from ``generator`` (for the global batch in
     a data-parallel step, ``parallel/mesh.py::draw_rows``)."""
+    hg = None if spatial.current() is None else spatial.global_h(x)
     u = draw_rows(x.shape, lambda s: torch.rand(s, dtype=x.dtype, device=x.device,
-                                                generator=generator))
-    return _SignSTE.apply(x, u)
+                                                generator=generator), hg)
+    return spatial.like(_SignSTE.apply(x, u), x)
 
 
 def deterministic_sign_ste(x: torch.Tensor) -> torch.Tensor:
     """sign(x) (0 at 0, as ``jnp.sign``) with an identity gradient."""
-    return _SignSTE.apply(x, None)
+    return spatial.like(_SignSTE.apply(x, None), x)
 
 
 class _RoundSTE(torch.autograd.Function):
@@ -98,11 +100,12 @@ class Binarizer(nn.Module):
 
     def presign(self, x: torch.Tensor) -> torch.Tensor:
         """tanh(conv1x1(x)): the value whose sign is the code bit."""
-        return torch.tanh(conv_nhwc(x, self.conv.weight, groups=self.conv.groups))
+        return spatial.like(torch.tanh(conv_nhwc(x, self.conv.weight, groups=self.conv.groups)),
+                            x)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.sign(self.presign(x), deterministic, generator)
+        return spatial.like(self.sign(self.presign(x), deterministic, generator), x)
 
 
 class S2HVQ(nn.Module):

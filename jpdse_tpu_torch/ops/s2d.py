@@ -187,20 +187,24 @@ def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, use_shift=None) -> tor
 
     Under the spatial axis ``x`` is this rank's rows: the one-pass sums are
     summed over the group, the count is the whole tensor's, and the shift is
-    the value at the global first position, which the rank owning global
-    row 0 hands to the others (the same one-pass formula as one process,
-    its sums in another order)."""
+    the value at the global first position, which the first rank that owns
+    rows (it owns global row 0) hands to the others (the same one-pass
+    formula as one process, its sums in another order)."""
     b, h, w, c4 = x.shape
     c = c4 // 4
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     shard = spatial.current()
-    n = (h if shard is None else spatial.global_h(x, shard)) * w * 4
+    hg = h if shard is None else spatial.global_h(x, shard)
+    n = hg * w * 4
     if use_shift is None:
         use_shift = os.environ.get("JPDSE_NORM_SHIFT", "0") == "1"
-    shift = x32[:, :1, :1, :c] if use_shift else None  # (b, 1, 1, c)
+    # (b, 1, 1, c): a rank without rows takes its (zero) sums, kept in the graph
+    shift = (x32[:, :1, :1, :c] if h else x32.sum(dim=(1, 2), keepdim=True)[..., :c]
+             ) if use_shift else None
     if use_shift and shard is not None:
         # a zero kept in the graph on the other ranks, so every rank's backward all-reduces
-        first = shard.owned(spatial.global_h(x, shard))[0] == 0
+        bd = shard.bounds(hg)
+        first = shard.index == next(s for s in range(shard.size) if bd[s + 1] > bd[s])
         shift = spatial.sum_over(shift * (1.0 if first else 0.0), shard)
     d = x32 - shift.repeat(1, 1, 1, 4) if use_shift else x32
     s1 = d.sum(dim=(1, 2)).view(b, 4, c).sum(dim=1)
@@ -213,7 +217,7 @@ def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, use_shift=None) -> tor
         mean = mean + shift[:, 0, 0, :]
     mean4 = mean.repeat(1, 4)[:, None, None, :]
     rstd4 = torch.rsqrt(var + eps).repeat(1, 4)[:, None, None, :]
-    return ((x32 - mean4) * rstd4).to(x.dtype)
+    return spatial.like(((x32 - mean4) * rstd4).to(x.dtype), x)
 
 
 # VALID conv of an NHWC tensor with an OIHW weight, bias fused, on the rows

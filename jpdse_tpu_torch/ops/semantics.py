@@ -26,15 +26,15 @@ def instance_edges(inst: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     on either side of an id change are marked. Under the spatial axis the H
     differences take one row of the neighbours' ids on each side (a repeat
     of the edge row at the global edges, which marks nothing)."""
+    shard = spatial.current()
+    hg = spatial.global_h(inst)
     if inst.ndim == 3:
         inst = inst[..., None]
     edge = torch.zeros(inst.shape, dtype=torch.bool, device=inst.device)
     diff_w = inst[:, :, 1:] != inst[:, :, :-1]
     edge[:, :, 1:] |= diff_w
     edge[:, :, :-1] |= diff_w
-    shard = spatial.current()
     if shard is not None:
-        hg = spatial.global_h(inst)
         b = shard.bounds(hg)
         ext = spatial.take_rows(inst, hg, lambda s: range(b[s] - 1, b[s + 1] + 1), "replicate")
         diff_h = ext[:, 1:] != ext[:, :-1]
@@ -43,20 +43,30 @@ def instance_edges(inst: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
         diff_h = inst[:, 1:] != inst[:, :-1]
         edge[:, 1:] |= diff_h
         edge[:, :-1] |= diff_h
-    return edge.to(dtype)
+    return spatial.mark(edge.to(dtype), hg) if shard is not None else edge.to(dtype)
 
 
 def degrade_ids(m: Optional[torch.Tensor], factor: int) -> Optional[torch.Tensor]:
     """Nearest down-then-up of an id map (the decoder-side view of semantics
-    shipped at 1/factor resolution); sizes need not divide."""
+    shipped at 1/factor resolution); sizes need not divide. Under the
+    spatial axis each of this rank's rows r takes global row
+    ``factor (r // factor)``, fetched from its owner."""
     if m is None or factor <= 1:
         return m
     had_c = m.ndim == 4
     x = m[..., 0] if had_c else m
     h, w = x.shape[1], x.shape[2]
-    s = x[:, ::factor, ::factor]
-    up = s.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)[:, :h, :w]
-    return up[..., None] if had_c else up
+    shard = spatial.current()
+    if shard is not None:
+        hg = spatial.global_h(m)
+        b = shard.bounds(hg)
+        rows = spatial.take_rows(x, hg, lambda s: [r - r % factor for r in range(b[s], b[s + 1])])
+        up = rows[:, :, ::factor].repeat_interleave(factor, dim=2)[:, :, :w]
+        up = spatial.mark(up, hg)
+    else:
+        s = x[:, ::factor, ::factor]
+        up = s.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)[:, :h, :w]
+    return spatial.like(up[..., None], up) if had_c else up
 
 
 def prepare_semantics(
@@ -96,4 +106,4 @@ def sem_mask(img: torch.Tensor, label: torch.Tensor, binary_mask: bool = False,
         block = img[..., None, :].expand(b, h, w, n, img_nc)
     if binary_mask:
         block = torch.ones_like(block)
-    return (block * label[..., :, None]).reshape(b, h, w, n * img_nc)
+    return spatial.like((block * label[..., :, None]).reshape(b, h, w, n * img_nc), img)

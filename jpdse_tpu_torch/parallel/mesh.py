@@ -178,21 +178,25 @@ def drawing(mesh: Optional[DataMesh]):
         _ACTIVE = saved
 
 
-def draw_rows(shape: Tuple[int, ...], draw: Callable[[Tuple[int, ...]], torch.Tensor]
-              ) -> torch.Tensor:
+def draw_rows(shape: Tuple[int, ...], draw: Callable[[Tuple[int, ...]], torch.Tensor],
+              hg: Optional[int] = None) -> torch.Tensor:
     """``draw(shape)``, whose dim 0 is the batch and dim 1 H; inside
     :func:`drawing` of a mesh of N spatial groups, ``draw`` of the global
     shape (dim 0 times N and, under ``parallel/spatial.py``'s sharding, dim
-    1 the tensor's global height), of which this rank keeps its batch rows
-    and its H rows: every rank advances the generator alike and the draws
-    equal one process's on the global batch."""
+    1 the tensor's global height ``hg``, which a sharded draw must be
+    given: ``spatial.global_h`` of the tensor it is drawn for), of which
+    this rank keeps its batch rows and its H rows: every rank advances the
+    generator alike and the draws equal one process's on the global
+    batch."""
     mesh, shard = _ACTIVE, spatial.current()
     if mesh is None and shard is None:
         return draw(tuple(shape))
     shape = tuple(shape)
     b, n = shape[0], 1 if mesh is None else mesh.n_data
-    h = shape[1] * (1 if shard is None else shard.size)
-    u = draw((b * n, h) + shape[2:])
+    if shard is not None and hg is None:
+        raise spatial.UnknownHeight(f"a draw of shape {shape} under a spatial shard needs the "
+                                    f"tensor's global height")
+    u = draw((b * n, shape[1] if shard is None else hg) + shape[2:])
     if mesh is not None:
         u = u[mesh.rows(b)]
     return u if shard is None else shard.rows(u)

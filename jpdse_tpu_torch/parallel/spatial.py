@@ -6,8 +6,9 @@ by hand.
 A tensor of global height ``hg`` is held by the group's ``S`` ranks in
 consecutive row ranges, rank ``s`` owning ``[s hg // S, (s + 1) hg // S)``
 (:meth:`SpatialShard.owned`): equal blocks where ``S`` divides ``hg``, and
-one owner for every row where it does not (the discriminator's layers give
-``hg / 2 + 1`` and ``hg + 1`` rows). A layer computes the output rows its
+one owner for every row where it does not (a generator's fourth down of an
+H of 1376 rows has 43, the discriminator's layers give ``hg / 2 + 1`` and
+``hg + 1``). A layer computes the output rows its
 rank owns from :func:`take_rows`, the global input rows it needs, fetched
 from their owners, with the reflect, replicate or zero padding applied at
 the global edges only; the padding rows of a rank that holds fewer rows
@@ -25,11 +26,16 @@ order) and :func:`sum_over` are collectives whose every rank uses the
 result for its own rows: an all-reduce forward and an all-reduce of the
 gradients backward.
 
-A tensor's global height is its local height times ``S`` unless it
-carries another (:func:`mark`): the generator's and encoders' activations
-split evenly, the discriminator's are marked. The fast path's s2d stages
-take their halos by :func:`halo_rows` and convolve the rows they are
-given. Nothing here is active outside :func:`sharding`, so the
+Every H-sharded tensor carries its global height (:func:`mark`): the
+batch's rows from :meth:`SpatialShard.rows`, each sharded layer's output
+from the layer, each element-wise output from its input (:func:`like`).
+The split need not be even: at the deeper layers the ranks hold unequal
+row counts, and a rank may hold none (it still runs every layer, on zero
+rows, and makes every collective). A rank's own row count does not say
+the global height, so :func:`global_h` of an unmarked tensor raises rather
+than guess. The fast path's s2d stages take the fine rows their s2d rows
+cover by :func:`take_rows` with the ownership that the s2d split gives
+(``owners``). Nothing here is active outside :func:`sharding`, so the
 single-process path runs as it did.
 """
 
@@ -67,9 +73,10 @@ class SpatialShard:
         return b[self.index], b[self.index + 1]
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a whole tensor (H on dim 1)."""
+        """This rank's rows of a whole tensor (H on dim 1), marked with its
+        height."""
         lo, hi = self.owned(x.shape[1])
-        return x[:, lo:hi]
+        return mark(x[:, lo:hi], x.shape[1])
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group in place, counted in :data:`traffic`. An
@@ -118,14 +125,34 @@ def mark(t: torch.Tensor, hg: int) -> torch.Tensor:
     return t
 
 
+def like(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``t`` marked with ``src``'s global height where ``src`` carries one:
+    for an output whose rows are ``src``'s rows (an element-wise op, a
+    cast, a concat over channels); returns ``t``."""
+    hg = getattr(src, HG_ATTR, None)
+    if hg is not None:
+        setattr(t, HG_ATTR, hg)
+    return t
+
+
+class UnknownHeight(ValueError):
+    """A sharded tensor whose global height nothing records."""
+
+
 def global_h(t: torch.Tensor, shard: Optional[SpatialShard] = None) -> int:
-    """The global height of the tensor whose rows ``t`` holds: its mark, or
-    its local height times the group's size."""
+    """The global height of the tensor whose rows ``t`` holds: its mark;
+    its own height outside a group of more than one rank. An unmarked
+    tensor of a group raises :class:`UnknownHeight`: a rank's row count
+    does not fix the height (21 rows on rank 0 of 2 are 42 or 43), and
+    ranks that guessed apart would build different exchanges."""
     hg = getattr(t, HG_ATTR, None)
     if hg is not None:
         return hg
     shard = shard or _ACTIVE
-    return t.shape[1] * (1 if shard is None else shard.size)
+    if shard is None or shard.size == 1:
+        return t.shape[1]
+    raise UnknownHeight(f"a tensor of {t.shape[1]} rows on rank {shard.index} of {shard.size} "
+                        f"carries no global height (spatial.mark / spatial.like)")
 
 
 def numel(t: torch.Tensor) -> int:
@@ -181,11 +208,12 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(hg: int, size: int, index: int, wants: Tuple[Tuple[int, ...], ...]) -> Plan:
+def plan(owners: Tuple[int, ...], index: int, wants: Tuple[Tuple[int, ...], ...]) -> Plan:
     """The exchange that gives every rank ``s`` the global rows ``wants[s]``
-    (-1 for a zero row), seen from rank ``index``. The slots are every
-    rank's rows owned by another, in rank order, then row order."""
-    b = bounds(hg, size)
+    (-1 for a zero row), seen from rank ``index``, rank ``s`` owning rows
+    ``[owners[s], owners[s + 1])``. The slots are every rank's rows owned by
+    another, in rank order, then row order: the same count on every rank."""
+    b = owners
     lo, hi = b[index], b[index + 1]
     local_j, local_src, send_k, send_src, recv_j, recv_k = [], [], [], [], [], []
     k = 0
@@ -259,15 +287,17 @@ class _TakeRows(torch.autograd.Function):
 
 
 def take_rows(x: torch.Tensor, hg: int, want: Callable[[int], Sequence[int]],
-              mode: str = "zero", shard: Optional[SpatialShard] = None) -> torch.Tensor:
+              mode: str = "zero", shard: Optional[SpatialShard] = None,
+              owners: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """The global rows ``want(s)`` of the H-sharded tensor of ``hg`` rows
     whose rows this rank holds in ``x`` (H on dim 1), for this rank ``s``;
     rows outside [0, hg) padded by ``mode`` ('zero', 'reflect',
-    'replicate'). ``want`` is asked for every rank of the group, which all
-    make the same exchange. Differentiable in ``x``."""
+    'replicate'). Rank ``s`` holds rows ``[owners[s], owners[s + 1])``,
+    by default :func:`bounds`. ``want`` is asked for every rank of the
+    group, which all make the same exchange. Differentiable in ``x``."""
     shard = shard or _ACTIVE
     wants = tuple(tuple(source_row(r, hg, mode) for r in want(s)) for s in range(shard.size))
-    p = plan(hg, shard.size, shard.index, wants)
+    p = plan(owners or bounds(hg, shard.size), shard.index, wants)
     if torch.is_grad_enabled() and x.requires_grad:
         return _TakeRows.apply(x, p, shard)
     return _exchange(x, p, shard)
@@ -335,7 +365,7 @@ def gather_rows(x: torch.Tensor, shard: Optional[SpatialShard] = None,
 
 
 # -- layers on sharded rows ----------------------------------------------------------
-def _at_least(rows: torch.Tensor, n: int) -> torch.Tensor:
+def at_least(rows: torch.Tensor, n: int) -> torch.Tensor:
     """``rows`` with zero rows appended up to ``n`` (a rank that owns no
     output row still runs the layer, on zeros, so every rank's graph is
     alike)."""
@@ -364,21 +394,7 @@ def window_rows(x: torch.Tensor, hg: int, k: int, stride: int, pad: int, mode: s
         return range(lo * stride - pad, (hi - 1) * stride - pad + k) if hi > lo else range(0)
 
     rows = take_rows(x, hg, want, mode, shard)
-    return _at_least(rows, k), hout, b[shard.index + 1] - b[shard.index]
-
-
-def halo_rows(x: torch.Tensor, before: int, after: int, mode: str = "zero",
-              hg: Optional[int] = None) -> torch.Tensor:
-    """This rank's rows [lo - before, hi + after) of the H-sharded tensor
-    whose rows [lo, hi) it holds in ``x`` (global height ``hg``, default
-    :func:`global_h`), padded by ``mode`` beyond the global edges only: the
-    halos of the fast path's s2d stages (``models/fast_trunk.py``), whose
-    own convolutions then run on the rows given. Differentiable in ``x``
-    (the backward is :func:`take_rows`')."""
-    shard = _ACTIVE
-    hg = global_h(x, shard) if hg is None else hg
-    b = bounds(hg, shard.size)
-    return take_rows(x, hg, lambda s: range(b[s] - before, b[s + 1] + after), mode, shard)
+    return at_least(rows, k), hout, b[shard.index + 1] - b[shard.index]
 
 
 def reflect_index(n: int, before: int, after: int, device) -> torch.Tensor:
@@ -417,16 +433,22 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], stride: 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                      groups: int = 1) -> torch.Tensor:
-    """This rank's output rows of ConvTranspose2d(k3, s2, p1, op1) on an
-    evenly split tensor: output rows 2i and 2i + 1 read input rows i and
-    i + 1, so one row below the rank's own, zero beyond the global bottom."""
+    """This rank's output rows ``[o0, o1)`` of ConvTranspose2d(k3, s2, p1,
+    op1), marked with their global height ``2 hg``: output rows 2i and
+    2i + 1 read input rows i and i + 1, so the rank takes input rows
+    ``o0 // 2`` to ``(o1 - 1) // 2 + 1`` (zero beyond the global bottom),
+    whose transposed conv starts at output row ``2 (o0 // 2)``, and keeps
+    its own."""
     shard = _ACTIVE
     hg = global_h(x)
-    bd = bounds(hg, shard.size)
-    if bounds(2 * hg, shard.size) != tuple(2 * v for v in bd):
-        raise ValueError(f"a transposed conv of {hg} rows does not split evenly over "
-                         f"{shard.size} ranks")
-    rows = take_rows(x, hg, lambda s: range(bd[s], bd[s + 1] + 1), "zero", shard)
+    ob = bounds(2 * hg, shard.size)
+
+    def want(s):
+        return range(ob[s] // 2, (ob[s + 1] - 1) // 2 + 2) if ob[s + 1] > ob[s] else range(0)
+
+    rows = at_least(take_rows(x, hg, want, "zero", shard), 1)
     y = torch.nn.functional.conv_transpose2d(rows.permute(0, 3, 1, 2), w, b, 2, 1,
                                              output_padding=1, groups=groups)
-    return y.permute(0, 2, 3, 1)[:, :2 * x.shape[1]]
+    o0, o1 = ob[shard.index], ob[shard.index + 1]
+    first = o0 - 2 * (o0 // 2)
+    return mark(y.permute(0, 2, 3, 1)[:, first:first + o1 - o0], 2 * hg)

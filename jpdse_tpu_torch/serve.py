@@ -29,6 +29,7 @@ from jpdse_tpu_torch.config import Config
 from jpdse_tpu_torch.data.prefetch import DEVICE_KEYS
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
+from jpdse_tpu_torch.parallel import spatial
 
 
 class CodecServer:
@@ -75,7 +76,7 @@ class CodecServer:
             codes = self.fast.get_codes_shaped(batch)
         else:
             codes = self.codec.get_codes_shaped(self.codec.prepare(batch))
-        return [c.to(torch.uint8) for c in codes]
+        return [spatial.like(c.to(torch.uint8), c) for c in codes]
 
     @torch.inference_mode()
     def decode(self, batch: Dict) -> torch.Tensor:
@@ -84,8 +85,10 @@ class CodecServer:
         device."""
         batch = self._batch(batch)
         if self.fast is not None:
-            return self.fast.decode(batch).float()
-        return self.codec.decode(self.codec.prepare(batch))[0].float()
+            out = self.fast.decode(batch)
+        else:
+            out = self.codec.decode(self.codec.prepare(batch))[0]
+        return spatial.like(out.float(), out)
 
     @torch.inference_mode()
     def decompress_codes(self, codes: Sequence, side_batch: Optional[Dict] = None
@@ -97,8 +100,10 @@ class CodecServer:
         codes = [torch.as_tensor(c).to(self.device) for c in codes]
         side = None if side_batch is None else self._batch(side_batch)
         if self.fast is not None:
-            return self.fast.decode_from_codes(codes, side).float()
-        return self.codec.decode_from_codes(codes, self.codec.side_inputs(side)).float()
+            out = self.fast.decode_from_codes(codes, side)
+        else:
+            out = self.codec.decode_from_codes(codes, self.codec.side_inputs(side))
+        return spatial.like(out.float(), out)
 
     def compress(self, batch: Dict, codes: Optional[Sequence] = None) -> List[bytes]:
         """One ``.jpds`` stream per image of the batch: the codes, and the

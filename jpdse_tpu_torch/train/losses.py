@@ -15,7 +15,7 @@ from typing import Callable, List
 
 import torch
 
-from jpdse_tpu_torch.parallel.spatial import global_h, mark, mean as global_mean
+from jpdse_tpu_torch.parallel.spatial import global_h, like, mark, mean as global_mean
 
 VGG_SLICE_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
 
@@ -59,10 +59,10 @@ def vgg_loss(vgg_apply: Callable, fake: torch.Tensor, real: torch.Tensor) -> tor
     image's features need no graph, so they are taken without one."""
     f_feats = vgg_apply(fake)
     with torch.no_grad():
-        r_feats = vgg_apply(real.detach())
+        r_feats = vgg_apply(like(real.detach(), real))
     loss = 0.0
     for w, f, r in zip(VGG_SLICE_WEIGHTS, f_feats, r_feats):
-        loss = loss + w * global_mean((f.float() - r.float()).abs())
+        loss = loss + w * global_mean(like((f.float() - r.float()).abs(), f))
     return loss
 
 
@@ -77,15 +77,15 @@ def vgg_loss_chunked(vgg_apply: Callable, fake: torch.Tensor, real: torch.Tensor
         return vgg_loss(vgg_apply, fake, real)
     while b % chunk:
         chunk -= 1
-    losses = [vgg_loss(vgg_apply, fake[i:i + chunk], real[i:i + chunk])
+    losses = [vgg_loss(vgg_apply, like(fake[i:i + chunk], fake), like(real[i:i + chunk], real))
               for i in range(0, b, chunk)]
     return torch.stack(losses).mean()
 
 
 def distortion_loss(fake: torch.Tensor, real: torch.Tensor, kind: str = "l1") -> torch.Tensor:
-    d = fake.float() - real.float()
+    d = like(fake.float() - real.float(), fake)
     if kind == "l1":
-        return global_mean(d.abs())
+        return global_mean(like(d.abs(), d))
     if kind == "mse":
-        return global_mean(d * d)
+        return global_mean(like(d * d, d))
     raise ValueError(f"unknown distortion loss {kind}")

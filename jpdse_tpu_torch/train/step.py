@@ -65,7 +65,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from jpdse_tpu_torch.config import check_spatial_rows
 from jpdse_tpu_torch.models.layers import BATCH, UPDATE, norm_context, remat_call
 from jpdse_tpu_torch.ops.metrics import denormalize_to_uint8
 from jpdse_tpu_torch.parallel import distributed, spatial
@@ -89,7 +88,7 @@ Grads = Tuple[List[torch.Tensor], List[torch.Tensor]]
 def _d_concat(input_label: Optional[torch.Tensor], image: torch.Tensor) -> torch.Tensor:
     if input_label is None:
         return image
-    return torch.cat([input_label, image.to(input_label.dtype)], dim=-1)
+    return spatial.like(torch.cat([input_label, image.to(input_label.dtype)], dim=-1), image)
 
 
 def _grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
@@ -110,17 +109,16 @@ def _grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.T
 
 def shard_batch(mesh, cfg, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[Dict[str, torch.Tensor], Optional[SpatialShard]]:
-    """(this rank's rows of the batch, its spatial shard), or the batch as
-    it is and None without a spatial axis or for an H that S does not
-    divide (every rank of the group then computes all of it). An H that
-    the layers cannot split evenly raises (``config.check_spatial_rows``)."""
+    """(this rank's rows of the batch, each marked with its height, and its
+    spatial shard), or the batch as it is and None without a spatial axis
+    or for an H that S does not divide (every rank of the group then
+    computes all of it). Every H that S divides shards: the rows of the
+    deeper layers split as they fall (``parallel/spatial.py``)."""
     if mesh is None or mesh.spatial == 1:
         return batch, None
-    h = batch["image"].shape[1]
-    shard = mesh.shard(h, "image")
+    shard = mesh.shard(batch["image"].shape[1], "image")
     if shard is None:
         return batch, None
-    check_spatial_rows(cfg, h, mesh.spatial)
     return {k: shard.rows(v) if v.ndim >= 3 else v for k, v in batch.items()}, shard
 
 
@@ -198,14 +196,16 @@ def _local(state: GANTrainState, inputs: Dict, generator: torch.Generator
         loss_d = l_real = l_fake = zero
         grads_d = [torch.zeros_like(p) for p in d_params]
     else:
-        label_sg = None if input_label is None else input_label.detach()
-        fake_concat = _d_concat(label_sg, fake.detach())
+        label_sg = None if input_label is None else spatial.like(input_label.detach(),
+                                                                  input_label)
+        fake_concat = _d_concat(label_sg, spatial.like(fake.detach(), fake))
         if state.pool is not None:  # queried with the global batch (one rank: its own)
             mesh = state.mesh
             full = fake_concat if mesh is None else mesh.gather_rows(fake_concat)
             use_old, rid = image_pool.draw(state.pool, full.shape[0], generator)
             full = image_pool.query(state.pool, full, use_old, rid)
-            fake_concat = full if mesh is None else full[mesh.rows(fake_concat.shape[0])]
+            fake_concat = spatial.like(
+                full if mesh is None else full[mesh.rows(fake_concat.shape[0])], fake_concat)
         with torch.enable_grad():
             l_fake = gan_loss(disc(fake_concat, False, UPDATE), False, use_lsgan)
             l_real = gan_loss(disc(_d_concat(label_sg, real), False, UPDATE), True, use_lsgan)
@@ -243,7 +243,7 @@ def raw_side_inputs(side_batch: Dict[str, torch.Tensor], dtype=None) -> Dict:
     over them. ``prepare_inputs`` would one-hot the missing label, so the
     dict is assembled directly; both packages' decoders share it."""
     def cast(t):
-        return t if t is None or dtype is None else t.to(dtype)
+        return t if t is None or dtype is None else spatial.like(t.to(dtype), t)
 
     return {"input_label": None, "real_image": cast(side_batch["image"]),
             "instance_ids": side_batch.get("instance"), "masked_img": None,
@@ -262,7 +262,7 @@ def eval_loss(state: GANTrainState, batch: Dict[str, torch.Tensor]) -> torch.Ten
         inputs = codec.prepare(batch)
         fake, _ = codec.decode(inputs)
         mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
-        loss = distortion_loss(denormalize_to_uint8(fake, mean, std),
+        loss = distortion_loss(spatial.like(denormalize_to_uint8(fake, mean, std), fake),
                                denormalize_to_uint8(inputs["real_image"], mean, std),
                                cfg.loss.distortion_loss_fn)
     return loss if shard is None else spatial.sum_over(loss, shard)

@@ -148,7 +148,8 @@ class Trainer:
                 vgg = vgg.to(torch.bfloat16)
         h, w = train_image_hw(cfg)
         if self.mesh is not None and self.mesh.spatial > 1 and h % self.mesh.spatial == 0:
-            h //= self.mesh.spatial  # the replay pool holds this rank's rows
+            rows = self.mesh.h_rows(h)  # the replay pool holds this rank's rows
+            h = rows.stop - rows.start
         self.gan: GANTrainState = create_train_state(cfg, codec, disc, vgg,
                                                      (h, w, cfg.netD_input_nc), self.mesh)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
@@ -239,7 +240,8 @@ class Trainer:
 
             @torch.inference_mode()
             def decode(b):
-                return codec.decode(codec.prepare(b))[0].float()
+                out = codec.decode(codec.prepare(b))[0]
+                return spatial.like(out.float(), out)
 
             return self._sharded(decode, batch)
         return self._sharded(self._server.decode, batch)

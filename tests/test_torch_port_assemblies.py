@@ -44,7 +44,7 @@ from jpdse_tpu.models.codec import prepare_inputs as jax_prepare_inputs
 from jpdse_tpu.models.fast_codec import FastCodec as JaxFastCodec
 from jpdse_tpu.utils.misc import tensor2im as jax_tensor2im
 from jpdse_tpu_torch import codec_io
-from jpdse_tpu_torch.config import Config, NotPorted
+from jpdse_tpu_torch.config import Config
 from jpdse_tpu_torch.convert import from_jax_params, to_jax_params
 from jpdse_tpu_torch.eval.harness import evaluate
 from jpdse_tpu_torch.models.codec import SemanticCodec

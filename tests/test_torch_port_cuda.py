@@ -630,7 +630,10 @@ PARTIAL_SHAPES = [
 
 
 def _ulp_close(got, want, tol=1e-5):
-    """fp32 within ``tol``; bf16 within one ulp of the larger beyond it."""
+    """fp32 within ``tol``; bf16 within one ulp of the larger beyond it; an
+    empty slab's output matches an empty one."""
+    if want.numel() == 0:
+        return got.shape == want.shape
     g, w = got.float(), want.float()
     if got.dtype == torch.float32:
         return (g - w).abs().max().item() <= tol * max(1.0, w.abs().max().item())
@@ -726,6 +729,78 @@ def test_partial_backward_kernels_match_plain(cuda, shape, relu, dtype):
                                                                        relu))
         dxs.append(dx)
     torch.cuda.synchronize()
+    assert _ulp_close(torch.cat(dxs, 1),
+                      instance_norm.fused_instance_norm_bwd_plain(x, g, relu, stats=ms))
+
+
+# (rows, ranks): the spatial axis's splits of a slab's rows, uneven, some with ranks of none
+UNEVEN_SPLITS = [(3, 4), (2, 4), (7, 3), (13, 3), (43, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu,has_res", [(True, False), (False, True)])
+@pytest.mark.parametrize("rows,size", UNEVEN_SPLITS)
+@pytest.mark.parametrize("width,c", [(12, 6), (32, 64)])
+def test_partial_kernels_take_uneven_and_empty_slabs(cuda, width, c, rows, size, relu, has_res,
+                                                     dtype):
+    """A slab of ``rows`` rows split over ``size`` "ranks" as the spatial
+    axis splits it (odd heights, ranks of none): each rank's stats, apply,
+    sums and dx launch (an empty slab's too: one launch each, no launch
+    error) against its plain version on the same slab; an empty slab's
+    stats and sums exactly 0; the stats merged in rank order to the same
+    mean and rstd bits on every rank; together against the one-launch plain
+    form of the whole (the ulp rule)."""
+    shape = (2, rows, width, c)
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    res = _input(shape, seed=1).to(cuda, dtype) if has_res else None
+    g = _input(shape, seed=2).to(cuda, dtype)
+    parts, gparts = _split(x, size), _split(g, size)
+    rparts = _split(res, size) if has_res else [None] * size
+    names = ("instance_norm_stats", "instance_norm_apply", "instance_norm_bwd_sums",
+             "instance_norm_bwd_dx")
+    before = {n: getattr(instance_norm, n).launches for n in names}
+    stats = []
+    for p in parts:
+        got = instance_norm.instance_norm_stats(p)
+        want = instance_norm.instance_norm_stats_plain(p)
+        if p.shape[1] == 0:
+            assert torch.equal(got, torch.zeros_like(got))
+        assert torch.equal(got[..., 0], want[..., 0])
+        assert ((got[..., 1:] - want[..., 1:]).abs()
+                <= 1e-5 * want[..., 1:].abs().clamp_min(1.0)).all()
+        stats.append(got)
+    stats = torch.stack(stats)
+    ys, mss = [], []
+    for p, r in zip(parts, rparts):
+        y, ms = instance_norm.instance_norm_apply(p, r, stats, relu)
+        want, want_ms = instance_norm.instance_norm_apply_plain(p, r, stats, relu)
+        assert y.shape == p.shape and _ulp_close(y, want)
+        assert (ms - want_ms).abs().max().item() <= 1e-5 * want_ms.abs().max().item()
+        ys.append(y)
+        mss.append(ms)
+    assert all(torch.equal(m, mss[0]) for m in mss), "the ranks merged apart"
+    ms = mss[0]
+    sums = []
+    for p, gp in zip(parts, gparts):
+        got = instance_norm.instance_norm_bwd_sums(p, gp, ms, relu)
+        want = instance_norm.instance_norm_bwd_sums_plain(p, gp, ms, relu)
+        if p.shape[1] == 0:
+            assert torch.equal(got, torch.zeros_like(got))
+        assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+        sums.append(got)
+    sums = torch.stack(sums)
+    count = float(rows * width)
+    dxs = []
+    for p, gp in zip(parts, gparts):
+        dx = instance_norm.instance_norm_bwd_dx(p, gp, ms, sums, count, relu)
+        assert dx.shape == p.shape
+        assert _ulp_close(dx, instance_norm.instance_norm_bwd_dx_plain(p, gp, ms, sums, count,
+                                                                       relu))
+        dxs.append(dx)
+    torch.cuda.synchronize()
+    assert {n: getattr(instance_norm, n).launches - before[n] for n in names} == \
+        {n: size for n in names}
+    assert _ulp_close(torch.cat(ys, 1), instance_norm.fused_instance_norm_plain(x, res, relu))
     assert _ulp_close(torch.cat(dxs, 1),
                       instance_norm.fused_instance_norm_bwd_plain(x, g, relu, stats=ms))
 

@@ -48,7 +48,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from jpdse_tpu_torch.config import Config, NotPorted, check_train_ported
+from jpdse_tpu_torch.config import Config, check_train_ported
 from jpdse_tpu_torch.data.loader import DataLoader
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.discriminator import build_discriminator
@@ -383,12 +383,16 @@ def _cfg(**parallel) -> Config:
 def test_spatial_axis_is_not_ported():
     """The spatial axis runs the standard path, the fast path, fast train
     and the LocalEnhancer (``test_torch_port_spatial.py``,
-    ``test_torch_port_spatial_paths.py``); what it does not run yet raises
-    naming ROADMAP Queue 1 item 13: an H that S divides but the deeper
-    layers do not split evenly. In one process it asks for the processes it
-    needs, as the data axis does."""
-    from jpdse_tpu_torch.config import check_spatial_rows
+    ``test_torch_port_spatial_paths.py``) at every H that S divides: an H
+    whose deeper layers do not split evenly (40 over 2: 5 rows at VGG's
+    relu4_1), which raised naming ROADMAP Queue 1 item 13, shards the batch
+    now (``test_torch_port_spatial_uneven.py`` runs it). In one process it
+    asks for the processes it needs, as the data axis does."""
+    import jpdse_tpu_torch.config as config_mod
     from jpdse_tpu_torch.models.fast_codec import FastCodec
+    from jpdse_tpu_torch.parallel import spatial
+    from jpdse_tpu_torch.parallel.mesh import DataMesh
+    from jpdse_tpu_torch.train.step import shard_batch
 
     cfg = _cfg(spatial_axis=2)
     check_train_ported(cfg)  # the standard path
@@ -400,9 +404,13 @@ def test_spatial_axis_is_not_ported():
             ok.model.no_generator_binarization = True
         check_train_ported(ok)
     FastCodec(cfg, SemanticCodec(cfg, device="cpu", seed=0).state_dict(), device="cpu")
-    with pytest.raises(NotPorted, match="not a multiple of 32 .*Queue 1 item 13 \\(the "
-                                        "spatial axis's uneven heights\\)"):
-        check_spatial_rows(cfg, 40, 2)
+    assert not hasattr(config_mod, "check_spatial_rows")
+    batch = {"image": torch.zeros((1, 40, 16, 3)), "label": torch.zeros((1, 40, 16)),
+             "instance": torch.zeros((1, 40, 16), dtype=torch.int32)}
+    for index in (0, 1):
+        rows, shard = shard_batch(DataMesh(index, 2, 2), cfg, batch)
+        assert (shard.index, shard.size) == (index, 2)
+        assert all(v.shape[1] == 20 and spatial.global_h(v) == 40 for v in rows.values())
     with pytest.raises(ValueError, match="requests a 1x2 \\(data x spatial\\) mesh.*run 2 processes"):
         mesh_mod.mesh_from_config(cfg.parallel)
 

@@ -59,7 +59,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from jpdse_tpu_torch.config import Config
+from jpdse_tpu_torch.config import Config, flagship_config
 from jpdse_tpu_torch.models import layers
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.discriminator import MultiscaleDiscriminator, NLayerDiscriminator, \
@@ -143,7 +143,7 @@ def recorded_sign(draws: list, signs: list, pinned=None):
 
     def sign(x, generator):
         draws.append(draw_rows(x.shape, lambda s: torch.rand(
-            s, dtype=x.dtype, device=x.device, generator=generator)).clone())
+            s, dtype=x.dtype, device=x.device, generator=generator), spatial.global_h(x)).clone())
         if pinned is None:
             out = quantizers.deterministic_sign_ste(x)
         else:
@@ -245,7 +245,7 @@ class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shard):
         ctx.shard, ctx.shape = shard, x.shape
-        return shard.rows(x).clone()
+        return spatial.mark(shard.rows(x).clone(), x.shape[1])
 
     @staticmethod
     def backward(ctx, g):
@@ -337,8 +337,8 @@ def layer_cases():
 
     def semantics(x):
         # ids from the input's sign pattern, so the function is defined on rows
-        return instance_edges((x[..., 0] > 0).long() + (x[..., 1] > 0.5).long(),
-                              torch.float64) * x[..., :1]
+        ids = spatial.like((x[..., 0] > 0).long() + (x[..., 1] > 0.5).long(), x)
+        return spatial.like(instance_edges(ids, torch.float64) * x[..., :1], x)
 
     def iw_pool(x):
         ids = (x[..., 0].detach() * 3).floor().clamp(-2, 2).long() + 2
@@ -399,6 +399,28 @@ def layer_checks(shard: SpatialShard) -> dict:
     return out
 
 
+def flagship_48(shard: SpatialShard) -> dict:
+    """The tiny flagship's standard decode (float64) at H = 48 on this
+    rank's rows of the batch as ``shard_batch`` gives them (12 of 48 over
+    four ranks), gathered, against one process."""
+    cfg = flagship_config(tiny=True)
+    cfg.model.compute_dtype = "float32"
+    cfg.parallel.spatial_axis = shard.size
+    codec = SemanticCodec(cfg, device="cpu", seed=5, dtype=torch.float64).double()
+    rng = np.random.default_rng(2)
+    batch = {"label": torch.from_numpy(rng.integers(0, 35, (1, 48, 32)).astype(np.float32)),
+             "instance": torch.from_numpy(rng.integers(0, 6, (1, 48, 32)).astype(np.int32)),
+             "image": torch.from_numpy(rng.uniform(-1, 1, (1, 48, 32, 3)))}
+    mine, got_shard = step.shard_batch(DataMesh(shard.index, shard.size, shard.size), cfg,
+                                       batch)
+    with spatial.sharding(shard):
+        got = spatial.gather_rows(codec.decode(codec.prepare(mine))[0], shard)
+    want = codec.decode(codec.prepare(batch))[0]
+    return {"rows": sorted({(v.shape[1], spatial.global_h(v)) for v in mine.values()}),
+            "shard": (got_shard.index, got_shard.size),
+            "err": float((got - want).abs().max() / want.abs().max())}
+
+
 # -- the ranks -----------------------------------------------------------------------
 def free_port() -> int:
     with socket.socket() as s:
@@ -420,6 +442,7 @@ def rank_main(rank: int, ports: list, work: str) -> None:
     # 1. the layers: S = 4, then S = 2 in two groups of two
     groups = distributed.new_groups([range(4), range(2), range(2, 4)])
     result["layers 4"] = layer_checks(SpatialShard(rank, 4, groups[0]))
+    result["flagship 48"] = flagship_48(SpatialShard(rank, 4, groups[0]))
     result["layers 2"] = layer_checks(SpatialShard(rank % 2, 2, groups[1 + rank // 2]))
     # 2. data 2 x spatial 2
     for config in CONFIGS:
@@ -833,14 +856,18 @@ def test_mesh_indices_and_draw_rows():
     gen = torch.Generator().manual_seed(0)
     whole = torch.rand((8, 64, 3), generator=gen)
     with mesh_mod.drawing(DataMesh(5, 8, 2)), spatial.sharding(SpatialShard(1, 2)):
-        got = draw_rows((2, 32, 3), lambda s: torch.rand(s, generator=gen.manual_seed(0)))
+        got = draw_rows((2, 32, 3), lambda s: torch.rand(s, generator=gen.manual_seed(0)), 64)
+        with pytest.raises(spatial.UnknownHeight):  # a rank's rows do not say the height
+            draw_rows((2, 32, 3), lambda s: torch.rand(s, generator=gen))
     assert torch.equal(got, whole[4:6, 32:])
 
 
-def test_uneven_generator_rows_raise_naming_item_13():
-    from jpdse_tpu_torch.config import NotPorted, check_spatial_rows, flagship_config
-
-    cfg = flagship_config(tiny=True)
-    check_spatial_rows(cfg, 64, 4)
-    with pytest.raises(NotPorted, match="not a multiple of 64.*item 13"):
-        check_spatial_rows(cfg, 48, 4)
+def test_uneven_generator_rows_raise_naming_item_13(ranks):
+    """An H of 48 over S = 4 at the tiny flagship (whose VGG's relu5_1 has 3
+    rows) raised naming item 13 while the sharded layers needed even
+    splits; it now shards the batch (12 rows a rank, marked with 48) and
+    the standard decode on the rows equals one process's (float64)."""
+    for r, res in enumerate(ranks["ranks"]):
+        got = res["flagship 48"]
+        assert got["shard"] == (r, 4) and got["rows"] == [(12, 48)], got
+        assert got["err"] <= LAYER_TOL, f"rank {r}: {got['err']}"

@@ -51,7 +51,7 @@ import torch
 import torch.distributed as dist
 
 import test_torch_port_spatial as sp
-from jpdse_tpu_torch.config import Config, NotPorted, check_spatial_rows, flagship_config
+from jpdse_tpu_torch.config import Config, flagship_config
 from jpdse_tpu_torch.models import fast_codec as fast_codec_mod
 from jpdse_tpu_torch.models.codec import SemanticCodec
 from jpdse_tpu_torch.models.fast_codec import FastCodec
@@ -137,6 +137,24 @@ def fast_checks(shard: SpatialShard) -> dict:
                 "n_codes": len(want["codes"]),
                 "shape": tuple(got["decode"].shape) == tuple(want["decode"].shape)}
     return out
+
+
+def local_24(shard: SpatialShard) -> dict:
+    """The tiny LocalEnhancer's fast path at H = 24, whose global trunk's
+    deepest rows (3) split 1 / 2 over a pair (the height that raised before
+    the uneven splits ran), on this rank's rows of the batch as
+    ``shard_batch`` gives them, against one process (float64)."""
+    cfg = fast_config("local", shard.size)
+    state = SemanticCodec(fast_config("local"), device="cpu", seed=5).state_dict()
+    fast = FastCodec(cfg, state, device="cpu", dtype=torch.float64)
+    batch = {k: v[:, :24, :32].contiguous() for k, v in fast_batch().items()}
+    mine, got_shard = step.shard_batch(mesh_mod.DataMesh(shard.index, shard.size, shard.size),
+                                       cfg, batch)
+    with spatial.sharding(shard):
+        got = spatial.gather_rows(fast.decode(mine), shard)
+    return {"rows": [(tuple(v.shape), spatial.global_h(v)) for v in mine.values()],
+            "shard": (got_shard.index, got_shard.size),
+            "decode": _rel_l2(got, fast.decode(batch))}
 
 
 def jax_weight_fast(spec: dict, shard: SpatialShard) -> dict:
@@ -254,6 +272,7 @@ def rank_main(rank: int, ports: list, work: str) -> None:
     result["fast 4"] = fast_checks(SpatialShard(rank, 4, groups[0]))
     pair = SpatialShard(rank % 2, 2, groups[1 + rank // 2])
     result["fast 2"] = fast_checks(pair)
+    result["local 24"] = local_24(pair)
     result["jax weights fast"] = jax_weight_fast(spec, pair)
     dist.destroy_process_group()
     # 2. two worlds of two at spatial 2
@@ -588,16 +607,14 @@ def test_a_forced_kernel_on_a_shard_raises(switch):
         trainer._fast
 
 
-def test_local_enhancer_rows_that_the_pyramid_cannot_split_raise():
+def test_local_enhancer_rows_that_the_pyramid_cannot_split_raise(ranks):
     """The LocalEnhancer's global trunk runs on the input pooled
     n_local_enhancers times: an H that splits for a global netG of the same
-    depth but not for the pyramid raises naming item 13."""
-    cfg = fast_config("local")
-    cfg.is_train, cfg.loss.no_vgg_loss = True, True
-    glob = fast_config("flagship")
-    glob.is_train, glob.loss.no_vgg_loss = True, True
-    check_spatial_rows(glob, 24, 2)  # 2 x 4: a global trunk of two downsamples
-    check_spatial_rows(cfg, 32, 2)
-    with pytest.raises(NotPorted, match="H of 24 rows over spatial=2, not a multiple of 16 .*"
-                                        "item 13 \\(the spatial axis's uneven heights\\)"):
-        check_spatial_rows(cfg, 24, 2)
+    depth but not for the pyramid (24 over 2: 3 rows at the trunk's bottom)
+    raised naming item 13; it now shards the batch (12 rows a rank, marked
+    with 24) and the fast path's decode on the rows equals one process's."""
+    for r, res in enumerate(ranks["ranks"]):
+        got = res["local 24"]
+        assert got["shard"] == (r % 2, 2), r
+        assert all(shape[1] == 12 and hg == 24 for shape, hg in got["rows"]), got["rows"]
+        assert got["decode"] <= F64_TOL, f"rank {r}: {got['decode']}"

@@ -81,7 +81,7 @@ def test_dropout_matches_jax_with_the_same_masks(fused, monkeypatch):
     codec.load_state_dict(from_jax_params(params))
     drawn = iter(masks)
     monkeypatch.setattr(layers, "dropout_mask",
-                        lambda shape, gen, device: torch.from_numpy(next(drawn)))
+                        lambda shape, gen, device, hg=None: torch.from_numpy(next(drawn)))
     tb = codec.prepare({k: torch.from_numpy(v) for k, v in batch.items()})
     fake, _ = codec.decode(tb, train=True, deterministic=False, generator=torch.Generator())
     assert next(drawn, None) is None  # one mask a res block
