@@ -1002,7 +1002,66 @@ def phase_k3_partial(card: str, gen) -> list:
         e["hires"] = hires
     for e, uneven in zip(entries, phase_k3_partial_uneven(card, gen)):
         e["uneven"] = uneven
+    step = phase_k3_partial_step(card, gen)
+    entries[0]["step_slabs"], entries[2]["step_slabs"] = step["stats"], step["sums"]
     return entries
+
+
+# the spatial step's rank slabs at spatial 2: every norm level's rows halved,
+# batch 2 in fp32 (the training step) and batch 1 in bf16 (serving)
+STEP_RANK_SLABS = ([((2, s[1] // 2) + s[2:], torch.float32) for s in NORM_SHAPES]
+                   + [((1, s[1] // 2) + s[2:], torch.bfloat16) for s in NORM_SHAPES])
+
+
+def phase_k3_partial_step(card: str, gen) -> dict:
+    """The stats and sums launches timed at STEP_RANK_SLABS, each beside its
+    bound, its plain version and, for the stats, torch.var_mean over (H, W):
+    the profiler's device time, CUDA events over back-to-back calls (x as a
+    step finds it, just read: in the 50 MB L2 where it fits), and events of
+    one call after a 64 MB write has flushed the L2. Then the device time
+    summed over one spatial rank-step's launches at the training slabs (the
+    stats twice a norm site, the sums once, K3_BWD_SITES). Returns
+    {"stats": ..., "sums": ...}, each {"slabs": {shape: numbers},
+    "rank_step_device_ms": t, "rank_step_bound_ms": t}."""
+    from jpdse_tpu_torch.ops import instance_norm as k3
+
+    out = {name: {"slabs": {}, "rank_step_device_ms": 0.0, "rank_step_bound_ms": 0.0}
+           for name in ("stats", "sums")}
+    for shape, dtype in STEP_RANK_SLABS:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 3 + 1).to(dtype)
+        g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        st = k3.instance_norm_stats(x)
+        _, ms = k3.instance_norm_apply(x, None, torch.stack([st, st]), True)
+        runs = {"stats": (lambda: k3.instance_norm_stats(x),
+                          lambda: k3.instance_norm_stats_plain(x), bytes_ms(x),
+                          lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
+                "sums": (lambda: k3.instance_norm_bwd_sums(x, g, ms, True),
+                         lambda: k3.instance_norm_bwd_sums_plain(x, g, ms, True),
+                         bytes_ms(x, g), None)}
+        sites = sum(n for (site, _), n in K3_BWD_SITES.items()
+                    if site == (2 * shape[1],) + shape[2:]) if shape[0] == 2 else 0
+        for name, (kern, plain, bound, library) in runs.items():
+            k, k_dev, k_flushed = cuda_ms(kern), device_ms(kern), flushed_ms(kern)
+            p = cuda_ms(plain)
+            lib = None if library is None else cuda_ms(library)
+            out[name]["slabs"][f"{shape} {dt(dtype)}"] = {
+                "ms": k, "device_ms": k_dev, "flushed_ms": k_flushed, "plain_ms": p,
+                "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
+            launches = sites * (2 if name == "stats" else 1)
+            out[name]["rank_step_device_ms"] += launches * k_dev
+            out[name]["rank_step_bound_ms"] += launches * bound
+            log(f"[kernels] {name} {shape} {dt(dtype)} (a rank's slab of the spatial step): "
+                f"kernel {k:.4f} ms, on the device {k_dev:.4f} ms ({bound / k_dev:.0%} of its "
+                f"bound), L2 flushed {k_flushed:.4f} ms; plain {p:.4f} ms; bound "
+                f"{bound * 1e3:.1f} us (bytes)"
+                + ("" if lib is None else f"; torch.var_mean over (H, W) {lib:.4f} ms")
+                + (f"; {launches} launches a rank-step" if launches else "") + f" ({card})")
+        del x, g, st, ms
+    for name, o in out.items():
+        log(f"[kernels] {name} summed over a spatial rank-step's launches (batch 2, fp32): "
+            f"device {o['rank_step_device_ms']:.4f} ms against a bound of "
+            f"{o['rank_step_bound_ms']:.4f} ms ({card})")
+    return out
 
 
 # the spatial axis's uneven splits of a norm slab on phase 16's paths: (slab, ranks).

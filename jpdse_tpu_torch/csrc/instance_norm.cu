@@ -70,26 +70,83 @@
 // statistics must be merged across ranks between the kernel's phases. The
 // same work in four launches, the host gathering across the group between
 // them (ops/instance_norm.py::FusedInstanceNorm):
-//   forward: instance_norm_stats_kernel (cooperative: the forward's phase 1
-//     without its shared-memory cache, a grid barrier, then one warp per
-//     (b, c) merging the chunks in a fixed order into this rank's
-//     (count, mean, M2)); the host gathers the S ranks' triples;
+//   forward: instance_norm_stats_kernel (this rank's (count, mean, M2) per
+//     (b, c)); the host gathers the S ranks' triples;
 //     instance_norm_apply_kernel (an ordinary launch of one block per chunk
 //     of rows: each thread merges the S triples of its channels in rank
 //     order, so every rank holds the same bits, then normalizes its rows,
 //     ReLU, the fp32 residual, one cast; x is read a second time);
-//   backward: instance_norm_bwd_sums_kernel (cooperative: the fp32 sums of
-//     g' and g' * xhat per (b, c), sums, not means); the host gathers them;
+//   backward: instance_norm_bwd_sums_kernel (the fp32 sums of g' and
+//     g' * xhat per (b, c), sums, not means); the host gathers them;
 //     instance_norm_bwd_dx_kernel (each thread adds the S ranks' sums in
 //     rank order, divides by the global count, computes dx).
 // Bound: bytes. Forward, two reads of x and one write of y; backward, two
 // reads each of x and g and one write of dx.
+//
+// The stats and sums launches read x (and g) once and write a few floats
+// per (b, c): their bound is that read, 2.5 us for a rank's slab of the
+// training step's deepest sites and 10-80 us for the largest, so a fixed
+// cost per launch (a cooperative launch, a grid barrier) or a serial tail
+// (one block merging many partials) shows at every size. Their design:
+//   - an ordinary launch of one 256-thread CTA per (slab, chunk), slabs
+//     (batch element, channel tile of at most kPartTileWords words) in
+//     order; part_plan.h holds the partition, and the wrapper sizes the
+//     workspace from the same code (instance_norm_part_plan). A chunk is
+//     whole stages of 4 words a thread (16 KiB of x where a word is 16
+//     bytes), kPartMinStages at the least, more where the launch would
+//     have more than kPartMaxCtas CTAs (one an SM). A small slab gets few
+//     CTAs, a large one fills the card;
+//   - loads through a ring of shared-memory stages (Ring): where the tile is
+//     the whole row, a stage is one byte range, copied by one cp.async.bulk
+//     an operand that completes on the slot's mbarrier; else each thread
+//     copies its own words by 16-byte cp.async and waits for its own
+//     copies. The threads fold a stage's words from shared memory (the
+//     same batched Chan merge as the one-launch forward, or the same fp32
+//     sums as its backward) and the slot is refilled part_stages stages
+//     ahead. Words of one channel (the launchers' vec 0: C not a multiple
+//     of 16 bytes' worth, or an unaligned tensor) are read by each thread
+//     straight into registers;
+//   - a fixed-order merge in place of the grid barrier: each CTA merges its
+//     pixel lanes in a fixed tree, writes its chunk's partial, and one of
+//     its threads takes a ticket on its slab (one acquire-release integer
+//     atomic after a barrier). The CTA that takes a slab's last ticket
+//     copies the slab's partials into shared memory by cp.async, every copy
+//     in flight at once, and merges them with threads over channels, each
+//     channel's chunks cut into contiguous runs merged in chunk order and
+//     the runs then in order. No float atomics: the order of every float
+//     operation is fixed by the plan, whatever order the CTAs finish in, so
+//     two runs give the same bits;
+//   - what bounds the launch beyond its bytes is that merge, after the last
+//     CTA's loads: three dependent round trips to L2 (the partial's store
+//     before the release, the atomic, the copy; 2-4 us on an H100, PERF.md)
+//     on one SM a slab, whatever the slab's size, plus its copy and chain,
+//     which grow with chunks x channels. The plan keeps those within one
+//     batch of shared memory (kPartMergeBytes) by narrowing the tile, and
+//     where a narrower tile leaves every slab one chunk it takes that and
+//     merges nothing; tiles below 8 words (128 bytes of a row) slow the
+//     loads, so it narrows no further than kPartTileMin;
+//   - the counters: one int a slab, in a buffer the wrapper keeps per
+//     device and stream, zeroed once when allocated; the CTA that takes a
+//     counter's last ticket sets it back to 0, so each launch leaves the
+//     buffer as it found it for the next launch on the stream (launches on
+//     one stream run in order);
+//   - a slab of one chunk (a small one, or an empty slab: hw 0, one chunk
+//     of no rows, whose CTAs write the (0, 0, 0) or (0, 0) parts) writes its
+//     result straight from the CTA's tree, with no partial and no ticket.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "part_plan.h"
+
+// 1: a stage of a tile that is the whole row comes by one cp.async.bulk copy
+// an operand; 0: by each thread's 16-byte cp.async, as narrower tiles do.
+#ifndef K3_PART_BULK
+#define K3_PART_BULK 1
+#endif
 
 namespace {
 
@@ -720,51 +777,452 @@ Plan make_plan(long long hw, int batch, int c, int v, int blocks, int chunk_cap,
 
 // -- the partial-statistics form -----------------------------------------------
 
-// Phases 1-2 of the forward, without its cache: this rank's (count, mean,
-// M2) per (b, c) into out[(b c + ch) 3 ...].
+// The stats and sums launches (see the header): one CTA of kPartThreads
+// threads per (slab, chunk) of part_plan.h's partition. A thread owns one
+// word (V channels) of the tile and every pix-th row of a stage; a stage
+// holds kPartBatch of its words.
+static_assert(kPartBatch == kBatch, "a stage is folded in the forward's batches");
+constexpr int kPartBars = 128;  // bytes before the ring: its mbarriers
+// channels a merging thread holds at the most: a tile's over the CTA's threads
+constexpr int kPartMergeChannels = (kPartTileWords * 8 + kPartThreads - 1) / kPartThreads;
+
+// Ring slots: 4 stages of x (64 KiB) for the stats, 3 of x and g (96 KiB)
+// for the sums, and two CTAs fit an SM.
+#ifndef K3_PART_STATS_STAGES
+#define K3_PART_STATS_STAGES 4
+#endif
+#ifndef K3_PART_SUMS_STAGES
+#define K3_PART_SUMS_STAGES 3
+#endif
+template <int kOps>
+__host__ __device__ constexpr int part_stages() {
+  return kOps == 1 ? K3_PART_STATS_STAGES : K3_PART_SUMS_STAGES;
+}
+
+// The CTA's chunk: CTA q is chunk q % chunks of slab q / chunks = (b, tile).
+struct PartItem {
+  int b, t, slab, chunk;
+  int words;        // the tile's words (its last may be narrower)
+  int stages;       // stages of the chunk's rows
+  long long r0, r1; // rows [r0, r1)
+  long long src;    // word index of (b, r0, the tile's first word)
+};
+
+__device__ __forceinline__ PartItem part_item(const PartPlan& p) {
+  PartItem it;
+  it.chunk = static_cast<int>(blockIdx.x % p.chunks);
+  it.slab = static_cast<int>(blockIdx.x / p.chunks);
+  it.b = it.slab / p.tiles;
+  it.t = it.slab % p.tiles;
+  it.words = min(p.tile, p.groups - it.t * p.tile);
+  it.r0 = it.chunk * p.rows_per_chunk;
+  it.r1 = min(it.r0 + p.rows_per_chunk, p.hw);
+  it.stages = it.r1 > it.r0 ? static_cast<int>((it.r1 - it.r0 + p.stage_rows - 1) / p.stage_rows)
+                            : 0;
+  it.src = (static_cast<long long>(it.b) * p.hw + it.r0) * p.groups +
+           static_cast<long long>(it.t) * p.tile;
+  return it;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing on the mbarrier at bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared memory of a stats (kOps 1) or sums (kOps 2) CTA, after kPartBars
+// bytes of the ring's barriers: the ring (none on the one-word path), over
+// whose start lie the reduction area (the tree's floats, then the merge's
+// 3 a thread) and after it the merge's stage of at least kPartStageMin
+// bytes.
+constexpr int kPartStageMin = 16384;
+template <int V, int kOps>
+__host__ __device__ constexpr int part_red_bytes() {
+  constexpr int words = kOps == 1 ? 1 + 2 * V : 2 * V;
+  return kPartThreads * (words > 3 ? words : 3) * static_cast<int>(sizeof(float));
+}
+template <typename T, int V, int kOps>
+__host__ __device__ constexpr int part_smem() {
+  constexpr int slot = kPartThreads * kBatch * static_cast<int>(sizeof(Vec<T, V>));
+  constexpr int ring = V > 1 ? part_stages<kOps>() * kOps * slot : 0;
+  constexpr int merge = part_red_bytes<V, kOps>() + kPartStageMin;
+  return kPartBars + (ring > merge ? ring : merge);
+}
+// The merge's stage: its first float2 and how many it holds.
+template <int V, int kOps>
+__device__ __forceinline__ float2* part_stage(uint8_t* smem) {
+  return reinterpret_cast<float2*>(smem + kPartBars + part_red_bytes<V, kOps>());
+}
+template <typename T, int V, int kOps>
+__host__ __device__ constexpr int part_stage_cap() {
+  return (part_smem<T, V, kOps>() - kPartBars - part_red_bytes<V, kOps>()) / 8;
+}
+
+// The ring: part_stages<kOps>() slots, each one stage of every operand (x,
+// then g for the sums), kPartThreads * kBatch words an operand, row j of
+// the stage at word j * words. Where the tile is the whole row (tiles 1)
+// a stage's rows are one byte range: thread 0 fills the slot by one
+// cp.async.bulk copy an operand, completed on the slot's mbarrier, and the
+// CTA meets at a barrier before the slot is refilled. Else each thread
+// copies its own words by 16-byte cp.async, one commit group a stage, and
+// reads only them: it waits for its own copies and refills its own words,
+// with no barrier.
+template <typename W, int kOps>
+struct Ring {
+  static constexpr int kStages = part_stages<kOps>();
+  static constexpr int kSlotWords = kPartThreads * kBatch;
+  uint64_t* bars;
+  W* slots;
+  const W* src[kOps];
+  bool bulk;
+
+  __device__ const W* stage(int s, int op) const {
+    return slots + (s % kStages * kOps + op) * kSlotWords;
+  }
+
+  // Stage s of the chunk into its slot: by thread 0 (bulk), else this
+  // thread's words of it (lane_p, gl: its pixel lane and word).
+  __device__ void issue(const PartPlan& p, const PartItem& it, int s, int lane_p, int gl) const {
+    const long long row0 = static_cast<long long>(s) * p.stage_rows;
+    const int rows = static_cast<int>(min(static_cast<long long>(p.stage_rows),
+                                          it.r1 - it.r0 - row0));
+    if (bulk) {
+      const uint32_t bar = smem_u32(&bars[s % kStages]);
+      const uint32_t bytes = static_cast<uint32_t>(rows * it.words * sizeof(W));
+      mbar_expect_tx(bar, bytes * kOps);
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) {
+        bulk_copy(smem_u32(stage(s, op)), src[op] + it.src + row0 * p.groups, bytes, bar);
+      }
+      return;
+    }
+    if (gl < it.words) {
+#pragma unroll
+      for (int kk = 0; kk < kBatch; ++kk) {
+        const int j = lane_p + kk * p.pix;
+        if (lane_p < p.pix && j < rows) {
+#pragma unroll
+          for (int op = 0; op < kOps; ++op) {
+            copy_to_slot(const_cast<W*>(stage(s, op)) + j * it.words + gl,
+                         src[op] + it.src + (row0 + j) * p.groups + gl);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  }
+
+  // The barriers set up (bulk) and the first stages in flight.
+  __device__ void start(const PartPlan& p, const PartItem& it, int lane_p, int gl) const {
+    const int first = min(kStages, it.stages);
+    if (bulk) {
+      if (threadIdx.x == 0) {
+        for (int i = 0; i < kStages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int s = 0; s < first; ++s) issue(p, it, s, lane_p, gl);
+      }
+      __syncthreads();
+    } else {
+      for (int s = 0; s < first; ++s) issue(p, it, s, lane_p, gl);
+    }
+  }
+
+  // Stage s's words have landed in its slot.
+  __device__ void wait(const PartItem& it, int s) const {
+    if (bulk) {
+      mbar_wait(smem_u32(&bars[s % kStages]), static_cast<uint32_t>((s / kStages) & 1));
+    } else {
+      cp_async_wait(min(it.stages, s + kStages) - 1 - s);
+    }
+  }
+
+  // Stage s is folded: its slot takes stage s + kStages.
+  __device__ void next(const PartPlan& p, const PartItem& it, int s, int lane_p, int gl) const {
+    if (bulk) {
+      __syncthreads();
+      if (threadIdx.x == 0 && s + kStages < it.stages) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(p, it, s + kStages, lane_p, gl);
+      }
+    } else if (s + kStages < it.stages) {
+      issue(p, it, s + kStages, lane_p, gl);
+    }
+  }
+};
+
+// The CTA's part of a merge is written (by its threads, before the call):
+// true in the CTA that takes the counter's last of ``arrivals`` tickets,
+// which then reads what the others wrote. That CTA sets the counter back
+// to 0 for the next launch. One thread takes the ticket with an
+// acquire-release atomic after a barrier that orders the CTA's writes
+// before it, as CUTLASS's semaphores do.
+__device__ __forceinline__ bool last_of(int* ticket, int arrivals) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
+                 : "=r"(t) : "l"(ticket), "r"(1) : "memory");
+    last = t == arrivals - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  return last;
+}
+
+// The weight nb / n of Chan's merge in the stats launch's trees and merges:
+// a fast division (2 ulp at most, the same bits every run) for the IEEE one,
+// whose slow path kept the merges from overlapping.
+__device__ __forceinline__ float chan_weight(float nb, float n) { return __fdividef(nb, n); }
+
+// Chan's merge of b into a with its weight wb = b.n / n, n = a.n + b.n > 0.
+__device__ __forceinline__ Moments merge_weighted(Moments a, Moments b, float n, float wb) {
+  const float delta = b.mean - a.mean;
+  return {n, a.mean + delta * wb, a.m2 + b.m2 + delta * delta * a.n * wb};
+}
+
+// Two partials in order: the stats' (count, mean, M2) by Chan's merge, the
+// sums' (-, sum g', sum g' xhat) added.
+template <bool kStats>
+__device__ __forceinline__ Moments combine(Moments a, Moments b) {
+  if constexpr (kStats) {
+    const float n = a.n + b.n;
+    return n == 0.f ? a : merge_weighted(a, b, n, chan_weight(b.n, n));
+  } else {
+    return {0.f, a.mean + b.mean, a.m2 + b.m2};
+  }
+}
+
+// The slab's result for channel ch0 + cl into out: kStats (count, mean,
+// M2), else the two sums.
+template <bool kStats>
+__device__ __forceinline__ void put_out(float* out, const PartItem& it, const PartPlan& p,
+                                        long long ch0, int cl, Moments t) {
+  const long long i = static_cast<long long>(it.b) * p.c + ch0 + cl;
+  if constexpr (kStats) {
+    out[3 * i] = t.n;
+    out[3 * i + 1] = t.mean;
+    out[3 * i + 2] = t.m2;
+  } else {
+    out[2 * i] = t.mean;
+    out[2 * i + 1] = t.m2;
+  }
+}
+
+// A slab's chunk partials merged into its result for cs channels from
+// shared memory: with cs below kPartThreads the threads go over the
+// channels and each channel's chunks are cut into part_runs(cs) contiguous
+// runs, each merged in chunk order, then the runs in order (in acc,
+// kPartThreads * 3 floats apart from the partials); else each thread takes
+// channels tid, tid + kPartThreads, ..., all their chunks in order. The
+// stats' count of a chunk is its rows, the same for all its channels: a
+// run's count so far is a sum of them (exact in fp32 below 2^24 rows).
+template <bool kStats>
+struct SlabMerge {
+  int runs, cl, run, k0, k1, chunks;
+  float unit_rows, last_rows, count;
+  Moments t[kPartMergeChannels];
+
+  __device__ SlabMerge(const PartPlan& p, int cs) {
+    const int tid = threadIdx.x;
+    chunks = p.chunks;
+    runs = part_runs(cs);
+    cl = runs > 1 ? tid % cs : tid;
+    run = runs > 1 ? tid / cs : 0;
+    k0 = chunks * run / runs;
+    k1 = run < runs ? chunks * (run + 1) / runs : k0;
+    unit_rows = static_cast<float>(p.rows_per_chunk);
+    last_rows = static_cast<float>(p.hw - (chunks - 1) * p.rows_per_chunk);
+    count = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPartMergeChannels; ++j) t[j] = Moments{0.f, 0.f, 0.f};
+  }
+
+  // Chunks [b0, b1) of the slab, chunk k's channel ch at part[(k - b0) cs + ch].
+  __device__ void fold(const float2* part, int b0, int b1, int cs) {
+    for (int k = max(k0, b0); k < min(k1, b1); ++k) {
+      float nb = 0.f, wb = 0.f;
+      if constexpr (kStats) {
+        nb = k == chunks - 1 ? last_rows : unit_rows;
+        count += nb;
+        wb = chan_weight(nb, count);
+      }
+#pragma unroll
+      for (int j = 0; j < kPartMergeChannels; ++j) {
+        const int ch = cl + j * kPartThreads;
+        if (ch < cs) {
+          const float2 w = part[(k - b0) * cs + ch];
+          if constexpr (kStats) {
+            t[j] = merge_weighted(t[j], Moments{nb, w.x, w.y}, count, wb);
+          } else {
+            t[j] = combine<false>(t[j], Moments{0.f, w.x, w.y});
+          }
+        }
+      }
+    }
+  }
+
+  // The runs merged in order and the slab's result written (put_out).
+  __device__ void finish(float* out, const PartItem& it, const PartPlan& p, long long ch0, int cs,
+                         float* acc) {
+    if (runs > 1) {
+      if (run < runs) {
+        acc[3 * (run * cs + cl)] = t[0].n;
+        acc[3 * (run * cs + cl) + 1] = t[0].mean;
+        acc[3 * (run * cs + cl) + 2] = t[0].m2;
+      }
+      __syncthreads();
+      if (run == 0) {
+        Moments m{0.f, 0.f, 0.f};
+        for (int r = 0; r < runs; ++r) {
+          const float* a = acc + 3 * (r * cs + cl);
+          m = combine<kStats>(m, Moments{a[0], a[1], a[2]});
+        }
+        put_out<kStats>(out, it, p, ch0, cl, m);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPartMergeChannels; ++j) {
+        if (cl + j * kPartThreads < cs) put_out<kStats>(out, it, p, ch0, cl + j * kPartThreads, t[j]);
+      }
+    }
+  }
+};
+
+// The slab's merge by tickets, after the CTA's chunk partial is written to
+// part[(b chunks + chunk) c + ch0 + cl]: the CTA that takes the slab's last
+// ticket merges the slab's chunks into out. They come through shared
+// memory (stage, cap float2s) in batches: all threads copy a batch by
+// 8-byte cp.async, every copy in flight at once and no register held (the
+// ticket's acquire has invalidated this SM's L1), then fold it.
+template <bool kStats>
+__device__ void merge_by_tickets(const PartPlan& p, const PartItem& it, int cs, long long ch0,
+                                 const float2* part, int* tickets, float* out, float* acc,
+                                 float2* stage, int cap) {
+#ifdef K3_PART_DIAG_NOMERGE
+  return;
+#endif
+  if (!last_of(tickets + it.slab, p.chunks)) return;
+  const float2* src = part + static_cast<long long>(it.b) * p.chunks * p.c + ch0;
+  SlabMerge<kStats> m(p, cs);
+  const int tid = threadIdx.x;
+  const int batch = cap / cs > 1 ? cap / cs : 1;
+  // the copy's threads: rows of cs (or of all threads, where cs is wider),
+  // each row taking every rows-th chunk of a batch
+  const int width = cs < kPartThreads ? cs : kPartThreads, rows = kPartThreads / width;
+  const int copy_row = tid / width, copy_ch = tid % width;
+  for (int b0 = 0; b0 < p.chunks; b0 += batch) {
+    const int b1 = min(b0 + batch, p.chunks);
+    if (b0 > 0) __syncthreads();  // the last batch is folded
+    if (copy_row < rows) {
+      for (int k = copy_row; k < b1 - b0; k += rows) {
+        const float2* from = src + static_cast<long long>(b0 + k) * p.c;
+#pragma unroll
+        for (int j = 0; j < kPartMergeChannels; ++j) {
+          const int ch = copy_ch + j * width;
+          if (ch < cs) {
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                         :: "r"(smem_u32(stage + k * cs + ch)), "l"(from + ch) : "memory");
+          }
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    m.fold(stage, b0, b1, cs);
+  }
+  m.finish(out, it, p, ch0, cs, acc);
+}
+
+// This rank's (count, mean, M2) per (b, c) into out[(b c + ch) 3 ...]:
+// each thread folds its words of each stage in batches of kBatch (their
+// mean and M2 about it, then one Chan merge into its running moments); the
+// CTA's pixel lanes merged in a fixed tree into the chunk's (mean, M2) per
+// channel, partial[((b chunks + chunk) c + ch) 2 ...] (its count is the
+// chunk's rows); then the slab's merge (merge_slab).
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kPartThreads, 2)
 instance_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                           float* __restrict__ out, Plan p) {
+                           int* __restrict__ tickets, float* __restrict__ out, PartPlan p) {
   using W = Vec<T, V>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* red_n = reinterpret_cast<float*>(smem);
-  float* red_mean = red_n + kThreads;
-  float* red_m2 = red_mean + kThreads * V;
+  constexpr bool kRing = V > 1;
+  extern __shared__ __align__(128) uint8_t smem[];
+  // the reduction area lies over the ring: written once the ring is drained;
+  // channel v of thread tid at [v kPartThreads + tid], so a warp's reads
+  // meet no bank conflict
+  float* red_n = reinterpret_cast<float*>(smem + kPartBars);
+  float* red_mean = red_n + kPartThreads;
+  float* red_m2 = red_mean + kPartThreads * V;
+  const W* xv = reinterpret_cast<const W*>(x);
+  const Ring<W, 1> ring{reinterpret_cast<uint64_t*>(smem),
+                        reinterpret_cast<W*>(smem + kPartBars), {xv}, K3_PART_BULK && p.tiles == 1};
 
   const int tid = threadIdx.x;
   const int lane_p = tid / p.tile, gl = tid % p.tile;
-  const int items = p.batch * p.tiles * p.chunks;
-  const W* xv = reinterpret_cast<const W*>(x);
+  const PartItem it = part_item(p);
+  const bool active = lane_p < p.pix && gl < it.words;
+  if constexpr (kRing) ring.start(p, it, lane_p, gl);
 
-  for (int q = blockIdx.x; q < items; q += gridDim.x) {
-    const Item w = item(p, q);
-    const int g = w.g0 + gl;
-    const bool active = lane_p < p.pix && g < p.groups;
-    const long long base = static_cast<long long>(w.b) * p.hw * p.groups + g;
-    float n = 0.f, mean[V], m2[V];
+  float n = 0.f, mean[V], m2[V];
 #pragma unroll
-    for (int v = 0; v < V; ++v) mean[v] = m2[v] = 0.f;
-    for (int k0 = 0; k0 < w.iters; k0 += kBatch) {
-      W buf[kBatch];
-      int nb = 0;
+  for (int v = 0; v < V; ++v) mean[v] = m2[v] = 0.f;
+  for (int s = 0; s < it.stages; ++s) {
+    const long long row0 = static_cast<long long>(s) * p.stage_rows;
+    const long long rows = min(static_cast<long long>(p.stage_rows), it.r1 - it.r0 - row0);
+    W buf[kBatch];
+    int nb = 0;
+    if constexpr (kRing) ring.wait(it, s);
 #pragma unroll
-      for (int kk = 0; kk < kBatch; ++kk) {
-        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
-        if (active && k0 + kk < w.iters && r < w.r1) {
-          buf[kk] = xv[base + r * p.groups];
-          ++nb;
+    for (int kk = 0; kk < kBatch; ++kk) {
+      const int j = lane_p + kk * p.pix;
+      if (active && j < rows) {
+        if constexpr (kRing) {
+          buf[kk] = ring.stage(s, 0)[j * it.words + gl];
+        } else {
+          buf[kk] = xv[it.src + (row0 + j) * p.groups + gl];
         }
+        ++nb;
       }
-      if (nb == 0) continue;
+    }
+    if (nb > 0) {
       const float nbf = static_cast<float>(nb), inv = 1.f / nbf;
       const float n_new = n + nbf, f = nbf / n_new;
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        float s = 0.f;
+        float sum = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < kBatch; ++kk) if (kk < nb) s += to_f(buf[kk].v[v]);
-        const float mb = s * inv;
+        for (int kk = 0; kk < kBatch; ++kk) if (kk < nb) sum += to_f(buf[kk].v[v]);
+        const float mb = sum * inv;
         float q2 = 0.f;
 #pragma unroll
         for (int kk = 0; kk < kBatch; ++kk) {
@@ -779,66 +1237,155 @@ instance_norm_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
       }
       n = n_new;
     }
-    red_n[tid] = n;
+    if constexpr (kRing) ring.next(p, it, s, lane_p, gl);
+  }
+  __syncthreads();  // the ring drained: the reduction area lies over it
+
+  red_n[tid] = n;
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      red_mean[tid * V + v] = mean[v];
-      red_m2[tid * V + v] = m2[v];
-    }
-    __syncthreads();
-    for (int s = 1; s < p.pix; s *= 2) {
-      if (lane_p % (2 * s) == 0 && lane_p + s < p.pix) {
-        const int o = tid + s * p.tile;
-        const float na = red_n[tid], nb = red_n[o];
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          const Moments m = merge({na, red_mean[tid * V + v], red_m2[tid * V + v]},
-                                  {nb, red_mean[o * V + v], red_m2[o * V + v]});
-          red_mean[tid * V + v] = m.mean;
-          red_m2[tid * V + v] = m.m2;
-        }
-        red_n[tid] = na + nb;
-      }
-      __syncthreads();
-    }
-    if (lane_p == 0 && g < p.groups) {
-      const int chunk = q % p.chunks;
+  for (int v = 0; v < V; ++v) {
+    red_mean[v * kPartThreads + tid] = mean[v];
+    red_m2[v * kPartThreads + tid] = m2[v];
+  }
+  __syncthreads();
+  for (int s = 1; s < p.pix; s *= 2) {
+    if (lane_p % (2 * s) == 0 && lane_p + s < p.pix) {
+      const int o = tid + s * p.tile;
+      const float na = red_n[tid], nb = red_n[o];
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        float* o = partial + ((static_cast<long long>(w.b) * p.chunks + chunk) * p.c +
-                              g * V + v) * 3;
-        o[0] = red_n[tid];
-        o[1] = red_mean[tid * V + v];
-        o[2] = red_m2[tid * V + v];
+        const Moments m = combine<true>(
+            {na, red_mean[v * kPartThreads + tid], red_m2[v * kPartThreads + tid]},
+            {nb, red_mean[v * kPartThreads + o], red_m2[v * kPartThreads + o]});
+        red_mean[v * kPartThreads + tid] = m.mean;
+        red_m2[v * kPartThreads + tid] = m.m2;
+      }
+      red_n[tid] = na + nb;
+    }
+    __syncthreads();
+  }
+  const long long ch0 = static_cast<long long>(it.t) * p.tile * V;  // the tile's first channel
+  float2* part = reinterpret_cast<float2*>(partial);
+  if (lane_p == 0 && gl < it.words) {
+    float2* o = part + (static_cast<long long>(it.b) * p.chunks + it.chunk) * p.c + ch0 + gl * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const Moments m{red_n[tid], red_mean[v * kPartThreads + tid], red_m2[v * kPartThreads + tid]};
+      if (p.chunks == 1) {  // a slab of one chunk: the tree's result is the slab's
+        put_out<true>(out, it, p, ch0, gl * V + v, m);
+      } else {
+        o[v] = make_float2(m.mean, m.m2);
+      }
+    }
+  }
+  if (p.chunks > 1) {
+    merge_by_tickets<true>(p, it, it.words * V, ch0, part, tickets, out, red_n,
+                           part_stage<V, 1>(smem), part_stage_cap<T, V, 1>());
+  }
+}
+
+// This rank's fp32 sums of g' and g' * xhat per (b, c) into out[(b c + ch)
+// 2 ...] (sums, not means: the host adds the ranks' before dividing): each
+// thread sums its words of each stage of x and g; the CTA's pixel lanes
+// added in a fixed tree into the chunk's partial[((b chunks + chunk) c +
+// ch) 2 ...]; then the slab's merge (merge_slab).
+template <typename T, int V>
+__global__ void __launch_bounds__(kPartThreads, 2)
+instance_norm_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                              const float* __restrict__ ms, float* __restrict__ partial,
+                              int* __restrict__ tickets, float* __restrict__ out, PartPlan p,
+                              int relu) {
+  using W = Vec<T, V>;
+  constexpr bool kRing = V > 1;
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* red_g = reinterpret_cast<float*>(smem + kPartBars);  // over the drained ring
+  float* red_gx = red_g + kPartThreads * V;
+  const W* xv = reinterpret_cast<const W*>(x);
+  const W* gv = reinterpret_cast<const W*>(g);
+  const Ring<W, 2> ring{reinterpret_cast<uint64_t*>(smem),
+                        reinterpret_cast<W*>(smem + kPartBars), {xv, gv},
+                        K3_PART_BULK && p.tiles == 1};
+
+  const int tid = threadIdx.x;
+  const int lane_p = tid / p.tile, gl = tid % p.tile;
+  const PartItem it = part_item(p);
+  const bool active = lane_p < p.pix && gl < it.words;
+  const long long ch0 = static_cast<long long>(it.t) * p.tile * V;
+  if constexpr (kRing) ring.start(p, it, lane_p, gl);
+
+  float sg[V], sgx[V], mean[V], rstd[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    sg[v] = sgx[v] = mean[v] = rstd[v] = 0.f;
+    if (active) {
+      const float* st = ms + 2 * (static_cast<long long>(it.b) * p.c + ch0 + gl * V + v);
+      mean[v] = st[0];
+      rstd[v] = st[1];
+    }
+  }
+  for (int s = 0; s < it.stages; ++s) {
+    const long long row0 = static_cast<long long>(s) * p.stage_rows;
+    const long long rows = min(static_cast<long long>(p.stage_rows), it.r1 - it.r0 - row0);
+    if constexpr (kRing) ring.wait(it, s);
+#pragma unroll
+    for (int kk = 0; kk < kBatch; ++kk) {
+      const int j = lane_p + kk * p.pix;
+      if (active && j < rows) {
+        W xw, gw;
+        if constexpr (kRing) {
+          xw = ring.stage(s, 0)[j * it.words + gl];
+          gw = ring.stage(s, 1)[j * it.words + gl];
+        } else {
+          xw = xv[it.src + (row0 + j) * p.groups + gl];
+          gw = gv[it.src + (row0 + j) * p.groups + gl];
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float xh = (to_f(xw.v[v]) - mean[v]) * rstd[v];
+          float gg = to_f(gw.v[v]);
+          if (relu && !(xh > 0.f)) gg = 0.f;
+          sg[v] += gg;
+          sgx[v] += gg * xh;
+        }
+      }
+    }
+    if constexpr (kRing) ring.next(p, it, s, lane_p, gl);
+  }
+  __syncthreads();  // the ring drained: the reduction area lies over it
+
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    red_g[v * kPartThreads + tid] = sg[v];
+    red_gx[v * kPartThreads + tid] = sgx[v];
+  }
+  __syncthreads();
+  for (int s = 1; s < p.pix; s *= 2) {
+    if (lane_p % (2 * s) == 0 && lane_p + s < p.pix) {
+      const int o = tid + s * p.tile;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        red_g[v * kPartThreads + tid] += red_g[v * kPartThreads + o];
+        red_gx[v * kPartThreads + tid] += red_gx[v * kPartThreads + o];
       }
     }
     __syncthreads();
   }
-
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  grid.sync();
-
-  const int lane = tid % 32;
-  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
-  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads + tid) / 32;
-       i < static_cast<long long>(p.batch) * p.c; i += warps) {
-    const long long b = i / p.c, ch = i % p.c;
-    Moments t{0.f, 0.f, 0.f};
-    for (int k = lane; k < p.chunks; k += 32) {
-      const float* q = partial + ((b * p.chunks + k) * p.c + ch) * 3;
-      t = merge(t, Moments{q[0], q[1], q[2]});
+  float2* part = reinterpret_cast<float2*>(partial);
+  if (lane_p == 0 && gl < it.words) {
+    float2* o = part + (static_cast<long long>(it.b) * p.chunks + it.chunk) * p.c + ch0 + gl * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const Moments m{0.f, red_g[v * kPartThreads + tid], red_gx[v * kPartThreads + tid]};
+      if (p.chunks == 1) {  // a slab of one chunk: the tree's result is the slab's
+        put_out<false>(out, it, p, ch0, gl * V + v, m);
+      } else {
+        o[v] = make_float2(m.mean, m.m2);
+      }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const Moments o{__shfl_down_sync(0xffffffffu, t.n, off),
-                      __shfl_down_sync(0xffffffffu, t.mean, off),
-                      __shfl_down_sync(0xffffffffu, t.m2, off)};
-      t = merge(t, o);
-    }
-    if (lane == 0) {
-      out[3 * i] = t.n;
-      out[3 * i + 1] = t.mean;
-      out[3 * i + 2] = t.m2;
-    }
+  }
+  if (p.chunks > 1) {
+    merge_by_tickets<false>(p, it, it.words * V, ch0, part, tickets, out, red_g,
+                            part_stage<V, 2>(smem), part_stage_cap<T, V, 2>());
   }
 }
 
@@ -929,119 +1476,6 @@ instance_norm_apply_kernel(const T* __restrict__ x, const T* __restrict__ res, T
   }
 }
 
-// This rank's fp32 sums of g' and g' * xhat per (b, c) into out[(b c + ch) 2
-// ...] (sums, not means: the host adds the ranks' before dividing).
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 1)
-instance_norm_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                              const float* __restrict__ ms, float* __restrict__ partial,
-                              float* __restrict__ out, Plan p, int relu) {
-  using W = Vec<T, V>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* red_g = reinterpret_cast<float*>(smem);
-  float* red_gx = red_g + kThreads * V;
-
-  const int tid = threadIdx.x;
-  const int lane_p = tid / p.tile, gl = tid % p.tile;
-  const int items = p.batch * p.tiles * p.chunks;
-  const W* xv = reinterpret_cast<const W*>(x);
-  const W* gv = reinterpret_cast<const W*>(g);
-
-  for (int q = blockIdx.x; q < items; q += gridDim.x) {
-    const Item w = item(p, q);
-    const int gi = w.g0 + gl;
-    const bool active = lane_p < p.pix && gi < p.groups;
-    const long long base = static_cast<long long>(w.b) * p.hw * p.groups + gi;
-    float sg[V], sgx[V], mean[V], rstd[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      sg[v] = sgx[v] = mean[v] = rstd[v] = 0.f;
-      if (active) {
-        const float* st = ms + 2 * (static_cast<long long>(w.b) * p.c + gi * V + v);
-        mean[v] = st[0];
-        rstd[v] = st[1];
-      }
-    }
-    for (int k0 = 0; k0 < w.iters; k0 += kBatch) {
-      W xb[kBatch], gb[kBatch];
-#pragma unroll
-      for (int kk = 0; kk < kBatch; ++kk) {
-        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
-        if (active && k0 + kk < w.iters && r < w.r1) {
-          xb[kk] = xv[base + r * p.groups];
-          gb[kk] = gv[base + r * p.groups];
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBatch; ++kk) {
-        const long long r = w.r0 + lane_p + static_cast<long long>(k0 + kk) * p.pix;
-        if (active && k0 + kk < w.iters && r < w.r1) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const float xh = (to_f(xb[kk].v[v]) - mean[v]) * rstd[v];
-            float gg = to_f(gb[kk].v[v]);
-            if (relu && !(xh > 0.f)) gg = 0.f;
-            sg[v] += gg;
-            sgx[v] += gg * xh;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      red_g[tid * V + v] = sg[v];
-      red_gx[tid * V + v] = sgx[v];
-    }
-    __syncthreads();
-    for (int s = 1; s < p.pix; s *= 2) {
-      if (lane_p % (2 * s) == 0 && lane_p + s < p.pix) {
-        const int o = tid + s * p.tile;
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          red_g[tid * V + v] += red_g[o * V + v];
-          red_gx[tid * V + v] += red_gx[o * V + v];
-        }
-      }
-      __syncthreads();
-    }
-    if (lane_p == 0 && gi < p.groups) {
-      const int chunk = q % p.chunks;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        float* o = partial + ((static_cast<long long>(w.b) * p.chunks + chunk) * p.c +
-                              gi * V + v) * 2;
-        o[0] = red_g[tid * V + v];
-        o[1] = red_gx[tid * V + v];
-      }
-    }
-    __syncthreads();
-  }
-
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  grid.sync();
-
-  const int lane = tid % 32;
-  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
-  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads + tid) / 32;
-       i < static_cast<long long>(p.batch) * p.c; i += warps) {
-    const long long b = i / p.c, ch = i % p.c;
-    float a = 0.f, ax = 0.f;
-    for (int k = lane; k < p.chunks; k += 32) {
-      const float* q = partial + ((b * p.chunks + k) * p.c + ch) * 2;
-      a += q[0];
-      ax += q[1];
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_down_sync(0xffffffffu, a, off);
-      ax += __shfl_down_sync(0xffffffffu, ax, off);
-    }
-    if (lane == 0) {
-      out[2 * i] = a;
-      out[2 * i + 1] = ax;
-    }
-  }
-}
-
 // parts: the S ranks' sums (S, batch, c, 2), added in rank order and divided
 // by the global count; dx = rstd (g' - mean(g') - xhat mean(g' xhat)).
 template <typename T, int V>
@@ -1099,67 +1533,59 @@ instance_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// The most blocks of a cooperative kernel resident at once on the current
-// device at ``smem`` bytes of dynamic shared memory a block, asked once per
-// device and kernel.
+// The kernel's limit of dynamic shared memory raised to smem bytes, once
+// per device (above 48 KiB a launch needs it).
 template <const void* (*Kernel)()>
-int coop_blocks(int smem, int* blocks) {
-  static int known[kMaxDevices] = {};
-  int dev = 0, sms = 0, per_sm = 0;
+int allow_smem(int smem) {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  if (dev < kMaxDevices && known[dev] > 0) {
-    *blocks = known[dev];
-    return 0;
-  }
-  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc == cudaSuccess) rc = cudaFuncSetAttribute(Kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc == cudaSuccess) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel(), kThreads, smem);
-  }
-  *blocks = per_sm * sms;
-  if (rc == cudaSuccess && dev < kMaxDevices) known[dev] = *blocks;
+  if (dev < kMaxDevices && done[dev]) return 0;
+  rc = cudaFuncSetAttribute(Kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return static_cast<int>(rc);
 }
 
 template <typename T, int V>
-const void* stats_kernel() { return reinterpret_cast<const void*>(instance_norm_stats_kernel<T, V>); }
+const void* stats_kernel() {
+  return reinterpret_cast<const void*>(instance_norm_stats_kernel<T, V>);
+}
 template <typename T, int V>
-const void* sums_kernel() { return reinterpret_cast<const void*>(instance_norm_bwd_sums_kernel<T, V>); }
+const void* sums_kernel() {
+  return reinterpret_cast<const void*>(instance_norm_bwd_sums_kernel<T, V>);
+}
 
-template <typename T, int V>
-int run_stats(const void* x, float* partial, float* out, long long hw, int batch, int c,
-              int chunk_cap, cudaStream_t s) {
-  const int smem = kThreads * (1 + 2 * V) * static_cast<int>(sizeof(float));
-  int blocks = 0;
-  const int rc = coop_blocks<stats_kernel<T, V>>(smem, &blocks);
-  if (rc != 0) return rc;
-  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  int grid = 0;
-  Plan p = make_plan(hw, batch, c, V, blocks, chunk_cap, &grid);
-  const T* xt = static_cast<const T*>(x);
-  void* args[] = {&xt, &partial, &out, &p};
-  return static_cast<int>(cudaLaunchCooperativeKernel(stats_kernel<T, V>(), dim3(grid),
-                                                      dim3(kThreads), args,
-                                                      static_cast<size_t>(smem), s));
+// One launch of the stats or sums kernel on the plan's grid.
+template <typename... Params, typename... Args>
+int launch_part(void (*kernel)(Params...), const PartPlan& p, int smem, cudaStream_t s,
+                Args... args) {
+  const long long n = static_cast<long long>(p.batch) * p.tiles * p.chunks;
+  if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(n), kPartThreads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
-int run_sums(const void* x, const void* g, const float* ms, float* partial, float* out,
-             long long hw, int batch, int c, int chunk_cap, int relu, cudaStream_t s) {
-  const int smem = kThreads * 2 * V * static_cast<int>(sizeof(float));
-  int blocks = 0;
-  const int rc = coop_blocks<sums_kernel<T, V>>(smem, &blocks);
+int run_stats(const void* x, float* partial, int* tickets, float* out, long long hw, int batch,
+              int c, cudaStream_t s) {
+  const PartPlan p = make_part_plan(hw, batch, c, V);
+  constexpr int smem = part_smem<T, V, 1>();
+  const int rc = allow_smem<stats_kernel<T, V>>(smem);
   if (rc != 0) return rc;
-  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  int grid = 0;
-  Plan p = make_plan(hw, batch, c, V, blocks, chunk_cap, &grid);
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  void* args[] = {&xt, &gt, &ms, &partial, &out, &p, &relu};
-  return static_cast<int>(cudaLaunchCooperativeKernel(sums_kernel<T, V>(), dim3(grid),
-                                                      dim3(kThreads), args,
-                                                      static_cast<size_t>(smem), s));
+  return launch_part(instance_norm_stats_kernel<T, V>, p, smem, s, static_cast<const T*>(x),
+                     partial, tickets, out, p);
+}
+
+template <typename T, int V>
+int run_sums(const void* x, const void* g, const float* ms, float* partial, int* tickets,
+             float* out, long long hw, int batch, int c, int relu, cudaStream_t s) {
+  const PartPlan p = make_part_plan(hw, batch, c, V);
+  constexpr int smem = part_smem<T, V, 2>();
+  const int rc = allow_smem<sums_kernel<T, V>>(smem);
+  if (rc != 0) return rc;
+  return launch_part(instance_norm_bwd_sums_kernel<T, V>, p, smem, s, static_cast<const T*>(x),
+                     static_cast<const T*>(g), ms, partial, tickets, out, p, relu);
 }
 
 template <typename T, int V>
@@ -1278,18 +1704,19 @@ extern "C" int instance_norm_bwd_launch(const void* x, const void* g, const void
 // allocated by the caller. Each returns a cudaError_t: 0 when the launch
 // was accepted.
 
-// out: (batch, c, 3) this rank's count, mean and M2; partial: batch *
-// chunk_cap * c * 3.
-extern "C" int instance_norm_stats_launch(const void* x, void* partial, void* out, long long hw,
-                                          int batch, int c, int chunk_cap, int vec, int elt_size,
+// out: (batch, c, 3) this rank's count, mean and M2; partial and tickets:
+// the fp32 workspace and the int counters that instance_norm_part_plan
+// (part_plan.h) gives for the same operands, vec's channels a word; the
+// counters 0 before the launch and after it.
+extern "C" int instance_norm_stats_launch(const void* x, void* partial, void* tickets, void* out,
+                                          long long hw, int batch, int c, int vec, int elt_size,
                                           void* stream) {
-  if (bad_operands(hw, batch, c, vec, elt_size) || chunk_cap < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_operands(hw, batch, c, vec, elt_size)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pt = static_cast<float*>(partial);
+  int* tt = static_cast<int*>(tickets);
   float* ot = static_cast<float*>(out);
-  return K3_DISPATCH(run_stats, x, pt, ot, hw, batch, c, chunk_cap, s);
+  return K3_DISPATCH(run_stats, x, pt, tt, ot, hw, batch, c, s);
 }
 
 // parts: (n_parts, batch, c, 3) the ranks' count, mean and M2 in rank order;
@@ -1308,19 +1735,19 @@ extern "C" int instance_norm_apply_launch(const void* x, const void* res, void* 
 }
 
 // ms: the forward's (batch, c, 2) mean and rstd; out: (batch, c, 2) this
-// rank's sums of g' and g' * xhat; partial: batch * chunk_cap * c * 2.
+// rank's sums of g' and g' * xhat; partial and tickets as for the stats
+// launch.
 extern "C" int instance_norm_bwd_sums_launch(const void* x, const void* g, const void* ms,
-                                             void* partial, void* out, long long hw, int batch,
-                                             int c, int chunk_cap, int relu, int vec, int elt_size,
+                                             void* partial, void* tickets, void* out, long long hw,
+                                             int batch, int c, int relu, int vec, int elt_size,
                                              void* stream) {
-  if (bad_operands(hw, batch, c, vec, elt_size) || chunk_cap < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_operands(hw, batch, c, vec, elt_size)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mt = static_cast<const float*>(ms);
   float* pt = static_cast<float*>(partial);
+  int* tt = static_cast<int*>(tickets);
   float* ot = static_cast<float*>(out);
-  return K3_DISPATCH(run_sums, x, g, mt, pt, ot, hw, batch, c, chunk_cap, relu, s);
+  return K3_DISPATCH(run_sums, x, g, mt, pt, tt, ot, hw, batch, c, relu, s);
 }
 
 // parts: (n_parts, batch, c, 2) the ranks' sums in rank order; count: the

@@ -22,10 +22,19 @@ second pass in reverse, :func:`bwd_walk`), wrapped by
 :func:`fused_instance_norm_bwd`, whose plain version
 :func:`fused_instance_norm_bwd_plain` recomputes the statistics from x as
 JAX's ``_fused_in_bwd`` does. The residual's gradient is the output's.
+
+Under the spatial axis the call takes the partial-statistics form: two
+launches each way (stats then apply; sums then dx), the ranks' statistics
+gathered between them. The stats and sums launches are ordinary launches
+of one CTA per chunk of rows (:func:`partial_plan` asks the built library
+for their partition and workspace, ``csrc/part_plan.h``) that merge their
+chunks through ticket counters kept per device and stream, in a fixed
+order, so two runs give the same bits.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -263,6 +272,37 @@ fused_instance_norm_bwd.launches = 0
 
 
 # -- the partial-statistics form (the spatial axis) ------------------------------------
+@functools.lru_cache(maxsize=256)
+def partial_plan(b: int, hw: int, c: int, vec: int):
+    """(grid, chunks a slab, rows a chunk, words a tile, rows a stage, fp32
+    workspace, int counters) of the stats and sums launches on (b, hw, c)
+    with ``vec`` channels a word: ``instance_norm_part_plan`` of
+    ``csrc/part_plan.h``, the partition the launchers use, from the built
+    library."""
+    fn = build.load_library("instance_norm").instance_norm_part_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    if fn(hw, b, c, vec, out) != 0:
+        raise ValueError(f"no partial launch takes (b, hw, c, vec) = {(b, hw, c, vec)}")
+    return tuple(out)
+
+
+# the ticket counters of the stats and sums launches, by (device, stream):
+# zeroed when made, left zeroed by every launch (the CTA that takes a
+# counter's last ticket resets it), so launches on one stream share them
+_TICKETS: dict = {}
+
+
+def _tickets(x: torch.Tensor, n: int) -> torch.Tensor:
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=x.device)
+        _TICKETS[key] = t
+    return t
+
+
 def apply_plan(b: int, hw: int, c: int, vec: int):
     """(grid, chunks, rows_per_chunk) of the apply and dx launches, the
     mirror of ``make_apply_plan``: one block per chunk of ``APPLY_ITERS``
@@ -360,8 +400,23 @@ def instance_norm_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, ms: torch.Tenso
 
 
 @functools.cache
-def _partial_launcher(symbol: str, signature: str):
-    return build.c_function("instance_norm", symbol, signature)
+def _stats_launcher():
+    return build.c_function("instance_norm", "instance_norm_stats_launch", "ppppliiii")
+
+
+@functools.cache
+def _apply_launcher():
+    return build.c_function("instance_norm", "instance_norm_apply_launch", "ppppplii" "iiiif")
+
+
+@functools.cache
+def _sums_launcher():
+    return build.c_function("instance_norm", "instance_norm_bwd_sums_launch", "ppppppliiiii")
+
+
+@functools.cache
+def _dx_launcher():
+    return build.c_function("instance_norm", "instance_norm_bwd_dx_launch", "pppppl" "iiiiiif")
 
 
 def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
@@ -376,12 +431,12 @@ def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
     build.check_operand("instance_norm_stats", x)
     b, h, w, c = x.shape
     vec = _aligned_vec(c, x)
-    cap = max_chunks(h * w, c, vec)
-    partial = x.new_empty(b * cap * c * 3, dtype=torch.float32)
+    floats, counters = partial_plan(b, h * w, c, vec)[5:]
+    partial = x.new_empty(floats, dtype=torch.float32)
     out = x.new_empty((b, c, 3), dtype=torch.float32)
-    build.launch("instance_norm_stats", _partial_launcher(
-        "instance_norm_stats_launch", "ppplii" "iii"), x, x.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), h * w, b, c, cap, int(vec > 1), x.element_size())
+    build.launch("instance_norm_stats", _stats_launcher(), x, x.data_ptr(), partial.data_ptr(),
+        _tickets(x, counters).data_ptr(), out.data_ptr(), h * w, b, c, int(vec > 1),
+        x.element_size())
     instance_norm_stats.launches += 1
     return out
 
@@ -407,8 +462,7 @@ def instance_norm_apply(x: torch.Tensor, residual: Optional[torch.Tensor], parts
     y = x.new_empty(x.shape)
     ms = x.new_empty((b, c, 2), dtype=torch.float32)
     vec = _aligned_vec(c, x, y, *([] if residual is None else [residual]))
-    build.launch("instance_norm_apply", _partial_launcher(
-        "instance_norm_apply_launch", "ppppplii" "iiiif"), x, x.data_ptr(),
+    build.launch("instance_norm_apply", _apply_launcher(), x, x.data_ptr(),
         0 if residual is None else residual.data_ptr(), y.data_ptr(), parts.data_ptr(),
         ms.data_ptr(), h * w, b, c, parts.shape[0], int(relu), int(vec > 1), x.element_size(),
         eps)
@@ -432,13 +486,12 @@ def instance_norm_bwd_sums(x: torch.Tensor, g: torch.Tensor, ms: torch.Tensor,
     build.check_operand("instance_norm_bwd_sums", ms, (torch.float32,))
     b, h, w, c = x.shape
     vec = _aligned_vec(c, x, g)
-    cap = max_chunks(h * w, c, vec)
-    partial = x.new_empty(b * cap * c * 2, dtype=torch.float32)
+    floats, counters = partial_plan(b, h * w, c, vec)[5:]
+    partial = x.new_empty(floats, dtype=torch.float32)
     out = x.new_empty((b, c, 2), dtype=torch.float32)
-    build.launch("instance_norm_bwd_sums", _partial_launcher(
-        "instance_norm_bwd_sums_launch", "pppppl" "iiiiii"), x, x.data_ptr(), g.data_ptr(),
-        ms.data_ptr(), partial.data_ptr(), out.data_ptr(), h * w, b, c, cap, int(relu),
-        int(vec > 1), x.element_size())
+    build.launch("instance_norm_bwd_sums", _sums_launcher(), x, x.data_ptr(), g.data_ptr(),
+        ms.data_ptr(), partial.data_ptr(), _tickets(x, counters).data_ptr(), out.data_ptr(),
+        h * w, b, c, int(relu), int(vec > 1), x.element_size())
     instance_norm_bwd_sums.launches += 1
     return out
 
@@ -461,8 +514,7 @@ def instance_norm_bwd_dx(x: torch.Tensor, g: torch.Tensor, ms: torch.Tensor,
     b, h, w, c = x.shape
     dx = x.new_empty(x.shape)
     vec = _aligned_vec(c, x, g, dx)
-    build.launch("instance_norm_bwd_dx", _partial_launcher(
-        "instance_norm_bwd_dx_launch", "pppppl" "iiiiiif"), x, x.data_ptr(), g.data_ptr(),
+    build.launch("instance_norm_bwd_dx", _dx_launcher(), x, x.data_ptr(), g.data_ptr(),
         ms.data_ptr(), parts.data_ptr(), dx.data_ptr(), h * w, b, c, parts.shape[0], int(relu),
         int(vec > 1), x.element_size(), float(count))
     instance_norm_bwd_dx.launches += 1

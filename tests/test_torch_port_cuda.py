@@ -805,6 +805,86 @@ def test_partial_kernels_take_uneven_and_empty_slabs(cuda, width, c, rows, size,
                       instance_norm.fused_instance_norm_bwd_plain(x, g, relu, stats=ms))
 
 
+# the spatial step's rank slabs at spatial 2: each norm level's rows halved,
+# batch 2 in fp32 (the training step) and batch 1 in bf16 (serving)
+STEP_LEVELS = [(512, 1024, 64), (256, 512, 128), (128, 256, 256), (64, 128, 512), (32, 64, 1024)]
+STEP_SLABS = ([((2, h // 2, w, c), torch.float32) for h, w, c in STEP_LEVELS]
+              + [((1, h // 2, w, c), torch.bfloat16) for h, w, c in STEP_LEVELS])
+
+
+def _tickets_clean(x):
+    """The stats and sums launches' counters on x's device and stream, all
+    back at 0."""
+    key = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    return bool((instance_norm._TICKETS[key] == 0).all())
+
+
+@pytest.mark.parametrize("shape,dtype", STEP_SLABS)
+def test_partial_stats_and_sums_at_the_step_rank_slabs(cuda, shape, dtype):
+    """The stats and sums launches at a rank's slab of the spatial step
+    against their plain versions (the count exact, mean and M2 within 1e-5
+    relative; the sums within 1e-5 of their max-abs); two launches in a row
+    bit-equal; the counters left at 0."""
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    g = _input(shape, seed=1).to(cuda, dtype)
+    got = instance_norm.instance_norm_stats(x)
+    again = instance_norm.instance_norm_stats(x)
+    want = instance_norm.instance_norm_stats_plain(x)
+    assert torch.equal(got, again) and torch.equal(got[..., 0], want[..., 0])
+    assert ((got[..., 1:] - want[..., 1:]).abs()
+            <= 1e-5 * want[..., 1:].abs().clamp_min(1.0)).all()
+    _, ms = instance_norm.instance_norm_apply(x, None, torch.stack([got, got]), True)
+    for relu in (True, False):
+        sums = instance_norm.instance_norm_bwd_sums(x, g, ms, relu)
+        assert torch.equal(sums, instance_norm.instance_norm_bwd_sums(x, g, ms, relu))
+        want = instance_norm.instance_norm_bwd_sums_plain(x, g, ms, relu)
+        assert (sums - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    torch.cuda.synchronize()
+    assert _tickets_clean(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partial_launch_after_another_shape_equals_a_fresh_one(cuda, dtype):
+    """A stats and a sums launch, then launches at shapes of other
+    partitions (many chunks, several channel tiles, an empty
+    slab), then the first two again: bit-equal, so every launch left its
+    counters as it found them."""
+    shape = (2, 21, 64, 1024)
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    g = _input(shape, seed=1).to(cuda, dtype)
+    st = instance_norm.instance_norm_stats(x)
+    _, ms = instance_norm.instance_norm_apply(x, None, st[None], True)
+    sums = instance_norm.instance_norm_bwd_sums(x, g, ms, True)
+    for other in [(1, 256, 1024, 64), (2, 32, 128, 512), (1, 0, 64, 1024), (2, 7, 12, 6)]:
+        y = (_input(other, seed=2) * 3 + 1).to(cuda, dtype)
+        sy = instance_norm.instance_norm_stats(y)
+        _, my = instance_norm.instance_norm_apply(y, None, sy[None], True)
+        instance_norm.instance_norm_bwd_sums(y, y, my, True)
+    assert torch.equal(instance_norm.instance_norm_stats(x), st)
+    assert torch.equal(instance_norm.instance_norm_bwd_sums(x, g, ms, True), sums)
+    torch.cuda.synchronize()
+    assert _tickets_clean(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 0, 64, 1024), (2, 0, 8, 6), (2, 0, 16, 64)])
+def test_partial_empty_slab_parts_are_zero(cuda, shape, dtype):
+    """A rank's slab of no rows: one stats and one sums launch, each giving
+    exactly 0 (the count too)."""
+    x = torch.empty(shape, device=cuda, dtype=dtype)
+    b, c = shape[0], shape[3]
+    ms = torch.randn((b, c, 2), device=cuda)
+    before = (instance_norm.instance_norm_stats.launches,
+              instance_norm.instance_norm_bwd_sums.launches)
+    st = instance_norm.instance_norm_stats(x)
+    sums = instance_norm.instance_norm_bwd_sums(x, x, ms, True)
+    torch.cuda.synchronize()
+    assert (instance_norm.instance_norm_stats.launches,
+            instance_norm.instance_norm_bwd_sums.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(st, torch.zeros((b, c, 3), device=cuda))
+    assert torch.equal(sums, torch.zeros((b, c, 2), device=cuda))
+
+
 def test_partial_kernels_reject_what_they_cannot_take(cuda):
     x = torch.zeros((1, 4, 4, 8), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="unsupported dtype"):

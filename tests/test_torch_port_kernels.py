@@ -447,7 +447,9 @@ def _c_prototype(library: str, symbol: str) -> str:
 
 @pytest.mark.parametrize("module,attr", [
     (realign, "_launcher"), (realign, "_front_launcher"), (instance_norm, "_launcher"),
-    (instance_norm, "_bwd_launcher"),
+    (instance_norm, "_bwd_launcher"), (instance_norm, "_stats_launcher"),
+    (instance_norm, "_apply_launcher"), (instance_norm, "_sums_launcher"),
+    (instance_norm, "_dx_launcher"),
     (head_conv, "_launcher"), (head_conv, "_gemm_launcher")])
 def test_launcher_signatures_match_the_c_prototypes(monkeypatch, module, attr):
     """ctypes passes what the wrapper declares: a letter short or wrong
