@@ -1004,6 +1004,8 @@ def phase_k3_partial(card: str, gen) -> list:
         e["uneven"] = uneven
     step = phase_k3_partial_step(card, gen)
     entries[0]["step_slabs"], entries[2]["step_slabs"] = step["stats"], step["sums"]
+    entries[1]["step_slabs"], entries[3]["step_slabs"] = step["apply"], step["dx"]
+    entries[1]["step_slabs"]["residual"] = step["apply residual"]
     return entries
 
 
@@ -1011,56 +1013,148 @@ def phase_k3_partial(card: str, gen) -> list:
 # batch 2 in fp32 (the training step) and batch 1 in bf16 (serving)
 STEP_RANK_SLABS = ([((2, s[1] // 2) + s[2:], torch.float32) for s in NORM_SHAPES]
                    + [((1, s[1] // 2) + s[2:], torch.bfloat16) for s in NORM_SHAPES])
+# the partial launches' timed legs: the apply with the ReLU, and with the
+# residual (a res block's second norm) where the slab's level has res blocks
+STEP_LEGS = ("stats", "apply", "apply residual", "sums", "dx")
+
+
+def step_launches(shape, leg: str) -> int:
+    """Launches of ``leg`` a spatial rank-step makes at the batch-2 rank slab
+    ``shape``, by K3_BWD_SITES' sites whose rows it halves: the stats and
+    the apply twice a site (block remat recomputes the forward), the apply
+    in the site's form (ReLU, or the residual), the sums and the dx once
+    (timed with the ReLU: a residual site's dx masks nothing, at the same
+    bytes); 0 at batch 1."""
+    if shape[0] != 2:
+        return 0
+    whole = (2 * shape[1],) + tuple(shape[2:])
+    relu, res = K3_BWD_SITES.get((whole, True), 0), K3_BWD_SITES.get((whole, False), 0)
+    return {"stats": 2 * (relu + res), "apply": 2 * relu, "apply residual": 2 * res,
+            "sums": relu + res, "dx": relu + res}[leg]
+
+
+def times_residual(shape) -> bool:
+    """Whether the apply's residual form is timed at a slab: at the levels
+    whose res blocks take it (the deepest) and at the hires rows (its
+    enhancer's res blocks)."""
+    return tuple(shape[2:]) == NORM_SHAPES[4][2:] or tuple(shape) == HIRES_PARTIAL_SHAPE
+
+
+def step_legs(k3, x: torch.Tensor, g: torch.Tensor, res, other=None, count=None) -> dict:
+    """The partial kernels' timed legs on one rank's slab x (g its output's
+    gradient, res a residual or None), as {leg: (kernel, plain, bound ms,
+    library or None)}: two ranks' statistics, this rank's and ``other``'s
+    (by default this rank's again), over ``count`` pixels (by default twice
+    x's), the apply with the ReLU (and with ``res`` where given), the sums
+    and the dx with the ReLU. Only the stats' function is one PyTorch call,
+    torch.var_mean over (H, W)."""
+    st = k3.instance_norm_stats(x)
+    parts = torch.stack([st, st if other is None else other])
+    _, ms = k3.instance_norm_apply(x, None, parts, True)
+    sums = torch.stack([k3.instance_norm_bwd_sums(x, g, ms, True)] * 2)
+    n = float(count or 2 * x.shape[1] * x.shape[2])
+    legs = {
+        "stats": (lambda: k3.instance_norm_stats(x), lambda: k3.instance_norm_stats_plain(x),
+                  bytes_ms(x), lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
+        "apply": (lambda: k3.instance_norm_apply(x, None, parts, True),
+                  lambda: k3.instance_norm_apply_plain(x, None, parts, True), bytes_ms(x, x), None),
+        "sums": (lambda: k3.instance_norm_bwd_sums(x, g, ms, True),
+                 lambda: k3.instance_norm_bwd_sums_plain(x, g, ms, True), bytes_ms(x, g), None),
+        "dx": (lambda: k3.instance_norm_bwd_dx(x, g, ms, sums, n, True),
+               lambda: k3.instance_norm_bwd_dx_plain(x, g, ms, sums, n, True), bytes_ms(x, g, x),
+               None),
+    }
+    if res is not None:
+        legs["apply residual"] = (lambda: k3.instance_norm_apply(x, res, parts, False),
+                                  lambda: k3.instance_norm_apply_plain(x, res, parts, False),
+                                  bytes_ms(x, res, x), None)
+    return legs
+
+
+def check_leg(leg: str, kern, plain, dtype, what: str) -> float:
+    """One leg's launch against its plain version on the same inputs and
+    against a second launch (bit-equal): the stats' count exact, mean and
+    M2 within 1e-5 relative (to max(1, |value|)); the sums within 1e-5 of
+    their max-abs; the apply's y and the dx in fp32 within 1e-5 of the
+    output's max-abs (at least 1 for y), in bf16 within one ulp beyond
+    that, and the apply's mean and rstd within 1e-5 of their max-abs.
+    Returns the error; raises past the tolerance."""
+    got, again, want = kern(), kern(), plain()
+    outs = got if isinstance(got, tuple) else (got,)
+    if not all(torch.equal(a, b) for a, b in zip(outs, again if isinstance(again, tuple)
+                                                 else (again,))):
+        raise AssertionError(f"K3 {leg} {what}: two launches differ")
+    if leg == "stats":
+        if not torch.equal(got[..., 0], want[..., 0]):
+            raise AssertionError(f"K3 stats {what}: counts differ")
+        err = max((((got[..., i] - want[..., i]).abs() / want[..., i].abs().clamp_min(1.0))
+                   .max().item() if got.numel() else 0.0) for i in (1, 2))
+    elif leg == "sums":
+        err = _site_err(got, want)
+    else:
+        name = "instance_norm_bwd_dx" if leg == "dx" else "instance_norm_apply"
+        worst = {name: 0.0}
+        _note_held(worst, name, outs[0], want[0] if isinstance(want, tuple) else want, dtype)
+        err = worst[name] if len(outs) == 1 else max(worst[name], _site_err(outs[1], want[1]))
+    if not err <= K3_SITE_TOL:
+        raise AssertionError(f"K3 {leg} {what}: {err:.2e} from its plain version "
+                             f"(tolerance {K3_SITE_TOL})")
+    return err
 
 
 def phase_k3_partial_step(card: str, gen) -> dict:
-    """The stats and sums launches timed at STEP_RANK_SLABS, each beside its
-    bound, its plain version and, for the stats, torch.var_mean over (H, W):
-    the profiler's device time, CUDA events over back-to-back calls (x as a
-    step finds it, just read: in the 50 MB L2 where it fits), and events of
-    one call after a 64 MB write has flushed the L2. Then the device time
-    summed over one spatial rank-step's launches at the training slabs (the
-    stats twice a norm site, the sums once, K3_BWD_SITES). Returns
-    {"stats": ..., "sums": ...}, each {"slabs": {shape: numbers},
-    "rank_step_device_ms": t, "rank_step_bound_ms": t}."""
+    """The four partial launches at STEP_RANK_SLABS (STEP_LEGS: the apply
+    with the ReLU, and with the residual at the deepest level, whose res
+    blocks take it): each first held against its plain version and a second
+    launch (check_leg), then timed beside its bound, its plain version and,
+    for the stats, torch.var_mean over (H, W): the profiler's device time,
+    CUDA events over back-to-back calls (x as a step finds it, just read: in
+    the 50 MB L2 where it fits), and events of one call after a 64 MB write
+    has flushed the L2. Then the device time summed over one spatial
+    rank-step's launches at the training slabs (step_launches). Returns
+    {leg: {"slabs": {shape: numbers}, "rank_step_device_ms": t,
+    "rank_step_bound_ms": t}}."""
     from jpdse_tpu_torch.ops import instance_norm as k3
 
-    out = {name: {"slabs": {}, "rank_step_device_ms": 0.0, "rank_step_bound_ms": 0.0}
-           for name in ("stats", "sums")}
+    out = {leg: {"slabs": {}, "rank_step_device_ms": 0.0, "rank_step_bound_ms": 0.0}
+           for leg in STEP_LEGS}
+    worst = dict.fromkeys(STEP_LEGS, 0.0)
     for shape, dtype in STEP_RANK_SLABS:
         x = (torch.randn(shape, device="cuda", generator=gen) * 3 + 1).to(dtype)
         g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-        st = k3.instance_norm_stats(x)
-        _, ms = k3.instance_norm_apply(x, None, torch.stack([st, st]), True)
-        runs = {"stats": (lambda: k3.instance_norm_stats(x),
-                          lambda: k3.instance_norm_stats_plain(x), bytes_ms(x),
-                          lambda: torch.var_mean(x, dim=(1, 2), correction=0)),
-                "sums": (lambda: k3.instance_norm_bwd_sums(x, g, ms, True),
-                         lambda: k3.instance_norm_bwd_sums_plain(x, g, ms, True),
-                         bytes_ms(x, g), None)}
-        sites = sum(n for (site, _), n in K3_BWD_SITES.items()
-                    if site == (2 * shape[1],) + shape[2:]) if shape[0] == 2 else 0
-        for name, (kern, plain, bound, library) in runs.items():
+        res = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+               if times_residual(shape) else None)
+        for leg, (kern, plain, bound, library) in step_legs(k3, x, g, res).items():
+            worst[leg] = max(worst[leg], check_leg(leg, kern, plain, dtype,
+                                                   f"{shape} {dt(dtype)}"))
             k, k_dev, k_flushed = cuda_ms(kern), device_ms(kern), flushed_ms(kern)
             p = cuda_ms(plain)
             lib = None if library is None else cuda_ms(library)
-            out[name]["slabs"][f"{shape} {dt(dtype)}"] = {
+            out[leg]["slabs"][f"{shape} {dt(dtype)}"] = {
                 "ms": k, "device_ms": k_dev, "flushed_ms": k_flushed, "plain_ms": p,
                 "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
-            launches = sites * (2 if name == "stats" else 1)
-            out[name]["rank_step_device_ms"] += launches * k_dev
-            out[name]["rank_step_bound_ms"] += launches * bound
-            log(f"[kernels] {name} {shape} {dt(dtype)} (a rank's slab of the spatial step): "
+            launches = step_launches(shape, leg)
+            out[leg]["rank_step_device_ms"] += launches * k_dev
+            out[leg]["rank_step_bound_ms"] += launches * bound
+            log(f"[kernels] {leg} {shape} {dt(dtype)} (a rank's slab of the spatial step): "
                 f"kernel {k:.4f} ms, on the device {k_dev:.4f} ms ({bound / k_dev:.0%} of its "
                 f"bound), L2 flushed {k_flushed:.4f} ms; plain {p:.4f} ms; bound "
                 f"{bound * 1e3:.1f} us (bytes)"
                 + ("" if lib is None else f"; torch.var_mean over (H, W) {lib:.4f} ms")
                 + (f"; {launches} launches a rank-step" if launches else "") + f" ({card})")
-        del x, g, st, ms
-    for name, o in out.items():
-        log(f"[kernels] {name} summed over a spatial rank-step's launches (batch 2, fp32): "
+        del x, g, res
+    log("[kernels] the partial launches at the spatial step's rank slabs against their plain "
+        "versions, two launches bit-equal: worst "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (tolerance {K3_SITE_TOL})")
+    for leg, o in out.items():
+        log(f"[kernels] {leg} summed over a spatial rank-step's launches (batch 2, fp32): "
             f"device {o['rank_step_device_ms']:.4f} ms against a bound of "
             f"{o['rank_step_bound_ms']:.4f} ms ({card})")
+    for label, legs in (("stats + sums", ("stats", "sums")),
+                        ("apply + dx", ("apply", "apply residual", "dx"))):
+        log(f"[kernels] {label} a spatial rank-step: device "
+            f"{sum(out[leg]['rank_step_device_ms'] for leg in legs):.4f} ms against a bound of "
+            f"{sum(out[leg]['rank_step_bound_ms'] for leg in legs):.4f} ms ({card})")
     return out
 
 

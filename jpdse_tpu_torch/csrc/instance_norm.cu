@@ -72,16 +72,45 @@
 // them (ops/instance_norm.py::FusedInstanceNorm):
 //   forward: instance_norm_stats_kernel (this rank's (count, mean, M2) per
 //     (b, c)); the host gathers the S ranks' triples;
-//     instance_norm_apply_kernel (an ordinary launch of one block per chunk
-//     of rows: each thread merges the S triples of its channels in rank
-//     order, so every rank holds the same bits, then normalizes its rows,
+//     instance_norm_apply_kernel (the S triples merged in rank order, so
+//     every rank holds the same bits, then this rank's rows normalized,
 //     ReLU, the fp32 residual, one cast; x is read a second time);
 //   backward: instance_norm_bwd_sums_kernel (the fp32 sums of g' and
 //     g' * xhat per (b, c), sums, not means); the host gathers them;
-//     instance_norm_bwd_dx_kernel (each thread adds the S ranks' sums in
-//     rank order, divides by the global count, computes dx).
+//     instance_norm_bwd_dx_kernel (the S ranks' sums added in rank order
+//     and divided by the global count, then dx).
 // Bound: bytes. Forward, two reads of x and one write of y; backward, two
 // reads each of x and g and one write of dx.
+//
+// The apply and dx launches are element-wise once the statistics are
+// merged: their bound is x (and the residual, or g) read and y (or dx)
+// written, 5-80 us at the training step's rank slabs. What held their
+// first design back was fixed cost, not bytes: one 512-thread block per 8
+// loop iterations (thousands of blocks at the largest slabs, 32-84 at the
+// smallest, on 132 SMs), every thread merging the S ranks' statistics of
+// its channels before its first load of x, and one load in flight a
+// thread (a break inside the unrolled loop). Their design:
+//   - part_plan.h's apply partition: one 256-thread CTA per (slab, chunk),
+//     a slab a batch element's channel tile of at most kApplyTileWords
+//     words, its rows cut evenly into chunks; each CTA walks its contiguous
+//     rows. The launch's target is a CTA for each 128 KiB of x, at least
+//     two CTAs an SM (the launch bounds hold each CTA's registers to half
+//     an SM's) and at most eight; an empty slab keeps one CTA (the apply's
+//     writes the merged mean and rstd);
+//   - the statistics merged once a CTA: its threads split the tile's
+//     channels, each issuing the loads of the ranks' parts of its channel
+//     (four ranks at a time) before it folds them in rank order (the same
+//     merge as before), into shared memory, one barrier; the x (and
+//     residual, or g) loads of the CTA's first step are issued before the
+//     merge, so the two overlap;
+//   - loads in flight: each step's loads (kApplyBatch 16-byte words of each
+//     operand a thread; half that for the dx on bf16) are all issued before
+//     any is used, with a masked tail and no break.
+// At the largest slabs both run at 84-89% of the bytes bound, the rate an
+// H100 gave such streams at every grid, tile and batch tried (PERF.md); the
+// smaller slabs gain most.
+// No atomics and no grid barrier: every CTA of a slab merges the same
+// parts in the same order, so two runs give the same bits.
 //
 // The stats and sums launches read x (and g) once and write a few floats
 // per (b, c): their bound is that read, 2.5 us for a rank's slab of the
@@ -1389,147 +1418,240 @@ instance_norm_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// The apply and dx launches' partition (ops/instance_norm.py::apply_plan):
-// one block per chunk of kApplyIters loop iterations of one (b, channel
-// tile) slab, blocks in (b, tile, chunk) order.
-constexpr int kApplyIters = 8;
+// The apply and dx launches (see the header): one CTA of kApplyThreads
+// threads per (slab, chunk) of part_plan.h's apply partition. A thread owns
+// one word (V channels) of the tile and every pix-th row of each step.
+constexpr int kApplyMaxChannels = kApplyTileWords * 8;  // a tile's channels, at the most
+// channels a thread merges, at the most
+constexpr int kApplyMergeSlots = (kApplyMaxChannels + kApplyThreads - 1) / kApplyThreads;
+constexpr int kApplyRanks = 4;  // ranks' parts a thread has in flight at once
 
-struct ApplyPlan {
-  long long hw, rows_per_chunk;
-  int batch, c, chunks, groups, tile, tiles, pix, parts;
+// Rows a thread loads a step: the plan's kApplyBatch, and half of it for
+// the dx on bf16 words, whose four statistics of 8 channels a word leave
+// the registers of two CTAs an SM for fewer loads (an H100 ran it faster).
+template <int V, bool kDx>
+__host__ __device__ constexpr int apply_batch() {
+  return kDx && V > 4 && kApplyBatch > 1 ? kApplyBatch / 2 : kApplyBatch;
+}
+
+// A step's words of one operand, B rows of this thread's word.
+template <typename W, int B>
+struct Rows {
+  W w[B];
 };
 
-ApplyPlan make_apply_plan(long long hw, int batch, int c, int v, int parts, long long* grid) {
-  ApplyPlan p{};
-  p.hw = hw;
-  p.batch = batch;
-  p.c = c;
-  p.parts = parts;
-  p.groups = c / v;
-  p.tile = p.groups < kThreads ? p.groups : kThreads;
-  p.tiles = (p.groups + p.tile - 1) / p.tile;
-  p.pix = kThreads / p.tile;
-  p.rows_per_chunk = static_cast<long long>(p.pix) * kApplyIters;
-  // an empty slab (hw 0) keeps one chunk: its blocks write the merged mean and rstd
-  p.chunks = hw > 0 ? static_cast<int>((hw + p.rows_per_chunk - 1) / p.rows_per_chunk) : 1;
-  *grid = static_cast<long long>(batch) * p.tiles * p.chunks;
-  return p;
+// Rows r + lane_p + kk pix (kk < B) below r1 of the operand at src (word
+// base + row * groups): every load issued before any is used; a row past
+// r1, or an idle thread's, is not read.
+template <typename W, int B>
+__device__ __forceinline__ void load_rows(Rows<W, B>& o, const W* __restrict__ src,
+                                          long long base, const ApplyPlan& p, long long r,
+                                          long long r1, int lane_p, bool active) {
+#pragma unroll
+  for (int kk = 0; kk < B; ++kk) {
+    const long long row = r + lane_p + static_cast<long long>(kk) * p.pix;
+    if (active && row < r1) o.w[kk] = src[base + row * p.groups];
+  }
+}
+
+// The apply's statistics of the CTA's tile, once a CTA: thread tid merges
+// channels tid, tid + kApplyThreads, ... of the tile, the S ranks' (count,
+// mean, M2) in rank order with merge, every rank's loads of a batch of
+// kApplyRanks issued before the first fold; mean and rstd into st. The
+// slab's first chunk writes them to ms for the backward.
+template <int V>
+__device__ __forceinline__ void apply_stats(float2* st, const float* __restrict__ parts,
+                                            float* __restrict__ ms, const ApplyPlan& p,
+                                            const ApplyItem& it, int n_parts, float eps) {
+  const int cs = it.words * V;
+  const long long ch0 = static_cast<long long>(it.t) * p.tile * V;
+  const long long stride = 3LL * p.batch * p.c;  // one rank's parts
+  Moments t[kApplyMergeSlots];
+#pragma unroll
+  for (int j = 0; j < kApplyMergeSlots; ++j) t[j] = Moments{0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < n_parts; s0 += kApplyRanks) {
+    float q[kApplyMergeSlots][kApplyRanks][3];
+#pragma unroll
+    for (int j = 0; j < kApplyMergeSlots; ++j) {
+      const int cl = threadIdx.x + j * kApplyThreads;
+#pragma unroll
+      for (int k = 0; k < kApplyRanks; ++k) {
+        if (cl < cs && s0 + k < n_parts) {
+          const float* o = parts + (s0 + k) * stride + 3 * (static_cast<long long>(it.b) * p.c +
+                                                             ch0 + cl);
+          q[j][k][0] = o[0];
+          q[j][k][1] = o[1];
+          q[j][k][2] = o[2];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kApplyMergeSlots; ++j) {
+#pragma unroll
+      for (int k = 0; k < kApplyRanks; ++k) {
+        if (s0 + k < n_parts) t[j] = merge(t[j], Moments{q[j][k][0], q[j][k][1], q[j][k][2]});
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kApplyMergeSlots; ++j) {
+    const int cl = threadIdx.x + j * kApplyThreads;
+    if (cl < cs) {
+      const float2 m = make_float2(t[j].mean, 1.0f / sqrtf(t[j].m2 / t[j].n + eps));
+      st[cl] = m;
+      if (it.chunk == 0) {
+        reinterpret_cast<float2*>(ms)[static_cast<long long>(it.b) * p.c + ch0 + cl] = m;
+      }
+    }
+  }
 }
 
 // parts: the S ranks' (count, mean, M2), (S, batch, c, 3), merged in rank
-// order; ms: (batch, c, 2) mean and rstd, written by the first chunk's
-// blocks for the backward.
+// order once a CTA (apply_stats); ms: (batch, c, 2) mean and rstd, written
+// by each slab's first CTA for the backward. The CTA's first step of x (and
+// of the residual) is in flight while it merges; each step's loads are all
+// issued before its rows are normalized and stored.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kApplyThreads, kApplyMinBlocks)
 instance_norm_apply_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__ y,
                            const float* __restrict__ parts, float* __restrict__ ms, ApplyPlan p,
-                           int relu, float eps) {
+                           int n_parts, int relu, float eps) {
   using W = Vec<T, V>;
+  constexpr int B = apply_batch<V, false>();
+  __shared__ float2 st[kApplyMaxChannels];
+  const ApplyItem it = apply_item(p, blockIdx.x);
   const int tid = threadIdx.x;
   const int lane_p = tid / p.tile, gl = tid % p.tile;
-  const long long q = blockIdx.x;
-  const int chunk = static_cast<int>(q % p.chunks);
-  const long long slab = q / p.chunks;
-  const int b = static_cast<int>(slab / p.tiles), tile = static_cast<int>(slab % p.tiles);
-  const int g = tile * p.tile + gl;
-  if (lane_p >= p.pix || g >= p.groups) return;
-  float mean[V], rstd[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    Moments t{0.f, 0.f, 0.f};
-    for (int s = 0; s < p.parts; ++s) {
-      const float* o = parts + ((static_cast<long long>(s) * p.batch + b) * p.c + g * V + v) * 3;
-      t = merge(t, Moments{o[0], o[1], o[2]});
-    }
-    mean[v] = t.mean;
-    rstd[v] = 1.0f / sqrtf(t.m2 / t.n + eps);
-    if (chunk == 0 && lane_p == 0) {
-      float* m = ms + 2 * (static_cast<long long>(b) * p.c + g * V + v);
-      m[0] = mean[v];
-      m[1] = rstd[v];
-    }
-  }
+  const bool active = lane_p < p.pix && gl < it.words;
   const W* xv = reinterpret_cast<const W*>(x);
   const W* rv = reinterpret_cast<const W*>(res);
   W* yv = reinterpret_cast<W*>(y);
-  const long long base = static_cast<long long>(b) * p.hw * p.groups + g;
-  const long long r0 = chunk * p.rows_per_chunk;
-  const long long r1 = min(r0 + p.rows_per_chunk, p.hw);
-#pragma unroll 4
-  for (int k = 0; k < kApplyIters; ++k) {
-    const long long r = r0 + lane_p + static_cast<long long>(k) * p.pix;
-    if (r >= r1) break;
-    const W xw = xv[base + r * p.groups];
-    W rw;
-    if (res != nullptr) rw = rv[base + r * p.groups];
-    float f[V];
+  const long long base = static_cast<long long>(it.b) * p.hw * p.groups +
+                         static_cast<long long>(it.t) * p.tile + gl;
+  Rows<W, B> xb, rb;
+  load_rows(xb, xv, base, p, it.r0, it.r1, lane_p, active);
+  if (res != nullptr) load_rows(rb, rv, base, p, it.r0, it.r1, lane_p, active);
+  apply_stats<V>(st, parts, ms, p, it, n_parts, eps);
+  __syncthreads();
+  float mean[V], rstd[V];
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      float t = (to_f(xw.v[v]) - mean[v]) * rstd[v];
-      if (relu) t = fmaxf(t, 0.f);
-      if (res != nullptr) t += to_f(rw.v[v]);
-      f[v] = t;
+  for (int v = 0; v < V; ++v) {
+    const float2 m = active ? st[gl * V + v] : make_float2(0.f, 0.f);
+    mean[v] = m.x;
+    rstd[v] = m.y;
+  }
+  for (long long r = it.r0; r < it.r1; r += B * p.pix) {
+    if (r > it.r0) {
+      load_rows(xb, xv, base, p, r, it.r1, lane_p, active);
+      if (res != nullptr) load_rows(rb, rv, base, p, r, it.r1, lane_p, active);
     }
-    W o;
-    pack(o, f);
-    yv[base + r * p.groups] = o;
+#pragma unroll
+    for (int kk = 0; kk < B; ++kk) {
+      const long long row = r + lane_p + static_cast<long long>(kk) * p.pix;
+      if (active && row < it.r1) {
+        float f[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          float t = (to_f(xb.w[kk].v[v]) - mean[v]) * rstd[v];
+          if (relu) t = fmaxf(t, 0.f);
+          if (res != nullptr) t += to_f(rb.w[kk].v[v]);
+          f[v] = t;
+        }
+        W o;
+        pack(o, f);
+        yv[base + row * p.groups] = o;
+      }
+    }
   }
 }
 
 // parts: the S ranks' sums (S, batch, c, 2), added in rank order and divided
-// by the global count; dx = rstd (g' - mean(g') - xhat mean(g' xhat)).
+// by the global count once a CTA, with the forward's mean and rstd (ms),
+// into shared memory; dx = rstd (g' - mean(g') - xhat mean(g' xhat)). The
+// loads as the apply's. A CTA of an empty slab writes nothing.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kApplyThreads, kApplyMinBlocks)
 instance_norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
                             const float* __restrict__ ms, const float* __restrict__ parts,
-                            T* __restrict__ dx, ApplyPlan p, int relu, float count) {
+                            T* __restrict__ dx, ApplyPlan p, int n_parts, int relu,
+                            float count) {
   using W = Vec<T, V>;
+  constexpr int B = apply_batch<V, true>();
+  __shared__ float4 st[kApplyMaxChannels];  // mean, rstd, mean(g'), mean(g' xhat)
+  const ApplyItem it = apply_item(p, blockIdx.x);
+  if (it.r1 <= it.r0) return;
   const int tid = threadIdx.x;
   const int lane_p = tid / p.tile, gl = tid % p.tile;
-  const long long q = blockIdx.x;
-  const int chunk = static_cast<int>(q % p.chunks);
-  const long long slab = q / p.chunks;
-  const int b = static_cast<int>(slab / p.tiles), tile = static_cast<int>(slab % p.tiles);
-  const int gi = tile * p.tile + gl;
-  if (lane_p >= p.pix || gi >= p.groups) return;
-  const float inv = 1.0f / count;
-  float mean[V], rstd[V], gm[V], gx[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const long long i = static_cast<long long>(b) * p.c + gi * V + v;
-    mean[v] = ms[2 * i];
-    rstd[v] = ms[2 * i + 1];
-    float a = 0.f, ax = 0.f;
-    for (int s = 0; s < p.parts; ++s) {
-      const float* o = parts + (static_cast<long long>(s) * p.batch * p.c + i) * 2;
-      a += o[0];
-      ax += o[1];
-    }
-    gm[v] = a * inv;
-    gx[v] = ax * inv;
-  }
+  const bool active = lane_p < p.pix && gl < it.words;
   const W* xv = reinterpret_cast<const W*>(x);
   const W* gv = reinterpret_cast<const W*>(g);
   W* dv = reinterpret_cast<W*>(dx);
-  const long long base = static_cast<long long>(b) * p.hw * p.groups + gi;
-  const long long r0 = chunk * p.rows_per_chunk;
-  const long long r1 = min(r0 + p.rows_per_chunk, p.hw);
-#pragma unroll 4
-  for (int k = 0; k < kApplyIters; ++k) {
-    const long long r = r0 + lane_p + static_cast<long long>(k) * p.pix;
-    if (r >= r1) break;
-    const W xw = xv[base + r * p.groups], gw = gv[base + r * p.groups];
-    float d[V];
+  const long long base = static_cast<long long>(it.b) * p.hw * p.groups +
+                         static_cast<long long>(it.t) * p.tile + gl;
+  Rows<W, B> xb, gb;
+  load_rows(xb, xv, base, p, it.r0, it.r1, lane_p, active);
+  load_rows(gb, gv, base, p, it.r0, it.r1, lane_p, active);
+  {
+    const int cs = it.words * V;
+    const long long ch0 = static_cast<long long>(it.t) * p.tile * V;
+    const long long stride = 2LL * p.batch * p.c;  // one rank's sums
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float xh = (to_f(xw.v[v]) - mean[v]) * rstd[v];
-      float gg = to_f(gw.v[v]);
-      if (relu && !(xh > 0.f)) gg = 0.f;
-      d[v] = rstd[v] * (gg - gm[v] - xh * gx[v]);
+    for (int j = 0; j < kApplyMergeSlots; ++j) {
+      const int cl = tid + j * kApplyThreads;
+      if (cl < cs) {
+        const long long i = static_cast<long long>(it.b) * p.c + ch0 + cl;
+        const float2 m = reinterpret_cast<const float2*>(ms)[i];
+        float a = 0.f, ax = 0.f;
+        for (int s0 = 0; s0 < n_parts; s0 += kApplyRanks) {
+          float2 q[kApplyRanks];
+#pragma unroll
+          for (int k = 0; k < kApplyRanks; ++k) {
+            if (s0 + k < n_parts) q[k] = reinterpret_cast<const float2*>(parts + (s0 + k) * stride)[i];
+          }
+#pragma unroll
+          for (int k = 0; k < kApplyRanks; ++k) {
+            if (s0 + k < n_parts) {
+              a += q[k].x;
+              ax += q[k].y;
+            }
+          }
+        }
+        st[cl] = make_float4(m.x, m.y, a / count, ax / count);
+      }
     }
-    W o;
-    pack(o, d);
-    dv[base + r * p.groups] = o;
+  }
+  __syncthreads();
+  float mean[V], rstd[V], gm[V], gx[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float4 m = active ? st[gl * V + v] : make_float4(0.f, 0.f, 0.f, 0.f);
+    mean[v] = m.x;
+    rstd[v] = m.y;
+    gm[v] = m.z;
+    gx[v] = m.w;
+  }
+  for (long long r = it.r0; r < it.r1; r += B * p.pix) {
+    if (r > it.r0) {
+      load_rows(xb, xv, base, p, r, it.r1, lane_p, active);
+      load_rows(gb, gv, base, p, r, it.r1, lane_p, active);
+    }
+#pragma unroll
+    for (int kk = 0; kk < B; ++kk) {
+      const long long row = r + lane_p + static_cast<long long>(kk) * p.pix;
+      if (active && row < it.r1) {
+        float d[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float xh = (to_f(xb.w[kk].v[v]) - mean[v]) * rstd[v];
+          float gg = to_f(gb.w[kk].v[v]);
+          if (relu && !(xh > 0.f)) gg = 0.f;
+          d[v] = rstd[v] * (gg - gm[v] - xh * gx[v]);
+        }
+        W o;
+        pack(o, d);
+        dv[base + row * p.groups] = o;
+      }
+    }
   }
 }
 
@@ -1588,28 +1710,31 @@ int run_sums(const void* x, const void* g, const float* ms, float* partial, int*
                      static_cast<const T*>(g), ms, partial, tickets, out, p, relu);
 }
 
+// One launch of the apply or dx kernel on part_plan.h's apply partition.
+template <typename... Params, typename... Args>
+int launch_apply(void (*kernel)(Params...), const ApplyPlan& p, cudaStream_t s, Args... args) {
+  const long long n = static_cast<long long>(p.batch) * p.tiles * p.chunks;
+  if (n < 1 || n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(n), kApplyThreads, 0, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int V>
 int run_apply(const void* x, const void* res, void* y, const float* parts, float* ms,
               long long hw, int batch, int c, int n_parts, int relu, float eps, cudaStream_t s) {
-  long long grid = 0;
-  const ApplyPlan p = make_apply_plan(hw, batch, c, V, n_parts, &grid);
-  if (grid < 1 || grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  instance_norm_apply_kernel<T, V><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), static_cast<T*>(y), parts, ms, p,
-      relu, eps);
-  return static_cast<int>(cudaGetLastError());
+  const ApplyPlan p = make_apply_plan(hw, batch, c, V);
+  return launch_apply(instance_norm_apply_kernel<T, V>, p, s, static_cast<const T*>(x),
+                      static_cast<const T*>(res), static_cast<T*>(y), parts, ms, p, n_parts,
+                      relu, eps);
 }
 
 template <typename T, int V>
 int run_dx(const void* x, const void* g, const float* ms, const float* parts, void* dx,
            long long hw, int batch, int c, int n_parts, int relu, float count, cudaStream_t s) {
-  long long grid = 0;
-  const ApplyPlan p = make_apply_plan(hw, batch, c, V, n_parts, &grid);
-  if (grid < 1 || grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  instance_norm_bwd_dx_kernel<T, V><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), ms, parts, static_cast<T*>(dx), p, relu,
-      count);
-  return static_cast<int>(cudaGetLastError());
+  const ApplyPlan p = make_apply_plan(hw, batch, c, V);
+  return launch_apply(instance_norm_bwd_dx_kernel<T, V>, p, s, static_cast<const T*>(x),
+                      static_cast<const T*>(g), ms, parts, static_cast<T*>(dx), p, n_parts, relu,
+                      count);
 }
 
 // One of the four templates at the operand's type and word width.

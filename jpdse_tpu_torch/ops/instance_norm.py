@@ -29,7 +29,10 @@ gathered between them. The stats and sums launches are ordinary launches
 of one CTA per chunk of rows (:func:`partial_plan` asks the built library
 for their partition and workspace, ``csrc/part_plan.h``) that merge their
 chunks through ticket counters kept per device and stream, in a fixed
-order, so two runs give the same bits.
+order, so two runs give the same bits. The apply and dx launches need no
+workspace: their partition (``part_plan.h``'s ``make_apply_plan``, 264
+to 1056 CTAs by the slab's size, each merging the ranks' statistics once)
+lives in the library alone.
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ THREADS = 512  # csrc/instance_norm.cu kThreads
 MAX_CHUNKS = 1024  # bounds the partials' workspace; the launcher keeps to it
 SMEM_OPTIN = 232448  # shared memory a block may opt in to on an H100 (227 KiB)
 RING = 3  # csrc/instance_norm.cu kRing: the backward's cp.async ring, in slots
-APPLY_ITERS = 8  # csrc/instance_norm.cu kApplyIters: loop iterations of an apply / dx block
 
 
 def _acc(x: torch.Tensor) -> torch.dtype:
@@ -301,30 +303,6 @@ def _tickets(x: torch.Tensor, n: int) -> torch.Tensor:
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=x.device)
         _TICKETS[key] = t
     return t
-
-
-def apply_plan(b: int, hw: int, c: int, vec: int):
-    """(grid, chunks, rows_per_chunk) of the apply and dx launches, the
-    mirror of ``make_apply_plan``: one block per chunk of ``APPLY_ITERS``
-    loop iterations of each (batch element, channel tile) slab."""
-    _, _, tiles, pix = _tiling(c, vec)
-    rows = pix * APPLY_ITERS
-    chunks = max(1, -(-hw // rows))  # a slab of no rows: one chunk, for the mean and rstd
-    return b * tiles * chunks, chunks, rows
-
-
-def apply_items(b: int, hw: int, c: int, vec: int):
-    """Each block's (batch element, first and end channel, first and end
-    row) in the apply and dx launches, by block index."""
-    groups, tile, tiles, _ = _tiling(c, vec)
-    grid, chunks, rows = apply_plan(b, hw, c, vec)
-    out = []
-    for q in range(grid):
-        slab, chunk = divmod(q, chunks)
-        bi, t = divmod(slab, tiles)
-        g0, g1 = t * tile, min((t + 1) * tile, groups)
-        out.append((bi, g0 * vec, g1 * vec, chunk * rows, min((chunk + 1) * rows, hw)))
-    return out
 
 
 def instance_norm_stats_plain(x: torch.Tensor) -> torch.Tensor:

@@ -885,6 +885,94 @@ def test_partial_empty_slab_parts_are_zero(cuda, shape, dtype):
     assert torch.equal(sums, torch.zeros((b, c, 2), device=cuda))
 
 
+# slabs that meet the apply and dx launches' partition at its edges (csrc/part_plan.h):
+# fewer rows than a CTA's step, one row, one-word channels (vec 1), more than one
+# channel tile (bf16 and fp32), a slab of many chunks
+APPLY_PLAN_SHAPES = [(1, 1, 8, 64), (2, 1, 1, 64), (2, 5, 7, 6), (1, 9, 16, 1024),
+                     (2, 3, 5, 2048), (1, 40, 64, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu,has_res", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("size", [1, 2, 4])
+@pytest.mark.parametrize("shape", APPLY_PLAN_SHAPES)
+def test_partial_apply_and_dx_under_the_apply_plan(cuda, shape, size, relu, has_res, dtype):
+    """The apply and dx launches on each of ``size`` rank slabs (ranks of
+    none where the rows are fewer): each against its plain version on the
+    same statistics and sums (fp32 within 1e-5, bf16 within one ulp beyond
+    it; the apply's mean and rstd within 1e-5 of their max-abs), two
+    launches bit-equal, every rank's mean and rstd bit-equal, an empty
+    slab's mean and rstd written for every (b, c) (its buffer was last a
+    tensor of NaN), one launch a call, and all ranks together against the
+    one-launch plain forms of the whole slab."""
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    res = _input(shape, seed=1).to(cuda, dtype) if has_res else None
+    g = _input(shape, seed=2).to(cuda, dtype)
+    parts, gparts = _split(x, size), _split(g, size)
+    rparts = _split(res, size) if has_res else [None] * size
+    stats = torch.stack([instance_norm.instance_norm_stats(p) for p in parts])
+    before = (instance_norm.instance_norm_apply.launches,
+              instance_norm.instance_norm_bwd_dx.launches)
+    ys, mss = [], []
+    for p, r in zip(parts, rparts):
+        if p.shape[1] == 0:  # the block the wrapper's mean and rstd will take, filled with NaN
+            nan = torch.full((shape[0], shape[3], 2), float("nan"), device=cuda)
+            del nan
+        y, ms = instance_norm.instance_norm_apply(p, r, stats, relu)
+        again, ms_again = instance_norm.instance_norm_apply(p, r, stats, relu)
+        want, want_ms = instance_norm.instance_norm_apply_plain(p, r, stats, relu)
+        assert torch.equal(y, again) and torch.equal(ms, ms_again)
+        assert y.shape == p.shape and _ulp_close(y, want)
+        assert (ms - want_ms).abs().max().item() <= 1e-5 * want_ms.abs().max().item()
+        ys.append(y)
+        mss.append(ms)
+    assert all(torch.equal(m, mss[0]) for m in mss), "the ranks merged apart"
+    ms = mss[0]
+    sums = torch.stack([instance_norm.instance_norm_bwd_sums(p, gp, ms, relu)
+                        for p, gp in zip(parts, gparts)])
+    count = float(shape[1] * shape[2])
+    dxs = []
+    for p, gp in zip(parts, gparts):
+        dx = instance_norm.instance_norm_bwd_dx(p, gp, ms, sums, count, relu)
+        assert torch.equal(dx, instance_norm.instance_norm_bwd_dx(p, gp, ms, sums, count, relu))
+        assert dx.shape == p.shape
+        assert _ulp_close(dx, instance_norm.instance_norm_bwd_dx_plain(p, gp, ms, sums, count,
+                                                                       relu))
+        dxs.append(dx)
+    torch.cuda.synchronize()
+    assert (instance_norm.instance_norm_apply.launches,
+            instance_norm.instance_norm_bwd_dx.launches) == (before[0] + 2 * size,
+                                                              before[1] + 2 * size)
+    assert _ulp_close(torch.cat(ys, 1), instance_norm.fused_instance_norm_plain(x, res, relu))
+    assert _ulp_close(torch.cat(dxs, 1),
+                      instance_norm.fused_instance_norm_bwd_plain(x, g, relu, stats=ms))
+
+
+@pytest.mark.parametrize("shape,dtype", STEP_SLABS)
+def test_partial_apply_and_dx_at_the_step_rank_slabs(cuda, shape, dtype):
+    """The apply (ReLU, and the residual) and dx launches at a rank's slab of
+    the spatial step against their plain versions on two ranks' statistics
+    and sums (fp32 within 1e-5, bf16 within one ulp beyond it), two
+    launches in a row bit-equal."""
+    x = (_input(shape) * 3 + 1).to(cuda, dtype)
+    g = _input(shape, seed=1).to(cuda, dtype)
+    res = _input(shape, seed=2).to(cuda, dtype)
+    st = instance_norm.instance_norm_stats(x)
+    stats = torch.stack([st, instance_norm.instance_norm_stats(g)])
+    for r, relu in ((None, True), (res, False)):
+        y, ms = instance_norm.instance_norm_apply(x, r, stats, relu)
+        assert torch.equal(y, instance_norm.instance_norm_apply(x, r, stats, relu)[0])
+        want, want_ms = instance_norm.instance_norm_apply_plain(x, r, stats, relu)
+        assert _ulp_close(y, want)
+        assert (ms - want_ms).abs().max().item() <= 1e-5 * want_ms.abs().max().item()
+    sums = torch.stack([instance_norm.instance_norm_bwd_sums(x, g, ms, True)] * 2)
+    count = float(2 * shape[1] * shape[2])
+    dx = instance_norm.instance_norm_bwd_dx(x, g, ms, sums, count, True)
+    assert torch.equal(dx, instance_norm.instance_norm_bwd_dx(x, g, ms, sums, count, True))
+    assert _ulp_close(dx, instance_norm.instance_norm_bwd_dx_plain(x, g, ms, sums, count, True))
+    torch.cuda.synchronize()
+
+
 def test_partial_kernels_reject_what_they_cannot_take(cuda):
     x = torch.zeros((1, 4, 4, 8), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="unsupported dtype"):

@@ -74,6 +74,7 @@ from jpdse_tpu_torch.parallel.mesh import DataMesh, draw_rows
 from jpdse_tpu_torch.parallel.spatial import SpatialShard
 from jpdse_tpu_torch.train import step
 from jpdse_tpu_torch.train.state import create_train_state
+from test_torch_port_k3_apply_plan import apply_items, apply_plan, apply_plan_lib  # noqa: F401
 from test_torch_port_threads import port_test_threads  # noqa: F401
 
 B, H, W = 2, 64, 128
@@ -827,15 +828,16 @@ def test_partial_k3_plain_forms_match_the_one_launch_plain_forms(size, relu, res
 @pytest.mark.parametrize("shape", [(1, 256 * 1024, 64), (2, 32 * 64, 1024), (1, 7, 3),
                                    (3, 1000, 40)])
 @pytest.mark.parametrize("vec", [1, 8, 4])
-def test_apply_plan_covers_every_value_once(shape, vec):
-    """The apply and dx launches' partition (``apply_plan``, the mirror of
-    ``make_apply_plan``): each (b, row, channel) in exactly one block."""
+def test_apply_plan_covers_every_value_once(apply_plan_lib, shape, vec):
+    """The apply and dx launches' partition (``csrc/part_plan.h``'s
+    ``make_apply_plan`` and ``apply_item``, built by the host's compiler):
+    each (b, row, channel) in exactly one CTA."""
     b, hw, c = shape
     if c % vec:
         return
-    items = k3.apply_items(b, hw, c, vec)
-    grid, chunks, rows = k3.apply_plan(b, hw, c, vec)
-    assert len(items) == grid and rows == k3._tiling(c, vec)[3] * k3.APPLY_ITERS
+    items = apply_items(apply_plan_lib, b, hw, c, vec)
+    grid, chunks, rows = apply_plan(apply_plan_lib, b, hw, c, vec)[:3]
+    assert len(items) == grid and rows == -(-hw // chunks)
     cover = np.zeros((b, hw, c), np.int64) if b * hw * c <= 2**22 else None
     if cover is None:  # count instead of marking
         total = sum((c1 - c0) * (r1 - r0) for _, c0, c1, r0, r1 in items)

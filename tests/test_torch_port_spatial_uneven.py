@@ -78,6 +78,7 @@ from jpdse_tpu_torch.parallel import distributed, mesh as mesh_mod, spatial
 from jpdse_tpu_torch.parallel.mesh import DataMesh, draw_rows
 from jpdse_tpu_torch.parallel.spatial import SpatialShard
 from jpdse_tpu_torch.train import step
+from test_torch_port_k3_apply_plan import apply_items, apply_plan, apply_plan_lib  # noqa: F401
 from test_torch_port_threads import port_test_threads  # noqa: F401
 
 B, W = 2, 32
@@ -739,17 +740,19 @@ def test_partial_k3_plain_forms_take_uneven_and_empty_slabs(rows, size, relu, re
 
 
 @pytest.mark.parametrize("hw", [0, 1, 7])
-def test_k3_plans_take_an_empty_slab(hw):
-    """The launch plans' mirrors (``plan``, ``apply_plan``) give an empty
-    slab one chunk of no rows, so its launches have a block per slab (the
-    stats write the (0, 0, 0) part, the apply the merged mean and rstd);
-    a slab of rows plans as it did."""
+def test_k3_plans_take_an_empty_slab(apply_plan_lib, hw):
+    """The one-launch plan's mirror (``plan``) and the apply and dx launches'
+    partition (``csrc/part_plan.h``'s ``instance_norm_apply_plan``) give an
+    empty slab one chunk of no rows, so its launches have a CTA per slab
+    (the stats write the (0, 0, 0) part, the apply the merged mean and
+    rstd); a slab of rows plans as it did."""
     from jpdse_tpu_torch.ops import instance_norm as k3
 
     grid, chunks, rows = k3.plan(2, hw, 64, 4, 132)
     assert grid >= 2 and chunks >= 1 and rows >= 1 and (hw == 0 or chunks * rows >= hw)
     items = k3.block_items(2, hw, 64, 4, grid, chunks, rows)
     assert sum(r1 - r0 for its in items for _, c0, c1, r0, r1 in its if c0 == 0) == 2 * hw
-    agrid, achunks, _ = k3.apply_plan(2, hw, 64, 4)
+    agrid, achunks = apply_plan(apply_plan_lib, 2, hw, 64, 4)[:2]
     assert achunks >= 1 and agrid == 2 * achunks
+    assert sum(r1 - r0 for _, _, _, r0, r1 in apply_items(apply_plan_lib, 2, hw, 64, 4)) == 2 * hw
     assert k3.max_chunks(hw, 64, 4) >= 1

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Parent/change A/B of K3's partial-statistics stats and sums launches
-(``instance_norm_stats``, ``instance_norm_bwd_sums``) on one GPU.
+"""Parent/change A/B of K3's partial-statistics launches (``instance_norm_stats``,
+``instance_norm_apply``, ``instance_norm_bwd_sums``, ``instance_norm_bwd_dx``)
+on one GPU.
 
     python3 tools/torch_port_k3_partial_ab.py --parent DIR [--rounds N]
 
@@ -8,22 +9,24 @@ DIR is another checkout of the repo (e.g. the parent commit unpacked by
 ``git archive`` into a git-ignored directory). The script runs 4 x --rounds
 fresh processes in blocks of parent, change, change, parent; each one
 imports ``jpdse_tpu_torch`` from its own checkout, builds its kernels, and
-times both launches at the spatial step's own rank slabs: every norm
+times the four launches at the spatial step's own rank slabs: every norm
 level's rows halved (spatial 2) at batch 2 in fp32 (the training step) and
 batch 1 in bf16 (serving), one rank's 21 of 43 rows and an empty slab in
-fp32 (the uneven heights), and the hires recipe's rows in fp32. Each case is
-first checked against the plain version (the count exact, mean and M2
-within 1e-5 relative; sums within 1e-5 of their max-abs) and for two
-launches bit-equal. Per case it records the profiler's device time a call,
-the CUDA-event time a call over 20 back-to-back calls (x as a step finds
-it, just read or written: in the 50 MB L2 where it fits), the event time
-of a call made after a 64 MB scratch write has flushed the L2, and
-``torch.var_mean`` over (H, W), the one PyTorch call that computes the
-stats launch's function. It prints one JSON line per process and, at the
-end, each side's medians beside the byte bound, and the device time summed
-over one rank-step's launches at the step's slabs (the stats 90 times, the
-sums 45, by the flagship's norm sites), with the card's name and power
-limit. Imports no JAX.
+fp32 (the uneven heights), and the hires recipe's rows in fp32. The legs
+and their checks are chip_smoke.py's (``step_legs``, ``check_leg``): the
+apply with the ReLU, and with the residual at the deepest level's slabs and
+the hires rows; the sums and the dx with the ReLU. Each leg is first held
+against its plain version and a second launch (bit-equal). Per case it
+records the profiler's device time a call, the CUDA-event time a call over
+20 back-to-back calls (x as a step finds it, just read or written: in the
+50 MB L2 where it fits), the event time of a call made after a 64 MB
+scratch write has flushed the L2, and ``torch.var_mean`` over (H, W), the
+one PyTorch call that computes the stats launch's function. It prints one
+JSON line per process and, at the end, each side's medians beside the byte
+bound, and the device time summed over one rank-step's launches at the
+step's slabs (``chip_smoke.step_launches``: the stats and the apply 90
+times, the sums and the dx 45), with the card's name and power limit.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -59,12 +62,8 @@ def cases(cs):
                (cs.HIRES_PARTIAL_SHAPE, "float32")])
 
 
-def step_launches(cs, shape, name):
-    """Launches a spatial rank-step makes at a batch-2 rank slab: the stats
-    twice a norm site (block remat), the sums once (chip_smoke.K3_BWD_SITES)."""
-    sites = sum(n for (site, _), n in cs.K3_BWD_SITES.items()
-                if site == (2 * shape[1],) + shape[2:])
-    return sites * (2 if name == "stats" else 1)
+# the legs summed over a rank-step, by the kernels they time
+PAIRS = {"stats + sums": ("stats", "sums"), "apply + dx": ("apply", "apply residual", "dx")}
 
 
 def key(shape, dtype) -> str:
@@ -86,34 +85,23 @@ def child(repo: str) -> dict:
     for shape, dtype in cases(cs):
         x = (torch.randn(shape, device="cuda", generator=gen) * 3 + 1).to(getattr(torch, dtype))
         g = torch.randn(shape, device="cuda", generator=gen).to(x.dtype)
-        st = k3.instance_norm_stats(x)
-        want = k3.instance_norm_stats_plain(x)
-        rel = ((st[..., 1:] - want[..., 1:]).abs() / want[..., 1:].abs().clamp_min(1.0))
-        if (not torch.equal(st[..., 0], want[..., 0]) or rel.max().item() > 1e-5
-                or not torch.equal(st, k3.instance_norm_stats(x))):
-            raise AssertionError(f"stats {key(shape, dtype)}: differs from its plain version "
-                                 "or from itself")
-        # the sums on statistics of the whole slab (both ranks' rows the same)
-        _, ms = k3.instance_norm_apply(x, None, torch.stack([st, st]), True)
-        sums = k3.instance_norm_bwd_sums(x, g, ms, True)
-        want = k3.instance_norm_bwd_sums_plain(x, g, ms, True)
-        err = (sums - want).abs().max().item() if sums.numel() else 0.0
-        if (err > 1e-5 * max(1.0, want.abs().max().item() if want.numel() else 0.0)
-                or not torch.equal(sums, k3.instance_norm_bwd_sums(x, g, ms, True))):
-            raise AssertionError(f"sums {key(shape, dtype)}: differs from its plain version "
-                                 "or from itself")
-        runs = {"stats": lambda: k3.instance_norm_stats(x),
-                "sums": lambda: k3.instance_norm_bwd_sums(x, g, ms, True)}
+        res = (torch.randn(shape, device="cuda", generator=gen).to(x.dtype)
+               if cs.times_residual(shape) else None)
+        other = count = None
+        if tuple(shape) in cs.UNEVEN_TIMED:  # a rank's rows of 43: the other rank has the rest
+            rows = 43
+            other = k3.instance_norm_stats(torch.randn(
+                (1, rows - shape[1]) + tuple(shape[2:]), device="cuda", generator=gen))
+            count = rows * shape[2]
         case = {}
-        for name, fn in runs.items():
-            case[name] = {"device_ms": cs.device_ms(fn), "event_ms": cs.cuda_ms(fn),
-                          "flushed_ms": cs.flushed_ms(fn)}
-        case["stats"]["library_ms"] = cs.cuda_ms(
-            lambda: torch.var_mean(x, dim=(1, 2), correction=0)) if x.numel() else None
-        case["stats"]["bound_ms"] = cs.bytes_ms(x)
-        case["sums"]["bound_ms"] = cs.bytes_ms(x, g)
+        for leg, (kern, plain, bound, library) in cs.step_legs(k3, x, g, res, other,
+                                                               count).items():
+            cs.check_leg(leg, kern, plain, x.dtype, key(shape, dtype))
+            case[leg] = {"device_ms": cs.device_ms(kern), "event_ms": cs.cuda_ms(kern),
+                         "flushed_ms": cs.flushed_ms(kern), "bound_ms": bound,
+                         "library_ms": cs.cuda_ms(library) if library and x.numel() else None}
         record["cases"][key(shape, dtype)] = case
-        del x, g, st, ms, sums, want
+        del x, g, res, other
     return record
 
 
@@ -148,33 +136,37 @@ def main() -> int:
     def med(side, case, name, what):
         return float(np.median([r["cases"][case][name][what] for r in recs[side]]))
 
-    per_step = {side: 0.0 for side in recs}
-    step_bound = 0.0
+    per_step = {pair: {side: 0.0 for side in recs} for pair in PAIRS}
+    step_bound = dict.fromkeys(PAIRS, 0.0)
     for shape, dtype in cases(cs):
         case = key(shape, dtype)
-        for name in ("stats", "sums"):
-            bound = recs["change"][0]["cases"][case][name]["bound_ms"]
+        for name, first in recs["change"][0]["cases"][case].items():
+            bound = first["bound_ms"]
             share = (lambda side: f"{bound / med(side, case, name, 'device_ms'):.0%} of the "
                      "bound" if bound else "no bytes to move")
             cells = [f"{side} device {med(side, case, name, 'device_ms'):.4f} ms ({share(side)}),"
                      f" events {med(side, case, name, 'event_ms'):.4f}, L2 flushed "
                      f"{med(side, case, name, 'flushed_ms'):.4f}" for side in ("parent", "change")]
-            lib = recs["change"][0]["cases"][case][name].get("library_ms")
+            lib = first.get("library_ms")
             ratio = med("change", case, name, "device_ms") / med("parent", case, name, "device_ms")
             print(f"[ab] {name} {case}: " + "; ".join(cells)
                   + f"; change / parent (device) {ratio:.3f}"
                   + (f"; torch.var_mean over (H, W) {lib:.4f} ms" if lib else "")
                   + f"; bound {bound:.4f} ms (bytes); medians of {len(recs['change'])} processes "
                   f"a side ({card})", flush=True)
-            if shape[0] == 2:
-                sites = step_launches(cs, shape, name)
-                for side in recs:
-                    per_step[side] += sites * med(side, case, name, "device_ms")
-                step_bound += sites * bound
-    print(f"[ab] stats and sums per spatial rank-step (90 + 45 launches at the step's rank "
-          f"slabs, batch 2, fp32): parent {per_step['parent']:.4f} ms, change "
-          f"{per_step['change']:.4f} ms of device time; bound {step_bound:.4f} ms ({card})",
-          flush=True)
+            launches = cs.step_launches(shape, name)
+            pair = next(p for p, legs in PAIRS.items() if name in legs)
+            for side in recs:
+                per_step[pair][side] += launches * med(side, case, name, "device_ms")
+            step_bound[pair] += launches * bound
+    for pair, legs in PAIRS.items():
+        n = " + ".join(f"{leg} {sum(cs.step_launches(sh, leg) for sh, _ in cs.STEP_RANK_SLABS)}"
+                       for leg in legs)
+        print(f"[ab] {pair} per spatial rank-step ({n} launches at the step's rank slabs, "
+              f"batch 2, fp32): parent {per_step[pair]['parent']:.4f} ms, change "
+              f"{per_step[pair]['change']:.4f} ms of device time "
+              f"({per_step[pair]['change'] / per_step[pair]['parent']:.3f}x); bound "
+              f"{step_bound[pair]:.4f} ms ({card})", flush=True)
     return 0
 
 

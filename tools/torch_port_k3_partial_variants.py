@@ -1,34 +1,47 @@
 #!/usr/bin/env python3
-"""K3's partial stats and sums launches under other values of their
-partition's and ring's knobs, timed in one process on one GPU.
+"""K3's partial-statistics launches under other values of their partitions'
+and rings' knobs, timed in one process on one GPU.
 
     python3 tools/torch_port_k3_partial_variants.py [--out DIR] [--only NAME,...]
+        [--legs stats,apply,apply residual,sums,dx]
 
 Each variant is ``jpdse_tpu_torch/csrc/instance_norm.cu`` built with the
-port's nvcc flags and some of its knobs set by -D (the ``K3_PART_*`` macros
-of ``csrc/part_plan.h`` and ``instance_norm.cu``) into --out (default
-``jpdse_tpu_torch/build/variants``), and loaded through the wrappers
-``ops/instance_norm.py::instance_norm_stats`` and ``instance_norm_bwd_sums``
-in place of the built kernels, with the wrappers' plan (``partial_plan``)
-taken from the same library:
+port's nvcc flags and some of its knobs set by -D (the ``K3_PART_*`` and
+``K3_APPLY_*`` macros of ``csrc/part_plan.h`` and ``instance_norm.cu``)
+into --out (default ``jpdse_tpu_torch/build/variants``), and loaded through
+the wrappers of ``ops/instance_norm.py`` in place of the built kernels, with
+the stats' and sums' workspace plan (``partial_plan``) taken from the same
+library:
   - ``kernel``: the source as it is;
-  - ``nomerge``: a diagnostic whose outputs are wrong and not checked: no
-    merge across chunks (the CTAs write their partials and end), so the
-    launch's time less the merge's;
+  - ``nomerge``: a diagnostic whose stats and sums are wrong and not
+    checked: no merge across chunks (the CTAs write their partials and
+    end), so those launches' time less the merge's;
   - ``nobulk``: a tile that is the whole row loaded by each thread's
     16-byte cp.async, as narrower tiles are, not by one bulk copy a stage;
-  - ``tile8``, ``tile32``: channel tiles of at most 8 or 32 words;
+  - ``tile8``, ``tile32``: stats and sums tiles of at most 8 or 32 words;
   - ``merge64k``: a slab's partials up to 64 KiB before the tile narrows;
   - ``tilemin8``: tiles of at least 8 words (no 4-word tiles);
   - ``ring6``: rings of 6 stages (stats) and 4 (sums);
   - ``ctas264``: at most 264 CTAs a launch (two an SM) where chunks can grow;
-  - ``min6``: chunks of at least 6 stages.
-Every variant is held against the plain versions at every shape (the count
-exact, mean and M2 within 1e-5 relative; sums within 1e-5 of their
-max-abs). Per shape (the spatial step's rank slabs, a rank's 21 of 43 rows,
-an empty slab, the hires rows) it prints each variant's mean device time by
-the profiler over two passes (first to last, last to first) beside the byte
-bound and the card's name and power limit. Imports no JAX.
+  - ``min6``: chunks of at least 6 stages;
+  - ``apply_tile32``: apply and dx tiles of at most 32 words;
+  - ``apply_batch2``, ``apply_batch8``: 2 or 8 rows of each operand a
+    thread loads a step (the dx on bf16 half that);
+  - ``apply_fixed264``: 264 CTAs a launch whatever its size (no CTA for
+    each 128 KiB); ``apply_ctas132``: at least 132;
+  - ``apply_words4k``, ``apply_words16k``: a CTA for each 4096 or 16384
+    words (64 or 256 KiB of x on the vector path);
+  - ``apply_min2``: apply and dx chunks of at least 2 steps;
+  - ``apply_lb1``: launch bounds that ask for one CTA an SM (registers not
+    capped at half an SM's).
+The apply and dx kernels' registers a thread are printed for each variant.
+Every variant's legs (``chip_smoke.step_legs``) are held against their
+plain versions at every shape and for two launches bit-equal
+(``chip_smoke.check_leg``). Per shape (the spatial step's rank slabs, a
+rank's 21 of 43 rows, an empty slab, the hires rows) it prints each
+variant's mean device time by the profiler over two passes (first to last,
+last to first) beside the byte bound and the card's name and power limit.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -53,25 +67,58 @@ VARIANTS = {
     "ring6": {"K3_PART_STATS_STAGES": 6, "K3_PART_SUMS_STAGES": 4},
     "ctas264": {"K3_PART_MAX_CTAS": 264},
     "min6": {"K3_PART_MIN_STAGES": 6},
+    "apply_tile32": {"K3_APPLY_TILE_WORDS": 32},
+    "apply_batch2": {"K3_APPLY_BATCH": 2},
+    "apply_batch8": {"K3_APPLY_BATCH": 8},
+    "apply_fixed264": {"K3_APPLY_MAX_CTAS": 264},
+    "apply_ctas132": {"K3_APPLY_CTAS": 132},
+    "apply_words4k": {"K3_APPLY_CTA_WORDS": 4096},
+    "apply_words16k": {"K3_APPLY_CTA_WORDS": 16384},
+    "apply_min2": {"K3_APPLY_MIN_STEPS": 2},
+    "apply_lb1": {"K3_APPLY_MIN_BLOCKS": 1},
 }
+# each launcher the variants replace: its wrapper's cached getter, symbol, signature
+LAUNCHERS = {"_stats_launcher": ("instance_norm_stats_launch", "ppppliiii"),
+             "_apply_launcher": ("instance_norm_apply_launch", "ppppplii" "iiiif"),
+             "_sums_launcher": ("instance_norm_bwd_sums_launch", "ppppppliiiii"),
+             "_dx_launcher": ("instance_norm_bwd_dx_launch", "pppppl" "iiiiiif")}
+
+
+def apply_registers(log: str) -> list:
+    """The apply and dx kernels' registers a thread from ptxas's -v report,
+    as "apply<float,4> 40" and so on."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(apply|bwd_dx)_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)E", line)
+        if "Compiling entry" in line:
+            entry = (f"{m.group(1).removeprefix('bwd_')}<{'float' if m.group(2) == 'f' else 'bf16'},"
+                     f"{m.group(3)}>") if m else None
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and entry:
+            out.append(f"{entry} {regs.group(1)}")
+            entry = None
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="build directory for the variants")
     ap.add_argument("--only", default=None, help="comma-separated variant names")
+    ap.add_argument("--legs", default=None, help="comma-separated legs (chip_smoke.STEP_LEGS)")
     args = ap.parse_args()
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, here)
     import torch
 
-    from chip_smoke import HIRES_PARTIAL_SHAPE, STEP_RANK_SLABS, bytes_ms, device_ms
+    import chip_smoke as cs
     from jpdse_tpu_torch.ops import build
     from jpdse_tpu_torch.ops import instance_norm as k3
 
-    shapes = STEP_RANK_SLABS + [((1, 21, 64, 1024), torch.float32),
-                                ((1, 0, 64, 1024), torch.float32),
-                                (HIRES_PARTIAL_SHAPE, torch.float32)]
+    shapes = cs.STEP_RANK_SLABS + [((1, 21, 64, 1024), torch.float32),
+                                   ((1, 0, 64, 1024), torch.float32),
+                                   (cs.HIRES_PARTIAL_SHAPE, torch.float32)]
+    legs = cs.STEP_LEGS if args.legs is None else tuple(args.legs.split(","))
 
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -92,32 +139,33 @@ def main() -> int:
                              capture_output=True, text=True)
         if res.returncode:
             raise RuntimeError(f"{name}: {res.stdout}{res.stderr}")
-        return name, lib
+        return name, lib, res.stdout + res.stderr
 
     with ThreadPoolExecutor(min(len(variants), 8)) as ex:
         built = list(ex.map(compile_one, variants))
     libs = {}
-    for name, lib in built:
+    for name, lib, log in built:
+        print(f"[variants] {name} registers a thread: " + ", ".join(apply_registers(log)),
+              flush=True)
         so = ctypes.CDLL(lib)
-        fns = []
-        for symbol, sig in (("instance_norm_stats_launch", "ppppliiii"),
-                            ("instance_norm_bwd_sums_launch", "ppppppliiiii")):
+        fns = {}
+        for attr, (symbol, sig) in LAUNCHERS.items():
             fn = getattr(so, symbol)
             fn.argtypes = [build._CTYPES[k] for k in sig] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            fns.append(fn)
+            fns[attr] = fn
         plan = so.instance_norm_part_plan
         plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p]
         plan.restype = ctypes.c_int
         libs[name] = (fns, plan)
 
-    kept = {attr: getattr(k3, attr) for attr in ("_stats_launcher", "_sums_launcher",
-                                                 "partial_plan")}
+    kept = {attr: getattr(k3, attr) for attr in [*LAUNCHERS, "partial_plan"]}
 
     def use(name):
-        (stats, sums), plan = libs[name]
-        k3._stats_launcher, k3._sums_launcher = (lambda: stats), (lambda: sums)
+        fns, plan = libs[name]
+        for attr, fn in fns.items():
+            setattr(k3, attr, lambda fn=fn: fn)
 
         def partial_plan(b, hw, c, vec):
             o = (ctypes.c_longlong * 7)()
@@ -133,31 +181,30 @@ def main() -> int:
         for shape, dtype in shapes:
             x = (torch.randn(shape, device="cuda", generator=gen) * 3 + 1).to(dtype)
             g = torch.randn(shape, device="cuda", generator=gen).to(x.dtype)
-            want_st = k3.instance_norm_stats_plain(x)
-            _, ms = k3.instance_norm_apply(x, None, torch.stack([want_st, want_st]), True)
-            want_sums = k3.instance_norm_bwd_sums_plain(x, g, ms, True)
-            times = {n: {"stats": [], "sums": []} for n in names}
+            res = (torch.randn(shape, device="cuda", generator=gen).to(x.dtype)
+                   if cs.times_residual(shape) else None)
+            other = count = None
+            if tuple(shape) in cs.UNEVEN_TIMED:  # a rank's rows of 43: the other rank has the rest
+                other = k3.instance_norm_stats_plain(torch.randn(
+                    (1, 43 - shape[1]) + tuple(shape[2:]), device="cuda", generator=gen)).float()
+                count = 43 * shape[2]
+            times = {n: {leg: [] for leg in legs} for n in names}
+            bounds = {}
             for n in names + names[::-1]:
                 use(n)
-                runs = {"stats": lambda: k3.instance_norm_stats(x),
-                        "sums": lambda: k3.instance_norm_bwd_sums(x, g, ms, True)}
-                st, sums = runs["stats"](), runs["sums"]()
-                rel = ((st[..., 1:] - want_st[..., 1:]).abs()
-                       / want_st[..., 1:].abs().clamp_min(1.0)).max().item()
-                err = (sums - want_sums).abs().max().item()
-                scale = max(1.0, want_sums.abs().max().item())
-                if n != "nomerge" and (
-                        not torch.equal(st[..., 0], want_st[..., 0]) or not rel <= 1e-5
-                        or not err <= 1e-5 * scale):
-                    raise AssertionError(f"{n} at {shape} {dtype}: stats {rel:.2e} relative, "
-                                         f"sums {err / scale:.2e} from the plain versions")
-                for what, fn in runs.items():
-                    times[n][what].append(device_ms(fn))
-            for what, b in (("stats", bytes_ms(x)), ("sums", bytes_ms(x, g))):
-                print(f"[variants] {what} {shape} {dtype}, bound {b:.4f} ms: " + "; ".join(
-                    f"{n} {np.mean(v[what]):.4f}" for n, v in times.items())
-                    + f" ms on the device ({card})", flush=True)
-            del x, g, ms, want_st, want_sums
+                for leg, (kern, plain, bound, _) in cs.step_legs(k3, x, g, res, other,
+                                                                 count).items():
+                    if leg not in legs:
+                        continue
+                    if n != "nomerge" or leg not in ("stats", "sums"):
+                        cs.check_leg(leg, kern, plain, x.dtype, f"{n} {shape} {dtype}")
+                    times[n][leg].append(cs.device_ms(kern))
+                    bounds[leg] = bound
+            for leg in bounds:
+                print(f"[variants] {leg} {shape} {dtype}, bound {bounds[leg]:.4f} ms: "
+                      + "; ".join(f"{n} {np.mean(v[leg]):.4f}" for n, v in times.items())
+                      + f" ms on the device ({card})", flush=True)
+            del x, g, res, other
     finally:
         for attr, value in kept.items():
             setattr(k3, attr, value)
