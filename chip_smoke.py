@@ -253,7 +253,26 @@ Phases, each printing a line as it ends:
      1e-5 of 0, the reconstruction within 1e-4 (on one process's code bits
      where a bit differs, EvalSigns); the standard path's K3 partial 65 /
      65 a rank;
- 17. summary: the card, a JSON line of per-kernel numbers (the partial
+ 17. the measurement entry points, on 2 synthetic 2048x1024 Cityscapes val
+     triplets read 'fixed' to 1024x512: (a) eval/rd.py's parity mode at the
+     flagship's widths (ngf 64, 4 downsamples, 9 res blocks), jpg q30 and
+     q90, on the standard path and with --fast, fp32 with TF32 off on the
+     card: the golden reference stack (convert/torch_ref.py, seed --seed)
+     against the port fed its weights through convert/torch_import.py, every
+     point's verdict OK, every image's generator input bit-equal between the
+     two stacks, K1 launched by every fast decode the same number of times
+     and by no standard one, ms an image for each stack; (b)
+     train/seg_vgg.py, 20 steps at batch 2 on 512 crops of 4 train images
+     whose labels are their brightness bands, scored on 2 val images: the
+     last step's cross-entropy below the first's, the median step time
+     after the first, the exported trunk reloaded through init_vgg19 and
+     through a Trainer's --vgg_weights_path bit-equal to the trained one;
+     (c) eval/sem_wise.py on a seeded flagship-width checkpoint (opt.json
+     and params_g.pt) in the kernel configuration's standard path: K3 45
+     an image, the JSON within 1e-9 of a float64 numpy re-scoring of the
+     reconstructions it returns; (d) eval/rd.py's base mode, jpg q30 and
+     q90 alone over the same images;
+ 18. summary: the card, a JSON line of per-kernel numbers (the partial
      kernels also timed at (1, 512, 2048, 32) fp32, "hires", and on a
      rank's uneven and empty slabs, "uneven"), the total seconds, and a
      last line {"ok": true, "device": {...}}.
@@ -5901,6 +5920,258 @@ def phase16_flagship(seed: int, work: Path, card: str) -> dict:
     return counts
 
 
+# -- phase 17: the measurement entry points ---------------------------------------------
+RD_IMAGES = 2
+RD_QUALITIES = "30,90"
+SEG_STEPS = 20
+SEG_SPLIT = (("train", 4), ("val", 2))
+# the classes of the seg split's labels, by the photo's brightness band: learnable
+SEG_CLASSES = np.array([7, 8, 11, 21, 23, 26], np.uint8)
+SEM_WISE_K3 = 45  # K3 a reconstruction on the kernel configuration's standard path
+RESCORE_TOL = 1e-9
+
+
+def write_seg_split(root: Path, seed: int) -> None:
+    """SEG_SPLIT's Cityscapes triplets at 2048x1024 from ``seed``, each
+    label the class of its pixel's brightness band (SEG_CLASSES), so a
+    network can learn it from the image."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in SEG_SPLIT:
+        for i in range(n):
+            name = f"aachen_{i:06d}_000019"
+            img_dir = root / "leftImg8bit" / split / "aachen"
+            gt_dir = root / "gtFine" / split / "aachen"
+            img_dir.mkdir(parents=True, exist_ok=True)
+            gt_dir.mkdir(parents=True, exist_ok=True)
+            photo, _, _ = synthetic_scene(rng, 1024, 2048)
+            band = np.minimum(photo.astype(np.int32).mean(-1) * len(SEG_CLASSES) / 256.0,
+                              len(SEG_CLASSES) - 1).astype(np.int64)
+            Image.fromarray(photo).save(img_dir / f"{name}_leftImg8bit.png")
+            Image.fromarray(SEG_CLASSES[band]).save(gt_dir / f"{name}_gtFine_labelIds.png")
+
+
+def rescore_sem_wise(recons: list, mean, std, n_classes: int) -> dict:
+    """The sem-wise JSON of (label, image, reconstruction) batches, again in
+    float64 numpy: uint8 images as ops/metrics.py::denormalize_to_uint8
+    makes them (float32), per-class sums by bincount."""
+    from jpdse_tpu_torch.eval.sem_wise import summarize
+
+    mean, std = np.asarray(mean, np.float32), np.asarray(std, np.float32)
+
+    def u8(x):
+        return np.floor(np.clip((x.astype(np.float32) * std + mean) * np.float32(255.0),
+                                0, 255)).astype(np.float64)
+
+    num, den, n = np.zeros(n_classes), np.zeros(n_classes), 0
+    for label, image, recon in recons:
+        lab = np.clip(label.astype(np.int64), 0, n_classes - 1).reshape(-1)
+        num += np.bincount(lab, weights=np.abs(u8(image) - u8(recon)).sum(-1).reshape(-1),
+                           minlength=n_classes)
+        den += np.bincount(lab, minlength=n_classes)
+        n += recon.shape[0]
+    return summarize(num, den, n)
+
+
+def counted_decodes():
+    """A context in which every CodecServer.decode appends its K1 launches
+    to the list it yields."""
+    from jpdse_tpu_torch.ops import realign
+    from jpdse_tpu_torch.serve import CodecServer
+
+    per_call = []
+    plain = CodecServer.decode
+
+    def decode(self, batch):
+        before = realign.s2d_realign_pad3.launches
+        out = plain(self, batch)
+        per_call.append(realign.s2d_realign_pad3.launches - before)
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        CodecServer.decode = decode
+        try:
+            yield per_call
+        finally:
+            CodecServer.decode = plain
+
+    return ctx()
+
+
+def phase17_rd(root: Path, tmp: Path, seed: int, card: str) -> dict:
+    """(a) eval/rd.py parity at the flagship's widths on both paths, and (d)
+    its base mode on the same images. Returns each run's launch counts."""
+    from jpdse_tpu_torch.eval import rd
+
+    launches = {}
+    n_points = RD_IMAGES * len(RD_QUALITIES.split(","))
+    for fast in (False, True):
+        label = "fast path" if fast else "standard path"
+        argv = ["parity", "--root", str(root), "--ext", "jpg", "--qualities", RD_QUALITIES,
+                "--n-images", str(RD_IMAGES), "--crop", "1024", "--seed", str(seed), "--out",
+                str(tmp / f"rd_{label.split()[0]}.json")] + (["--fast"] if fast else [])
+        reset_counts()
+        t0 = time.perf_counter()
+        with counted_decodes() as per_decode, contextlib.redirect_stdout(io.StringIO()) as out:
+            try:
+                res = rd.main(argv, device="cuda")
+            except BaseException:
+                sys.stdout.write(out.getvalue())
+                raise
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        launches[f"rd parity, {label}"] = counts
+        k1 = counts["s2d_realign_pad3"]
+        others = {k: v for k, v in counts.items() if v and k != "s2d_realign_pad3"}
+        if others or len(per_decode) != n_points or sum(per_decode) != k1:
+            raise AssertionError(f"(a) {label}: launches {counts}, K1 by decode {per_decode}")
+        if fast and not (per_decode[0] > 0 and len(set(per_decode)) == 1):
+            raise AssertionError(f"(a) the fast decodes launched K1 {per_decode} times")
+        if not fast and k1:
+            raise AssertionError(f"(a) the standard path launched K1 {k1} times")
+        for p in res["points"]:
+            log(f"[measure] (a) rd parity, {label}, jpg q{p['quality']}: {p['n_images']} images "
+                f"1024x512, bpp {p['bpp']:.6f}; PSNR {p['psnr_port']:.4f} port / "
+                f"{p['psnr_torch']:.4f} golden dB (d {p['dpsnr']:.2e}), MS-SSIM "
+                f"{p['msssim_port']:.6f} / {p['msssim_torch']:.6f} (d {p['dmsssim']:.2e}), L1 "
+                f"{p['l1_port']:.4f} / {p['l1_torch']:.4f} [{p['verdict']}]; ms an image "
+                f"{p['ms_port']:.2f} port, {p['ms_torch']:.2f} golden (host clock, synced, fp32, "
+                f"TF32 off) ({card})")
+        if not res["ok"]:
+            raise AssertionError(f"(a) {label}: a point failed the parity bar: {res['points']}")
+        log(f"[measure] (a) rd parity, {label}: every point OK, preprocessing bit-exact on "
+            f"{n_points} images; K1 a decode {per_decode}; the first point's ms hold each "
+            f"stack's first decode; {seconds:.1f} s ({card})")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = rd.main(["base", "--root", str(root), "--mode", "val", "--ext", "jpg",
+                       "--qualities", RD_QUALITIES, "--out", str(tmp / "base.json")],
+                      device="cuda")
+    counts = read_counts()
+    launches["rd base"] = counts
+    rows = res["rows"]
+    if (res["images"] != RD_IMAGES or any(counts.values())
+            or not np.isfinite([r[k] for r in rows for k in ("bpp", "psnr", "msssim", "l1")]).all()
+            or not (rows[1]["bpp"] > rows[0]["bpp"] and rows[1]["psnr"] > rows[0]["psnr"])):
+        raise AssertionError(f"(d) rd base: {res}, launches {counts}")
+    for r in rows:
+        log(f"[measure] (d) rd base, jpg q{r['quality']} alone over {res['images']} images "
+            f"1024x512: bpp {r['bpp']:.6f}, PSNR {r['psnr']:.4f} dB, MS-SSIM {r['msssim']:.6f}, "
+            f"L1 {r['l1']:.4f} ({card})")
+    log(f"[measure] (d) rd base: {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
+def phase17_seg_vgg(tmp: Path, seed: int, card: str) -> dict:
+    """(b) train/seg_vgg.py: SEG_STEPS steps at batch 2 on 512 crops, the
+    export reloaded two ways."""
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.models.vgg import init_vgg19
+    from jpdse_tpu_torch.train import seg_vgg
+    from jpdse_tpu_torch.trainer import Trainer
+
+    root = tmp / "seg"
+    write_seg_split(root, seed + 171)
+    argv = ["--root", str(root), "--out", str(tmp / "seg_out"), "--steps", str(SEG_STEPS),
+            "--batch", "2", "--crop", "512", "--seed", str(seed)]
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = seg_vgg.main(argv, device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    losses = res["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]) or any(counts.values()):
+        raise AssertionError(f"(b) seg VGG: CE {losses}, launches {counts}")
+    trunk = res["model"].trunk.state_dict()
+    loaded = init_vgg19("cuda", None, res["out_path"]).state_dict()
+    cfg = flagship_config(tiny=True)
+    cfg.loss.vgg_weights_path = res["out_path"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        via_trainer = Trainer(cfg, mode="train", device="cuda").gan.vgg.state_dict()
+    for what, state in (("init_vgg19", loaded), ("--vgg_weights_path", via_trainer)):
+        if set(state) != set(trunk) or not all(torch.equal(state[k], trunk[k]) for k in trunk):
+            raise AssertionError(f"(b) the export reloaded through {what} differs from the "
+                                 f"trained trunk")
+    step_ms = res["step_ms"]
+    log(f"[measure] (b) seg VGG: {SEG_STEPS} steps at batch 2 on 512 crops of "
+        f"{SEG_SPLIT[0][1]} images 1024x512, CE {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"held-out pixel accuracy (1/16) {res['heldout_pixel_acc']:.4f} on {SEG_SPLIT[1][1]}; "
+        f"step ms (host clock, loss fetched) first {step_ms[0]:.1f}, median of the rest "
+        f"{np.median(step_ms[1:]):.2f}; the export bit-equal to the trunk through init_vgg19 "
+        f"and --vgg_weights_path; {seconds:.1f} s ({card})")
+    return {"seg vgg": counts}
+
+
+def phase17_sem_wise(root: Path, tmp: Path, seed: int, card: str) -> dict:
+    """(c) eval/sem_wise.py on a seeded flagship-width checkpoint in the
+    kernel configuration's standard path."""
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.eval import sem_wise
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    run = tmp / "sem_wise_run"
+    run.mkdir()
+    cfg = flagship_config(kernels=True)
+    cfg.model.fast_inference = False
+    mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+    for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
+        pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
+        pp.aspect_ratio = aspect
+    cfg.data.dataset, cfg.data.root_dir = "cityscapes", str(root)
+    cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+    cfg.data.num_workers, cfg.optim.seed = 2, seed
+    cfg.save(str(run / "opt.json"))
+    save_params(str(run), SemanticCodec(cfg, device="cuda", seed=seed + 17).state_dict())
+    recons = []
+    argv = ["--opt_file", str(run / "opt.json"), "--checkpoints_dir", str(run), "--root_dir",
+            str(root), "--mode", "val", "--out", str(tmp / "sem_wise.json")]
+    res, _, counts = run_entry(
+        "kernel-config standard path", "eval.sem_wise",
+        lambda: sem_wise.main(argv, device="cuda", recons=recons),
+        {"fused_instance_norm": SEM_WISE_K3}, per=RD_IMAGES, tag="[measure] (c)")
+    again = rescore_sem_wise(recons, cfg.data.normalize_mean, cfg.data.normalize_std,
+                             cfg.data.semantic_nc)
+    worst = abs(again["overall_l1_uint8"] - res["overall_l1_uint8"])
+    if again["n_images"] != res["n_images"] or len(again["per_class"]) != len(res["per_class"]):
+        raise AssertionError(f"(c) re-scored {again} against {res}")
+    for a, b in zip(again["per_class"], res["per_class"]):
+        if a["class_id"] != b["class_id"] or a["pixel_share"] != b["pixel_share"]:
+            raise AssertionError(f"(c) class rows differ: {a} re-scored, {b} returned")
+        worst = max(worst, abs(a["l1_uint8"] - b["l1_uint8"]))
+    if not worst <= RESCORE_TOL or res["n_images"] != RD_IMAGES:
+        raise AssertionError(f"(c) the JSON is {worst:.2e} from its float64 re-scoring")
+    top = sorted(res["per_class"], key=lambda r: -r["pixel_share"])[:3]
+    log(f"[measure] (c) sem-wise eval of {res['n_images']} images: {len(res['per_class'])} "
+        f"classes, overall L1 {res['overall_l1_uint8']:.4f} (uint8 levels), e.g. "
+        + ", ".join(f"{r['name']} {r['l1_uint8']:.3f} ({r['pixel_share']:.3f})" for r in top)
+        + f"; the JSON within {worst:.1e} of its float64 numpy re-scoring (tolerance "
+        f"{RESCORE_TOL}); K3 {counts['fused_instance_norm']} launches ({card})")
+    return {"sem-wise eval": counts}
+
+
+def phase17(seed: int, card: str) -> dict:
+    """Phase 17, the measurement entry points on the card. Returns each
+    run's launch counts."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="jpdse_measure_") as work:
+        tmp = Path(work)
+        root = tmp / "cityscapes"
+        write_cityscapes(root, seed + 17, n=RD_IMAGES)
+        launches = phase17_rd(root, tmp, seed, card)
+        torch.cuda.empty_cache()
+        launches.update(phase17_seg_vgg(tmp, seed, card))
+        torch.cuda.empty_cache()
+        launches.update(phase17_sem_wise(root, tmp, seed, card))
+    log(f"[measure] measurement phase {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5992,6 +6263,10 @@ def main() -> int:
     eval_launches.update(eval14)
     launches.update(eval14)
     train_launches.update(train14)
+    torch.cuda.empty_cache()
+    eval17 = phase17(args.seed, card)
+    eval_launches.update(eval17)
+    launches.update(eval17)
     launches.update(train_launches)
     for e in entries:
         name = e["name"]

@@ -13,6 +13,10 @@ LocalEnhancer keeps Flax's nesting: ``netG/global/...`` is
 ``netG.global...``, ``netG/local1_up/res0/...`` is ``netG.local1_up.res.0...``.
 A 2-D ``Dense`` kernel (``S2HVQV2``'s MLP) goes from (in, out) to
 ``nn.Linear``'s (out, in).
+The same rules carry a segmentation-trained VGG (``train/seg_vgg.py``'s
+``SegVgg``: Flax ``trunk/conv1_1/kernel`` is ``trunk.conv1_1.weight``, a
+1x1 head's ``seg_head2/kernel`` (1, 1, in, out) is ``seg_head2.weight``
+(out, in, 1, 1)) and the perceptual trunk alone.
 
 A batch norm's running statistics are Flax's ``batch_stats`` collection
 (``mstate_g`` / ``mstate_d`` of the JAX package's training state) and the

@@ -107,3 +107,19 @@ def sem_mask(img: torch.Tensor, label: torch.Tensor, binary_mask: bool = False,
     if binary_mask:
         block = torch.ones_like(block)
     return spatial.like((block * label[..., :, None]).reshape(b, h, w, n * img_nc), img)
+
+
+def sem_wise_distortion(label: torch.Tensor, real: torch.Tensor,
+                        fake: torch.Tensor) -> torch.Tensor:
+    """Per-class mean L1 distortion (the diagnostic of the reference's
+    ``get_sem_wise_distortion``): for each channel of the one-hot ``label``
+    (B, H, W, L), the sum over channels of |real - fake| ((B, H, W, C)
+    each), summed over the class's pixels and divided by its pixel count;
+    0 for a class with no pixels. Returns (L,). The reference passes
+    ``sem_mask`` its arguments swapped, which mixes classes across image
+    channels; this is the per-class reading its docstring describes, as
+    the JAX package's."""
+    diff = torch.sum(torch.abs(real - fake), dim=-1)
+    num = torch.einsum("bhwl,bhw->l", label.to(diff.dtype), diff)
+    den = torch.sum(label.to(diff.dtype), dim=(0, 1, 2))
+    return torch.where(den > 0, num / torch.clamp(den, min=1.0), torch.zeros_like(num))

@@ -1065,3 +1065,106 @@ def test_batch_norm_train_step_on_card_matches_cpu(cuda, monkeypatch):
     assert want_s and got_s.keys() == want_s.keys()
     for k, w in want_s.items():
         assert (got_s[k] - w).norm().item() <= 1e-9 * w.norm().item(), k
+
+
+# -- the measurement entry points --------------------------------------------------------
+def test_sem_wise_distortion_on_card_matches_cpu(cuda):
+    """The per-class distortion on the card against the CPU: within 1e-6
+    relative, absent classes exactly 0."""
+    from jpdse_tpu_torch.ops.semantics import sem_wise_distortion
+
+    rng = np.random.default_rng(21)
+    present = np.array([0, 2, 3, 7, 9])
+    ids = present[rng.integers(0, len(present), (2, 32, 48))]
+    label = torch.from_numpy(np.eye(10, dtype=np.float32)[ids])
+    real, fake = (torch.from_numpy(rng.normal(size=(2, 32, 48, 3)).astype(np.float32))
+                  for _ in range(2))
+    want = sem_wise_distortion(label, real, fake)
+    got = sem_wise_distortion(label.to(cuda), real.to(cuda), fake.to(cuda)).cpu()
+    absent = [c for c in range(10) if c not in present]
+    assert (got[absent] == 0).all() and (want[absent] == 0).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
+
+
+def test_seg_vgg_step_on_card_matches_cpu(cuda):
+    """One seg-VGG step (train/seg_vgg.py) on the card against the CPU from
+    the same weights and crops, TF32 off: the card's fp32 loss within 1e-4
+    relative and each gradient within 1e-4 of its max-abs of the CPU's
+    float64 step (the CPU's own fp32 conv backward misses its float64 by
+    up to 2.8e-3 there: tests/test_torch_port_seg_vgg.py); the card's
+    float64 step within 1e-9; the crops gathered on the card equal the
+    CPU's, drawn from the same generator state."""
+    from jpdse_tpu_torch.train import seg_vgg
+
+    rng = np.random.default_rng(22)
+    imgs = torch.from_numpy(rng.random((3, 96, 128, 3), np.float32) - 0.5)
+    labs = torch.from_numpy(np.kron(rng.integers(0, 7, (3, 6, 8)),
+                                    np.ones((1, 16, 16), np.int64)).astype(np.int32))
+    draws = seg_vgg.draw_crops(torch.Generator(device=cuda).manual_seed(4), 3, 96, 128, 64, 2)
+    xb_card, yb_card = seg_vgg.gather_crops(imgs.to(cuda), labs.to(cuda), *draws, 64)
+    xb, yb = seg_vgg.gather_crops(imgs, labs, *(d.cpu() for d in draws), 64)
+    assert torch.equal(xb_card.cpu(), xb) and torch.equal(yb_card.cpu(), yb)
+    state = seg_vgg.init_seg_vgg(7, "cpu", torch.Generator().manual_seed(5)).state_dict()
+
+    def step(dev, dtype):
+        model = seg_vgg.SegVgg(7)
+        model.load_state_dict(state)
+        model = model.to(dev, dtype)
+        loss = seg_vgg.loss_and_grads(model, xb.to(dev, dtype), yb.to(dev))
+        return loss.item(), {k: p.grad.cpu().double() for k, p in model.named_parameters()}
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want_loss, want = step("cpu", torch.float64)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-9)):
+            loss, grads = step(cuda, dtype)
+            assert abs(loss - want_loss) <= tol * abs(want_loss), (dtype, loss, want_loss)
+            for k, w in want.items():
+                assert (grads[k] - w).abs().max().item() <= tol * w.abs().max().item(), (dtype, k)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _rd_tree(root, n=2, crop=64):
+    from PIL import Image
+
+    rng = np.random.default_rng(23)
+    for i in range(n):
+        name = f"munster_{i:06d}_000019"
+        d, g = root / "leftImg8bit/val/munster", root / "gtFine/val/munster"
+        d.mkdir(parents=True, exist_ok=True)
+        g.mkdir(parents=True, exist_ok=True)
+        small = Image.fromarray(rng.integers(0, 256, (8, 16, 3), dtype=np.uint8))
+        small.resize((2 * crop, crop), Image.BICUBIC).save(d / f"{name}_leftImg8bit.png")
+        blocks = rng.integers(0, 34, (crop // 8, crop // 4))
+        label = np.kron(blocks, np.ones((4, 4), np.int64))
+        Image.fromarray(label.astype(np.uint8)).save(g / f"{name}_gtFine_labelIds.png")
+        Image.fromarray((label * 10).astype(np.uint16)).save(
+            g / f"{name}_gtFine_instanceIds.png")
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["standard", "fast"])
+def test_rd_tool_on_card_matches_cpu(cuda, tmp_path, fast):
+    """eval/rd.py at tiny widths with device='cuda' against its CPU run on
+    the same images: the bpp equal, the verdicts equal (and OK), each
+    stack's PSNR within 0.01 dB and MS-SSIM within 1e-4 of the CPU's; the
+    base mode's bytes equal and its PSNR within 1e-6 relative."""
+    from jpdse_tpu_torch.eval import rd
+
+    _rd_tree(tmp_path / "data")
+    argv = ["parity", "--root", str(tmp_path / "data"), "--ext", "jpg", "--qualities", "50,90",
+            "--n-images", "2", "--crop", "64", "--ngf", "8", "--n-down", "2", "--n-blocks", "2",
+            "--out", str(tmp_path / "rd.json")] + (["--fast"] if fast else [])
+    want, got = rd.main(argv, device="cpu"), rd.main(argv, device="cuda")
+    assert got["ok"] and want["ok"]
+    for p, w in zip(got["points"], want["points"]):
+        assert p["bpp"] == w["bpp"] and p["verdict"] == w["verdict"] == "OK"
+        for tag in ("port", "torch"):
+            assert abs(p[f"psnr_{tag}"] - w[f"psnr_{tag}"]) <= 0.01
+            assert abs(p[f"msssim_{tag}"] - w[f"msssim_{tag}"]) <= 1e-4
+    if fast:
+        base = ["base", "--root", str(tmp_path / "data"), "--ext", "jpg", "--qualities", "50",
+                "--width", "64", "--height", "32", "--out", str(tmp_path / "base.json")]
+        w, g = rd.main(base, device="cpu")["rows"][0], rd.main(base, device="cuda")["rows"][0]
+        assert g["bpp"] == w["bpp"] and abs(g["psnr"] - w["psnr"]) <= 1e-6 * w["psnr"]

@@ -89,6 +89,20 @@ config_names = set(dir(importlib.import_module("jpdse_tpu_torch.config")))
 assert {"check_fast_shard", "check_fast_parallel"} <= config_names
 assert not {"spatial_row_multiple", "check_spatial_rows", "SPATIAL_NOT_PORTED"} & config_names
 assert "conv_rows" in dir(layers)
+# the measurement entry points (the R-D tools, per-class distortion, the seg-trained VGG,
+# the .jpds re-packer)
+assert {"jpdse_tpu_torch." + m for m in ("eval.rd", "eval.sem_wise", "train.seg_vgg",
+                                         "repack")} <= set(names), names
+from jpdse_tpu_torch.eval import rd, sem_wise
+from jpdse_tpu_torch.train import seg_vgg
+from jpdse_tpu_torch import repack
+from jpdse_tpu_torch.ops import semantics
+assert "sem_wise_distortion" in dir(semantics)
+assert {"main", "parity", "base", "parity_config", "image_metrics"} <= set(dir(rd))
+assert {"main", "class_sums", "summarize", "CITYSCAPES_NAMES"} <= set(dir(sem_wise))
+assert {"main", "SegVgg", "load_split", "export_trunk", "draw_crops", "gather_crops",
+        "seg_loss", "pixel_accuracy"} <= set(dir(seg_vgg))
+assert {"main", "repack_dir"} <= set(dir(repack))
 import chip_smoke
 loaded = [m for m, mod in sys.modules.items() if mod is not None
           and (m in ("jax", "jpdse_tpu") or m.startswith(("jax.", "jpdse_tpu.", "flax")))]
@@ -102,7 +116,7 @@ def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 60  # every module so far, the fast-train slice's included
+    assert int(out.stdout.split()[-1]) >= 71  # every module so far, the entry points' slice's included
 
 
 def test_entry_points_raise_without_cuda_unless_given_a_device():
@@ -111,7 +125,14 @@ def test_entry_points_raise_without_cuda_unless_given_a_device():
     cfg = flagship_config(tiny=True)
     state = SemanticCodec(cfg, device="cpu", seed=0).state_dict()
     argv = ["--root_dir", "/nonexistent"]
-    for make in (lambda: SemanticCodec(cfg), lambda: FastCodec(cfg, state),
+    from jpdse_tpu_torch import repack
+    from jpdse_tpu_torch.eval import rd, sem_wise
+    from jpdse_tpu_torch.train import seg_vgg
+
+    for make in (lambda: sem_wise.main(["--opt_file", "x", "--checkpoints_dir", "y"]),
+                 lambda: seg_vgg.main(argv[:0]), lambda: rd.main(["base"]),
+                 lambda: rd.main(["parity"]), lambda: repack.main(["/nonexistent"]),
+                 lambda: SemanticCodec(cfg), lambda: FastCodec(cfg, state),
                  lambda: CodecServer(cfg, state), lambda: Trainer(cfg),
                  lambda: Trainer(cfg, mode="train"), lambda: run.main(argv),
                  lambda: test.main(argv), lambda: compress.main(argv),
