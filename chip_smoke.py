@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU, or on four.
 
     python3 chip_smoke.py [--seed N] [--requests N] [--train-steps N]
+    python3 chip_smoke.py --cards 4 [--seed N]
+
+With no --cards (or --cards 1) it runs phases 1-17 and the summary on
+card 0. --cards 4 runs phase 18 alone, below.
 
 Phases, each printing a line as it ends:
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -163,8 +167,10 @@ Phases, each printing a line as it ends:
      bit-equal to their input, then both paths timed; (b) two ranks on the
      one card over gloo (NCCL refuses two ranks on one device), spawned,
      each stepping batch 1, its row of the global batch of 2, held against
-     one process's step on the global batch by the same rule, the ranks'
-     uniforms gathered bit-equal to that step's; (c) the reference stack
+     one process's step on the global batch by the same rule (hold_layout,
+     as phase 18's), the ranks' uniforms gathered bit-equal to that
+     step's, every K3 launch against its plain version, the gradients and
+     the parameters after the step bit-equal across the ranks; (c) the reference stack
      (convert/torch_ref.py's RefLearnedCodec) at the flagship's widths,
      reference_weights_init seed 0, written as net_*.pth and imported by
      Trainer.load, one request served through .jpds bytes on the default
@@ -272,13 +278,61 @@ Phases, each printing a line as it ends:
      an image, the JSON within 1e-9 of a float64 numpy re-scoring of the
      reconstructions it returns; (d) eval/rd.py's base mode, jpg q30 and
      q90 alone over the same images;
- 18. summary: the card, a JSON line of per-kernel numbers (the partial
+ 19. summary: the card, a JSON line of per-kernel numbers (the partial
      kernels also timed at (1, 512, 2048, 32) fp32, "hires", and on a
      rank's uneven and empty slabs, "uneven"), the total seconds, and a
      last line {"ok": true, "device": {...}}.
 
+Phase 18 (--cards 4), the data and spatial axes across four cards, one
+process a card (cuda:0-3) over NCCL; it raises unless four CUDA devices
+are visible and every rank's group is NCCL, and never runs fewer ranks or
+gloo. First the cards' names and power limits, the interconnect
+(nvidia-smi topo -m, card 0's NVLink state, peer access) and NCCL's
+version; every kernel built; four ranks spawned, each joined with a
+timeout and killed after it:
+  (a) data 4: one step of the phase-2 recipe in the kernel configuration
+      at the flagship's full width, one image a rank (global batch 4),
+      held against one process's step on the global batch (the twin, on
+      card 0 inside rank 0) by phase 7 (a)'s rule (fp32, TF32 off, two
+      perturbed-input controls, every run on the twin's code bits, the
+      float64 steps within 1e-9 in every G and D tensor); the ranks'
+      uniforms, gathered, bit-equal to the twin's draws; K3 90 forward and
+      45 backward a rank, each launch against its plain version; the
+      all-reduced 783.9 MiB of gradients and the 8 metrics bit-identical on
+      every rank, and the parameters after step.apply;
+  (b) data 2 x spatial 2, the layout of the JAX system's multichip step:
+      the same with one image a spatial group (global batch 2), K3's
+      partial form 90 / 90 / 45 / 45 a rank-step on its slabs, each launch
+      against its plain version, and the spatial group's all-reduces
+      (calls and MiB a rank-step) printed;
+  (c) test.main at spatial 4 (one group of the four cards), the kernel
+      configuration's standard path in fp32 with TF32 off, on one
+      synthetic 2048x1024 triplet read 'fixed' to 1024x512, against the
+      same run in one process on card 0: the .rc bytes and the rates
+      equal, the reconstruction within 1e-3, K3's partial stats and apply
+      65 a rank;
+  (e) for (a)'s and (b)'s layouts in the kernel and the default
+      configuration, batch 2 a card, TF32 convolutions: steps timed by the
+      host clock in the order one card, four cards, four cards, one card;
+      one four-card step with CUDA events around the gradient all-reduce
+      and the spatial all-reduces (ms and share of the step); images/s on
+      four cards and on one, the scaling efficiency, peak memory a card;
+  (d) then, from this process, train.run.main across the four cards:
+      python -m torch.distributed.run --nproc_per_node 4 -m
+      jpdse_tpu_torch.train --spatial_axis 2 (batch 1 a spatial group) on
+      a synthetic Cityscapes split for two epochs, each saving
+      save_dir/latest (only rank 0 writes: each step once in loss_log.txt
+      and metrics.jsonl); then the same flags with --load_model for one
+      more epoch, each rank under torch.distributed.run running
+      train.run.main through --resume-rank, which holds the restored
+      parameters and Adams bit-equal to the saved files and across the
+      ranks, from latest at epoch 3 with 4 steps taken;
+and ends with the scaling table, a JSON line of it, and a last line
+{"ok": true, "device": {..., "count": 4}}.
+
 Any failure raises and the script exits non-zero without the last line.
-Without CUDA it exits non-zero before doing anything. Imports no JAX.
+Without CUDA (or, for --cards 4, without four cards) it exits non-zero
+before doing anything. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -1785,6 +1839,7 @@ EVAL_IMAGES = 4
 # the flagship's preprocessing and normalization, as its training run saved
 # them (artifacts/flagship_r3/phase3/opt.json): 'fixed', crop 1024, aspect 2
 FLAGSHIP_PREPROCESS = ("fixed", 1024, 1024, 2.0)
+TINY_PREPROCESS = ("fixed", 128, 128, 2.0)  # the tiny flagship's 128x64, on the CPU
 FLAGSHIP_NORMALIZE_STD = (1.0, 1.0, 1.0)
 KERNEL_FLAGS = ["--fused_instance_norm", "1", "--head_pallas", "1", "--front_realign", "pallas"]
 # flags, then kernel launches per image of test.main, compress.main and
@@ -2015,7 +2070,7 @@ NORMED_BIAS = re.compile(r"(^|\.)(head|down\.\d+|up(\.\d+)?|res\.\d+|layer[1-9]|
                          r"(?!.*BatchNorm_0).*bias$")
 
 
-def flagship_train_config(kernels: bool, seed: int, phase=2):
+def flagship_train_config(kernels: bool, seed: int, phase=2, tiny: bool = False):
     """The flagship's phase-2 recipe (artifacts/flagship_r3/phase2/opt.json):
     batch 2 at 1024x512 ('fixed', normalize_std 1), fp32, block remat, Adam
     lr 2e-4 betas (0.5, 0.999), num_D 2, n_layers_D 3, ndf 64, LSGAN, VGG,
@@ -2029,10 +2084,11 @@ def flagship_train_config(kernels: bool, seed: int, phase=2):
     "hiresA" or "hiresB" (artifacts/flagship_r3_hires/phase{A,B}/opt.json:
     the same assembly into a LocalEnhancer, batch 1 at 2048x1024, A with
     niter_fix_global 10); ``kernels``: K3 at every generator-side norm
-    site."""
+    site. ``tiny`` narrows the phase-2 recipe to the tiny flagship (ndf 8)
+    at 128x64, for a rehearsal on the CPU."""
     from jpdse_tpu_torch.config import flagship_config
 
-    cfg = flagship_config(kernels=kernels)
+    cfg = flagship_config(kernels=kernels, tiny=tiny)
     m = cfg.model
     m.compute_dtype, m.fast_inference = "float32", False
     cfg.optim.remat, cfg.optim.remat_granularity, cfg.optim.seed = True, "block", seed
@@ -2047,7 +2103,9 @@ def flagship_train_config(kernels: bool, seed: int, phase=2):
         L = cfg.loss
         L.no_d_gan_loss = L.no_g_gan_loss = L.no_gan_feat_loss = L.no_vgg_loss = True
         cfg.optim.schedule_lr, cfg.optim.lr_decay_patience = True, 3
-    mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+    mode, load, crop, aspect = TINY_PREPROCESS if tiny else FLAGSHIP_PREPROCESS
+    if tiny:
+        m.ndf = 8
     if phase in ("hiresA", "hiresB"):
         use_hires(cfg, niter_fix_global=10 if phase == "hiresA" else 0)
         cfg.data.batch_size = 1
@@ -2165,11 +2223,12 @@ def hold_step(tag: str, out: dict, pre: dict, modules, seed: int, ref: str, test
     from jpdse_tpu_torch.train import step
 
     # the binarizers' draws: netE4label's first, then netE's (where there is one)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = None
     others = (test, "control 1", "control 2")
     for i, name in enumerate(("netE4label", "netE")[:len(pre[ref]) if pre else 0]):
         x0 = pre[ref][i]
-        u = torch.rand(x0.shape, dtype=x0.dtype, device="cuda", generator=gen)
+        gen = gen or torch.Generator(device=x0.device).manual_seed(seed)
+        u = torch.rand(x0.shape, dtype=x0.dtype, device=x0.device, generator=gen)
         near = ((1.0 - x0) / 2.0 - u).abs() < 1e-5
         flips = {}
         for label in others:
@@ -4168,6 +4227,13 @@ def tf32_off():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def sync(device) -> None:
+    """Wait for ``device`` where it is a card (a CPU rehearsal has nothing
+    to wait for)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def counted_step(gan, batch: dict, gen) -> tuple:
     """One loss_and_grads with every kernel's count set to 0 just before it
     and read just after: (metrics, grads), counts."""
@@ -4175,7 +4241,7 @@ def counted_step(gan, batch: dict, gen) -> tuple:
 
     reset_counts()
     out = step.loss_and_grads(gan, batch, gen)
-    torch.cuda.synchronize()
+    sync(next(gan.codec.parameters()).device)
     return out, read_counts()
 
 
@@ -4212,10 +4278,10 @@ def f64_step(t, batch: dict, seed: int, ref=None):
             module.fused = False
     placed = t.place(batch)
     placed = dict(placed, image=placed["image"].double())
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=t.device).manual_seed(seed)
     with PinnedSigns(ref) as rec:
         _, g64 = step.loss_and_grads(s64, placed, gen)
-    torch.cuda.synchronize()
+    sync(t.device)
     return g64, rec.calls
 
 
@@ -4319,73 +4385,25 @@ def phase12_world1(seed: int, card: str) -> dict:
 
 def _phase12_rank(rank: int, port: int, seed: int, work: str) -> None:
     """(b) One of two ranks on the one card (gloo, which all-reduces CUDA
-    tensors there; NCCL refuses two ranks on one device): both build the
-    data-parallel trainer and a single-process twin (broadcasts in one
-    order). Rank 0 steps the twin on the global batch of 2 and sends its
-    pre-signs; each rank then steps batch 1, its row, on those code bits
-    (PinnedSigns); the same in float64; rank 0 holds the global step against
-    the twin's by phase 7 (a)'s rule with two controls and the float64
-    arbiter, and the ranks' uniforms, gathered, against the twin's bit for
-    bit."""
+    tensors there; NCCL refuses two ranks on one device), batch 1 each,
+    its row of the global batch of 2: :func:`hold_layout` at data 2 (the
+    twin on the global batch, phase 7 (a)'s rule with two controls and the
+    float64 arbiter, the uniforms gathered bit for bit); rank 0 keeps its
+    launch counts."""
     os.environ["LOCAL_RANK"] = "0"
     import torch.distributed as dist
 
     from jpdse_tpu_torch.ops.build import build_all
     from jpdse_tpu_torch.parallel import distributed
-    from jpdse_tpu_torch.trainer import Trainer
 
     build_all()  # loads the kernels the parent built
     distributed.initialize("cuda", f"localhost:{port}", 2, rank, backend="gloo")
-    dp = Trainer(flagship_train_config(True, seed), mode="train", device="cuda:0")
-    twin = Trainer(flagship_train_config(True, seed), mode="train", device="cuda:0")
-    twin.mesh = twin.gan.mesh = None  # the same weights, stepped as one process
-    if dp.mesh is None or dp.mesh.world != 2 or dist.get_backend() != "gloo":
-        raise AssertionError(f"rank {rank}: no gloo mesh of 2: {dp.mesh}")
-    batch = train_batch(dp.cfg, seed)
-    rows = {k: v[dp.mesh.rows(1)] for k, v in batch.items()}
-    tag = "phase-2 recipe, 2 ranks of batch 1 on one card"
-    out, pre = {}, {}
-    with tf32_off():
-        with torch.no_grad():  # the twin's pre-signs' shapes, then rank 0's values
-            ref = twin.gan.codec.get_presign(twin.gan.codec.prepare(twin.place(batch)))
-        if rank == 0:
-            gen = torch.Generator(device="cuda").manual_seed(seed)
-            with PinnedSigns() as rec:
-                out["single process"], _ = counted_step(twin.gan, twin.place(batch), gen)
-            ref, single_draws = rec.calls, rec.draws
-        distributed.broadcast_(ref)
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        t0 = time.perf_counter()
-        with PinnedSigns([r[dp.mesh.rows(1)] for r in ref]) as rec:
-            out["2 ranks"], counts = counted_step(dp.gan, dp.place(rows), gen)
-        log(f"[dp] (b) rank {rank}: loss_and_grads of its row {time.perf_counter() - t0:.2f} s "
-            f"(fp32, TF32 off, the gloo all-reduce of CUDA tensors included); launches {counts}")
-        if k3_per_step(counts, 1) != (2 * K3_SITES[2], K3_SITES[2]):
-            raise AssertionError(f"rank {rank}: K3 launched {k3_per_step(counts, 1)}")
-        pre["2 ranks"] = [dp.mesh.gather_rows(x) for x in rec.calls]
-        draws = [dp.mesh.gather_rows(u) for u in rec.draws]
-        # the same step in float64 on both sides, which arbitrates fp32's rounding
-        out64 = {}
-        ref64 = [r.double() for r in ref]
-        if rank == 0:
-            out64["single process"], ref64 = f64_step(twin, batch, seed)
-        distributed.broadcast_(ref64)
-        out64["2 ranks"], _ = f64_step(dp, rows, seed, [r[dp.mesh.rows(1)] for r in ref64])
-        if rank == 0:
-            if not all(torch.equal(a, b) for a, b in zip(draws, single_draws)):
-                raise AssertionError(f"{tag}: the ranks' uniforms are not the global draws' rows")
-            for i, b in enumerate(perturbed(batch, seed)):
-                gen = torch.Generator(device="cuda").manual_seed(seed)
-                with PinnedSigns(ref) as rec:
-                    out[f"control {i + 1}"], _ = counted_step(twin.gan, twin.place(b), gen)
-                pre[f"control {i + 1}"] = rec.calls
-            pinned_bits(tag, ref, pre)
-            hold_step(tag, out, None, (twin.gan.codec, twin.gan.disc), seed, "single process",
-                      "2 ranks", out64)
-            log(f"[dp] {tag}: the ranks' {sum(u.numel() for u in draws)} binarizer uniforms, "
-                f"gathered, bit-equal to one process's on the global batch")
-            with open(os.path.join(work, "counts.json"), "w") as f:
-                json.dump(counts, f)
+    if dist.get_backend() != "gloo":
+        raise AssertionError(f"rank {rank}: a {dist.get_backend()} group, want gloo")
+    counts = hold_layout(rank, 1, seed, torch.device("cuda", 0), tag="[dp] (b)")["counts"]
+    if rank == 0:
+        with open(os.path.join(work, "counts.json"), "w") as f:
+            json.dump(counts, f)
     distributed.barrier()
     dist.destroy_process_group()
 
@@ -4514,6 +4532,7 @@ def phase12(seed: int, card: str) -> tuple:
 SPATIAL_K3 = {"instance_norm_stats": 90, "instance_norm_apply": 90,
               "instance_norm_bwd_sums": 45, "instance_norm_bwd_dx": 45}  # a rank, a step
 SPATIAL_EVAL_IMAGES = 1
+SPATIAL_EVAL_K3 = {"instance_norm_stats": 65, "instance_norm_apply": 65}  # a rank, an image
 
 
 class K3PartialCheck:
@@ -4589,7 +4608,7 @@ class K3PartialCheck:
                 + f" (tolerance {K3_SITE_TOL})")
 
 
-def _same_on_every_rank(tag: str, tensors: list) -> None:
+def _same_on_every_rank(tag: str, tensors: list, what: str = "parameters") -> None:
     """Rank 0's tensors broadcast to every rank, each held bit for bit
     against the rank's own (a rank that differs raises)."""
     from jpdse_tpu_torch.parallel import distributed
@@ -4597,7 +4616,7 @@ def _same_on_every_rank(tag: str, tensors: list) -> None:
     theirs = [t.detach().clone() for t in tensors]
     distributed.broadcast_(theirs)
     if not all(torch.equal(a, b) for a, b in zip(theirs, tensors)):
-        raise AssertionError(f"{tag}: rank {distributed.rank()}'s parameters differ from rank 0's")
+        raise AssertionError(f"{tag}: rank {distributed.rank()}'s {what} differ from rank 0's")
 
 
 def spatial_eval_argv(run: Path, out: Path, opt: str) -> list:
@@ -4623,7 +4642,7 @@ def spatial_eval_image(argv: list, signs=None) -> np.ndarray:
             return trainer.get_img(batch).cpu().numpy()
 
 
-def spatial_eval(argv: list, tag: str) -> tuple:
+def spatial_eval(argv: list, tag: str, prefix: str = "[spatial] (b)") -> tuple:
     """test.main with every kernel count set to 0 just before it and read
     just after, in fp32 with TF32 off, then the first image's
     reconstruction: (metrics, counts, image)."""
@@ -4638,7 +4657,7 @@ def spatial_eval(argv: list, tag: str) -> tuple:
         image = spatial_eval_image(argv)
     for line in text.getvalue().splitlines():
         if line.startswith(("test set avg", "multi-process mesh", "fast_inference")):
-            log(f"[spatial] (b) {tag}: {line}")
+            log(f"{prefix} {tag}: {line}")
     return metrics, counts, image
 
 
@@ -4782,29 +4801,10 @@ def phase13(seed: int, card: str) -> tuple:
     sharded, against the same run in one process here: the .rc bytes
     equal, the rates equal, the first image's reconstruction within
     FP32_ATOL. Returns (eval counts, train counts)."""
-    from jpdse_tpu_torch.config import flagship_config
-    from jpdse_tpu_torch.models.codec import SemanticCodec
-    from jpdse_tpu_torch.train.checkpoint import save_params
-
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="jpdse_spatial_") as work:
         run = Path(work) / "eval"
-        root = run / "cityscapes"
-        write_cityscapes(root, seed + 13, n=SPATIAL_EVAL_IMAGES)
-        cfg = flagship_config(kernels=True)
-        cfg.model.compute_dtype, cfg.model.fast_inference = "float32", False
-        mode, load, crop, aspect = FLAGSHIP_PREPROCESS
-        for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
-            pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
-            pp.aspect_ratio = aspect
-        cfg.data.dataset, cfg.data.root_dir = "cityscapes", str(root)
-        cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
-        cfg.data.num_workers, cfg.optim.seed = 1, seed
-        cfg.save(str(run / "opt1.json"))
-        cfg.parallel.spatial_axis = 2
-        cfg.save(str(run / "opt.json"))
-        save_params(str(run), SemanticCodec(flagship_config(kernels=True), device="cuda",
-                                            seed=seed + 13).state_dict())
+        sharded_eval_setup(run, seed, 13, 2, "opt.json")
         phase15_setup(Path(work), seed)
         phase16_setup(Path(work), seed)
         ctx = torch.multiprocessing.get_context("spawn")
@@ -4828,35 +4828,8 @@ def phase13(seed: int, card: str) -> tuple:
             raise AssertionError(f"phase 13: the two ranks exited with {codes}")
         ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
                  for r in range(2)]
-        image = np.load(os.path.join(work, "rank0_image.npy"))
-        rc_one = {p.name: p.read_bytes() for p in (Path(work) / "single" / "codes").glob("*")}
-        rc_sharded = {p.name: p.read_bytes() for p in (Path(work) / "rank0" / "codes").glob("*")}
-        if not rc_one or rc_sharded != rc_one:
-            raise AssertionError(f"(b) the sharded evaluation's code files differ from one "
-                                 f"process's: {sorted(rc_sharded)} vs {sorted(rc_one)}")
-        if (Path(work) / "rank1" / "codes").exists() and any((Path(work) / "rank1" / "codes").iterdir()):
-            raise AssertionError("(b) rank 1 wrote code files")
-        for r in ranks:
-            m = r["eval"]["metrics"]
-            for k in ("actual_bpp", "coded_bpp", "total_bpp", "n_images"):
-                if m[k] != one_metrics[k]:
-                    raise AssertionError(f"(b) {k}: {m[k]} sharded, {one_metrics[k]} one process")
-        err = float(np.abs(image - one_image).max())
-        if not err <= FP32_ATOL:
-            raise AssertionError(f"(b) the sharded reconstruction is {err:.2e} from one process's")
-        m = ranks[0]["eval"]["metrics"]
-        want_counts = {k: v * SPATIAL_EVAL_IMAGES for k, v in
-                       {"instance_norm_stats": 65, "instance_norm_apply": 65}.items()}
-        got_counts = {k: v for k, v in ranks[0]["eval"]["counts"].items() if v}
-        if got_counts != want_counts:
-            raise AssertionError(f"(b) the sharded test.main launched {got_counts}, want "
-                                 f"{want_counts}")
-        log(f"[spatial] (b) test.main of {SPATIAL_EVAL_IMAGES} 2048x1024 triplet(s) read 'fixed' "
-            f"to 1024x512, kernel configuration, fp32, TF32 off, spatial 2 against one process: "
-            f"{len(rc_one)} code files bit-equal ({sum(map(len, rc_one.values()))} bytes), coded "
-            f"{m['coded_bpp']:.6f} bpp on both, PSNR {m['PSNR']:.4f} / {one_metrics['PSNR']:.4f} "
-            f"dB, reconstruction within {err:.2e} (tolerance {FP32_ATOL}); launches a rank "
-            f"{got_counts}, one process { {k: v for k, v in one_counts.items() if v} } ({card})")
+        check_sharded_eval(Path(work), (one_metrics, one_counts, one_image),
+                           [r["eval"] for r in ranks], "[spatial] (b)", card)
         train = {f"{k}, rank {r}": v for r, res in enumerate(ranks)
                  for k, v in res["train"].items()}
         evals = {f"spatial eval, rank {r}": res["eval"]["counts"] for r, res in enumerate(ranks)}
@@ -6172,17 +6145,637 @@ def phase17(seed: int, card: str) -> dict:
     return launches
 
 
+# -- phase 18 (--cards 4): the parallel axes across four cards on NCCL -----------------
+CARDS = 4
+CARDS_TIMED_STEPS = 3  # host-clock steps a set, after one untimed
+CARDS_JOIN_S = 480  # the ranks' joins, after which a rank still running is killed
+CARDS_ENTRY_S = 300  # a torchrun launch of (d), after which its process group is killed
+CARDS_LAYOUTS = {"data 4": 1, "data 2 x spatial 2": 2}  # layout -> spatial_axis
+DATA_K3 = {"fused_instance_norm": 2 * K3_SITES[2], "fused_instance_norm_bwd": K3_SITES[2]}
+CARDS_K3 = ("fused_instance_norm", "fused_instance_norm_bwd") + K3_PARTIAL
+
+
+def topology() -> str:
+    """What the card's machine says of its interconnect: ``nvidia-smi topo
+    -m`` (or why it says nothing), the NVLink state of card 0 and which
+    card pairs CUDA can map peer to peer."""
+    lines = []
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "--status", "-i", "0"]):
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        text = (out.stdout + out.stderr).strip() or f"(no output, exit {out.returncode})"
+        lines.append(f"$ {' '.join(cmd)}\n{text}")
+    n = torch.cuda.device_count()
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n)]
+            for i in range(n)]
+    lines.append("peer access (torch.cuda.can_device_access_peer): "
+                 + "; ".join(f"{i}: " + "".join("1" if p else "0" for p in row)
+                             for i, row in enumerate(peer)))
+    return "\n".join(lines)
+
+
+def hold_layout(rank: int, s: int, seed: int, device: torch.device, tiny: bool = False,
+                tag: str = "[cards]") -> dict:
+    """One step of the phase-2 recipe in the kernel configuration on the
+    process group's ranks at spatial_axis ``s``, one image a spatial
+    group, held against one process's step on the global batch (the twin,
+    stepped on rank 0's device): phase 7 (a)'s rule with two controls and
+    the float64 arbiter, every run on the twin's code bits; the ranks'
+    uniforms, gathered, bit-equal to the twin's draws; on a card K3 (or its
+    partial form) launched as many times as the layout asks, each launch
+    against its plain version; the all-reduced gradients and metrics
+    bit-identical on every rank, and so the parameters after
+    ``step.apply``. Phase 12 (b) and phase 18 (a), (b)."""
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.parallel import distributed, spatial
+    from jpdse_tpu_torch.train import step
+    from jpdse_tpu_torch.trainer import Trainer
+
+    world = distributed.world()
+    n_data = world // s
+    layout = f"data {n_data}" + (f" x spatial {s}" if s > 1 else "")
+    ranks = f"{world} ranks"
+    t0 = time.perf_counter()
+    cfg = flagship_train_config(True, seed, tiny=tiny)
+    cfg.data.batch_size, cfg.parallel.spatial_axis = 1, s
+    dp = Trainer(cfg, mode="train", device=device)
+    whole = flagship_train_config(True, seed, tiny=tiny)
+    whole.data.batch_size = n_data
+    twin = Trainer(whole, mode="train", device=device)  # every rank joins its broadcast
+    twin.mesh = twin.gan.mesh = None  # the same weights, stepped as one process
+    m = dp.mesh
+    if (m.world, m.n_data, m.spatial) != (world, n_data, s):
+        raise AssertionError(f"rank {rank}: the mesh is {m}, want {layout}")
+    batch = train_batch(whole, seed)
+    rows = {k: v[m.rows(1)] for k, v in batch.items()}
+    shard = m.shard(batch["image"].shape[1])
+
+    def mine(t):  # this rank's batch rows and H rows of a global tensor
+        t = t[m.rows(1)]
+        return t if shard is None else t[:, m.h_rows(t.shape[1])]
+
+    def whole_of(t):  # the ranks' rows of a tensor gathered to the global one
+        return m.gather_rows(t if shard is None else spatial.gather_rows(t, shard))
+
+    what = f"phase-2 recipe, {layout}, {ranks}"
+    if rank == 0:
+        hg = batch["image"].shape[1]
+        log(f"{tag} {layout}: global batch {n_data}, rank 0's rows "
+            f"{m.h_rows(hg).start}-{m.h_rows(hg).stop} of {hg}; trainers built in "
+            f"{time.perf_counter() - t0:.1f} s ({device})")
+    out, pre, out64 = {}, {}, {}
+    with tf32_off():
+        with torch.no_grad():  # the twin's pre-signs' shapes, then rank 0's values
+            ref = twin.gan.codec.get_presign(twin.gan.codec.prepare(twin.place(batch)))
+        if rank == 0:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            with PinnedSigns() as rec:
+                out["one process"], _ = counted_step(twin.gan, twin.place(batch), gen)
+            ref, single_draws = rec.calls, rec.draws
+        distributed.broadcast_(ref)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        check = contextlib.nullcontext()
+        if device.type == "cuda":  # every launch against its plain version on its inputs
+            check = K3SiteCheck() if s == 1 else K3PartialCheck()
+        spatial.traffic.update(calls=0, bytes=0)
+        t1 = time.perf_counter()
+        with PinnedSigns([mine(r) for r in ref]) as rec, check:
+            out[ranks], counts = counted_step(dp.gan, dp.place(rows), gen)
+        seconds = time.perf_counter() - t1
+        traffic = dict(spatial.traffic)
+        want = {} if device.type != "cuda" else DATA_K3 if s == 1 else SPATIAL_K3
+        if {n: counts[n] for n in CARDS_K3} != {n: want.get(n, 0) for n in CARDS_K3}:
+            raise AssertionError(f"rank {rank}, {what}: launches {counts}, want {want}")
+        log(f"{tag} rank {rank}, {what}: loss_and_grads of its share {seconds:.2f} s (fp32, "
+            f"TF32 off, the exchanges and the gradient all-reduce over {dist.get_backend()} "
+            "included); "
+            f"{traffic['calls']} all-reduces over the spatial group "
+            f"({traffic['bytes'] / 2**20:.1f} MiB); K3 launches "
+            f"{ {n: counts[n] for n in CARDS_K3 if counts[n]} }"
+            + (f"; {check.summary()}" if device.type == "cuda" else ""))
+        pre[ranks] = [whole_of(x) for x in rec.calls]
+        draws = [whole_of(u) for u in rec.draws]
+        ref64 = [r.double() for r in ref]
+        if rank == 0:
+            out64["one process"], ref64 = f64_step(twin, batch, seed)
+        distributed.broadcast_(ref64)
+        out64[ranks], _ = f64_step(dp, rows, seed, [mine(r) for r in ref64])
+        if rank == 0:
+            if not all(torch.equal(a, b) for a, b in zip(draws, single_draws)):
+                raise AssertionError(f"{what}: the ranks' uniforms are not the global draws' rows")
+            for i, b in enumerate(perturbed(batch, seed)):
+                gen = torch.Generator(device=device).manual_seed(seed)
+                with PinnedSigns(ref) as rec:
+                    out[f"control {i + 1}"], _ = counted_step(twin.gan, twin.place(b), gen)
+                pre[f"control {i + 1}"] = rec.calls
+            pinned_bits(what, ref, pre)
+            hold_step(what, out, None, (twin.gan.codec, twin.gan.disc), seed, "one process",
+                      ranks, out64)
+            log(f"{tag} {what}: the ranks' {sum(u.numel() for u in draws)} binarizer uniforms, "
+                "gathered, bit-equal to one process's on the global batch")
+    metrics, grads = out[ranks]
+    stacked = torch.stack([metrics[k] for k in step.METRICS])
+    _same_on_every_rank(what, list(grads[0]) + list(grads[1]) + [stacked],
+                        "all-reduced gradients and metrics")
+    step.apply(dp.gan, grads)
+    _same_on_every_rank(what, list(dp.gan.codec.parameters()) + list(dp.gan.disc.parameters()))
+    n_bytes = sum(g.numel() * g.element_size() for g in grads[0] + grads[1])
+    if rank == 0:
+        log(f"{tag} {what}: the all-reduce of {n_bytes / 2**20:.1f} MiB of gradients and the "
+            f"{len(step.METRICS)} metrics bit-identical on every rank, and the parameters after "
+            "step.apply")
+    del dp, twin, out, out64
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"counts": counts, "traffic": traffic, "grad_mib": n_bytes / 2**20,
+            "seconds": seconds}
+
+
+def _cards_eval(rank: int, work: Path) -> dict:
+    """(c) test.main sharded over one spatial group of the four ranks (the
+    run's opt4.json: spatial_axis 4), then the first image's
+    reconstruction (rank 0 keeps it)."""
+    metrics, counts, image = spatial_eval(
+        spatial_eval_argv(work / "eval", work / f"rank{rank}", "opt4.json"), f"rank {rank}",
+        "[cards] (c)")
+    if rank == 0:
+        np.save(work / "rank0_image.npy", image)
+    return {"metrics": metrics, "counts": counts}
+
+
+@contextlib.contextmanager
+def comm_events(device: torch.device):
+    """While active, CUDA events on the current stream around each gradient
+    all-reduce (``distributed.all_reduce_mean_``) and each spatial exchange
+    or reduction (``SpatialShard.all_reduce_``); yields a dict whose
+    ``"ms"`` callable sums their times, read after a synchronize."""
+    from jpdse_tpu_torch.parallel import distributed, spatial
+
+    pairs = {"gradient all-reduce": [], "spatial all-reduces": []}
+    reduce_mean, shard_reduce = distributed.all_reduce_mean_, spatial.SpatialShard.all_reduce_
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(device))
+            out = fn(*args, **kwargs)
+            end.record(torch.cuda.current_stream(device))
+            pairs[kind].append((start, end))
+            return out
+        return run
+
+    distributed.all_reduce_mean_ = timed("gradient all-reduce", reduce_mean)
+    spatial.SpatialShard.all_reduce_ = timed("spatial all-reduces", shard_reduce)
+    try:
+        yield {"ms": lambda: {k: sum(a.elapsed_time(b) for a, b in v) for k, v in pairs.items()},
+               "calls": lambda: {k: len(v) for k, v in pairs.items()}}
+    finally:
+        distributed.all_reduce_mean_, spatial.SpatialShard.all_reduce_ = reduce_mean, shard_reduce
+
+
+def _timed_set(trainer, placed: dict, device: torch.device) -> list:
+    """CARDS_TIMED_STEPS Trainer.steps after one untimed, each by the host
+    clock up to a synchronize: their ms."""
+    trainer.step(placed)
+    times = []
+    for _ in range(CARDS_TIMED_STEPS):
+        sync(device)
+        t0 = time.perf_counter()
+        trainer.step(placed)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _cards_timings(rank: int, seed: int, device: torch.device, card: str) -> list:
+    """(e) For each layout and each configuration, the phase-2 recipe at
+    batch 2 a card (TF32 convolutions, as PyTorch trains): steps timed by
+    the host clock in the order one card (rank 0's card, the others
+    waiting at a barrier), four cards, four cards, one card; one more
+    four-card step with CUDA events around the gradient all-reduce and the
+    spatial all-reduces; images/s, the scaling efficiency, and each card's
+    peak memory over its four-card steps (card 0's with the one-card
+    trainer's state beside it). Returns rank 0's rows."""
+    from jpdse_tpu_torch.parallel import distributed, spatial
+    from jpdse_tpu_torch.trainer import Trainer
+
+    rows_out = []
+    for layout, s in CARDS_LAYOUTS.items():
+        for kernels in (True, False):
+            label = f"{layout}, {'kernel' if kernels else 'default'} configuration"
+            n_data = CARDS // s
+            cfg = flagship_train_config(kernels, seed)
+            cfg.parallel.spatial_axis = s  # batch 2 a spatial group: 2 images a card's rows
+            dp = Trainer(cfg, mode="train", device=device)
+            one = Trainer(flagship_train_config(kernels, seed), mode="train", device=device)
+            one.mesh = one.gan.mesh = None  # rank 0's one-card trainer (all joined its broadcast)
+            if rank:
+                one = None
+                torch.cuda.empty_cache()
+            whole = flagship_train_config(kernels, seed)
+            whole.data.batch_size = TRAIN_BATCH * n_data
+            batch = train_batch(whole, seed + 18)
+            placed = dp.place({k: v[dp.mesh.rows(TRAIN_BATCH)] for k, v in batch.items()})
+            placed_one = one and one.place({k: v[:TRAIN_BATCH] for k, v in batch.items()})
+            times = {"one card": [], "four cards": []}
+            peak = 0
+            for which in ("one card", "four cards", "four cards", "one card"):
+                if which == "one card":
+                    if rank == 0:
+                        times[which] += _timed_set(one, placed_one, device)
+                    distributed.barrier()
+                    continue
+                torch.cuda.reset_peak_memory_stats(device)
+                times[which] += _timed_set(dp, placed, device)
+                peak = max(peak, torch.cuda.max_memory_allocated(device))
+            spatial.traffic.update(calls=0, bytes=0)
+            sync(device)
+            with comm_events(device) as ev:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                dp.step(placed)
+                end.record()
+                sync(device)
+            comm, calls, step_ms = ev["ms"](), ev["calls"](), start.elapsed_time(end)
+            traffic = dict(spatial.traffic)
+            peaks = distributed.all_gather_rows(
+                torch.tensor([[peak / 2**30]], dtype=torch.float64, device=device))
+            if rank == 0:
+                one_ms, four_ms = np.median(times["one card"]), np.median(times["four cards"])
+                ips_one, ips_four = TRAIN_BATCH / one_ms * 1e3, TRAIN_BATCH * n_data / four_ms * 1e3
+                row = {"layout": layout, "kernels": kernels, "one_card_ms": times["one card"],
+                       "four_cards_ms": times["four cards"], "one_card_images_s": ips_one,
+                       "four_cards_images_s": ips_four, "efficiency": ips_four / (CARDS * ips_one),
+                       "events_step_ms": step_ms, "comm_ms": comm, "comm_calls": calls,
+                       "spatial_mib": traffic["bytes"] / 2**20, "spatial_calls": traffic["calls"],
+                       "peak_gib": peaks.flatten().tolist()}
+                rows_out.append(row)
+                log(f"[cards] (e) {label}: one card (batch {TRAIN_BATCH}) "
+                    f"{' '.join(f'{t:.1f}' for t in times['one card'])} ms, median {one_ms:.1f} ms, "
+                    f"{ips_one:.3f} images/s; four cards (batch {TRAIN_BATCH} a card's rows, "
+                    f"global {TRAIN_BATCH * n_data}) {' '.join(f'{t:.1f}' for t in times['four cards'])}"
+                    f" ms, median {four_ms:.1f} ms, {ips_four:.3f} images/s; scaling efficiency "
+                    f"{row['efficiency']:.3f}; one four-card step by CUDA events {step_ms:.1f} ms, "
+                    f"of it the gradient all-reduce {comm['gradient all-reduce']:.2f} ms "
+                    f"({comm['gradient all-reduce'] / step_ms:.1%}, {calls['gradient all-reduce']} "
+                    f"call) and the spatial all-reduces {comm['spatial all-reduces']:.2f} ms "
+                    f"({comm['spatial all-reduces'] / step_ms:.1%}, {traffic['calls']} calls, "
+                    f"{traffic['bytes'] / 2**20:.1f} MiB a rank); peak memory a card "
+                    f"{', '.join(f'{p:.2f}' for p in row['peak_gib'])} GiB ({card})")
+            del dp, one, placed, placed_one
+            torch.cuda.empty_cache()
+    return rows_out
+
+
+def multicard_rank(rank: int, port: int, seed: int, work: str, device: str, backend: str,
+                   tiny: bool = False, legs: str = "abce", card: str = "") -> None:
+    """Phase 18's rank ``rank`` of four, on ``device`` (``cuda:rank`` on the
+    card's machine, or the CPU for a rehearsal) over ``backend``: legs (a)
+    data 4 and (b) data 2 x spatial 2, held against one process
+    (hold_layout); (c) test.main at spatial 4 (_cards_eval); (e) the
+    timings (_cards_timings). Writes its results to ``work/rank{rank}.pt``."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.parallel import distributed
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from jpdse_tpu_torch.ops.build import build_all
+
+        build_all()  # loads the kernels the parent built
+    distributed.initialize(dev.type, f"localhost:{port}", CARDS, rank, backend=backend)
+    try:
+        if dist.get_backend() != backend or distributed.world() != CARDS:
+            raise AssertionError(f"rank {rank}: a {dist.get_backend()} group of "
+                                 f"{distributed.world()}, want {backend} of {CARDS}")
+        if dev.type == "cuda" and torch.cuda.current_device() != dev.index:
+            raise AssertionError(f"rank {rank} drives card {torch.cuda.current_device()}, "
+                                 f"want {dev}")
+        result = {"backend": dist.get_backend(), "device": str(dev)}
+        for leg, s in (("a", 1), ("b", 2)):
+            if leg in legs:
+                result[leg] = hold_layout(rank, s, seed, dev, tiny)
+        if "c" in legs:
+            result["c"] = _cards_eval(rank, Path(work))
+        if "e" in legs:
+            result["e"] = _cards_timings(rank, seed, dev, card)
+        torch.save(result, os.path.join(work, f"rank{rank}.pt"))
+        distributed.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_eval_setup(run: Path, seed: int, offset: int, spatial_axis: int, opt: str) -> None:
+    """The run of phases 13 (b) and 18 (c): SPATIAL_EVAL_IMAGES synthetic
+    2048x1024 triplets read 'fixed' to 1024x512 (from ``seed + offset``),
+    the kernel configuration's standard path in fp32, its opt.json at
+    spatial_axis 1 (opt1.json) and at ``spatial_axis`` (``opt``), and a
+    codec's params_g.pt seeded ``seed + offset``."""
+    from jpdse_tpu_torch.config import flagship_config
+    from jpdse_tpu_torch.models.codec import SemanticCodec
+    from jpdse_tpu_torch.train.checkpoint import save_params
+
+    root = run / "cityscapes"
+    write_cityscapes(root, seed + offset, n=SPATIAL_EVAL_IMAGES)
+    cfg = flagship_config(kernels=True)
+    cfg.model.compute_dtype, cfg.model.fast_inference = "float32", False
+    mode, load, crop, aspect = FLAGSHIP_PREPROCESS
+    for pp in (cfg.data.preprocess, cfg.data.val_preprocess, cfg.data.test_preprocess):
+        pp.preprocess_mode, pp.load_size, pp.crop_size = mode, load, crop
+        pp.aspect_ratio = aspect
+    cfg.data.dataset, cfg.data.root_dir = "cityscapes", str(root)
+    cfg.data.normalize_std = FLAGSHIP_NORMALIZE_STD
+    cfg.data.num_workers, cfg.optim.seed = 1, seed
+    cfg.save(str(run / "opt1.json"))
+    cfg.parallel.spatial_axis = spatial_axis
+    cfg.save(str(run / opt))
+    save_params(str(run), SemanticCodec(flagship_config(kernels=True), device="cuda",
+                                        seed=seed + offset).state_dict())
+
+
+def check_sharded_eval(work: Path, one: tuple, rank_evals: list, tag: str, card: str) -> None:
+    """A sharded test.main (each rank's metrics and launch counts; rank 0's
+    first image in ``work/rank0_image.npy``, its code files under
+    ``work/rank0``) against one process's (metrics, counts, image; code
+    files under ``work/single``): rank 0's code files bit-equal and no
+    other rank's, the rates equal on every rank, the reconstruction within
+    FP32_ATOL, K3's partial stats and apply SPATIAL_EVAL_K3 a rank."""
+    one_metrics, one_counts, one_image = one
+    rc_one = {p.name: p.read_bytes() for p in (work / "single" / "codes").glob("*")}
+    rc_sharded = {p.name: p.read_bytes() for p in (work / "rank0" / "codes").glob("*")}
+    if not rc_one or rc_sharded != rc_one:
+        raise AssertionError(f"{tag} the sharded test.main's code files differ from one "
+                             f"process's: {sorted(rc_sharded)} vs {sorted(rc_one)}")
+    want = {k: v * SPATIAL_EVAL_IMAGES for k, v in SPATIAL_EVAL_K3.items()}
+    for r, res in enumerate(rank_evals):
+        codes = work / f"rank{r}" / "codes"
+        if r and codes.exists() and any(codes.iterdir()):
+            raise AssertionError(f"{tag} rank {r} wrote code files")
+        for k in ("actual_bpp", "coded_bpp", "total_bpp", "n_images"):
+            if res["metrics"][k] != one_metrics[k]:
+                raise AssertionError(f"{tag} rank {r}: {k} {res['metrics'][k]} sharded, "
+                                     f"{one_metrics[k]} one process")
+        got = {k: v for k, v in res["counts"].items() if v}
+        if got != want:
+            raise AssertionError(f"{tag} rank {r}'s test.main launched {got}, want {want}")
+    err = float(np.abs(np.load(work / "rank0_image.npy") - one_image).max())
+    if not err <= FP32_ATOL:
+        raise AssertionError(f"{tag} the sharded reconstruction is {err:.2e} from one process's")
+    m = rank_evals[0]["metrics"]
+    log(f"{tag} test.main of {SPATIAL_EVAL_IMAGES} 2048x1024 triplet(s) read 'fixed' to "
+        f"1024x512, kernel configuration, fp32, TF32 off, spatial {len(rank_evals)} against one "
+        f"process: {len(rc_one)} code files bit-equal ({sum(map(len, rc_one.values()))} "
+        f"bytes), coded {m['coded_bpp']:.6f} bpp on every rank, PSNR {m['PSNR']:.4f} / "
+        f"{one_metrics['PSNR']:.4f} dB, reconstruction within {err:.2e} (tolerance "
+        f"{FP32_ATOL}); launches a rank {want}, one process "
+        f"{ {k: v for k, v in one_counts.items() if v} } ({card})")
+
+
+def torchrun(argv: list, log_path: Path, timeout_s: float = CARDS_ENTRY_S) -> str:
+    """``python -m torch.distributed.run --nproc_per_node 4`` of ``argv``
+    (a module's or a script's), its output kept in ``log_path``; the whole
+    process group killed after ``timeout_s``. Returns the output; raises
+    unless it exits with 0."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(CARDS),
+           "--master_addr", "localhost", "--master_port", str(free_port())] + argv
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
+                                cwd=Path(__file__).resolve().parent)
+        try:
+            code = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            code = "killed after its time limit"
+    text = log_path.read_text()
+    if code != 0:
+        sys.stdout.write(text[-20000:])
+        raise AssertionError(f"(d) {' '.join(argv[:2])} across four cards exited with {code}")
+    return text
+
+
+def resume_rank(work: Path, argv: list) -> int:
+    """(d)'s resumed run, one rank of it under torchrun: train.run.main
+    with its epoch loop's first call held: the restored parameters and
+    Adam moments bit-equal to the files under save_dir/latest and to rank
+    0's, the epoch and step count they name. Writes what it saw to
+    ``work/resume_rank{rank}.json``."""
+    import torch.distributed as dist
+
+    from jpdse_tpu_torch.parallel import distributed
+    from jpdse_tpu_torch.train import run
+    from jpdse_tpu_torch.train.checkpoint import OPT_FILE, PARAMS_D_FILE, PARAMS_FILE
+
+    seen = {}
+    epoch_loop = run.run_epoch
+
+    def first_epoch(trainer, loader, cfg, epoch, *args):
+        if not seen:
+            gan, latest = trainer.gan, Path(cfg.save_dir) / "latest"
+            own = {PARAMS_FILE: gan.codec.state_dict(), PARAMS_D_FILE: gan.disc.state_dict()}
+            files = {k: torch.load(latest / k, map_location="cpu", weights_only=True)
+                     for k in own}
+            opt = torch.load(latest / OPT_FILE, map_location="cpu", weights_only=True)
+            adam_equal = all(
+                torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(opt[name]["state"][i][k]))
+                for name, o in (("opt_g", gan.opt_g), ("opt_d", gan.opt_d))
+                for i, st in o.state_dict()["state"].items() for k, v in st.items())
+            tensors = [t for sd in own.values() for t in sd.values()]
+            theirs = [t.detach().clone() for t in tensors]
+            distributed.broadcast_(theirs)
+            seen.update(
+                rank=distributed.rank(), device=str(trainer.device), backend=dist.get_backend(),
+                epoch=epoch, steps=trainer.steps_taken, adam_equal=adam_equal,
+                files_equal=all(own[k].keys() == files[k].keys() and all(
+                    torch.equal(v.cpu(), files[k][n]) for n, v in own[k].items()) for k in own),
+                rank0_equal=all(torch.equal(a, b) for a, b in zip(theirs, tensors)))
+        return epoch_loop(trainer, loader, cfg, epoch, *args)
+
+    run.run_epoch = first_epoch
+    trainer = run.main(argv)
+    seen["steps_after"] = trainer.steps_taken
+    (work / f"resume_rank{seen['rank']}.json").write_text(json.dumps(seen))
+    dist.destroy_process_group()
+    return 0
+
+
+def cards_entry(work: Path, seed: int, card: str) -> None:
+    """(d) train.run.main across the four cards at spatial_axis 2 (data 2 x
+    spatial 2, batch 1 a spatial group), in the kernel configuration, on a
+    synthetic Cityscapes train/val split: ``python -m
+    torch.distributed.run --nproc_per_node 4 -m jpdse_tpu_torch.train`` for
+    two epochs of 2 steps, each ending in a save of save_dir/latest; then
+    the same flags with ``--load_model``, one more epoch, through
+    :func:`resume_rank` under torchrun. Only rank 0 writes (each step's
+    line once in loss_log.txt and metrics.jsonl); the resumed run starts
+    from latest at epoch 3 with 4 steps taken (phase 8 (c)'s rule), its
+    restored state bit-equal to the files and across the ranks, each rank
+    on its own card over NCCL, and ends at 6 steps."""
+    root, out = work / "cityscapes", work / "run"
+    for split in ("train", "val"):
+        write_cityscapes(root, seed + 18 + (split == "train"), split)
+    mode, load, crop, _ = FLAGSHIP_PREPROCESS
+    argv = ["--dataset", "cityscapes", "--root_dir", str(root), "--no_generator_binarization",
+            "--normalize_std", "1", "--batch_size", "1", "--remat", "1", "--seed", str(seed),
+            "--num_workers", "2", "--max_recon_dump", "2", "--fused_instance_norm", "1",
+            "--spatial_axis", "2", "--val_interval", "5", "--latest_interval", "1",
+            "--save_dir", str(out)]
+    for prefix in ("", "val_"):
+        argv += [f"--{prefix}preprocess_mode", mode, f"--{prefix}load_size", str(load),
+                 f"--{prefix}crop_size", str(crop)]
+    steps = EVAL_IMAGES // 2  # a global batch of 2: one image for each of two spatial groups
+    t0 = time.perf_counter()
+    text = torchrun(["-m", "jpdse_tpu_torch.train"] + argv + ["--num_epochs", "2"],
+                    work / "train.log")
+    seconds = time.perf_counter() - t0
+    mesh_lines = text.count("multi-process mesh: dcn=2 x data=1 x spatial=2")
+    loss_log = (out / "loss_log.txt").read_text().splitlines()
+    step_lines = [line for line in loss_log if ", batch " in line]
+    jsonl = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    latest = json.loads((out / "latest" / "trainer_meta.json").read_text())
+    opt = torch.load(out / "latest" / "opt.pt", map_location="cpu", weights_only=True)
+    want_lines = [f"epoch {e}/2, batch {i}/{steps}" for e in (1, 2) for i in range(1, steps + 1)]
+    if (mesh_lines != CARDS or [line.split(", distortion")[0] for line in step_lines] != want_lines
+            or len(jsonl) != 2 * steps or latest["epoch"] != 1 or opt["steps_taken"] != 2 * steps):
+        raise AssertionError(f"(d) the first run: {mesh_lines} mesh lines, loss_log {step_lines}, "
+                             f"{len(jsonl)} metrics lines, latest at epoch {latest['epoch']} "
+                             f"with {opt['steps_taken']} steps")
+    log(f"[cards] (d) torch.distributed.run --nproc_per_node 4 -m jpdse_tpu_torch.train "
+        f"--spatial_axis 2: two epochs of {steps} steps (data 2 x spatial 2, batch 1 a spatial "
+        f"group) in {seconds:.1f} s with the launch; every rank printed the 2 x 2 mesh, "
+        f"loss_log.txt and metrics.jsonl hold each step once (rank 0 writes), save_dir/latest "
+        f"at epoch {latest['epoch']} with {opt['steps_taken']} steps ({card})")
+    t0 = time.perf_counter()
+    text = torchrun([str(Path(__file__).resolve()), "--resume-rank", str(work)] + argv
+                    + ["--num_epochs", "1", "--load_model", "--checkpoints_dir", str(out)],
+                    work / "resume.log")
+    seconds = time.perf_counter() - t0
+    seen = [json.loads((work / f"resume_rank{r}.json").read_text()) for r in range(CARDS)]
+    latest = json.loads((out / "latest" / "trainer_meta.json").read_text())
+    bad = [s for r, s in enumerate(seen)
+           if (s["rank"], s["device"], s["backend"]) != (r, f"cuda:{r}", "nccl")
+           or (s["epoch"], s["steps"], s["steps_after"]) != (2, 2 * steps, 3 * steps)
+           or not (s["files_equal"] and s["rank0_equal"] and s["adam_equal"])]
+    if (bad or "resuming from latest-state checkpoint" not in text
+            or f"starting from epoch 3 with {2 * steps} steps taken" not in text
+            or latest["epoch"] != 2):
+        raise AssertionError(f"(d) the resumed run: {bad or seen}, latest at {latest}")
+    log(f"[cards] (d) the resumed run (train.run.main under torch.distributed.run, "
+        f"--load_model): every rank on its own card over nccl resumed from latest at epoch 3 "
+        f"with {2 * steps} steps taken, its parameters and Adams bit-equal to the files and "
+        f"to rank 0's before its first step; it ended at {seen[0]['steps_after']} steps, latest "
+        f"at epoch {latest['epoch']}; {seconds:.1f} s with the launch ({card})")
+
+
+def cards_summary(rows: list, ranks: list, card: str) -> None:
+    """The scaling table of (e) and the launches of (a) and (b)."""
+    log("[cards] scaling, phase-2 recipe at batch 2 a card, TF32 convolutions "
+        f"({card}; interconnect as printed at the start):")
+    log("[cards]   layout | configuration | one card ms | images/s | four cards ms | images/s | "
+        "efficiency | gradient all-reduce ms (share) | spatial all-reduces ms (share), MiB a "
+        "rank | peak GiB a card (card 0's with the one-card trainer's state)")
+    for r in rows:
+        one_ms, four_ms = np.median(r["one_card_ms"]), np.median(r["four_cards_ms"])
+        c, step_ms = r["comm_ms"], r["events_step_ms"]
+        log(f"[cards]   {r['layout']} | {'kernel' if r['kernels'] else 'default'} | {one_ms:.1f} | "
+            f"{r['one_card_images_s']:.3f} | {four_ms:.1f} | {r['four_cards_images_s']:.3f} | "
+            f"{r['efficiency']:.3f} | {c['gradient all-reduce']:.2f} "
+            f"({c['gradient all-reduce'] / step_ms:.1%}) | {c['spatial all-reduces']:.2f} "
+            f"({c['spatial all-reduces'] / step_ms:.1%}), {r['spatial_mib']:.1f} | "
+            + ", ".join(f"{p:.2f}" for p in r["peak_gib"]))
+    log(json.dumps({"cards": CARDS, "card": card, "nccl": torch.cuda.nccl.version(),
+                    "launches_a_rank_step": {
+                        leg: {k: v for k, v in ranks[0][leg]["counts"].items() if v}
+                        for leg in ("a", "b")},
+                    "spatial_traffic_b": ranks[0]["b"]["traffic"],
+                    "scaling": rows}))
+
+
+def phase18(seed: int) -> None:
+    """Phase 18, the parallel axes across four cards on NCCL (see the
+    docstring's --cards 4)."""
+    from jpdse_tpu_torch.ops.build import build_all
+
+    n = torch.cuda.device_count()
+    if n < CARDS:  # never fewer ranks, never several on one card
+        raise RuntimeError(f"phase 18 needs {CARDS} CUDA devices; torch.cuda.device_count() is {n}")
+    t_start = time.perf_counter()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = cards.splitlines()[0]
+    topo = topology()
+    log(f"[env] cards:\n{cards}")
+    log(f"[env] {topo}")
+    log(f"[env] NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {n} device(s)")
+    t0 = time.perf_counter()
+    build_all()
+    log(f"[build] built every kernel in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="jpdse_cards_") as work:
+        work = Path(work)
+        sharded_eval_setup(work / "eval", seed, 18, CARDS, "opt4.json")
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=multicard_rank,
+                             args=(r, port, seed, str(work), f"cuda:{r}", "nccl", False, "abce",
+                                   card)) for r in range(CARDS)]
+        for p in procs:
+            p.start()
+        one = spatial_eval(spatial_eval_argv(work / "eval", work / "single", "opt1.json"),
+                           "one process", "[cards] (c)")  # on card 0 meanwhile
+        deadline = time.perf_counter() + CARDS_JOIN_S
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.perf_counter()))
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if codes != [0] * CARDS:
+            raise AssertionError(f"phase 18: the four ranks exited with {codes}")
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(CARDS)]
+        if [r["backend"] for r in ranks] != ["nccl"] * CARDS or \
+                [r["device"] for r in ranks] != [f"cuda:{r}" for r in range(CARDS)]:
+            raise AssertionError(f"phase 18: ranks on {[(r['backend'], r['device']) for r in ranks]}")
+        log(f"[cards] (a), (b), (c) and (e) in four ranks on NCCL, cuda:0-3, "
+            f"{time.perf_counter() - t0:.1f} s with the spawn")
+        check_sharded_eval(work, one, [r["c"] for r in ranks], "[cards] (c)", card)
+        cards_entry(work / "entry", seed, card)
+        cards_summary(ranks[0]["e"], ranks, card)
+    log(card)
+    log(f"total {time.perf_counter() - t_start:.1f} s ({card})")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--resume-rank"]:  # a rank of phase 18 (d)'s resumed run
+        return resume_rank(Path(sys.argv[2]), sys.argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--train-steps", type=int, default=4)
+    ap.add_argument("--cards", type=int, default=1, choices=(1, CARDS),
+                    help=f"{CARDS}: phase 18 alone, one rank on each of {CARDS} cards over NCCL")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    if args.cards == CARDS and torch.cuda.device_count() < CARDS:
+        print(f"chip_smoke --cards {CARDS}: needs {CARDS} CUDA devices, one rank a card over "
+              f"NCCL; torch.cuda.device_count() is {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if args.cards == CARDS:
+        phase18(args.seed)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     card = card_line()
     log(f"[env] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "

@@ -18,7 +18,10 @@ One spawn of four gloo processes runs, in turn:
    dropout) over a data 2 x spatial 2 mesh, in the default and the kernel
    configuration (``fused_instance_norm``), in fp32 and float64, two steps
    each (in fp32 each step on one process's code bits, and the second from
-   its state after the first: parameters, Adams, pool);
+   its state after the first: parameters, Adams, pool); then one step of
+   the plain phase-2 recipe at JAX's weights on the same mesh, the layout
+   of JAX's ``dryrun_multichip(4)``, which the parent holds against JAX's
+   ``make_sharded_train_step`` on a 2 x 2 mesh of the virtual CPU devices;
 3. two worlds of two ranks at ``spatial_axis`` 2: ranks 0-1 step the
    default configuration, take one step of the plain phase-2 recipe at
    JAX's weights (which the parent holds against JAX's
@@ -28,7 +31,7 @@ One spawn of four gloo processes runs, in turn:
    ``train.run.main``.
 
 The parent meanwhile takes the same steps in one process on the whole
-batch, JAX's sharded step and ``test.main`` in one process.
+batch, JAX's sharded steps and ``test.main`` in one process.
 
 Tolerances: float64, 1e-9 in relative L2 for every gradient and parameter
 (a bias an InstanceNorm follows within 1e-9 absolute) and the metrics,
@@ -454,6 +457,10 @@ def rank_main(rank: int, ports: list, work: str) -> None:
             rows = {k: v[mesh.rows(1)] for k, v in spec["batch"].items()}
             result[f"2x2 {config} {case}"] = run_steps(cfg, case, rows, mesh,
                                                        resume=spec["resume"].get((config, case)))
+    cfg = case_config(spec["cfg"], "default", 2, pool_dropout=False)
+    mesh = mesh_mod.mesh_from_config(cfg.parallel)
+    rows = {k: v[mesh.rows(1)] for k, v in spec["jax_batch"].items()}
+    result["2x2 jax weights"] = run_steps(cfg, "fp32", rows, mesh, 1, spec["jax_states"])
     dist.destroy_process_group()
     # 3. two worlds of two at spatial 2
     pair, local = rank // 2, rank % 2
@@ -564,11 +571,12 @@ def train_argv(work: Path) -> list:
 
 
 # -- the parent ----------------------------------------------------------------------
-def _jax_sharded(weights):
-    """JAX's phase-2 step on a 1 x 2 (data x spatial) mesh of the virtual
-    CPU devices, at the port state's parameters: (metrics, grads_g,
-    grads_d), with the test_torch_port_train_step harness's stand-in
-    optimizer and deterministic sign."""
+def _jax_sharded(weights, n_data: int = 1, n_spatial: int = 2):
+    """JAX's phase-2 step on an ``n_data`` x ``n_spatial`` (data x
+    spatial) mesh of the virtual CPU devices, at the port state's
+    parameters: (metrics, grads_g, grads_d), with the
+    test_torch_port_train_step harness's stand-in optimizer and
+    deterministic sign."""
     import jax
     import jax.numpy as jnp
     import jpdse_tpu.ops.quantizers as jq
@@ -588,7 +596,7 @@ def _jax_sharded(weights):
         params_v = weights["v"]
         fn = jstep.make_train_step(cfg, codec, disc,
                                    lambda x: net.apply({"params": params_v}, x), donate=False)
-        mesh = make_mesh(1, 2, jax.devices()[:2])
+        mesh = make_mesh(n_data, n_spatial, jax.devices()[:n_data * n_spatial])
         sharded_fn = make_sharded_train_step(fn, mesh)
         jstate = jax_create_state(cfg, weights["g"], weights["d"])
         batch = {k: jnp.asarray(v) for k, v in weights["batch"].items()}
@@ -631,7 +639,7 @@ def ranks(tmp_path_factory):
                                                   spec["batch"], None) for config in CONFIGS})
     single["jax weights"] = run_steps(case_config(cfg_dict, "default", pool_dropout=False),
                                       "fp32", spec["jax_batch"], None, 1, jax_states)
-    jax_out = _jax_sharded(weights)
+    jax_out = {"1x2": _jax_sharded(weights), "2x2": _jax_sharded(weights, 2, 2)}
     one = dict(spec, opt_file=str(work / "eval" / "opt1.json"))
     cfg1 = Config.load(spec["opt_file"])
     cfg1.parallel.spatial_axis = 1
@@ -733,23 +741,41 @@ def test_two_spatial_ranks_step_as_one_process(ranks, config, case):
           case)
 
 
-def test_the_sharded_step_matches_jax_sharded_step(ranks):
-    """One step of the plain phase-2 recipe at JAX's weights, two spatial
-    ranks against JAX's ``make_sharded_train_step`` on a 1 x 2 mesh, by
-    ``test_torch_port_train_step.py``'s rule (a miss arbitrated by JAX's
-    float64 step), and against the port's one process."""
+def _matches_jax(ranks: dict, got: dict, mesh: str) -> None:
+    """A rank's step at JAX's weights against JAX's sharded step on
+    ``mesh``, by ``test_torch_port_train_step.py``'s rule (a miss
+    arbitrated by JAX's float64 step)."""
     from test_torch_port_train_step import assert_step_matches, port_state
 
-    got = ranks["ranks"][0]["jax weights"][0]
-    _hold([r["jax weights"] for r in ranks["ranks"][:2]], ranks["single"]["jax weights"], 1, 2,
-          "fp32")
     weights = ranks["weights"]
     state = port_state("phase2", False, weights)
     names = [[n for n, _ in m.named_parameters()] for m in (state.codec, state.disc)]
     grads = ([got["grads"][0][n] for n in names[0]], [got["grads"][1][n] for n in names[1]])
     metrics = {k: torch.tensor(v) for k, v in got["metrics"].items()}
-    assert_step_matches((metrics, grads), ranks["jax"], (state.codec, state.disc),
+    assert_step_matches((metrics, grads), ranks["jax"][mesh], (state.codec, state.disc),
                         lambda: ranks["jax64"])
+
+
+def test_the_sharded_step_matches_jax_sharded_step(ranks):
+    """One step of the plain phase-2 recipe at JAX's weights, two spatial
+    ranks against JAX's ``make_sharded_train_step`` on a 1 x 2 mesh, and
+    against the port's one process."""
+    _hold([r["jax weights"] for r in ranks["ranks"][:2]], ranks["single"]["jax weights"], 1, 2,
+          "fp32")
+    _matches_jax(ranks, ranks["ranks"][0]["jax weights"][0], "1x2")
+
+
+def test_the_2x2_sharded_step_matches_jax_2x2_mesh(ranks):
+    """The same step with the four ranks as data 2 x spatial 2, the layout
+    of JAX's ``dryrun_multichip(4)``: against JAX's
+    ``make_sharded_train_step`` on ``make_mesh(2, 2, jax.devices()[:4])``
+    (every rank's all-reduced gradients), and against the port's one
+    process (each rank's uniforms its batch and H rows of one process's,
+    the parameters bit-identical across the ranks)."""
+    _hold([r["2x2 jax weights"] for r in ranks["ranks"]], ranks["single"]["jax weights"], 2, 2,
+          "fp32")
+    for res in ranks["ranks"]:
+        _matches_jax(ranks, res["2x2 jax weights"][0], "2x2")
 
 
 def test_sharded_test_main_writes_one_process_codes_and_metrics(ranks):
